@@ -47,8 +47,14 @@ class AlgorithmImpl:
             tree, bucket_size_bytes, align_elems=self.process_group.exchange_size
         )
 
+    def bind_plan(self, plan: BucketPlan) -> None:
+        """Called by the engine when the bucket plan is set, before
+        :meth:`init_state`, so state laid out per bucket sees the plan."""
+        self._bound_plan = plan
+
     def init_state(self, params) -> Any:
-        """Algorithm-private state (peer weights, compression stats...)."""
+        """Algorithm-private state (peer weights, compression stats...),
+        rank-stacked like the parameters."""
         return ()
 
     def transform_gradients(self, grads, params, state, ctx: StepContext):

@@ -1,16 +1,38 @@
-"""Centralized synchronous full-precision gradient allreduce.
+"""Centralized synchronous gradient allreduce.
 
-The port of ``bagua_tpu/algorithms/gradient_allreduce.py``: one f32
-allreduce per bucket, flat or hierarchical (intra-axis reduce, then
-inter-axis), averaging or summing.  The quantized wires (``wire_precision``
-int8/int4) wait for the quantized-ring kernels.
+The port of ``bagua_tpu/algorithms/gradient_allreduce.py``: one allreduce
+per bucket, flat or hierarchical (intra-axis reduce, then inter-axis),
+averaging or summing.
+
+``wire_precision`` (the in-collective quantization rung below ByteGrad):
+``"int8"``/``"int4"`` route a bucket's padded flat buffer through the
+blockwise-quantized ring (:mod:`bagua_tpu_torch.kernels.quantized_ring`):
+every hop ships int8 or packed int4 levels plus an 8-byte (min, max)
+sidecar per block, and each receiving rank dequantizes, adds and
+requantizes in one fused kernel.  ``"int4"`` also carries a per-bucket
+error-feedback residual (``qr_residual``) in the algorithm state: this
+step's requantization error re-enters the next step's gradient.  ``"auto"``
+follows an adopted per-bucket plan (``DistributedDataParallel.
+apply_precision_plan``) and is f32 until one is adopted.  Under
+``hierarchical=True`` only the inter-axis ring quantizes; the intra-axis
+sum stays exact f32.
 """
 
+import torch
+
+from bagua_tpu_torch.algorithms._precision import PRECISION_BITS, WirePrecisionMixin
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContext
-from bagua_tpu_torch.communication import ReduceOp, allreduce, hierarchical_allreduce
+from bagua_tpu_torch.communication import (
+    INTER_AXIS,
+    INTRA_AXIS,
+    ReduceOp,
+    allreduce,
+    hierarchical_allreduce,
+)
+from bagua_tpu_torch.kernels.quantized_ring import quantized_ring_allreduce
 
 
-class GradientAllReduceAlgorithmImpl(AlgorithmImpl):
+class GradientAllReduceAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
     algo_name = "gradient_allreduce"
 
     def __init__(
@@ -18,22 +40,70 @@ class GradientAllReduceAlgorithmImpl(AlgorithmImpl):
         wire_precision: str = "f32",
     ):
         super().__init__(process_group, hierarchical=hierarchical)
-        if wire_precision != "f32":
-            raise NotImplementedError(
-                f"wire_precision={wire_precision!r} needs the quantized-ring kernels, "
-                "which are not ported yet; use 'f32'"
-            )
         self.average = average
+        self._init_wire_precision(wire_precision)
+
+    def init_state(self, params):
+        """Error-feedback residuals: one stacked ``(size, numel)`` f32
+        tensor per bucket when the precision may resolve to int4 (always
+        under ``"auto"``, so the state's layout never depends on the adopted
+        plan; f32 and int8 buckets carry zeros)."""
+        if not self._ef_enabled():
+            return {}
+        group = self.process_group
+        return {
+            "qr_residual": tuple(
+                torch.zeros((group.size, spec.numel), dtype=torch.float32, device=group.device)
+                for spec in self._bound_plan.specs
+            )
+        }
+
+    def _quantized_bucket_allreduce(self, flat, precision, residual):
+        """All-reduce one bucket's stacked ``(size, numel)`` flat buffer
+        through the blockwise ring; returns ``(out, new_residual)``
+        (``new_residual`` is None when error feedback is off for it).
+
+        The ring sums and divides once at the end, so a hop's error ``e``
+        makes the average short by ``e / n``: adding ``e`` to the next
+        step's gradient restores exactly that."""
+        bits = PRECISION_BITS[precision]
+        group = self.process_group
+        x = flat.to(torch.float32)
+        if residual is not None:
+            x = x + residual
+        if self.hierarchical:
+            # every rank of an intra group holds the same inter-ring error,
+            # so the residual is divided by intra_size: the next step's
+            # intra sum multiplies it back
+            x = allreduce(x, ReduceOp.SUM, group, INTRA_AXIS)
+            out, err = quantized_ring_allreduce(x, group, INTER_AXIS, bits=bits, average=False)
+            if self.average:
+                out = out / torch.full_like(out, group.size)
+            if residual is not None:
+                err = err / torch.full_like(err, group.intra_size)
+        else:
+            out, err = quantized_ring_allreduce(x, group, bits=bits, average=self.average)
+        return out.to(flat.dtype), (err if residual is not None else None)
 
     def transform_gradients(self, grads, params, state, ctx: StepContext):
         op = ReduceOp.AVG if self.average else ReduceOp.SUM
         group = self.process_group
+        resid = list(state["qr_residual"]) if "qr_residual" in state else None
         out = []
-        for flat in ctx.plan.bucketize(grads):
-            if self.hierarchical:
-                out.append(hierarchical_allreduce(flat, op, group))
-            else:
-                out.append(allreduce(flat, op, group))
+        for i, (flat, prec) in enumerate(
+            zip(ctx.plan.bucketize(grads), self.bucket_precisions(ctx.plan))
+        ):
+            if prec == "f32":
+                reduce = hierarchical_allreduce if self.hierarchical else allreduce
+                out.append(reduce(flat, op, group))
+                continue
+            r = resid[i] if resid is not None and prec == "int4" else None
+            red, new_r = self._quantized_bucket_allreduce(flat, prec, r)
+            if new_r is not None:
+                resid[i] = new_r
+            out.append(red)
+        if resid is not None:
+            state = {**state, "qr_residual": tuple(resid)}
         return ctx.plan.debucketize(out), params, state
 
 

@@ -52,6 +52,10 @@ class BucketSpec:
     numel: int  # total elements including padding
     dtype: str
 
+    @property
+    def nbytes(self) -> int:
+        return self.numel * dtype_itemsize(self.dtype)
+
 
 class BucketPlan:
     """A full tensor→bucket assignment for one tree structure."""

@@ -155,6 +155,24 @@ def _ungrouped(y: torch.Tensor, group: BaguaProcessGroup, axis) -> torch.Tensor:
     return y.reshape(group.size, *y.shape[2:]).contiguous()
 
 
+def rank_id(group: BaguaProcessGroup, axis=None) -> torch.Tensor:
+    """Each rank's member index within its collective over ``axis``: an
+    int64 tensor of shape ``(size,)`` on the group's device (the stacked
+    counterpart of the JAX package's per-rank ``rank_id``)."""
+    n = axis_size(group, axis)
+    ids = torch.arange(n, device=group.device).expand(group.size // n, n)
+    return _ungrouped(ids, group, axis)
+
+
+def ppermute_shift(
+    x: torch.Tensor, shift: int, comm: Optional[BaguaProcessGroup] = None, axis=None
+) -> torch.Tensor:
+    """Ring shift: within each collective over ``axis``, the member with
+    index i receives member (i - shift) mod n's slice."""
+    group = comm or get_default_group()
+    return _ungrouped(torch.roll(_grouped(x, group, axis), shift, dims=1), group, axis)
+
+
 def allreduce(
     send: torch.Tensor, op: ReduceOp = ReduceOp.AVG,
     comm: Optional[BaguaProcessGroup] = None, axis=None,

@@ -76,6 +76,7 @@ class DistributedDataParallel:
         broadcasting from rank 0) and build the optimizer over the stacks."""
         n, device = self.group.size, self.group.device
         self.plan = self.impl.tensors_to_buckets(params, self.bucket_size_bytes)
+        self.impl.bind_plan(self.plan)
         stacked = tree_map(
             lambda p: p.detach().to(device).unsqueeze(0).repeat(n, *([1] * p.dim())), params
         )
@@ -126,6 +127,28 @@ class DistributedDataParallel:
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         return TrainState(params, state.optimizer, algo_state, state.step + 1), losses
+
+    def apply_precision_plan(self, precisions, reason: str = "planner") -> bool:
+        """Adopt a per-bucket wire-precision plan (one of ``"f32"``,
+        ``"int8"``, ``"int4"`` per bucket) on an algorithm built with
+        ``wire_precision="auto"``; ``None`` clears it.  The next step uses
+        it.  Returns True when the resolved per-bucket precisions changed.
+        An algorithm without the ``wire_precision`` knob raises
+        AttributeError.  ``reason`` is accepted for the JAX package's
+        signature and not read: the JAX engine also re-jits the step,
+        re-verifies it statically and emits a telemetry event tagged with
+        it here; the port runs eagerly and has neither verifier nor
+        telemetry yet."""
+        impl = self.impl
+        if not hasattr(impl, "set_bucket_precision"):
+            raise AttributeError(
+                f"{type(impl).__name__} has no wire_precision knob; "
+                "precision plans apply to gradient_allreduce"
+            )
+        old = impl.bucket_precisions(self.plan) if self.plan is not None else None
+        impl.set_bucket_precision(precisions)
+        new = impl.bucket_precisions(self.plan) if self.plan is not None else None
+        return new != old
 
     def record_speed(self, n_samples: int) -> None:
         self.speed_meter.record(n_samples)

@@ -12,13 +12,9 @@
 //   q     = u8(min(rint(x * scale), upper) - lower)
 //   x'    = (q + lower) / scale
 // Every result is bitwise equal to the plain PyTorch version beside the
-// wrappers (bagua_tpu_torch/kernels/minmax_uint8.py):
-//   * built with -fmad=false, and the arithmetic is written with the _rn
-//     intrinsics as well, so no multiply-add is contracted into an FMA;
-//   * rintf rounds half to even, as jnp.round / torch.round;
-//   * min and max propagate NaN and order -0 below +0 whatever the element
-//     order, as XLA's reductions do (fminf/fmaxf would drop a NaN);
-//   * the f32 -> u8 conversion saturates and sends NaN to 0, as XLA's convert.
+// wrappers (bagua_tpu_torch/kernels/minmax_uint8.py), by XLA's float rules
+// (xla_float.cuh): no contracted FMA, rintf, NaN-propagating min/max that
+// order -0 below +0, and the saturating f32 -> u8 convert.
 //
 // Design.  The TPU kernels hold a whole chunk in VMEM for one grid step; on
 // this card a chunk reaches 25.7 M elements (VGG16's Dense_0 kernel split 4
@@ -38,82 +34,29 @@
 // the fused path writes and re-reads its f32 scratch, 8 B per element of the
 // reduced chunk beyond the bound.  Cutting that extra traffic is later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "xla_float.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kTile = 16384;  // elements of one row per block
 constexpr float kLevels = 255.0f;
-constexpr float kEps = 1e-7f;
-constexpr float kRelEps = 1e-35f;
-constexpr float kF32Max = 3.40282346638528859811704183484516925e+38f;
-
-__device__ __forceinline__ bool sign_set(float a) { return __float_as_uint(a) >> 31; }
 
 __device__ __forceinline__ int64_t tile_end(int64_t begin, int64_t chunk) {
   return begin + kTile < chunk ? begin + kTile : chunk;
 }
 
-__device__ __forceinline__ float xla_min(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  if (a < b) return a;
-  if (b < a) return b;
-  return sign_set(a) ? a : b;  // equal: only the sign of a zero can differ
-}
-
-__device__ __forceinline__ float xla_max(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  if (a > b) return a;
-  if (b > a) return b;
-  return sign_set(a) ? b : a;
-}
-
 __device__ __forceinline__ float safe_scale(float mn, float mx) {
-  const float amax = xla_max(fabsf(mn), fabsf(mx));
-  const float denom = __fadd_rn(__fadd_rn(__fsub_rn(mx, mn), kEps),
-                                __fmul_rn(kRelEps, amax));
-  return __fdiv_rn(kLevels, xla_min(denom, kF32Max));
+  return xla::safe_scale(mn, mx, kLevels);
 }
 
 __device__ __forceinline__ uint8_t quantize(float x, float scale, float upper) {
-  const float level = xla_min(rintf(__fmul_rn(x, scale)), upper);
-  const float d = __fsub_rn(level, __fsub_rn(upper, kLevels));
-  if (!(d > 0.0f)) return 0;  // NaN and everything at or below 0
-  if (d >= kLevels) return 255;
-  return static_cast<uint8_t>(d);
+  const float level = xla::min(rintf(__fmul_rn(x, scale)), upper);
+  return xla::to_u8(__fsub_rn(level, __fsub_rn(upper, kLevels)));
 }
 
 __device__ __forceinline__ float dequantize(uint8_t q, float scale, float lower) {
   return __fdiv_rn(__fadd_rn(static_cast<float>(q), lower), scale);
-}
-
-// Reduces (mn, mx) over the block; thread 0 holds the result.
-__device__ __forceinline__ void block_minmax(float& mn, float& mx) {
-  __shared__ float s_mn[kThreads / 32];
-  __shared__ float s_mx[kThreads / 32];
-  for (int off = 16; off > 0; off >>= 1) {
-    mn = xla_min(mn, __shfl_down_sync(0xffffffffu, mn, off));
-    mx = xla_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) {
-    s_mn[warp] = mn;
-    s_mx[warp] = mx;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    mn = lane < kThreads / 32 ? s_mn[lane] : INFINITY;
-    mx = lane < kThreads / 32 ? s_mx[lane] : -INFINITY;
-    for (int off = 16; off > 0; off >>= 1) {
-      mn = xla_min(mn, __shfl_down_sync(0xffffffffu, mn, off));
-      mx = xla_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
-    }
-  }
 }
 
 // Pass 1 of compress: min/max of one tile of one row.
@@ -130,16 +73,16 @@ tile_minmax(const float* __restrict__ x, float2* __restrict__ partial,
     const float4* x4 = reinterpret_cast<const float4*>(xr);
     for (int64_t i = begin / 4 + threadIdx.x; i < end / 4; i += kThreads) {
       const float4 v = x4[i];
-      mn = xla_min(xla_min(mn, v.x), xla_min(v.y, xla_min(v.z, v.w)));
-      mx = xla_max(xla_max(mx, v.x), xla_max(v.y, xla_max(v.z, v.w)));
+      mn = xla::min(xla::min(mn, v.x), xla::min(v.y, xla::min(v.z, v.w)));
+      mx = xla::max(xla::max(mx, v.x), xla::max(v.y, xla::max(v.z, v.w)));
     }
   } else {
     for (int64_t i = begin + threadIdx.x; i < end; i += kThreads) {
-      mn = xla_min(mn, xr[i]);
-      mx = xla_max(mx, xr[i]);
+      mn = xla::min(mn, xr[i]);
+      mx = xla::max(mx, xr[i]);
     }
   }
-  block_minmax(mn, mx);
+  xla::block_minmax<kThreads>(mn, mx);
   if (threadIdx.x == 0) partial[blockIdx.x] = make_float2(mn, mx);
 }
 
@@ -183,8 +126,8 @@ tile_dequant_reduce(const uint8_t* __restrict__ q, const float* __restrict__ min
                           __fdiv_rn(acc.z, nf), __fdiv_rn(acc.w, nf));
       }
       reinterpret_cast<float4*>(out)[i] = acc;
-      mn = xla_min(xla_min(mn, acc.x), xla_min(acc.y, xla_min(acc.z, acc.w)));
-      mx = xla_max(xla_max(mx, acc.x), xla_max(acc.y, xla_max(acc.z, acc.w)));
+      mn = xla::min(xla::min(mn, acc.x), xla::min(acc.y, xla::min(acc.z, acc.w)));
+      mx = xla::max(xla::max(mx, acc.x), xla::max(acc.y, xla::max(acc.z, acc.w)));
     }
   } else {
     for (int64_t i = begin + threadIdx.x; i < end; i += kThreads) {
@@ -195,11 +138,11 @@ tile_dequant_reduce(const uint8_t* __restrict__ q, const float* __restrict__ min
       }
       if (kAverage) acc = __fdiv_rn(acc, nf);
       out[i] = acc;
-      mn = xla_min(mn, acc);
-      mx = xla_max(mx, acc);
+      mn = xla::min(mn, acc);
+      mx = xla::max(mx, acc);
     }
   }
-  block_minmax(mn, mx);
+  xla::block_minmax<kThreads>(mn, mx);
   if (threadIdx.x == 0) partial[blockIdx.x] = make_float2(mn, mx);
 }
 
@@ -212,10 +155,10 @@ finish_minmax(const float2* __restrict__ partial, float* __restrict__ minmax,
   float mn = INFINITY, mx = -INFINITY;
   for (int64_t t = threadIdx.x; t < tiles; t += kThreads) {
     const float2 p = partial[row * tiles + t];
-    mn = xla_min(mn, p.x);
-    mx = xla_max(mx, p.y);
+    mn = xla::min(mn, p.x);
+    mx = xla::max(mx, p.y);
   }
-  block_minmax(mn, mx);
+  xla::block_minmax<kThreads>(mn, mx);
   if (threadIdx.x == 0) {
     minmax[2 * row] = mn;
     minmax[2 * row + 1] = mx;

@@ -7,11 +7,15 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 
+from bagua_tpu_torch.utils import resolve_device
+
 
 def init_mlp(
     generator: torch.Generator, sizes: Sequence[int], device=None
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """He-initialized MLP: ``sizes = [in, h1, ..., out]``."""
+    """He-initialized MLP: ``sizes = [in, h1, ..., out]``, on ``device``
+    (by default the current CUDA device; raises without one)."""
+    device = resolve_device(device)
     params = {}
     for i, (fan_in, fan_out) in enumerate(zip(sizes[:-1], sizes[1:])):
         w = torch.randn((fan_in, fan_out), generator=generator, device=device)

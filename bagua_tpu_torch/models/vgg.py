@@ -7,7 +7,8 @@ The forward permutes for ``F.conv2d`` (NCHW view of the NHWC input, OIHW
 view of the kernel) and flattens in NHWC order before ``Dense_0``, so a
 flax parameter tree drops in unchanged (:mod:`bagua_tpu_torch.convert`).
 Compute runs in ``compute_dtype`` by explicit casts, as flax does; the
-logits come back in float32.
+logits come back in float32.  Parameters are built on ``device``, by
+default the current CUDA device (raises without one).
 """
 
 import math
@@ -17,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
+
+from bagua_tpu_torch.utils import resolve_device
 
 # 'M' = 2x2 max pool; ints = conv output channels (VGG16 = config D)
 VGG16_CFG: Sequence[Union[str, int]] = (
@@ -70,6 +73,7 @@ class VGG(nn.Module):
         device=None, generator=None,
     ):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = tuple(cfg)
         self.compute_dtype = compute_dtype
         channels, side, i = in_channels, image_size, 0

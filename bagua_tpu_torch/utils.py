@@ -29,6 +29,16 @@ _TO_BAGUA = {
 _FROM_BAGUA = {v: k for k, v in _TO_BAGUA.items()}
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else the current CUDA device; raises where no
+    CUDA device is visible (pass ``device="cpu"`` to run on the CPU)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def to_bagua_datatype(dtype: torch.dtype) -> str:
     """Map a torch dtype to the wire datatype name."""
     try:

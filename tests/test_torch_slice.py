@@ -37,7 +37,7 @@ from bagua_tpu_torch.convert import params_from_jax
 from bagua_tpu_torch.ddp import DistributedDataParallel
 from bagua_tpu_torch.kernels import minmax_uint8
 from bagua_tpu_torch.models import mlp
-from bagua_tpu_torch.models.vgg import VGG, vgg_loss_fn
+from bagua_tpu_torch.models.vgg import VGG, init_vgg16, vgg_loss_fn
 from bagua_tpu_torch.trainer import Trainer
 from bagua_tpu_torch.utils import tree_leaves
 
@@ -116,22 +116,38 @@ def test_init_process_group_needs_cuda(monkeypatch):
 
 
 def test_registry_and_unported_options(tgroup):
-    """The registry builds both algorithms by name; what is not ported yet
-    raises instead of running something else."""
+    """The registry builds both algorithms by name, the quantized wires
+    included; what is not ported yet raises instead of running something
+    else."""
     assert isinstance(Algorithm.init("bytegrad"), ByteGradAlgorithm)
     gar = Algorithm.init("gradient_allreduce", hierarchical=True)
     assert isinstance(gar, GradientAllReduceAlgorithm) and gar.reify(tgroup).hierarchical
     with pytest.raises(KeyError, match="unknown algorithm"):
         Algorithm.init("qadam")
-    with pytest.raises(NotImplementedError, match="quantized-ring"):
-        GradientAllReduceAlgorithm(wire_precision="int8").reify(tgroup)
+    impl = Algorithm.init("gradient_allreduce", wire_precision="int8").reify(tgroup)
+    assert impl.wire_precision == "int8" and not impl.holds_bucketized_state
+    with pytest.raises(ValueError, match="wire_precision must be one of"):
+        GradientAllReduceAlgorithm(wire_precision="int2").reify(tgroup)
     with pytest.raises(NotImplementedError, match="overlap=True"):
         DistributedDataParallel(mlp.mse_loss, torch.optim.SGD, ByteGradAlgorithm(), tgroup, overlap=True)
 
 
+def test_models_need_cuda_by_default(monkeypatch):
+    """The model constructors build on the current CUDA device unless told
+    otherwise, and raise without one instead of filling host memory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    for build in (lambda: mlp.init_mlp(gen, [4, 2]), lambda: VGG(image_size=16, **SMALL_VGG),
+                  lambda: init_vgg16(gen, image_size=32, num_classes=10)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    model = VGG(image_size=16, device="cpu", **SMALL_VGG)
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
 def test_init_mlp_layout_matches_jax():
     """The port's MLP init gives the JAX package's names, shapes and plan."""
-    tparams = mlp.init_mlp(torch.Generator().manual_seed(0), [12, 16, 4])
+    tparams = mlp.init_mlp(torch.Generator().manual_seed(0), [12, 16, 4], device="cpu")
     jparams = jax.tree.map(np.asarray, jax_mlp.init_mlp(jax.random.PRNGKey(0), [12, 16, 4]))
     assert _layout(BucketPlan.from_tree(tparams, 256, 8)) == _layout(JaxBucketPlan.from_tree(jparams, 256, 8))
     x = torch.from_numpy(np.random.RandomState(0).randn(5, 12).astype(np.float32))
@@ -215,7 +231,7 @@ def test_small_vgg_loss_and_grads_match_flax():
     leaves = tree_leaves(tparams)
     for leaf in leaves:
         leaf.requires_grad_(True)
-    tloss = vgg_loss_fn(VGG(image_size=16, **SMALL_VGG))(tparams, (torch.from_numpy(x), torch.from_numpy(y)))
+    tloss = vgg_loss_fn(VGG(image_size=16, device="cpu", **SMALL_VGG))(tparams, (torch.from_numpy(x), torch.from_numpy(y)))
     tgrads = torch.autograd.grad(tloss, leaves)
     np.testing.assert_allclose(tloss.item(), float(loss), rtol=1e-5)
     for g, w in zip(tgrads, jax.tree.leaves(grads)):
