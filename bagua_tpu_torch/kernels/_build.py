@@ -7,8 +7,12 @@ edited source builds anew and an unchanged one is loaded as it is.  The
 library is opened with ``ctypes``; the wrappers pass pointers and the CUDA
 stream as ``c_void_p``.
 
-No fast-math: ``-fmad=false`` keeps every multiply and add separately
-rounded, which the codec's bitwise contract with its plain version needs.
+Flags are per source (:func:`flags`).  The codecs (``minmax_uint8``,
+``quantized_ring``) build with ``-fmad=false``, which keeps every multiply
+and add separately rounded, as their bitwise contract with the plain
+versions needs.  Attention's contract is a tolerance, and its inner
+products run as fused multiply-adds, at twice the rate.  No fast-math
+anywhere.
 """
 
 import ctypes
@@ -24,9 +28,15 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+#: flags beyond NVCC_FLAGS, per source
+SOURCE_FLAGS = {
+    "minmax_uint8": ("-fmad=false",),
+    "quantized_ring": ("-fmad=false",),
+    "flash_attention": (),
+}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -44,10 +54,15 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: install the CUDA toolkit or set CUDA_HOME")
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """``nvcc``'s flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
 def library_path(name: str) -> str:
     """Where ``csrc/<name>.cu`` builds to, keyed by a hash of the source,
-    the shared headers (``csrc/*.cuh``) and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    the shared headers (``csrc/*.cuh``) and its flags."""
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for fname in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
@@ -68,7 +83,7 @@ def build(names: Iterable[str]) -> List[Tuple[str, str, float]]:
             jobs.append((name, path, None, 0.0))
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        cmd = [nvcc_path(), *flags(name), "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, path, proc, time.perf_counter()))
     built = []

@@ -11,7 +11,6 @@ logits come back in float32.  Parameters are built on ``device``, by
 default the current CUDA device (raises without one).
 """
 
-import math
 from typing import Sequence, Union
 
 import torch
@@ -19,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from bagua_tpu_torch.utils import resolve_device
+from bagua_tpu_torch.utils import lecun_normal, resolve_device
 
 # 'M' = 2x2 max pool; ints = conv output channels (VGG16 = config D)
 VGG16_CFG: Sequence[Union[str, int]] = (
@@ -31,20 +30,12 @@ VGG16_CFG: Sequence[Union[str, int]] = (
 )
 
 
-def _lecun_normal(shape, fan_in, device, generator) -> torch.Tensor:
-    """flax's default kernel init: a normal truncated at two deviations,
-    scaled to variance 1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    t = torch.empty(shape, device=device)
-    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
-
-
 class Conv(nn.Module):
     """flax ``nn.Conv(features, (3, 3), padding=1)``: kernel HWIO."""
 
     def __init__(self, in_features, features, dtype, device=None, generator=None):
         super().__init__()
-        self.kernel = nn.Parameter(_lecun_normal((3, 3, in_features, features), 9 * in_features, device, generator))
+        self.kernel = nn.Parameter(lecun_normal((3, 3, in_features, features), 9 * in_features, device=device, generator=generator))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.dtype = dtype
 
@@ -58,7 +49,7 @@ class Dense(nn.Module):
 
     def __init__(self, in_features, features, dtype, device=None, generator=None):
         super().__init__()
-        self.kernel = nn.Parameter(_lecun_normal((in_features, features), in_features, device, generator))
+        self.kernel = nn.Parameter(lecun_normal((in_features, features), in_features, device=device, generator=generator))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.dtype = dtype
 

@@ -1,6 +1,6 @@
 """Small shared utilities (the port of ``bagua_tpu/utils.py``): dtype
-mapping, alignment, the ``SpeedMeter``, and the few pytree helpers the port
-needs in place of ``jax.tree_util``.
+mapping, alignment, the ``SpeedMeter``, flax's kernel initializer, and the
+few pytree helpers the port needs in place of ``jax.tree_util``.
 
 Parameter trees are nested dicts (and lists/tuples) of tensors, as flax's
 are.  Leaves are visited in JAX's order, dict keys sorted, so ``Conv_10``
@@ -37,6 +37,15 @@ def resolve_device(device=None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; pass device='cpu' to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def lecun_normal(shape, fan_in: int, dtype=torch.float32, device=None, generator=None) -> torch.Tensor:
+    """flax's default kernel init: a normal truncated at two deviations,
+    scaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    t = torch.empty(shape, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+    return t.to(dtype)
 
 
 def to_bagua_datatype(dtype: torch.dtype) -> str:

@@ -10,26 +10,35 @@ and no result line:
    power limit as ``nvidia-smi`` gives them.
 2. build   -- builds the CUDA sources of ``bagua_tpu_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel).
-3. kernels -- holds each kernel against its plain PyTorch version, bitwise,
-   at the main paths' shapes (VGG16's 10 MiB buckets over 4 ranks: ByteGrad's
-   chunks and the quantized ring's blocks of 4096), at ragged chunks and
-   blocks and on degenerate inputs; times both with CUDA events (the
-   median of 5 batches of 10 back-to-back calls, each batch enqueued while
-   the card is kept busy, after 3 warm-up calls) beside the least time the
-   card could take (bytes over 3.35 TB/s, or operations over 67 TFLOP/s
-   f32), summed over one VGG16 step.
+3. kernels -- holds each kernel against its plain PyTorch version at the
+   main paths' shapes, at ragged and at degenerate ones: the codec and hop
+   kernels bitwise (VGG16's 10 MiB buckets over 4 ranks: ByteGrad's chunks
+   and the quantized ring's blocks of 4096), the three attention kernels
+   within ATTENTION_TOLS (the Llama slice's half-blocks, 4 ranks folded
+   into the batch, 32 heads of 128; GQA, bf16 K/V, 200x300 with d 24 and
+   64, a fully masked block, first-key-only rows).  Times both with CUDA
+   events (the median of 5 batches of 10 back-to-back calls, each batch
+   enqueued while the card is kept busy, after 3 warm-up calls) beside the
+   least time the card could take (bytes over 3.35 TB/s, or operations
+   over 67 TFLOP/s f32), summed over one step of its slice; the attention
+   kernels also beside ``F.scaled_dot_product_attention`` on the same
+   blocks (forward; forward + backward less the forward).
 4. reference -- trains a small f32 VGG with ByteGrad, with the int8 ring and
-   with the int4 ring on the card and on the CPU (plain versions) from the
-   same weights and data, and holds each pair of runs' losses and
-   parameters together within stated tolerances.
+   with the int4 ring, and a small Llama over 4 zigzag ranks, on the card
+   and on the CPU (plain versions) from the same weights and data, and
+   holds each pair of runs' losses and parameters together within stated
+   tolerances.
 5. slice   -- trains full-width VGG16 (224x224, 1000 classes, bf16
    compute, f32 parameters, batch 32 per rank) over 4 ranks on this one
    card through ``Trainer.fit``, 5 steps each with ByteGrad (``intra_size=1``:
    every rank its own node, so the whole exchange is compressed) and with
    ``GradientAllReduceAlgorithm(wire_precision="int8")`` and ``"int4"``
-   (flat: a ring of 4, 2 hops per bucket); checks the loss is finite, the
-   ranks' parameters are bitwise equal and every kernel's launch count.
-   ``--profile`` then traces one more step of each with ``torch.profiler``.
+   (flat: a ring of 4, 2 hops per bucket); then Llama at ``llama_7b_config``'s
+   width (2 layers, one sequence of 4096 tokens, f32) over 4 zigzag ring
+   ranks, 5 AdamW steps of ``examples.llama_pretrain.train_step``.  Checks
+   the loss is finite, the ranks' parameters are bitwise equal and every
+   kernel's launch count, per path.  ``--profile`` then traces one more
+   step of each with ``torch.profiler``.
 6. prints one JSON line naming each kernel with its launches and times,
    then the result line ``{"ok": true, "device": {...}}``.
 """
@@ -44,15 +53,20 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from bagua_tpu_torch import BaguaProcessGroup, init_process_group
 from bagua_tpu_torch.algorithms import ByteGradAlgorithm, GradientAllReduceAlgorithm
+from bagua_tpu_torch.examples import llama_pretrain as lp
 from bagua_tpu_torch.kernels import _build
+from bagua_tpu_torch.kernels import flash_attention as fa
 from bagua_tpu_torch.kernels import minmax_uint8 as mm8
 from bagua_tpu_torch.kernels import quantized_ring as qr
+from bagua_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_llama, llama_7b_config, llama_loss_fn
 from bagua_tpu_torch.models.vgg import VGG, init_vgg16, module_params, vgg16, vgg_loss_fn
+from bagua_tpu_torch.parallel.ring_attention import zigzag_order
 from bagua_tpu_torch.trainer import Trainer
-from bagua_tpu_torch.utils import tree_leaves, tree_map
+from bagua_tpu_torch.utils import tree_flatten_with_names, tree_leaves, tree_map
 
 RANKS = 4
 STEPS = 5
@@ -65,6 +79,8 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BUSY_CYCLES = 40_000_000  # about 20 ms of the card's clock: longer than enqueueing a timed batch
 MM8_SOURCE = "bagua_tpu_torch/kernels/csrc/minmax_uint8.cu"
 QR_SOURCE = "bagua_tpu_torch/kernels/csrc/quantized_ring.cu"
+FA_SOURCE = "bagua_tpu_torch/kernels/csrc/flash_attention.cu"
+FA_TPU = "bagua_tpu/kernels/flash_attention.py"
 KERNELS = {
     # name: (wrapper, plain version, source, TPU kernel it replaces)
     "compress_minmax_uint8": (
@@ -89,18 +105,34 @@ KERNELS = {
         functools.partial(qr.hop_dequant_add_requant_plain, bits=4), QR_SOURCE,
         "bagua_tpu/kernels/quantized_ring.py:211",
     ),
+    "block_attention": (fa.block_attention, fa.block_attention_plain, FA_SOURCE, f"{FA_TPU}:314"),
+    "flash_attention_bwd_dq": (
+        fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain, FA_SOURCE, f"{FA_TPU}:510",
+    ),
+    "flash_attention_bwd_dkv": (
+        fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain, FA_SOURCE, f"{FA_TPU}:543",
+    ),
+}
+#: attention's contract is a tolerance (the JAX package's bounds for its
+#: Pallas kernels, tests/test_parallel.py:291-293, 423): each output within
+#: tol * max(1, |plain value|), bf16 or f16 outputs one rounding step (2^-8
+#: of the value) more; inputs at unit variance, q pre-scaled
+ATTENTION_TOLS = {
+    "block_attention": (2e-4, 2e-4, 2e-5),  # o, l, m
+    "flash_attention_bwd_dq": (3e-4,),
+    "flash_attention_bwd_dkv": (3e-4, 3e-4),
 }
 
 
 def reset_launches() -> None:
-    for fn in mm8.KERNELS + qr.KERNELS:
+    for fn in mm8.KERNELS + qr.KERNELS + fa.KERNELS:
         fn.launches = 0
     qr.hop_dequant_add_requant.launches_by_bits.update({8: 0, 4: 0})
 
 
 def read_launches() -> dict:
     """Each kernel's launches since :func:`reset_launches`, by KERNELS name."""
-    counts = {fn.__name__: fn.launches for fn in mm8.KERNELS}
+    counts = {fn.__name__: fn.launches for fn in mm8.KERNELS + fa.KERNELS}
     for bits, n in qr.hop_dequant_add_requant.launches_by_bits.items():
         counts[f"hop_dequant_add_requant_int{bits}"] = n
     return counts
@@ -120,6 +152,14 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(nan, torch.isnan(b)) and torch.equal(
         a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]
     )
+
+
+def close(got: torch.Tensor, want: torch.Tensor, tol: float) -> bool:
+    """Every element within ``tol * max(1, |want|)``, plus one rounding step
+    of a bf16 or f16 ``got``."""
+    g, w = got.double(), want.double()
+    step = 2.0 ** -8 if got.dtype in (torch.bfloat16, torch.float16) else 0.0
+    return bool(((g - w).abs() <= tol * w.abs().clamp(min=1.0) + step * w.abs()).all())
 
 
 def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -154,9 +194,11 @@ class Ledger:
 
     def __init__(self):
         self.rows = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                bound_by="bytes", checks=0) for name in KERNELS}
+                                bound_by="bytes", library_ms=None, checks=0) for name in KERNELS}
 
     def compare(self, name: str, case: str, *args, **kwargs):
+        """The kernel against its plain version: bitwise, or within
+        ATTENTION_TOLS for the attention kernels."""
         wrapper, plain, _, _ = KERNELS[name]
         got, want = wrapper(*args, **kwargs), plain(*args, **kwargs)
         got = got if isinstance(got, tuple) else (got,)
@@ -164,15 +206,20 @@ class Ledger:
         torch.cuda.synchronize()
         row = self.rows[name]
         row["checks"] += 1
-        for g, w in zip(got, want):
+        tols = ATTENTION_TOLS.get(name, (None,) * len(got))
+        for g, w, tol in zip(got, want, tols):
             row["max_abs_err"] = max(row["max_abs_err"], abs_err(g, w))
-            if not same(g, w):
-                raise AssertionError(f"{name} differs from its plain version on {case}")
+            ok = same(g, w) if tol is None else g.shape == w.shape and g.dtype == w.dtype and close(g, w, tol)
+            if not ok:
+                raise AssertionError(f"{name} differs from its plain version on {case} "
+                                     f"(max abs error {abs_err(g, w):.3e}, tolerance {tol})")
         return got if len(got) > 1 else got[0]
 
-    def time(self, name: str, nbytes: int, ops: int, *args, per_step: int = 1, **kwargs):
+    def time(self, name: str, nbytes: int, ops: int, *args, per_step: int = 1, library=None,
+             **kwargs):
         """Times one call; adds ``per_step`` times it (the calls one step
-        makes at this shape) to the kernel's per-step sums."""
+        makes at this shape) to the kernel's per-step sums.  ``library``: a
+        callable whose time is the library call's for the same work."""
         wrapper, plain, _, _ = KERNELS[name]
         row = self.rows[name]
         ms = median_ms(lambda: wrapper(*args, **kwargs))
@@ -183,6 +230,8 @@ class Ledger:
         row["bound_ms"] += per_step * max(bytes_ms, ops_ms)
         if ops_ms > bytes_ms:
             row["bound_by"] = "operations"
+        if library is not None:
+            row["library_ms"] = (row["library_ms"] or 0.0) + per_step * library()
         return ms, plain_ms, max(bytes_ms, ops_ms)
 
 
@@ -201,7 +250,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = _build.build(["minmax_uint8", "quantized_ring"])
+    built = _build.build(["minmax_uint8", "quantized_ring", "flash_attention"])
     for name, path, seconds in built:
         with open(f"{path}.log") as f:
             regs = [line.split("ptxas info    : ")[-1] for line in f if "registers" in line]
@@ -319,9 +368,147 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
             ledger.compare(f"hop_dequant_add_requant_int{bits}", case,
                            *hop_inputs(x, x, x.shape[1] + x.shape[1] % 2, bits))
     for name, row in ledger.rows.items():
+        if name in ATTENTION_TOLS:
+            continue
         log(f"[kernels] {name}: {row['checks']} comparisons bitwise, per step over "
             f"{plan.num_buckets} buckets {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms)")
+
+
+#: the Llama slice: llama_7b_config at its published width, cut to 2 layers
+#: and a global batch of 1 sequence of 4096 tokens, zigzag ring over RANKS
+LLAMA_LAYERS = 2
+LLAMA_BATCH = 1
+LLAMA_SEQ = 4096
+LLAMA_STEPS = 5
+LLAMA_LR = 3e-3
+
+
+def llama_slice_config() -> LlamaConfig:
+    return llama_7b_config(num_layers=LLAMA_LAYERS, sp_axis="intra", sp_layout="zigzag")
+
+
+def zigzag_pair_masks(sp: int, t2: int, device):
+    """The causal masks of the zigzag ring's block calls, in its order (ring
+    step, q half, k half), each ``(sp, t2, t2)``: member r's queries are
+    global half-blocks (r, 2sp-1-r), and at step i it holds the K/V of
+    member (r - i) mod sp."""
+    ranks, pos = torch.arange(sp, device=device), torch.arange(t2, device=device)
+    masks = []
+    for i in range(sp):
+        src = (ranks - i) % sp
+        q_gid, k_gid = (ranks, 2 * sp - 1 - ranks), (src, 2 * sp - 1 - src)
+        for qh in range(2):
+            for kh in range(2):
+                q_pos, k_pos = q_gid[qh][:, None] * t2 + pos, k_gid[kh][:, None] * t2 + pos
+                masks.append(q_pos[:, :, None] >= k_pos[:, None, :])
+    return masks
+
+
+def attention_inputs(gen, device, b, tq, tk, h, h_kv, d, kv_dtype=torch.float32):
+    """Unit-variance q (pre-scaled), k, v and the backward's cotangents."""
+    qf = torch.randn((b, tq, h, d), generator=gen, device=device) / d ** 0.5
+    k = torch.randn((b, tk, h_kv, d), generator=gen, device=device).to(kv_dtype)
+    v = torch.randn((b, tk, h_kv, d), generator=gen, device=device).to(kv_dtype)
+    dl = torch.randn((b, h, tq), generator=gen, device=device)
+    do = torch.randn((b, h, tq, d), generator=gen, device=device)
+    return qf, k, v, dl, do
+
+
+def check_attention(ledger: Ledger, case: str, qf, k, v, mask, dl, do):
+    """The three kernels against their plain versions on one block."""
+    _, _, m = ledger.compare("block_attention", case, qf, k, v, mask)
+    ledger.compare("flash_attention_bwd_dq", case, qf, k, v, mask, m, dl, do)
+    ledger.compare("flash_attention_bwd_dkv", case, qf, k, v, mask, m, dl, do)
+
+
+def attention_cost(qf, k, mask, d):
+    """(bytes, f32 operations) of the forward, dq and dk/dv on one block: each
+    live (query, key) pair and head costs 4d, 6d and 8d operations (two,
+    three and four products of d multiply-adds); the inputs count once
+    where the block has a live pair, the mask and the outputs always."""
+    b, tq, h, _ = qf.shape
+    live = int(mask.sum()) * h
+    f32 = 4
+    q_bytes, kv_bytes = qf.numel() * f32, 2 * k.numel() * k.element_size()
+    row_bytes = b * h * tq * f32  # one of l, m, dl
+    read = (q_bytes + kv_bytes) if live else 0
+    fwd = (mask.numel() + q_bytes + 2 * row_bytes + read, 4 * d * live)
+    dq = (mask.numel() + q_bytes + 2 * row_bytes + (read + q_bytes if live else 0), 6 * d * live)
+    dkv = (mask.numel() + kv_bytes + 2 * row_bytes + (read + q_bytes if live else 0), 8 * d * live)
+    return fwd, dq, dkv
+
+
+def sdpa_ms(qf, k, v, mask, do):
+    """The library's time for the same attention, a near-equivalent (it
+    normalizes and returns no l or m): ``F.scaled_dot_product_attention``,
+    forward, and forward + backward less the forward."""
+    q_t, k_t, v_t = (x.transpose(1, 2) for x in (qf, k, v))
+    kw = dict(attn_mask=mask[:, None], scale=1.0, enable_gqa=qf.shape[2] != k.shape[2])
+    fwd = median_ms(lambda: F.scaled_dot_product_attention(q_t, k_t, v_t, **kw))
+    leaves = [x.detach().requires_grad_() for x in (q_t, k_t, v_t)]
+    both = median_ms(lambda: F.scaled_dot_product_attention(*leaves, **kw).backward(do))
+    return fwd, max(both - fwd, 0.0)
+
+
+def phase_attention_kernels(ledger: Ledger, device) -> None:
+    """The three attention kernels against their plain versions (TF32 off)
+    at the Llama slice's shapes and at GQA, bf16 K/V, ragged and degenerate
+    ones; timed per slice step at its blocks: RANKS ranks folded into the
+    batch, half-blocks of LLAMA_SEQ / (2 RANKS) tokens, 32 heads of 128, one
+    call per (ring step, q half, k half) and layer."""
+    cfg = llama_slice_config()
+    h, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    t2 = LLAMA_SEQ // (2 * RANKS)
+    gen = torch.Generator(device=device).manual_seed(4)
+    qf, k, v, dl, do = attention_inputs(gen, device, RANKS * LLAMA_BATCH, t2, t2, h, cfg.num_kv_heads, d)
+    # the slice's blocks, by distinct mask, with the calls a step makes of each
+    blocks = {}
+    for mask in zigzag_pair_masks(RANKS, t2, device):
+        key = mask.cpu().numpy().tobytes()
+        blocks.setdefault(key, [mask.repeat_interleave(LLAMA_BATCH, 0).contiguous(), 0])[1] += LLAMA_LAYERS
+    with _no_tf32():
+        for n, (mask, calls) in enumerate(blocks.values()):
+            live = float(mask.float().mean())
+            check_attention(ledger, f"slice block {n} (live share {live:.3f})", qf, k, v, mask, dl, do)
+            m = fa.block_attention_plain(qf, k, v, mask)[2]
+            lib_fwd, lib_bwd = sdpa_ms(qf, k, v, mask, do)
+            costs = attention_cost(qf, k, mask, d)
+            ledger.time("block_attention", *costs[0], qf, k, v, mask, per_step=calls,
+                        library=lambda: lib_fwd)
+            for name, cost in zip(("flash_attention_bwd_dq", "flash_attention_bwd_dkv"), costs[1:]):
+                # one library backward computes dq, dk and dv together
+                ledger.time(name, *cost, qf, k, v, mask, m, dl, do, per_step=calls,
+                            library=lambda: lib_bwd)
+        log(f"[kernels] attention: {len(blocks)} distinct blocks of the slice's "
+            f"{len(zigzag_pair_masks(RANKS, t2, 'cpu'))} per layer")
+        full = torch.ones((RANKS, t2, t2), dtype=torch.bool, device=device)
+        diag = full.tril()
+        # GQA (a K/V head per 4 query heads: 8 at the slice) and bf16 K/V at
+        # the slice's widths
+        gqa = attention_inputs(gen, device, RANKS, t2, t2, h, h // 4, d)
+        for name, mask in (("diagonal", diag), ("full", full)):
+            check_attention(ledger, f"GQA h_kv {h // 4}, {name}", *gqa[:3], mask, *gqa[3:])
+        bf16 = attention_inputs(gen, device, RANKS, t2, t2, h, h, d, torch.bfloat16)
+        check_attention(ledger, "bf16 K/V, diagonal", *bf16[:3], diag, *bf16[3:])
+        # ragged lengths and narrow heads; a fully masked block; rows where
+        # only the first key survives
+        for d_small in (24, 64):
+            x = attention_inputs(gen, device, 2, 200, 300, 4, 2, d_small)
+            mask = torch.rand((2, 200, 300), generator=gen, device=device) < 0.5
+            mask[:, 7] = False
+            check_attention(ledger, f"200x300, d {d_small}", *x[:3], mask, *x[3:])
+            first = torch.zeros((2, 200, 300), dtype=torch.bool, device=device)
+            first[:, :, 0] = True
+            check_attention(ledger, f"200x300, d {d_small}, first key only", *x[:3], first, *x[3:])
+            check_attention(ledger, f"200x300, d {d_small}, all masked", *x[:3],
+                            torch.zeros_like(first), *x[3:])
+    for name in ATTENTION_TOLS:
+        row = ledger.rows[name]
+        log(f"[kernels] {name}: {row['checks']} comparisons within {ATTENTION_TOLS[name]} "
+            f"(max abs error {row['max_abs_err']:.3e}); per Llama slice step {row['ms']:.4f} ms "
+            f"(plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']}, SDPA {row['library_ms']:.4f} ms)")
 
 
 REF_STEPS, REF_LR = 3, 0.05
@@ -503,6 +690,22 @@ def _busy_ms(prof) -> float:
     return busy_us / 1e3
 
 
+def profile_step(name: str, step) -> None:
+    """Traces one call of ``step`` with ``torch.profiler``: the card's
+    kernels by time, its busy time and idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[profile] {name}:\n" + prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    busy = _busy_ms(prof)
+    log(f"[profile] {name}, one traced step: {wall_ms:.1f} ms wall, card busy {busy:.1f} ms, "
+        f"idle share {1 - busy / wall_ms:.3f}")
+
+
 def phase_slice(device, profile: bool, name: str):
     """STEPS steps of full-width VGG16 with the path ``name``; returns the
     launch counts of this run."""
@@ -550,17 +753,129 @@ def phase_slice(device, profile: bool, name: str):
         f"loss {losses.tolist()}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches}")
     if profile:
-        from torch.profiler import ProfilerActivity, profile as trace
+        profile_step(name, lambda: trainer.fit(state, batches, n_steps=1))
+    return launches
 
-        with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state = trainer.fit(state, batches, n_steps=1)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        log(f"[profile] {name}:\n" + prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-        busy = _busy_ms(prof)
-        log(f"[profile] {name}, one traced step: {wall_ms:.1f} ms wall, card busy {busy:.1f} ms, "
-            f"idle share {1 - busy / wall_ms:.3f}")
+
+REF_LLAMA = LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+                        intermediate_size=512, max_position_embeddings=256, sp_axis="intra",
+                        sp_layout="zigzag")
+REF_LLAMA_BATCH, REF_LLAMA_LR = 2, 0.5
+
+
+def _train_small_llama(device, params, ids):
+    """REF_STEPS SGD steps of the small Llama over RANKS zigzag ranks, from
+    ``params`` on ``ids`` (global, zigzag-permuted).  Returns every step's
+    per-rank losses and the final rank-0 parameters, on the CPU."""
+    group = BaguaProcessGroup([device] * RANKS)
+    model = LlamaModel(REF_LLAMA, group, device=device)
+    stacked = lp.replicate(tree_map(lambda t: t.to(device), params), RANKS)
+    optimizer = torch.optim.SGD(tree_leaves(stacked), lr=REF_LLAMA_LR)
+    loss_fn = llama_loss_fn(model)
+    losses = [lp.train_step(stacked, optimizer, lp.shard_ids(ids, group, device), loss_fn, group).cpu()
+              for _ in range(REF_STEPS)]
+    return losses, tree_map(lambda t: t[0].detach().cpu(), stacked)
+
+
+def phase_llama_reference(device) -> None:
+    """The Llama slice's output against a reference on a small input: a
+    small Llama (hidden 256, 4 heads, 2 K/V heads, 2 layers, vocab 512,
+    global sequence 256 over RANKS zigzag ranks) trained REF_STEPS SGD steps
+    on the card (the CUDA kernels) and on the CPU (the plain versions) from
+    the same weights and ids, TF32 off.  SGD, not Adam, so that a gradient
+    off by a factor shows in the parameters.
+
+    - Losses: the first step's within rtol 1e-5 (f32 sums in another
+      order), the last step's within rtol 1e-4.
+    - Parameters: every element within 1e-5 + 1e-4 |value| of the CPU run:
+      REF_STEPS steps of REF_LLAMA_LR times gradients that agree to about
+      1e-6 (the kernels' and cuBLAS's sums against the CPU's)."""
+    gen = torch.Generator().manual_seed(5)
+    _, params = init_llama(REF_LLAMA, gen, device="cpu")
+    seq = REF_LLAMA.max_position_embeddings
+    ids = torch.randint(0, REF_LLAMA.vocab_size, (REF_LLAMA_BATCH, seq), generator=gen)
+    ids = ids[:, zigzag_order(seq, RANKS)]
+    reset_launches()
+    with _no_tf32():
+        got_losses, got = _train_small_llama(device, params, ids)
+    launches = read_launches()
+    want_losses, want = _train_small_llama(torch.device("cpu"), params, ids)
+    calls = REF_STEPS * REF_LLAMA.num_layers * RANKS * 4
+    for name in ATTENTION_TOLS:
+        if launches[name] != calls:
+            raise AssertionError(f"small Llama: {name} launched {launches[name]} times, want {calls}")
+    for step, rtol in ((0, 1e-5), (REF_STEPS - 1, 1e-4)):
+        if not torch.allclose(got_losses[step], want_losses[step], rtol=rtol, atol=0.0):
+            raise AssertionError(f"small Llama: step {step + 1} losses {got_losses[step].tolist()} "
+                                 f"vs CPU {want_losses[step].tolist()}")
+    err = 0.0
+    for (name, g), w in zip(tree_flatten_with_names(got), tree_leaves(want)):
+        err = max(err, float((g - w).abs().max()))
+        if not torch.allclose(g, w, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"small Llama: parameter {name} differs from the CPU run by up to "
+                                 f"{float((g - w).abs().max()):.3e}")
+    moved = max(float((w - p).abs().max()) for w, p in zip(tree_leaves(want), tree_leaves(params)))
+    log(f"[reference] small Llama, {REF_STEPS} SGD steps over {RANKS} zigzag ranks, card vs CPU: "
+        f"losses {got_losses[0].mean():.6f} -> {got_losses[-1].mean():.6f} vs "
+        f"{want_losses[0].mean():.6f} -> {want_losses[-1].mean():.6f}; parameters within "
+        f"{err:.3e} (they moved up to {moved:.3e}); {calls} launches of each attention kernel")
+
+
+def phase_llama_slice(device, profile: bool) -> dict:
+    """LLAMA_STEPS AdamW steps of the Llama slice: llama_7b_config's width, 2
+    layers, one sequence of LLAMA_SEQ tokens over RANKS zigzag ranks on this
+    one card, f32.  Checks the loss is finite, the ranks' parameters are
+    bitwise equal and each kernel's launch count; returns the counts."""
+    cfg = llama_slice_config()
+    group = init_process_group(devices=[device] * RANKS)
+    gen = torch.Generator(device=device).manual_seed(0)
+    model, params = init_llama(cfg, gen, device, group)
+    stacked = lp.replicate(params, RANKS)
+    del params
+    optimizer = lp.make_optimizer(stacked, LLAMA_LR)
+    loss_fn = llama_loss_fn(model)
+    ids_gen = torch.Generator().manual_seed(0)
+    zz = zigzag_order(LLAMA_SEQ, RANKS)
+    batches = [lp.shard_ids(torch.randint(0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ),
+                                          generator=ids_gen)[:, zz], group, device)
+               for _ in range(LLAMA_STEPS + 1)]
+    n_params = sum(p[0].numel() for p in tree_leaves(stacked))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [lp.train_step(stacked, optimizer, batches[0], loss_fn, group)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for ids in batches[1:LLAMA_STEPS]:
+        losses.append(lp.train_step(stacked, optimizer, ids, loss_fn, group))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches()
+
+    losses = torch.stack(losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"Llama: non-finite loss {losses.tolist()}")
+    for leaf in tree_leaves(stacked):
+        if not all(torch.equal(leaf[0], leaf[r]) for r in range(1, RANKS)):
+            raise AssertionError("Llama: ranks' parameters differ after the steps")
+    # every (ring step, q half, k half) pair is launched, for all ranks at once
+    calls = LLAMA_STEPS * LLAMA_LAYERS * RANKS * 4
+    want = {kernel: calls if kernel in ATTENTION_TOLS else 0 for kernel in KERNELS}
+    if launches != want:
+        raise AssertionError(f"Llama: launch counts {launches}, want {want}")
+    step_s = (t2 - t1) / (LLAMA_STEPS - 1)
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    log(f"[slice] Llama 7B width ({cfg.hidden_size} hidden, {cfg.num_heads} heads, "
+        f"{cfg.intermediate_size} MLP, vocab {cfg.vocab_size}), {LLAMA_LAYERS} layers, "
+        f"{n_params} parameters per rank, f32; {LLAMA_BATCH} x {LLAMA_SEQ} tokens over {RANKS} "
+        f"zigzag ranks: first step {t1 - t0:.3f} s, then {step_s * 1e3:.1f} ms/step = "
+        f"{tokens / step_s:.1f} tokens/s on the card; loss {losses[:, 0].tolist()}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches} "
+        f"({calls} each expected: {LLAMA_STEPS} steps x {LLAMA_LAYERS} layers x {RANKS} ring steps "
+        f"x 4 half-block pairs)")
+    if profile:
+        profile_step("Llama", lambda: lp.train_step(stacked, optimizer, batches[-1], loss_fn, group))
     return launches
 
 
@@ -580,11 +895,15 @@ def main(argv) -> int:
     phase_build()
     ledger = Ledger()
     phase_kernels(ledger, vgg16_plan(), device)
+    phase_attention_kernels(ledger, device)
+    torch.cuda.empty_cache()
     phase_reference(device)
+    phase_llama_reference(device)
     per_path = {}
     for name in SLICE_PATHS:
         per_path[name] = phase_slice(device, profile, name)
         torch.cuda.empty_cache()
+    per_path["Llama"] = phase_llama_slice(device, profile)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]
@@ -593,8 +912,13 @@ def main(argv) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+        if row["library_ms"] is not None:
+            kernels[-1]["library"] = ("F.scaled_dot_product_attention, a near-equivalent: it "
+                                      "normalizes and returns no l or m" + (
+                                          "; its one backward computes dq, dk and dv"
+                                          if name != "block_attention" else ""))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

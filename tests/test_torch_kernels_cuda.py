@@ -9,8 +9,11 @@ JAX nor the JAX package, so they run where only PyTorch is installed:
 import pytest
 import torch
 
+from bagua_tpu_torch.communication import BaguaProcessGroup
+from bagua_tpu_torch.kernels import flash_attention as fa
 from bagua_tpu_torch.kernels import minmax_uint8 as port
 from bagua_tpu_torch.kernels import quantized_ring as qr
+from bagua_tpu_torch.parallel.ring_attention import ring_attention
 
 
 @pytest.fixture()
@@ -18,7 +21,7 @@ def cuda_device():
     """The card, decided when the test runs; skips where there is none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    for fn in port.KERNELS + qr.KERNELS:
+    for fn in port.KERNELS + qr.KERNELS + fa.KERNELS:
         fn.launches = 0
     return torch.device("cuda", 0)
 
@@ -114,3 +117,123 @@ def test_hop_matches_plain_on_nan_and_signed_zeros(cuda_device, bits):
     check_hop(x, local, bits)
     zeros = torch.tensor([[0.0, -0.0, 0.0, -0.0], [-0.0, -0.0, -0.0, -0.0]], device=cuda_device)
     check_hop(zeros, -zeros, bits)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: a tolerance, not bitwise (sums in another order; the
+# kernels fuse multiply-adds).  o, l and dq/dk/dv within 2e-4 and 3e-4 of
+# max(1, |value|), m within 2e-5: the JAX package's bounds for its Pallas
+# kernels (tests/test_parallel.py:291-293, 423).  bf16 dk/dv: one bf16
+# rounding step (2^-8 of the value) more.
+# ---------------------------------------------------------------------------
+
+
+def close(got: torch.Tensor, want: torch.Tensor, tol: float) -> bool:
+    """Every element within ``tol * max(1, |want|)`` (plus one rounding
+    step of a bf16 or f16 ``got``)."""
+    g, w = got.double(), want.double()
+    step = 2.0 ** -8 if got.dtype in (torch.bfloat16, torch.float16) else 0.0
+    return bool(((g - w).abs() <= tol * w.abs().clamp(min=1.0) + step * w.abs()).all())
+
+
+def attention_inputs(device, b, tq, tk, h, h_kv, d, kind, kv_dtype=torch.float32, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qf = torch.randn((b, tq, h, d), generator=gen, device=device) / d ** 0.5
+    k = torch.randn((b, tk, h_kv, d), generator=gen, device=device).to(kv_dtype)
+    v = torch.randn((b, tk, h_kv, d), generator=gen, device=device).to(kv_dtype)
+    if kind == "causal":
+        mask = torch.ones((tq, tk), dtype=torch.bool, device=device).tril(tk - tq).expand(b, tq, tk)
+    elif kind == "full":
+        mask = torch.ones((b, tq, tk), dtype=torch.bool, device=device)
+    elif kind == "dead":
+        mask = torch.zeros((b, tq, tk), dtype=torch.bool, device=device)
+    elif kind == "firstcol":  # only the first key survives
+        mask = torch.zeros((b, tq, tk), dtype=torch.bool, device=device)
+        mask[:, :, 0] = True
+    else:
+        mask = torch.rand((b, tq, tk), generator=gen, device=device) < 0.5
+        mask[:, 1] = False  # a fully masked row
+    dl = torch.randn((b, h, tq), generator=gen, device=device)
+    do = torch.randn((b, h, tq, d), generator=gen, device=device)
+    return qf, k, v, mask, dl, do
+
+
+ATTENTION_CASES = [
+    # (b, tq, tk, h, h_kv, d, mask, K/V type)
+    (2, 128, 128, 2, 2, 128, "causal", torch.float32),
+    (1, 64, 64, 4, 1, 64, "full", torch.float32),
+    (1, 200, 300, 4, 2, 24, "random", torch.float32),
+    (2, 37, 100, 2, 2, 64, "firstcol", torch.float32),
+    (1, 96, 80, 8, 2, 128, "causal", torch.bfloat16),
+    (1, 50, 70, 2, 1, 8, "random", torch.float16),
+    (2, 64, 64, 2, 2, 32, "dead", torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTENTION_CASES, ids=lambda c: f"{c[1]}x{c[2]}-h{c[3]}kv{c[4]}-d{c[5]}-{c[6]}-{str(c[7])[6:]}")
+def test_flash_attention_kernels_match_plain(cuda_device, case):
+    """Forward, dq and dk/dv kernels against their plain versions on the
+    card (TF32 off), each counting one launch per call."""
+    b, tq, tk, h, h_kv, d, kind, kv_dtype = case
+    qf, k, v, mask, dl, do = attention_inputs(cuda_device, b, tq, tk, h, h_kv, d, kind, kv_dtype)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = fa.block_attention(qf, k, v, mask)
+        want = fa.block_attention_plain(qf, k, v, mask)
+        m = want[2]
+        dq = fa.flash_attention_bwd_dq(qf, k, v, mask, m, dl, do)
+        dk, dv = fa.flash_attention_bwd_dkv(qf, k, v, mask, m, dl, do)
+        dq_w = fa.flash_attention_bwd_dq_plain(qf, k, v, mask, m, dl, do)
+        dk_w, dv_w = fa.flash_attention_bwd_dkv_plain(qf, k, v, mask, m, dl, do)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for name, g, w, tol in zip("olm", got, want, (2e-4, 2e-4, 2e-5)):
+        assert g.shape == w.shape and close(g, w, tol), name
+    for name, g, w in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w)):
+        assert g.shape == w.shape and g.dtype == w.dtype and close(g, w, 3e-4), name
+    if kind == "dead":
+        assert torch.all(got[2] == fa.NEG) and not got[0].any() and not got[1].any()
+        assert not dq.any() and not dk.any() and not dv.any()
+    assert [fn.launches for fn in fa.KERNELS] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_views(cuda_device):
+    """The ring hands the kernels half-block views of its (b, t, h, d)
+    tensors: strided, not copied."""
+    qf, k, v, mask, dl, do = attention_inputs(cuda_device, 2, 128, 128, 2, 2, 64, "causal")
+    halves = (qf[:, 64:], k[:, :64], v[:, :64], mask[:, 64:, :64].contiguous())
+    got = fa.block_attention(*halves)
+    want = fa.block_attention_plain(*(x.contiguous() for x in halves))
+    for g, w in zip(got, want):
+        assert close(g, w, 2e-4)
+    do_t = do[:, :, 64:].transpose(1, 2).contiguous().transpose(1, 2)  # (b, h, tq, d) view
+    back = fa.flash_attention_bwd(*halves, want[2], dl[:, :, 64:], do_t)
+    back_w = fa.flash_attention_bwd(*(x.contiguous().cpu() for x in halves), want[2].cpu(),
+                                    dl[:, :, 64:].cpu(), do_t.cpu())
+    for g, w in zip(back, back_w):
+        assert close(g.cpu(), w, 3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+def test_ring_attention_on_card_matches_cpu(cuda_device, layout):
+    """Causal GQA ring over 4 ranks on the card (the kernels, backward on
+    autograd's thread) against the same ring on the CPU (plain versions):
+    output and the gradients of sum(sin(y)), within 3e-4."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((4, 1, 96, h, 32), generator=gen) for h in (4, 2, 2))
+    outs = []
+    for device in (cuda_device, torch.device("cpu")):
+        group = BaguaProcessGroup([device] * 4)
+        xs = [x.to(device).requires_grad_() for x in (q, k, v)]
+        y = ring_attention(*xs, group, "intra", causal=True, layout=layout, kv_groups=2)
+        torch.sin(y).sum().backward()
+        outs.append([y.detach().cpu()] + [x.grad.cpu() for x in xs])
+    for g, w in zip(*outs):
+        assert close(g, w, 3e-4)
+    assert fa.block_attention.launches == (16 if layout == "zigzag" else 4)
+    assert fa.flash_attention_bwd_dq.launches == fa.flash_attention_bwd_dkv.launches == fa.block_attention.launches
