@@ -10,9 +10,9 @@ stream as ``c_void_p``.
 Flags are per source (:func:`flags`).  The codecs (``minmax_uint8``,
 ``quantized_ring``) build with ``-fmad=false``, which keeps every multiply
 and add separately rounded, as their bitwise contract with the plain
-versions needs.  Attention's contract is a tolerance, and its inner
-products run as fused multiply-adds, at twice the rate.  No fast-math
-anywhere.
+versions needs.  Attention's and the tile GEMM's contracts are
+tolerances, and their inner products run as fused multiply-adds, at twice
+the rate.  No fast-math anywhere.
 """
 
 import ctypes
@@ -36,6 +36,7 @@ SOURCE_FLAGS = {
     "minmax_uint8": ("-fmad=false",),
     "quantized_ring": ("-fmad=false",),
     "flash_attention": (),
+    "collective_matmul": (),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

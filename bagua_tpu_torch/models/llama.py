@@ -18,6 +18,12 @@ group, e.g. ``"intra"``) attention is :func:`~bagua_tpu_torch.parallel.ring_atte
 causal, with the layout ``cfg.sp_layout``; RoPE rotates each rank's tokens
 by their *global* positions before the ring exchange, so the K/V blocks
 carry their rotation around the ring.
+
+Under tensor parallelism (``cfg.tp_size > 1`` over ``cfg.tp_axis``) each
+rank holds ``1 / tp_size`` of the heads and of the MLP width, and the Row
+projections (``out``, ``down``) sum their partial products over the tp
+axis (the ``psum`` path; the model never fuses).  Parameters are built at
+these local shapes, as flax's ``init`` builds them inside the JAX example.
 """
 
 import dataclasses
@@ -30,7 +36,9 @@ import torch.nn.functional as F
 from bagua_tpu_torch.communication import axis_size
 from bagua_tpu_torch.models.gpt import _sp_positions, lm_loss_fn  # noqa: F401  (re-exported)
 from bagua_tpu_torch.parallel.ring_attention import _block_attention_local, ring_attention
-from bagua_tpu_torch.parallel.tensor_parallel import ColumnParallelDense, RowParallelDense, stacked_matmul
+from bagua_tpu_torch.parallel.tensor_parallel import (
+    ColumnParallelDense, RowParallelDense, _per_rank, stacked_matmul,
+)
 from bagua_tpu_torch.utils import lecun_normal, resolve_device
 
 
@@ -48,7 +56,9 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tp_size: int = 1
-    tp_axis: Union[str, Tuple[str, ...]] = "tp"
+    #: the group axis the heads and the MLP are sharded over ("inter" or
+    #: "intra"); read only at tp_size > 1
+    tp_axis: Union[str, Tuple[str, ...]] = "intra"
     #: the group axis the sequence is sharded over ("intra" or "inter")
     sp_axis: Union[str, Tuple[str, ...], None] = None
     #: "contiguous" or "zigzag" (the balanced causal ring layout)
@@ -92,12 +102,6 @@ def llama_test_config(**overrides) -> LlamaConfig:
     return LlamaConfig(**kwargs)
 
 
-def _per_rank(t: torch.Tensor, ndim: int) -> torch.Tensor:
-    """A stacked ``(R, features)`` leaf shaped to broadcast against an
-    ``ndim``-dim ``(R, ..., features)`` activation."""
-    return t.reshape(t.shape[0], *([1] * (ndim - 2)), t.shape[-1])
-
-
 class RMSNorm(nn.Module):
     def __init__(self, features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -128,6 +132,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return rotated.reshape(x.shape).to(x.dtype)
 
 
+def _tp_layer_kwargs(cfg: LlamaConfig, group, device, generator) -> dict:
+    """The tensor-parallel layers' settings: bias-free, in the compute type,
+    sharded over ``cfg.tp_axis`` (the ``psum`` path; never fused)."""
+    return dict(tp_size=cfg.tp_size, tp_axis=cfg.tp_axis, use_bias=False, dtype=cfg.compute_dtype,
+                group=group, device=device, generator=generator)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, group=None, device=None, generator=None):
         super().__init__()
@@ -136,13 +147,13 @@ class LlamaAttention(nn.Module):
         self.local_q = cfg.num_heads // cfg.tp_size
         self.local_kv = cfg.num_kv_heads // cfg.tp_size
 
+        tp = _tp_layer_kwargs(cfg, group, device, generator)
+
         def proj(n_heads):
-            return ColumnParallelDense(cfg.hidden_size, n_heads * self.head_dim, cfg.tp_size,
-                                       cfg.compute_dtype, device=device, generator=generator)
+            return ColumnParallelDense(cfg.hidden_size, n_heads * self.head_dim, **tp)
 
         self.q, self.k, self.v = proj(cfg.num_heads), proj(cfg.num_kv_heads), proj(cfg.num_kv_heads)
-        self.out = RowParallelDense(self.local_q * self.head_dim, cfg.hidden_size, cfg.tp_size,
-                                    cfg.compute_dtype, device=device, generator=generator)
+        self.out = RowParallelDense(self.local_q * self.head_dim, cfg.hidden_size, **tp)
 
     def forward(self, params, x):
         cfg = self.cfg
@@ -173,15 +184,12 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     """SwiGLU: down(silu(gate(x)) * up(x))."""
 
-    def __init__(self, cfg: LlamaConfig, device=None, generator=None):
+    def __init__(self, cfg: LlamaConfig, group=None, device=None, generator=None):
         super().__init__()
-        col = lambda: ColumnParallelDense(  # noqa: E731
-            cfg.hidden_size, cfg.intermediate_size, cfg.tp_size, cfg.compute_dtype,
-            device=device, generator=generator,
-        )
-        self.gate, self.up = col(), col()
-        self.down = RowParallelDense(cfg.intermediate_size, cfg.hidden_size, cfg.tp_size,
-                                     cfg.compute_dtype, device=device, generator=generator)
+        tp = _tp_layer_kwargs(cfg, group, device, generator)
+        self.gate = ColumnParallelDense(cfg.hidden_size, cfg.intermediate_size, **tp)
+        self.up = ColumnParallelDense(cfg.hidden_size, cfg.intermediate_size, **tp)
+        self.down = RowParallelDense(cfg.intermediate_size // cfg.tp_size, cfg.hidden_size, **tp)
 
     def forward(self, params, x):
         h = F.silu(self.gate(params["gate"], x)) * self.up(params["up"], x)
@@ -194,7 +202,7 @@ class LlamaBlock(nn.Module):
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, device)
         self.attn = LlamaAttention(cfg, group, device, generator)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, device)
-        self.mlp = LlamaMLP(cfg, device, generator)
+        self.mlp = LlamaMLP(cfg, group, device, generator)
 
     def forward(self, params, x):
         x = x + self.attn(params["attn"], self.attn_norm(params["attn_norm"], x))

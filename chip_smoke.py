@@ -16,27 +16,39 @@ and no result line:
    and the quantized ring's blocks of 4096), the three attention kernels
    within ATTENTION_TOLS (the Llama slice's half-blocks, 4 ranks folded
    into the batch, 32 heads of 128; GQA, bf16 K/V, 200x300 with d 24 and
-   64, a fully masked block, first-key-only rows).  Times both with CUDA
-   events (the median of 5 batches of 10 back-to-back calls, each batch
-   enqueued while the card is kept busy, after 3 warm-up calls) beside the
-   least time the card could take (bytes over 3.35 TB/s, or operations
-   over 67 TFLOP/s f32), summed over one step of its slice; the attention
-   kernels also beside ``F.scaled_dot_product_attention`` on the same
-   blocks (forward; forward + backward less the forward).
+   64, a fully masked block, first-key-only rows), the tile GEMM of the
+   collective-matmul rings within ``matmul_tol`` of ``x @ w`` (path (a)'s
+   five products, the backward's through transposed views, the rings'
+   row-block views; edge shapes; a rank batch with a stride-0 operand),
+   a tolerance that TF32-rounded inputs miss at path (a)'s shapes.
+   Times them with CUDA events (the median of 5 batches of 10 back-to-back
+   calls, each batch enqueued while the card is kept busy, after 3 warm-up
+   calls) beside the least time the card could take (bytes over 3.35 TB/s,
+   or operations over 67 TFLOP/s f32), summed over one step of its slice;
+   the attention kernels also beside ``F.scaled_dot_product_attention`` on
+   the same blocks (forward; forward + backward less the forward), the
+   tile GEMM beside ``torch.matmul``.  Then the two rings at path (a)'s
+   shapes: ``ag_matmul`` bidir bitwise equal to uni, both rings equal to
+   ``allgather`` + matmul and ``allreduce`` + slice.
 4. reference -- trains a small f32 VGG with ByteGrad, with the int8 ring and
-   with the int4 ring, and a small Llama over 4 zigzag ranks, on the card
-   and on the CPU (plain versions) from the same weights and data, and
-   holds each pair of runs' losses and parameters together within stated
-   tolerances.
+   with the int4 ring, a small Llama over 4 zigzag ranks and at tp 2 x sp 2,
+   and the fused sequence-parallel MLP pair at tp 4, on the card and on the
+   CPU (plain versions) from the same weights and data, and holds each pair
+   of runs' losses and parameters together within stated tolerances.
 5. slice   -- trains full-width VGG16 (224x224, 1000 classes, bf16
    compute, f32 parameters, batch 32 per rank) over 4 ranks on this one
    card through ``Trainer.fit``, 5 steps each with ByteGrad (``intra_size=1``:
    every rank its own node, so the whole exchange is compressed) and with
    ``GradientAllReduceAlgorithm(wire_precision="int8")`` and ``"int4"``
    (flat: a ring of 4, 2 hops per bucket); then Llama at ``llama_7b_config``'s
-   width (2 layers, one sequence of 4096 tokens, f32) over 4 zigzag ring
-   ranks, 5 AdamW steps of ``examples.llama_pretrain.train_step``.  Checks
-   the loss is finite, the ranks' parameters are bitwise equal and every
+   width (2 layers, one sequence of 4096 tokens, f32) over 4 ranks, 5 AdamW
+   steps of ``examples.llama_pretrain.train_step``, once as 4 zigzag ring
+   ranks (sp 4) and once at tp 2 x sp 2 (path (b)); then path (a): the
+   fused sequence-parallel MLP pair (``ColumnParallelDense(gather_input)``
+   -> GELU -> ``RowParallelDense(scatter_output)``) at the 7B widths over
+   tp 4, 5 SGD steps, held against the unfused pair, and one
+   ``ParallelMLP(fused=True)`` against ``fused=False``.  Checks the loss
+   is finite, the ranks' parameters are bitwise equal (Llama) and every
    kernel's launch count, per path.  ``--profile`` then traces one more
    step of each with ``torch.profiler``.
 6. prints one JSON line naming each kernel with its launches and times,
@@ -44,9 +56,11 @@ and no result line:
 """
 
 import contextlib
+import dataclasses
 import functools
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -58,15 +72,21 @@ import torch.nn.functional as F
 from bagua_tpu_torch import BaguaProcessGroup, init_process_group
 from bagua_tpu_torch.algorithms import ByteGradAlgorithm, GradientAllReduceAlgorithm
 from bagua_tpu_torch.examples import llama_pretrain as lp
+from bagua_tpu_torch.communication import allgather, allreduce
+from bagua_tpu_torch.defs import ReduceOp
 from bagua_tpu_torch.kernels import _build
+from bagua_tpu_torch.kernels import collective_matmul as cm
 from bagua_tpu_torch.kernels import flash_attention as fa
 from bagua_tpu_torch.kernels import minmax_uint8 as mm8
 from bagua_tpu_torch.kernels import quantized_ring as qr
 from bagua_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_llama, llama_7b_config, llama_loss_fn
 from bagua_tpu_torch.models.vgg import VGG, init_vgg16, module_params, vgg16, vgg_loss_fn
 from bagua_tpu_torch.parallel.ring_attention import zigzag_order
+from bagua_tpu_torch.parallel.tensor_parallel import (
+    ColumnParallelDense, ParallelMLP, RowParallelDense, gelu,
+)
 from bagua_tpu_torch.trainer import Trainer
-from bagua_tpu_torch.utils import tree_flatten_with_names, tree_leaves, tree_map
+from bagua_tpu_torch.utils import tree_flatten_with_names, tree_leaves, tree_map, tree_unflatten
 
 RANKS = 4
 STEPS = 5
@@ -81,6 +101,7 @@ MM8_SOURCE = "bagua_tpu_torch/kernels/csrc/minmax_uint8.cu"
 QR_SOURCE = "bagua_tpu_torch/kernels/csrc/quantized_ring.cu"
 FA_SOURCE = "bagua_tpu_torch/kernels/csrc/flash_attention.cu"
 FA_TPU = "bagua_tpu/kernels/flash_attention.py"
+CM_SOURCE = "bagua_tpu_torch/kernels/csrc/collective_matmul.cu"
 KERNELS = {
     # name: (wrapper, plain version, source, TPU kernel it replaces)
     "compress_minmax_uint8": (
@@ -112,6 +133,9 @@ KERNELS = {
     "flash_attention_bwd_dkv": (
         fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain, FA_SOURCE, f"{FA_TPU}:543",
     ),
+    "matmul_tile": (
+        cm.matmul_tile, cm.matmul_tile_plain, CM_SOURCE, "bagua_tpu/kernels/collective_matmul.py:299",
+    ),
 }
 #: attention's contract is a tolerance (the JAX package's bounds for its
 #: Pallas kernels, tests/test_parallel.py:291-293, 423): each output within
@@ -125,14 +149,14 @@ ATTENTION_TOLS = {
 
 
 def reset_launches() -> None:
-    for fn in mm8.KERNELS + qr.KERNELS + fa.KERNELS:
+    for fn in mm8.KERNELS + qr.KERNELS + fa.KERNELS + cm.KERNELS:
         fn.launches = 0
     qr.hop_dequant_add_requant.launches_by_bits.update({8: 0, 4: 0})
 
 
 def read_launches() -> dict:
     """Each kernel's launches since :func:`reset_launches`, by KERNELS name."""
-    counts = {fn.__name__: fn.launches for fn in mm8.KERNELS + fa.KERNELS}
+    counts = {fn.__name__: fn.launches for fn in mm8.KERNELS + fa.KERNELS + cm.KERNELS}
     for bits, n in qr.hop_dequant_add_requant.launches_by_bits.items():
         counts[f"hop_dequant_add_requant_int{bits}"] = n
     return counts
@@ -215,6 +239,22 @@ class Ledger:
                                      f"(max abs error {abs_err(g, w):.3e}, tolerance {tol})")
         return got if len(got) > 1 else got[0]
 
+    def compare_matmul(self, case: str, x: torch.Tensor, w: torch.Tensor) -> float:
+        """The tile kernel against ``x @ w`` (TF32 off): every element within
+        ``matmul_tol(K)`` times ``(|x| |w|)`` there.  Returns the largest
+        share of that bound an element used."""
+        got, want = cm.matmul_tile(x, w), cm.matmul_tile_plain(x, w)
+        torch.cuda.synchronize()
+        row = self.rows["matmul_tile"]
+        row["checks"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], abs_err(got, want))
+        share = matmul_share(got, want, x, w)
+        if got.shape != want.shape or share > 1.0:
+            raise AssertionError(f"matmul_tile differs from x @ w on {case}: max abs error "
+                                 f"{abs_err(got, want):.3e}, {share:.3f} of the bound "
+                                 f"{matmul_tol(x.shape[-1]):.3e} (|x| |w|)")
+        return share
+
     def time(self, name: str, nbytes: int, ops: int, *args, per_step: int = 1, library=None,
              **kwargs):
         """Times one call; adds ``per_step`` times it (the calls one step
@@ -235,6 +275,32 @@ class Ledger:
         return ms, plain_ms, max(bytes_ms, ops_ms)
 
 
+def matmul_share(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> float:
+    """The largest share of ``matmul_tol(K) (|x| |w|)_ij`` that an element
+    of ``got - want`` uses."""
+    if not got.numel():
+        return 0.0
+    bound = matmul_tol(x.shape[-1]) * (x.abs() @ w.abs())
+    return float(((got - want).abs() / bound.clamp(min=1e-30)).max())
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to TF32's 10 mantissa bits (to nearest, ties to even),
+    as a tensor-core kernel reads f32 operands."""
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_tol(k: int) -> float:
+    """The tile kernel's elementwise tolerance, relative to ``(|x| |w|)_ij``:
+    with rounding errors of random sign, a K-term f32 dot product lies
+    within about sqrt(K) 2^-24 of the exact one (Higham and Mary's
+    probabilistic bound, lambda = 1; the worst case is K 2^-24), so two
+    within 2 sqrt(K) 2^-24 of each other.  Inputs rounded to TF32 (2^-11)
+    miss it at path (a)'s shapes: ``phase_matmul_kernels`` shows that."""
+    return 2 * math.sqrt(k) * 2.0 ** -24
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -250,7 +316,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = _build.build(["minmax_uint8", "quantized_ring", "flash_attention"])
+    built = _build.build(["minmax_uint8", "quantized_ring", "flash_attention", "collective_matmul"])
     for name, path, seconds in built:
         with open(f"{path}.log") as f:
             regs = [line.split("ptxas info    : ")[-1] for line in f if "registers" in line]
@@ -368,7 +434,7 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
             ledger.compare(f"hop_dequant_add_requant_int{bits}", case,
                            *hop_inputs(x, x, x.shape[1] + x.shape[1] % 2, bits))
     for name, row in ledger.rows.items():
-        if name in ATTENTION_TOLS:
+        if name in ATTENTION_TOLS or name == "matmul_tile":
             continue
         log(f"[kernels] {name}: {row['checks']} comparisons bitwise, per step over "
             f"{plan.num_buckets} buckets {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
@@ -509,6 +575,120 @@ def phase_attention_kernels(ledger: Ledger, device) -> None:
             f"(max abs error {row['max_abs_err']:.3e}); per Llama slice step {row['ms']:.4f} ms "
             f"(plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
             f"{row['bound_by']}, SDPA {row['library_ms']:.4f} ms)")
+
+
+#: path (a), the kernel's path: the sequence-parallel Megatron MLP pair at
+#: llama_7b_config's widths (hidden 4096, MLP 11008), one sequence of 4096
+#: tokens over SP_MLP_TP tensor-parallel ranks on this one card, f32
+SP_MLP_TP = 4
+SP_MLP_TOKENS = 4096
+SP_MLP_STEPS = 5
+SP_MLP_LR = 0.01
+
+
+def sp_mlp_gemms(hidden: int, inter: int, tp: int, tokens: int):
+    """The tile products one step of path (a) makes, by shape: ``name ->
+    (m, k, n, transposed operand, launches a step)``, each for all tp
+    ranks at once.  Forward: tp ``ag_matmul`` blocks (Column) and tp
+    ``matmul_rs`` blocks (Row); backward: the Column's ``dw`` (its input is
+    data: no ``dx``) and the Row's ``dx`` and ``dw``, tp each."""
+    t, i = tokens // tp, inter // tp
+    return {
+        "Column fwd (ag_matmul)": (t, hidden, i, None, tp),
+        "Column dw = x^T g": (hidden, t, i, "x", tp),
+        "Row fwd (matmul_rs)": (t, i, hidden, None, tp),
+        "Row dx = g w^T": (t, hidden, i, "w", tp),
+        "Row dw = x^T g": (i, t, hidden, "x", tp),
+    }
+
+
+def phase_matmul_kernels(ledger: Ledger, device) -> None:
+    """The tile kernel against ``x @ w`` (TF32 off for both) at every
+    product of path (a), the backward's through transposed views and the
+    Row's inputs through the ring's per-rank block views; at edge shapes;
+    on a rank batch with a stride-0 operand.  At each path (a) product the
+    plain product of the operands rounded to TF32 must miss the tolerance,
+    so it is shown to tell the precisions apart at those K.  Timed per path
+    (a) step beside its bound (2 m n k per rank over 67 TFLOP/s) and
+    ``torch.matmul`` (the plain version is that call too)."""
+    cfg = llama_7b_config()
+    tp, gen = SP_MLP_TP, torch.Generator(device=device).manual_seed(6)
+    shares, tf32_shares = {}, {}
+    with _no_tf32():
+        for name, (m, k, n, trans, per_step) in sp_mlp_gemms(
+                cfg.hidden_size, cfg.intermediate_size, tp, SP_MLP_TOKENS).items():
+            if trans == "x":  # x^T: a (k, m) row-major tensor read transposed
+                x = torch.randn((tp, k, m), generator=gen, device=device).transpose(1, 2)
+            else:  # a row block of a (tp, tp * m, k) tensor, as the rings slice it
+                x = torch.randn((tp, tp, m, k), generator=gen, device=device)[:, 1]
+            w = (torch.randn((tp, n, k), generator=gen, device=device).transpose(1, 2)
+                 if trans == "w" else torch.randn((tp, k, n), generator=gen, device=device))
+            shares[name] = ledger.compare_matmul(name, x, w)
+            # the gate separates precisions here: the product of the
+            # operands rounded to TF32 must miss it
+            tf32_shares[name] = matmul_share(cm.matmul_tile_plain(round_tf32(x), round_tf32(w)),
+                                             cm.matmul_tile_plain(x, w), x, w)
+            if tf32_shares[name] <= 1.0:
+                raise AssertionError(f"matmul_tile's tolerance does not reject TF32 inputs on {name}: "
+                                     f"{tf32_shares[name]:.3f} of the bound")
+            ms, plain_ms, bound_ms = ledger.time(
+                "matmul_tile", 4 * tp * (m * k + k * n + m * n), 2 * tp * m * n * k, x, w,
+                per_step=per_step, library=lambda: median_ms(lambda: torch.matmul(x, w)))
+            log(f"[kernels] matmul_tile {name}: {tp} x ({m}, {k}) @ ({k}, {n}), {per_step} a step: "
+                f"{ms:.4f} ms = {2 * tp * m * n * k / ms / 1e9:.1f} TFLOP/s (torch.matmul {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms); error {shares[name]:.2e} of the bound, "
+                f"TF32 inputs {tf32_shares[name]:.2f}")
+            del x, w
+        for m, k, n in ((9, 7, 10), (1, 1, 1), (16, 32, 48)):
+            x = torch.randn((k, m), generator=gen, device=device)
+            w = torch.randn((n, k), generator=gen, device=device)
+            shares[f"{m}x{k}x{n}"] = ledger.compare_matmul(f"{m}x{k}x{n}", x.t().contiguous(), w.t().contiguous())
+            shares[f"{m}x{k}x{n} transposed"] = ledger.compare_matmul(f"{m}x{k}x{n} transposed", x.t(), w.t())
+        x = torch.randn((1, 300, 1000), generator=gen, device=device).expand(3, -1, -1)
+        w = torch.randn((3, 1000, 130), generator=gen, device=device)
+        shares["3 ranks, stride-0 x"] = ledger.compare_matmul("3 ranks, stride-0 x", x, w)
+    row = ledger.rows["matmul_tile"]
+    log(f"[kernels] matmul_tile: {row['checks']} comparisons within {matmul_tol(1):.3e} sqrt(K) "
+        f"(|x| |w|) (max abs error {row['max_abs_err']:.3e}, at most {max(shares.values()):.2e} of "
+        f"the bound; TF32 inputs at least {min(tf32_shares.values()):.2f} of it at path (a)'s shapes); "
+        f"per path (a) step {row['ms']:.4f} ms (torch.matmul {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']})")
+
+
+def phase_rings(device) -> None:
+    """The two rings on the card at path (a)'s shapes: ``ag_matmul`` bidir
+    bitwise equal to uni (the same block products, no atomics);
+    ``matmul_rs`` bidir equal to uni, and both rings equal to ``allgather``
+    + ``torch.matmul`` and ``allreduce(SUM)`` + the rank's row block, within
+    ``matmul_tol`` of the whole contraction times the ``|x| |w|`` sums."""
+    cfg = llama_7b_config()
+    tp, gen = SP_MLP_TP, torch.Generator(device=device).manual_seed(7)
+    group = BaguaProcessGroup([device] * tp)
+    t, i = SP_MLP_TOKENS // tp, cfg.intermediate_size // tp
+    rank = torch.arange(tp, device=device)
+    with _no_tf32():
+        x = torch.randn((tp, t, cfg.hidden_size), generator=gen, device=device)
+        w = torch.randn((tp, cfg.hidden_size, i), generator=gen, device=device)
+        uni, bidir = (cm.ag_matmul(x, w, group, "intra", ring=r) for r in ("uni", "bidir"))
+        if not same(uni, bidir):
+            raise AssertionError(f"ag_matmul bidir differs from uni by up to {abs_err(uni, bidir):.3e}")
+        want, bound = allgather(x, group) @ w, allgather(x.abs(), group) @ w.abs()
+        ag_share = float(((uni - want).abs() / (matmul_tol(cfg.hidden_size) * bound)).max())
+        del x, w, uni, bidir, want, bound
+        x = torch.randn((tp, SP_MLP_TOKENS, i), generator=gen, device=device)
+        w = torch.randn((tp, i, cfg.hidden_size), generator=gen, device=device)
+        uni, bidir = (cm.matmul_rs(x, w, group, "intra", ring=r) for r in ("uni", "bidir"))
+        blocks = lambda y: y.reshape(tp, tp, t, -1)[rank, rank]  # noqa: E731
+        want = blocks(allreduce(x @ w, ReduceOp.SUM, group))
+        bound = matmul_tol(tp * i) * blocks(allreduce(x.abs() @ w.abs(), ReduceOp.SUM, group))
+        rs_share = max(float(((got - want).abs() / bound).max()) for got in (uni, bidir))
+        bidir_share = float(((bidir - uni).abs() / bound).max())
+    if max(ag_share, rs_share, bidir_share) > 1.0:
+        raise AssertionError(f"rings vs the plain collectives: ag {ag_share:.3e}, rs {rs_share:.3e}, "
+                             f"rs bidir vs uni {bidir_share:.3e} of the bound")
+    log(f"[rings] tp {tp} at path (a)'s shapes: ag_matmul bidir bitwise equal to uni, within "
+        f"{ag_share:.2e} of the bound of allgather + matmul; matmul_rs uni and bidir within "
+        f"{rs_share:.2e} of allreduce + slice, bidir within {bidir_share:.2e} of uni")
 
 
 REF_STEPS, REF_LR = 3, 0.05
@@ -763,27 +943,31 @@ REF_LLAMA = LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads
 REF_LLAMA_BATCH, REF_LLAMA_LR = 2, 0.5
 
 
-def _train_small_llama(device, params, ids):
-    """REF_STEPS SGD steps of the small Llama over RANKS zigzag ranks, from
-    ``params`` on ``ids`` (global, zigzag-permuted).  Returns every step's
-    per-rank losses and the final rank-0 parameters, on the CPU."""
-    group = BaguaProcessGroup([device] * RANKS)
-    model = LlamaModel(REF_LLAMA, group, device=device)
+def _train_small_llama(device, params, ids, cfg=REF_LLAMA, layout=(1, 1, RANKS)):
+    """REF_STEPS SGD steps of a small Llama on the example's ``(dp, tp, sp)``
+    ``layout``, from ``params`` on ``ids`` (global, zigzag-permuted).
+    Returns every step's per-rank losses and the final rank-0 parameters,
+    on the CPU."""
+    axes = lp.mesh_axes(*layout)
+    group = BaguaProcessGroup([device] * RANKS, intra_size=axes["intra_size"])
+    model = LlamaModel(cfg, group, device=device)
     stacked = lp.replicate(tree_map(lambda t: t.to(device), params), RANKS)
     optimizer = torch.optim.SGD(tree_leaves(stacked), lr=REF_LLAMA_LR)
     loss_fn = llama_loss_fn(model)
-    losses = [lp.train_step(stacked, optimizer, lp.shard_ids(ids, group, device), loss_fn, group).cpu()
+    shards = lp.shard_ids(ids, group, device, axes["dp_axis"], axes["sp_axis"])
+    losses = [lp.train_step(stacked, optimizer, shards, loss_fn, group, axes["avg_axis"]).cpu()
               for _ in range(REF_STEPS)]
     return losses, tree_map(lambda t: t[0].detach().cpu(), stacked)
 
 
-def phase_llama_reference(device) -> None:
+def phase_llama_reference(device, cfg=REF_LLAMA, layout=(1, 1, RANKS)) -> None:
     """The Llama slice's output against a reference on a small input: a
     small Llama (hidden 256, 4 heads, 2 K/V heads, 2 layers, vocab 512,
-    global sequence 256 over RANKS zigzag ranks) trained REF_STEPS SGD steps
-    on the card (the CUDA kernels) and on the CPU (the plain versions) from
-    the same weights and ids, TF32 off.  SGD, not Adam, so that a gradient
-    off by a factor shows in the parameters.
+    global sequence 256 over RANKS ranks on the example's ``(dp, tp, sp)``
+    ``layout``: zigzag sp 4, or tp 2 x sp 2) trained REF_STEPS SGD steps on
+    the card (the CUDA kernels) and on the CPU (the plain versions) from the
+    same weights and ids, TF32 off.  SGD, not Adam, so that a gradient off by
+    a factor shows in the parameters.
 
     - Losses: the first step's within rtol 1e-5 (f32 sums in another
       order), the last step's within rtol 1e-4.
@@ -791,43 +975,145 @@ def phase_llama_reference(device) -> None:
       REF_STEPS steps of REF_LLAMA_LR times gradients that agree to about
       1e-6 (the kernels' and cuBLAS's sums against the CPU's)."""
     gen = torch.Generator().manual_seed(5)
-    _, params = init_llama(REF_LLAMA, gen, device="cpu")
-    seq = REF_LLAMA.max_position_embeddings
-    ids = torch.randint(0, REF_LLAMA.vocab_size, (REF_LLAMA_BATCH, seq), generator=gen)
-    ids = ids[:, zigzag_order(seq, RANKS)]
+    _, params = init_llama(cfg, gen, device="cpu")
+    seq = cfg.max_position_embeddings
+    sp = layout[2]
+    ids = torch.randint(0, cfg.vocab_size, (REF_LLAMA_BATCH, seq), generator=gen)
+    ids = ids[:, zigzag_order(seq, sp)]
     reset_launches()
     with _no_tf32():
-        got_losses, got = _train_small_llama(device, params, ids)
+        got_losses, got = _train_small_llama(device, params, ids, cfg, layout)
     launches = read_launches()
-    want_losses, want = _train_small_llama(torch.device("cpu"), params, ids)
-    calls = REF_STEPS * REF_LLAMA.num_layers * RANKS * 4
+    want_losses, want = _train_small_llama(torch.device("cpu"), params, ids, cfg, layout)
+    calls = REF_STEPS * cfg.num_layers * sp * 4
+    what = f"small Llama (dp {layout[0]} x tp {layout[1]} x sp {sp})"
     for name in ATTENTION_TOLS:
         if launches[name] != calls:
-            raise AssertionError(f"small Llama: {name} launched {launches[name]} times, want {calls}")
+            raise AssertionError(f"{what}: {name} launched {launches[name]} times, want {calls}")
     for step, rtol in ((0, 1e-5), (REF_STEPS - 1, 1e-4)):
         if not torch.allclose(got_losses[step], want_losses[step], rtol=rtol, atol=0.0):
-            raise AssertionError(f"small Llama: step {step + 1} losses {got_losses[step].tolist()} "
+            raise AssertionError(f"{what}: step {step + 1} losses {got_losses[step].tolist()} "
                                  f"vs CPU {want_losses[step].tolist()}")
     err = 0.0
     for (name, g), w in zip(tree_flatten_with_names(got), tree_leaves(want)):
         err = max(err, float((g - w).abs().max()))
         if not torch.allclose(g, w, rtol=1e-4, atol=1e-5):
-            raise AssertionError(f"small Llama: parameter {name} differs from the CPU run by up to "
+            raise AssertionError(f"{what}: parameter {name} differs from the CPU run by up to "
                                  f"{float((g - w).abs().max()):.3e}")
     moved = max(float((w - p).abs().max()) for w, p in zip(tree_leaves(want), tree_leaves(params)))
-    log(f"[reference] small Llama, {REF_STEPS} SGD steps over {RANKS} zigzag ranks, card vs CPU: "
+    log(f"[reference] {what}, {REF_STEPS} SGD steps over {RANKS} ranks, card vs CPU: "
         f"losses {got_losses[0].mean():.6f} -> {got_losses[-1].mean():.6f} vs "
         f"{want_losses[0].mean():.6f} -> {want_losses[-1].mean():.6f}; parameters within "
         f"{err:.3e} (they moved up to {moved:.3e}); {calls} launches of each attention kernel")
 
 
-def phase_llama_slice(device, profile: bool) -> dict:
+#: the tensor-parallel reference's small Llama: REF_LLAMA at tp 2 (tp =
+#: inter) x sp 2 (sp = intra)
+REF_LLAMA_TP = dataclasses.replace(REF_LLAMA, tp_size=2, tp_axis="inter")
+REF_SP_MLP = dict(hidden=64, inter=128, tokens=32)
+
+
+class SPMLP(torch.nn.Module):
+    """Path (a)'s model: ``ColumnParallelDense(gather_input)`` -> GELU (tanh,
+    as ``jax.nn.gelu``) -> ``RowParallelDense(scatter_output)``, with
+    biases, over the ``intra`` axis of ``group``; tokens arrive and leave
+    row-sharded (the sequence-parallel layout)."""
+
+    def __init__(self, hidden, inter, tp, fused, group, device, generator=None):
+        super().__init__()
+        kw = dict(fused=fused, group=group, device=device, generator=generator)
+        self.ColumnParallelDense_0 = ColumnParallelDense(hidden, inter, tp, "intra", gather_input=True, **kw)
+        self.RowParallelDense_0 = RowParallelDense(inter // tp, hidden, tp, "intra", scatter_output=True, **kw)
+
+    def forward(self, params, x):
+        h = self.ColumnParallelDense_0(params["ColumnParallelDense_0"], x)
+        return self.RowParallelDense_0(params["RowParallelDense_0"], gelu(h))
+
+
+def sp_mlp_setup(hidden, inter, tp, tokens, device):
+    """Path (a)'s parameters, per rank (rank r's drawn from seed r, as
+    ``tests/test_parallel.py:545-560`` draws them), stacked; each rank's
+    row block of a global input and of a target, seeded."""
+    trees = []
+    for r in range(tp):
+        gen = torch.Generator(device=device).manual_seed(r)
+        trees.append(module_params(SPMLP(hidden, inter, tp, False, None, device, gen)))
+    params = tree_unflatten(trees[0], [torch.stack(leaves) for leaves in zip(*map(tree_leaves, trees))])
+    del trees
+    gen = torch.Generator(device=device).manual_seed(tp)
+    x = torch.randn((tp, tokens // tp, hidden), generator=gen, device=device)
+    target = torch.randn((tp, tokens // tp, hidden), generator=gen, device=device)
+    return params, x, target
+
+
+def sp_mlp_step(model, params, x, target, optimizer=None):
+    """Each rank's mean squared error against its target rows; the gradient
+    of their sum; an SGD step if ``optimizer``.  Returns the per-rank
+    losses."""
+    losses = ((model(params, x) - target) ** 2).mean(dim=(1, 2))
+    losses.sum().backward()
+    if optimizer is not None:
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+    return losses.detach()
+
+
+def _train_sp_mlp(device, params, x, target, fused, steps, lr, widths):
+    group = BaguaProcessGroup([device] * SP_MLP_TP)
+    model = SPMLP(widths["hidden"], widths["inter"], SP_MLP_TP, fused, group, "meta")
+    params = tree_map(lambda t: t.detach().to(device, copy=True).requires_grad_(), params)
+    optimizer = torch.optim.SGD(tree_leaves(params), lr=lr)
+    x, target = x.to(device), target.to(device)
+    losses = [sp_mlp_step(model, params, x, target, optimizer).cpu() for _ in range(steps)]
+    return losses, tree_map(lambda t: t.detach().cpu(), params)
+
+
+def phase_tp_reference(device) -> None:
+    """The tensor-parallel slice's outputs against references on small
+    inputs, card (the tile kernel) vs CPU (the plain version), TF32 off:
+    path (a)'s fused pair at tp 4 (hidden 64, MLP 128, 32 tokens), REF_STEPS
+    SGD steps at lr 0.5, losses within rtol 1e-5 / 1e-4 (first / last step)
+    and parameters within 1e-5 + 1e-4 |value|; then the small Llama at tp 2
+    x sp 2 as :func:`phase_llama_reference` holds it."""
+    w = REF_SP_MLP
+    params, x, target = sp_mlp_setup(w["hidden"], w["inter"], SP_MLP_TP, w["tokens"], torch.device("cpu"))
+    reset_launches()
+    with _no_tf32():
+        got_losses, got = _train_sp_mlp(device, params, x, target, True, REF_STEPS, 0.5, w)
+    launches = read_launches()["matmul_tile"]
+    want_losses, want = _train_sp_mlp(torch.device("cpu"), params, x, target, True, REF_STEPS, 0.5, w)
+    if launches != REF_STEPS * 5 * SP_MLP_TP:
+        raise AssertionError(f"small SP MLP: {launches} matmul_tile launches, want {REF_STEPS * 5 * SP_MLP_TP}")
+    for step, rtol in ((0, 1e-5), (REF_STEPS - 1, 1e-4)):
+        if not torch.allclose(got_losses[step], want_losses[step], rtol=rtol, atol=0.0):
+            raise AssertionError(f"small SP MLP: step {step + 1} losses {got_losses[step].tolist()} "
+                                 f"vs CPU {want_losses[step].tolist()}")
+    err = 0.0
+    for (name, g), wt in zip(tree_flatten_with_names(got), tree_leaves(want)):
+        err = max(err, float((g - wt).abs().max()))
+        if not torch.allclose(g, wt, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"small SP MLP: parameter {name} differs from the CPU run by up to "
+                                 f"{float((g - wt).abs().max()):.3e}")
+    moved = max(float((wt - p).abs().max()) for wt, p in zip(tree_leaves(want), tree_leaves(params)))
+    log(f"[reference] small fused SP MLP pair, tp {SP_MLP_TP}, {REF_STEPS} SGD steps, card vs CPU: "
+        f"losses {got_losses[0].mean():.6f} -> {got_losses[-1].mean():.6f} vs "
+        f"{want_losses[0].mean():.6f} -> {want_losses[-1].mean():.6f}; parameters within {err:.3e} "
+        f"(they moved up to {moved:.3e}); {launches} matmul_tile launches")
+    phase_llama_reference(device, REF_LLAMA_TP, (1, 2, 2))
+
+
+def phase_llama_slice(device, profile: bool, layout=(1, 1, RANKS)) -> dict:
     """LLAMA_STEPS AdamW steps of the Llama slice: llama_7b_config's width, 2
-    layers, one sequence of LLAMA_SEQ tokens over RANKS zigzag ranks on this
-    one card, f32.  Checks the loss is finite, the ranks' parameters are
-    bitwise equal and each kernel's launch count; returns the counts."""
-    cfg = llama_slice_config()
-    group = init_process_group(devices=[device] * RANKS)
+    layers, one sequence of LLAMA_SEQ tokens over RANKS ranks on this one
+    card on the example's ``(dp, tp, sp)`` ``layout`` (zigzag sp 4, or tp 2
+    x sp 2: tp = inter, sp = intra), f32.  Checks the loss is finite, the
+    ranks' parameters are bitwise equal (the tp ranks are replicas of one
+    shard, as in JAX) and each kernel's launch count; returns the counts."""
+    axes = lp.mesh_axes(*layout)
+    tp, sp = layout[1], layout[2]
+    cfg = llama_7b_config(num_layers=LLAMA_LAYERS, tp_size=tp, tp_axis=axes["tp_axis"] or "intra",
+                          sp_axis=axes["sp_axis"], sp_layout="zigzag")
+    group = init_process_group(devices=[device] * RANKS, intra_size=axes["intra_size"])
     gen = torch.Generator(device=device).manual_seed(0)
     model, params = init_llama(cfg, gen, device, group)
     stacked = lp.replicate(params, RANKS)
@@ -835,47 +1121,157 @@ def phase_llama_slice(device, profile: bool) -> dict:
     optimizer = lp.make_optimizer(stacked, LLAMA_LR)
     loss_fn = llama_loss_fn(model)
     ids_gen = torch.Generator().manual_seed(0)
-    zz = zigzag_order(LLAMA_SEQ, RANKS)
+    zz = zigzag_order(LLAMA_SEQ, sp)
     batches = [lp.shard_ids(torch.randint(0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ),
-                                          generator=ids_gen)[:, zz], group, device)
+                                          generator=ids_gen)[:, zz], group, device,
+                            axes["dp_axis"], axes["sp_axis"])
                for _ in range(LLAMA_STEPS + 1)]
+    step = functools.partial(lp.train_step, stacked, optimizer, loss_fn=loss_fn, group=group,
+                             axis=axes["avg_axis"])
     n_params = sum(p[0].numel() for p in tree_leaves(stacked))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    losses = [lp.train_step(stacked, optimizer, batches[0], loss_fn, group)]
+    losses = [step(batches[0])]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for ids in batches[1:LLAMA_STEPS]:
-        losses.append(lp.train_step(stacked, optimizer, ids, loss_fn, group))
+        losses.append(step(ids))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = read_launches()
 
+    what = f"Llama (dp {layout[0]} x tp {tp} x sp {sp})"
     losses = torch.stack(losses).cpu()
     if not torch.isfinite(losses).all():
-        raise AssertionError(f"Llama: non-finite loss {losses.tolist()}")
+        raise AssertionError(f"{what}: non-finite loss {losses.tolist()}")
     for leaf in tree_leaves(stacked):
         if not all(torch.equal(leaf[0], leaf[r]) for r in range(1, RANKS)):
-            raise AssertionError("Llama: ranks' parameters differ after the steps")
+            raise AssertionError(f"{what}: ranks' parameters differ after the steps")
     # every (ring step, q half, k half) pair is launched, for all ranks at once
-    calls = LLAMA_STEPS * LLAMA_LAYERS * RANKS * 4
+    calls = LLAMA_STEPS * LLAMA_LAYERS * sp * 4
     want = {kernel: calls if kernel in ATTENTION_TOLS else 0 for kernel in KERNELS}
     if launches != want:
-        raise AssertionError(f"Llama: launch counts {launches}, want {want}")
+        raise AssertionError(f"{what}: launch counts {launches}, want {want}")
     step_s = (t2 - t1) / (LLAMA_STEPS - 1)
     tokens = LLAMA_BATCH * LLAMA_SEQ
-    log(f"[slice] Llama 7B width ({cfg.hidden_size} hidden, {cfg.num_heads} heads, "
+    log(f"[slice] {what} at 7B width ({cfg.hidden_size} hidden, {cfg.num_heads} heads, "
         f"{cfg.intermediate_size} MLP, vocab {cfg.vocab_size}), {LLAMA_LAYERS} layers, "
         f"{n_params} parameters per rank, f32; {LLAMA_BATCH} x {LLAMA_SEQ} tokens over {RANKS} "
-        f"zigzag ranks: first step {t1 - t0:.3f} s, then {step_s * 1e3:.1f} ms/step = "
+        f"ranks: first step {t1 - t0:.3f} s, then {step_s * 1e3:.1f} ms/step = "
         f"{tokens / step_s:.1f} tokens/s on the card; loss {losses[:, 0].tolist()}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches} "
-        f"({calls} each expected: {LLAMA_STEPS} steps x {LLAMA_LAYERS} layers x {RANKS} ring steps "
+        f"({calls} each expected: {LLAMA_STEPS} steps x {LLAMA_LAYERS} layers x {sp} ring steps "
         f"x 4 half-block pairs)")
     if profile:
-        profile_step("Llama", lambda: lp.train_step(stacked, optimizer, batches[-1], loss_fn, group))
+        profile_step(what, lambda: step(batches[-1]))
+    return launches
+
+
+def _sp_mlp_grads(model, params, x, target):
+    """Per-rank losses and parameter gradients of one step, no update."""
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    losses = sp_mlp_step(model, params, x, target)
+    return losses, tree_map(lambda t: t.grad, params)
+
+
+def phase_sp_mlp_slice(device, profile: bool) -> dict:
+    """Path (a): SP_MLP_STEPS SGD steps of the fused sequence-parallel MLP
+    pair at llama_7b_config's widths, SP_MLP_TP ranks of SP_MLP_TOKENS /
+    SP_MLP_TP tokens each on this one card, f32.  Checks that the first
+    step's losses and gradients equal the unfused pair's (all-gather +
+    ``torch.matmul``, ``psum``) within 1e-5 relative (losses) and 1e-4 of
+    each leaf's largest gradient (f32 sums of up to 11,008 terms in another
+    order: typically sqrt(K) 2^-24, 6e-6); the loss is finite; exactly 20
+    ``matmul_tile`` launches a step and no other kernel.  Then one forward
+    and backward of ``ParallelMLP(fused=True)`` against ``fused=False`` on
+    the whole replicated sequence, with its own exact count.  Returns the
+    steps' launch counts."""
+    cfg, tp = llama_7b_config(), SP_MLP_TP
+    hidden, inter = cfg.hidden_size, cfg.intermediate_size
+    group = init_process_group(devices=[device] * tp)
+    params, x, target = sp_mlp_setup(hidden, inter, tp, SP_MLP_TOKENS, device)
+    fused, unfused = (SPMLP(hidden, inter, tp, f, group, "meta") for f in (True, False))
+    with _no_tf32():
+        want_losses, want_grads = _sp_mlp_grads(unfused, params, x, target)
+        reset_launches()
+        got_losses, got_grads = _sp_mlp_grads(fused, params, x, target)
+    per_step = read_launches()["matmul_tile"]
+    if not torch.allclose(got_losses, want_losses, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"path (a): fused losses {got_losses.tolist()} vs unfused {want_losses.tolist()}")
+    grad_err = 0.0
+    for (name, g), wg in zip(tree_flatten_with_names(got_grads), tree_leaves(want_grads)):
+        rel = float((g - wg).abs().max() / wg.abs().max())
+        grad_err = max(grad_err, rel)
+        if rel > 1e-4:
+            raise AssertionError(f"path (a): fused gradient {name} differs from unfused by {rel:.3e} "
+                                 f"of its largest element")
+    del want_grads, got_grads
+    log(f"[slice] path (a) first step: fused losses {got_losses.tolist()} vs unfused "
+        f"{want_losses.tolist()}; gradients within {grad_err:.3e} of each leaf's largest; "
+        f"{per_step} matmul_tile launches")
+
+    params = tree_map(lambda t: t.requires_grad_(), params)
+    optimizer = torch.optim.SGD(tree_leaves(params), lr=SP_MLP_LR)
+    step = functools.partial(sp_mlp_step, fused, params, x, target, optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with _no_tf32():
+        t0 = time.perf_counter()
+        losses = [step()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses += [step() for _ in range(SP_MLP_STEPS - 1)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = read_launches()
+    losses = torch.stack(losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"path (a): non-finite loss {losses.tolist()}")
+    calls = SP_MLP_STEPS * 5 * tp
+    want = {kernel: calls if kernel == "matmul_tile" else 0 for kernel in KERNELS}
+    if launches != want:
+        raise AssertionError(f"path (a): launch counts {launches}, want {want}")
+    step_s = (t2 - t1) / (SP_MLP_STEPS - 1)
+    gemm_tflop = 10 * SP_MLP_TOKENS * hidden * inter / 1e12  # 5 products of 2 T H I
+    log(f"[slice] path (a): fused SP MLP pair at 7B width ({hidden} -> {inter} -> {hidden}), tp {tp}, "
+        f"{SP_MLP_TOKENS // tp} tokens per rank, f32: first step {t1 - t0:.3f} s, then "
+        f"{step_s * 1e3:.1f} ms/step ({gemm_tflop:.3f} TFLOP of tile GEMMs a step, "
+        f"{gemm_tflop / step_s:.1f} TFLOP/s end to end); loss {losses.mean(1).tolist()}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches['matmul_tile']} "
+        f"({calls} expected: {SP_MLP_STEPS} steps x {5 * tp}: {2 * tp} forward, {tp} Column dw, "
+        f"{2 * tp} Row dx and dw)")
+    if profile:
+        with _no_tf32():
+            profile_step("path (a)", step)
+
+    # ParallelMLP: a replicated input; the Row's matmul_rs ring + all-gather
+    with _no_tf32():
+        mlp_x = allgather(x, group)
+        outs = []
+        for f in (False, True):
+            gen = torch.Generator(device=device).manual_seed(0)
+            mlp = ParallelMLP(hidden, inter, hidden, tp, "intra", fused=f, group=group, device=device,
+                              generator=gen)
+            mlp_params = tree_map(lambda t: t[None].repeat(tp, *([1] * t.dim())).requires_grad_(),
+                                  module_params(mlp))
+            reset_launches()
+            out = mlp(mlp_params, mlp_x)
+            (out ** 2).mean().backward()
+            torch.cuda.synchronize()
+            outs.append((out.detach(), [t.grad for t in tree_leaves(mlp_params)], read_launches()["matmul_tile"]))
+            del out, mlp_params
+    (y_u, g_u, n_u), (y_f, g_f, n_f) = outs
+    y_err = float((y_f - y_u).abs().max() / y_u.abs().max())
+    g_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_f, g_u))
+    if n_u != 0 or n_f != 3 * tp or y_err > 1e-4 or g_err > 1e-4:
+        raise AssertionError(f"ParallelMLP fused vs unfused: output {y_err:.3e}, gradients {g_err:.3e} "
+                             f"of their largest; launches {n_f} fused (want {3 * tp}), {n_u} unfused")
+    log(f"[slice] ParallelMLP({hidden} -> {inter} -> {hidden}, tp {tp}, fused) on {SP_MLP_TOKENS} "
+        f"replicated tokens: output within {y_err:.3e}, gradients within {g_err:.3e} of the unfused "
+        f"layer's (relative to the largest); {n_f} matmul_tile launches (forward {tp}, backward {2 * tp})")
     return launches
 
 
@@ -896,14 +1292,21 @@ def main(argv) -> int:
     ledger = Ledger()
     phase_kernels(ledger, vgg16_plan(), device)
     phase_attention_kernels(ledger, device)
+    phase_matmul_kernels(ledger, device)
+    phase_rings(device)
     torch.cuda.empty_cache()
     phase_reference(device)
     phase_llama_reference(device)
+    phase_tp_reference(device)
     per_path = {}
     for name in SLICE_PATHS:
         per_path[name] = phase_slice(device, profile, name)
         torch.cuda.empty_cache()
     per_path["Llama"] = phase_llama_slice(device, profile)
+    torch.cuda.empty_cache()
+    per_path["Llama tp"] = phase_llama_slice(device, profile, (1, 2, 2))
+    torch.cuda.empty_cache()
+    per_path["SP MLP"] = phase_sp_mlp_slice(device, profile)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]
@@ -914,7 +1317,9 @@ def main(argv) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
-        if row["library_ms"] is not None:
+        if name == "matmul_tile":
+            kernels[-1]["library"] = "torch.matmul in f32, TF32 off (the plain version is the same call)"
+        elif row["library_ms"] is not None:
             kernels[-1]["library"] = ("F.scaled_dot_product_attention, a near-equivalent: it "
                                       "normalizes and returns no l or m" + (
                                           "; its one backward computes dq, dk and dv"

@@ -6,10 +6,13 @@ JAX nor the JAX package, so they run where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
 from bagua_tpu_torch.communication import BaguaProcessGroup
+from bagua_tpu_torch.kernels import collective_matmul as cm
 from bagua_tpu_torch.kernels import flash_attention as fa
 from bagua_tpu_torch.kernels import minmax_uint8 as port
 from bagua_tpu_torch.kernels import quantized_ring as qr
@@ -21,7 +24,7 @@ def cuda_device():
     """The card, decided when the test runs; skips where there is none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    for fn in port.KERNELS + qr.KERNELS + fa.KERNELS:
+    for fn in port.KERNELS + qr.KERNELS + fa.KERNELS + cm.KERNELS:
         fn.launches = 0
     return torch.device("cuda", 0)
 
@@ -237,3 +240,97 @@ def test_ring_attention_on_card_matches_cpu(cuda_device, layout):
         assert close(g, w, 3e-4)
     assert fa.block_attention.launches == (16 if layout == "zigzag" else 4)
     assert fa.flash_attention_bwd_dq.launches == fa.flash_attention_bwd_dkv.launches == fa.block_attention.launches
+
+
+def matmul_close(got: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> bool:
+    """The tile kernel's contract: every element within 2 sqrt(K) 2^-24
+    (|x| |w|) of ``torch.matmul`` in f32 (TF32 off): with rounding errors of
+    random sign each of the two K-term dot products is within about
+    sqrt(K) 2^-24 of the exact one (Higham and Mary's probabilistic bound)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = x @ w
+        scale = x.abs() @ w.abs()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    tol = 2 * math.sqrt(x.shape[-1]) * 2.0 ** -24
+    return got.shape == want.shape and bool(((got - want).abs() <= tol * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(9, 7, 10), (1, 1, 1), (16, 32, 48), (300, 1000, 130),
+                                   (128, 4096, 256), (257, 5, 129)])
+def test_matmul_tile_matches_torch(cuda_device, shape):
+    """Edge shapes (ragged m, n and k, tiles larger than the operands), 2-D
+    and as a batch of 3 ranks; one launch per call."""
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((3, m, k), generator=gen, device=cuda_device)
+    w = torch.randn((3, k, n), generator=gen, device=cuda_device)
+    got = cm.matmul_tile(x, w)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and matmul_close(got, x, w)
+    one = cm.matmul_tile(x[1], w[1])
+    assert torch.equal(one, got[1])  # a rank's result does not depend on the batch
+    assert cm.matmul_tile.launches == 2
+
+
+@pytest.mark.cuda
+def test_matmul_tile_reads_strides(cuda_device):
+    """The backward's transposed operands, the ring's per-rank block views
+    and an expanded (stride 0) operand go in uncopied and agree."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn((4, 96, 200), generator=gen, device=cuda_device)
+    w = torch.randn((4, 200, 72), generator=gen, device=cuda_device)
+    g = torch.randn((4, 96, 72), generator=gen, device=cuda_device)
+    cases = [
+        (g, w.transpose(1, 2)),                  # dx = g . w^T
+        (x.transpose(1, 2), g),                  # dw = x^T . g
+        (x[:, 32:64], w),                        # a row block of every rank
+        (x.transpose(1, 2)[:, 7:150], x[:, :, 7:150]),  # both transposed, offset
+        (x[:1].expand(4, -1, -1), w),            # batch stride 0
+    ]
+    for a, b in cases:
+        got = cm.matmul_tile(a, b)
+        torch.cuda.synchronize()
+        assert matmul_close(got, a, b), (tuple(a.shape), a.stride(), tuple(b.shape), b.stride())
+    x.requires_grad_()
+    w.requires_grad_()
+    torch.sin(cm.tile_matmul(x, w)).sum().backward()
+    xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+    torch.sin(xr @ wr).sum().backward()
+    assert torch.allclose(x.grad, xr.grad, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(w.grad, wr.grad, rtol=1e-4, atol=1e-4)
+    assert cm.matmul_tile.launches == len(cases) + 3
+
+
+@pytest.mark.cuda
+def test_matmul_tile_refuses_other_types(cuda_device):
+    x = torch.randn((8, 8), device=cuda_device)
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+        with pytest.raises(NotImplementedError, match="float32"):
+            cm.matmul_tile(x.to(dtype), x.to(dtype))
+    assert cm.matmul_tile.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", ["uni", "bidir"])
+def test_rings_on_card_match_cpu(cuda_device, ring):
+    """Both rings over 4 ranks on the card against the same rings on the
+    CPU, with their gradients; ag bidir bitwise equal to uni on the card."""
+    gen = torch.Generator().manual_seed(7)
+    x, w = torch.randn((4, 32, 48), generator=gen), torch.randn((4, 48, 40), generator=gen)
+    outs = []
+    for device in (cuda_device, torch.device("cpu")):
+        group = BaguaProcessGroup([device] * 4)
+        xs, ws = x.to(device).requires_grad_(), w.to(device).requires_grad_()
+        ag = cm.ag_matmul(xs, ws, group, "intra", ring=ring)
+        rs = cm.matmul_rs(xs, ws, group, "intra", ring=ring)
+        (torch.sin(ag).sum() + torch.sin(rs).sum()).backward()
+        outs.append([ag.detach().cpu(), rs.detach().cpu(), xs.grad.cpu(), ws.grad.cpu()])
+        if device.type == "cuda":
+            uni = cm.ag_matmul(xs.detach(), ws.detach(), group, "intra", ring="uni")
+            assert torch.equal(uni, ag.detach())
+    for g, want in zip(*outs):
+        assert torch.allclose(g, want, rtol=1e-4, atol=1e-4)

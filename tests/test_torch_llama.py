@@ -4,8 +4,10 @@ the JAX package.
 Parameters come from flax's init and cross with ``params_from_jax``; ids are
 made with numpy.  The sequence-parallel cases run an 8-rank group
 (``[cpu] * 8``, ``intra_size=4``: dp = inter = 2, sp = intra = 4, zigzag)
-against JAX's ``shard_map`` on a ``("dp", "sp") = (2, 4)`` mesh.  Two model
-configs are compiled by JAX: the single-device one and the zigzag one.
+against JAX's ``shard_map`` on a ``("dp", "sp") = (2, 4)`` mesh.  The
+tensor-parallel cases run four ranks at tp 2, as the example maps them
+(dp 2 x tp 2: dp = inter, tp = intra; tp 2 x sp 2: tp = inter, sp = intra),
+against JAX on a ``("dp", "tp", "sp")`` mesh.
 
 Tolerances, each with its reason: RoPE and RMSNorm within 1e-6 (elementwise
 f32; sin, cos and rsqrt may differ in the last bit); logits and losses
@@ -15,8 +17,6 @@ element within 3 lr (Adam moves each element by about lr a step, whatever
 its gradient's size), and all but 1% of them within 1e-5 (a gradient near
 zero turns rounding noise into a full-size step).
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -188,13 +188,19 @@ def jax_train(jcfg, params, ids, mesh, opt):
     return losses, jax.tree.map(np.asarray, params)
 
 
-def port_train(tcfg, group, params, ids, make_opt):
+def port_train(tcfg, group, params, ids, make_opt, axes=None):
+    """The port's ``train_step`` on the example's layout ``axes``
+    (``mesh_axes``; by default dp = inter, sp = intra); returns each step's
+    mean loss and the final parameters, after checking that every rank holds
+    the same bits (tp ranks are replicas, as in JAX)."""
+    axes = axes or ex.mesh_axes(group.inter_size, 1, group.intra_size)
     model, _ = tl.init_llama(tcfg, device="cpu", group=group)
     sp = stacked(params, group.size)
     opt = make_opt(tree_leaves(sp))
     loss_fn = tl.llama_loss_fn(model)
-    losses = [ex.train_step(sp, opt, ex.shard_ids(x, group), loss_fn, group) for x in ids]
-    for leaf in tree_leaves(sp):  # every rank holds the same bits
+    losses = [ex.train_step(sp, opt, ex.shard_ids(x, group, None, axes["dp_axis"], axes["sp_axis"]),
+                            loss_fn, group, axes["avg_axis"]) for x in ids]
+    for leaf in tree_leaves(sp):
         assert all(torch.equal(leaf[0], leaf[r]) for r in range(1, group.size))
     return [float(l[0]) for l in losses], tree_map(lambda t: t[0].detach().numpy(), sp)
 
@@ -224,14 +230,57 @@ def test_train_steps_match_jax(optimizer):
 def test_example_main_runs_on_cpu(capsys):
     ex.main(["--device", "cpu", "--dp", "2", "--sp", "2", "--steps", "2", "--batch", "4"])
     assert "final:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
-        ex.main(["--device", "cpu", "--tp", "2", "--steps", "1"])
+    ex.main(["--device", "cpu", "--dp", "1", "--tp", "2", "--sp", "2", "--steps", "2", "--batch", "4"])
+    assert "final:" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="three-axis group"):
+        ex.main(["--device", "cpu", "--dp", "2", "--tp", "2", "--sp", "2", "--steps", "1"])
 
 
-def test_tensor_parallel_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
-        tl.LlamaModel(dataclasses.replace(torch_cfg(), tp_size=2), device="cpu")
-    from bagua_tpu_torch.parallel.tensor_parallel import ColumnParallelDense
+# ---------------------------------------------------------------------------
+# Tensor parallel (dp 2 x tp 2, tp 2 x sp 2)
+# ---------------------------------------------------------------------------
 
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
-        ColumnParallelDense(4, 4, fused=True, device="cpu")
+#: (dp, tp, sp) layouts of four ranks, as the example maps them
+TP_LAYOUTS = {"dp2-tp2": (2, 2, 1), "tp2-sp2": (1, 2, 2)}
+
+
+def tp_setup(dp, tp, sp):
+    axes = ex.mesh_axes(dp, tp, sp)
+    jcfg = jax_cfg(tp_size=tp, tp_axis="tp", sp_axis="sp" if sp > 1 else None,
+                   sp_layout="zigzag" if sp > 1 else "contiguous")
+    tcfg = torch_cfg(tp_size=tp, tp_axis=axes["tp_axis"], sp_axis=axes["sp_axis"],
+                     sp_layout=jcfg.sp_layout)
+    group = BaguaProcessGroup([torch.device("cpu")] * (dp * tp * sp), intra_size=axes["intra_size"])
+    params = flax_params(jcfg, T // sp)  # the local (1 / tp) shapes, as the example inits
+    rng = np.random.RandomState(3)
+    x = rng.randint(0, SMALL["vocab_size"], size=(B, T))
+    if sp > 1:
+        x = x[:, jax_zigzag_order(T, sp)]
+    mesh = Mesh(np.array(jax.devices()[:dp * tp * sp]).reshape(dp, tp, sp), ("dp", "tp", "sp"))
+    return jcfg, tcfg, group, axes, params, [x.astype(np.int32)] * STEPS, mesh
+
+
+@pytest.mark.parametrize("layout,optimizer", [("dp2-tp2", "sgd"), ("tp2-sp2", "sgd"),
+                                              ("tp2-sp2", "adamw")])
+def test_tensor_parallel_train_steps_match_jax(layout, optimizer):
+    """3 steps of the port's ``train_step`` at tp 2 against the JAX example's
+    ``local_step`` on a ``("dp", "tp", "sp")`` mesh: the Row projections'
+    ``psum`` (whose transpose brings both tp ranks' cotangents, 2x a
+    rank's own) and the average over dp and sp only.  SGD at lr 0.3 shows a
+    gradient off by a factor in the parameters."""
+    jcfg, tcfg, group, axes, params, ids, mesh = tp_setup(*TP_LAYOUTS[layout])
+    if optimizer == "sgd":
+        jopt, make_opt = optax.sgd(LR * 100), lambda ps: torch.optim.SGD(ps, lr=LR * 100)
+    else:
+        jopt = optax.adamw(LR)
+        make_opt = lambda ps: torch.optim.AdamW(ps, lr=LR, weight_decay=ex.WEIGHT_DECAY)  # noqa: E731
+    want_losses, want = jax_train(jcfg, params, ids, mesh, jopt)
+    got_losses, got = port_train(tcfg, group, params, ids, make_opt, axes)
+    np.testing.assert_allclose(got_losses, want_losses, rtol=LOGIT_TOL, atol=0)
+    assert got_losses[-1] < got_losses[0]
+    diffs = np.concatenate([np.abs(g - w).ravel() for g, w in zip(tree_leaves(got), jax.tree.leaves(want))])
+    if optimizer == "sgd":
+        assert diffs.max() <= 1e-5, diffs.max()
+    else:
+        assert diffs.max() <= STEPS * LR, diffs.max()
+        assert (diffs > 1e-5).mean() <= 0.01, (diffs > 1e-5).mean()

@@ -312,7 +312,8 @@ def test_trainer_fit_matches_jax_ddp(group, tgroup, algo):
 
 def test_port_imports_no_jax():
     """Importing every module of the port, and the chip smoke script, loads
-    neither JAX nor the JAX package."""
+    neither JAX nor the JAX package; the walk reaches the tensor-parallel
+    slice's modules."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -320,6 +321,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'bagua_tpu')]\n"
         "assert not bad, bad\n"
+        "need = ['bagua_tpu_torch.kernels.collective_matmul', 'bagua_tpu_torch.parallel.tensor_parallel']\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
