@@ -8,107 +8,155 @@
 // Semantics (matmul_tile_plain in bagua_tpu_torch/kernels/collective_matmul.py):
 //   c[r] = a[r] . b[r]  for every batch entry r, in f32:
 //   a (R, m, k) and b (R, k, n) read through the caller's strides, c (R, m, n)
-//   written contiguous.  Each c element is one sum over k, taken in
-//   increasing k with fused multiply-adds.
+//   written contiguous.  Each c element is one chain of fused multiply-adds
+//   in increasing k, started from zero: no split k, no atomics, so results
+//   are deterministic and a batch entry's result does not depend on the
+//   others.
 //
-// Layouts.  Any strides: the backward's transposed operands (w^T, x^T) and
-// the ring's per-rank block views go in uncopied.  A tile is loaded so that
-// neighbouring threads read neighbouring addresses along whichever of the
-// operand's two dims has stride 1 (a: k or m; b: n or k).  Ragged edges of
-// m, n and k are masked here (zeros in shared memory, no store past the
-// edge): the TPU kernel's external zero padding is a layout need of its
-// (8, 128) tiles, not semantics.  Any k: the TPU kernel held the whole k of a
-// tile in VMEM and fell back to jnp.dot above 8 MB; here k streams through
-// shared memory in chunks of kBK.
+// Bound: f32 operations on the CUDA cores, 67 TFLOP/s on an H100 SXM.  The
+// rings' tiles at Llama-7B width do 2 m n k operations on about (mk + kn +
+// mn) 4 bytes, some 600 operations a byte, far above the card's f32 balance
+// (20 a byte).  The tensor cores are not used: their f32 inputs are TF32
+// (10 mantissa bits), and split-TF32 sums three products per term in
+// another order; the contract with the JAX reference is a full f32 product
+// within 2 sqrt(K) 2^-24 (|x| |w|), which TF32 inputs miss at the rings'
+// shapes.  So the kernel's work is to keep the FMA pipes issuing.
 //
-// Design.  A CTA of 256 threads owns a 128 x 128 tile of c and walks k in
-// chunks of kBK = 16: each chunk of a (128 x 16) and b (16 x 128) is staged in
-// shared memory (a stored k-major, so both are read along m or n), double
-// buffered, the next chunk's global loads issued into registers before the
-// current chunk's products.  Each thread keeps an 8 x 8 block of c in
-// registers: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns tx*4 + {0..3}
-// and 64 + tx*4 + {0..3}, so its shared-memory reads are float4s that a
-// quarter warp takes without bank conflicts; staged rows are kBM + 4 floats
-// apart, so the k-major stores of a transposed operand spread over the banks.
-// Grid: (n tiles, m tiles, R).  No atomics: results are deterministic, and a
-// batch entry's result does not depend on the others.
+// Design.  A CTA of 256 threads (8 warps, one CTA per SM) owns a 128 x 256
+// tile of c and walks k in chunks of kBK = 16 through a ring of kStages = 4
+// shared-memory stages filled by asynchronous copies (cp.async): three
+// chunks are in flight while one is multiplied, with one barrier per chunk,
+// and no register holds a value on its way to shared memory.  Each thread
+// keeps an 8 x 16 block of c in registers (128 accumulators): per k it reads
+// 2 float4s of a and 4 of b from shared memory for 128 FMAs, into one of two
+// register sets while the FMAs of the other run (a chunk's first operands are
+// read right after its barrier, before the next copies are issued).  Warp w owns
+// rows 32 (w / 2) .. +32 and columns 128 (w % 2) .. +128; lane (lane / 8,
+// lane % 8) holds rows in two quads 16 apart and columns in four quads 32
+// apart, so a warp's float4 reads take one wavefront each.  Both operands are
+// staged s[k][row] (rows: a's m, b's n), rows padded by 4 floats; how a chunk
+// is copied follows the operand's layout (Mode, chosen on the host):
+//   kRowVec    rows of stride 1, 16-byte aligned: 16-byte copies along the
+//              rows (a's x^T, b's row-major w and g);
+//   kKMajor    k of stride 1 (a's row-major x and g, b's w^T): 4-byte copies,
+//              a warp taking 8 consecutive k of 4 rows: whole 32-byte sectors
+//              from memory, 32 distinct banks in shared memory;
+//   kRowScalar anything else (off a 16-byte boundary; no dim of stride 1):
+//              4-byte copies along the rows.
+// At ragged edges of m, n and k the copies zero-fill (cp.async's source
+// size), and the store is masked.
 //
-// Bound: f32 operations.  The rings' tiles at Llama-7B width do 2 m n k
-// operations on about (mk + kn + mn) 4 bytes, some 600 operations a byte, far
-// above the H100's f32 balance (67 TFLOP/s over 3.35 TB/s, 20 a byte).  This
-// kernel runs on the CUDA cores in full f32 (no TF32, no tensor cores), so
-// its bound is 67 TFLOP/s; the 8 x 8 register block gives each thread 64
-// independent FMA chains to keep the pipes full.  Shared memory: 2 x 2 x 16
-// x 132 floats = 33,792 bytes, static, under the 48 KB that needs no opt-in.
-// No wgmma, TMA or TF32 yet.
+// Budget.  Shared memory: 4 stages of 16 x (132 + 260) floats = 100,352
+// bytes, dynamic (opted into per launch).  Registers: 213-249 a thread under
+// __launch_bounds__(256, 1), no spill (ptxas -v, in the build log).  The 8 x
+// 8 block of the earlier design (128 x 128 tiles, two CTAs per SM under
+// __launch_bounds__(256, 2); MATMUL_TN=8 below) keeps 64 accumulators but
+// spills at that 128-register cap and reads shared memory twice as often per
+// FMA.  chip_kernel_ab.py times it, uncapped (MATMUL_MIN_BLOCKS=1), and the
+// other knobs below against this shape (PERF.md has the numbers).  What is
+// left: the product with both operands k-major (Row dx) issues 24 4-byte
+// copies a thread per chunk where the aligned row-major ones issue 6 16-byte
+// copies; the m = 1024, n = 2752 products run 352 CTAs, 2.67 waves of 132,
+// so their last wave is two-thirds full.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128;  // rows of c per CTA
-constexpr int kBN = 128;  // columns of c per CTA
-constexpr int kBK = 16;   // k per shared-memory chunk
-constexpr int kLoads = kBM * kBK / kThreads;  // elements of a (and of b) each thread stages
-constexpr int kLD = kBM + 4;  // row stride of a staged chunk: k-major stores spread over banks
+// Compile-time shape of the kernel; chip_kernel_ab.py --variant="-DNAME=VALUE"
+// times another choice beside this one.
+#ifndef MATMUL_TN
+#define MATMUL_TN 16  // columns of c per thread: 8 or 16
+#endif
+#ifndef MATMUL_MIN_BLOCKS
+#define MATMUL_MIN_BLOCKS (MATMUL_TN == 8 ? 2 : 1)  // CTAs per SM for __launch_bounds__
+#endif
+#ifndef MATMUL_BK
+#define MATMUL_BK 16  // k per shared-memory stage: 8, 16 or 32
+#endif
+#ifndef MATMUL_STAGES
+#define MATMUL_STAGES 4
+#endif
 
-// Element strides of a batched operand: batch, rows, columns.
-struct View {
-  int64_t sb, sr, sc;
-};
+constexpr int kThreads = 256;
+constexpr int kTN = MATMUL_TN;
+constexpr int kWarpsN = 2;
+constexpr int kBM = 128;                 // rows of c per CTA: 4 warps of 32
+constexpr int kBN = kWarpsN * 8 * kTN;  // columns of c per CTA: 2 warps of 8 lanes x kTN
+constexpr int kBK = MATMUL_BK;
+constexpr int kStages = MATMUL_STAGES;
+constexpr int kLDA = kBM + 4;  // row stride of a staged chunk, s[k][row]
+constexpr int kLDB = kBN + 4;
+constexpr int kStage = kBK * (kLDA + kLDB);  // floats of one stage: a, then b
+constexpr size_t kSmemBytes = static_cast<size_t>(kStages) * kStage * sizeof(float);
+
+static_assert(kTN == 8 || kTN == 16, "a thread holds 8 or 16 columns");
+static_assert(kBK == 8 || kBK == 16 || kBK == 32, "the copy mappings cover 8, 16 or 32 k");
+static_assert(kBK % 2 == 0, "the operand registers alternate by k");
 
 struct Dims {
   int64_t r, m, n, k;
 };
 
-// How a thread stages its kLoads elements of a 128 x kBK tile (rows: a's m
-// or b's n; k: the contraction).  KMajor (the operand's k has stride 1):
-// neighbouring threads take neighbouring k, and element i sits 16 i rows
-// further; else neighbouring rows, and element i sits 2 i k further.  Either
-// way a thread's elements are one base offset plus i steps.
-template <bool KMajor>
-struct Staging {
-  int row, k;    // this thread's first element, within the tile
-  int64_t step;  // elements between its consecutive elements in memory
-  __device__ Staging(const View& v) {
-    const int t = threadIdx.x;
-    row = KMajor ? t / kBK : t % kBM;
-    k = KMajor ? t % kBK : t / kBM;
-    step = KMajor ? (kThreads / kBK) * v.sr : (kThreads / kBM) * v.sc;
-  }
-  __device__ __forceinline__ int row_of(int i) const {
-    return KMajor ? row + i * (kThreads / kBK) : row;
-  }
-  __device__ __forceinline__ int k_of(int i) const {
-    return KMajor ? k : k + i * (kThreads / kBM);
-  }
-
-  // The tile at rows r0.., k0.. of an operand with `rows` rows and `depth`
-  // k into registers, zeros past its edges.
-  __device__ __forceinline__ void load(const float* __restrict__ p, const View& v, int64_t r0,
-                                       int64_t k0, int64_t rows, int64_t depth,
-                                       float (&reg)[kLoads]) const {
-    const float* base = p + (r0 + row) * v.sr + (k0 + k) * v.sc;
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i)
-      reg[i] = (r0 + row_of(i) < rows && k0 + k_of(i) < depth) ? base[i * step] : 0.0f;
-  }
-
-  // The registers into a k-major staged chunk: s[k][row].
-  __device__ __forceinline__ void store(float (*s)[kLD], const float (&reg)[kLoads]) const {
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) s[k_of(i)][row_of(i)] = reg[i];
-  }
+// An operand seen as (batch, rows, k): a's rows are m, b's are n.  Element
+// strides.
+struct View {
+  int64_t sb, sr, sk;
 };
 
-template <bool AK, bool BK>
-__global__ void __launch_bounds__(kThreads, 2)
+// How an operand's chunks are copied (chosen on the host, per operand).
+enum Mode {
+  kRowVec = 0,     // rows of stride 1, 16-byte aligned: 16-byte copies along the rows
+  kKMajor = 1,     // k of stride 1: 4-byte copies, a warp taking 8 k of 4 rows
+  kRowScalar = 2,  // anything else: 4-byte copies along the rows
+};
+
+// Issues the copies of one chunk, rows r0.. and k k0.., of an operand with
+// `rows` rows and `depth` k into s[k][row] (row stride ROWS + 4).
+template <int M, int ROWS>
+__device__ __forceinline__ void load_chunk(float* s, const float* __restrict__ p, const View& v,
+                                           int64_t r0, int64_t k0, int64_t rows, int64_t depth) {
+  constexpr int kLD = ROWS + 4;
+  const int t = threadIdx.x;
+  if constexpr (M == kRowVec) {  // a warp: 128 consecutive rows of one k
+    constexpr int kPerK = ROWS / 4;  // copies per k
+    const int k_t = t / kPerK, row_t = (t % kPerK) * 4;
+#pragma unroll
+    for (int i = 0; i < ROWS * kBK / 4 / kThreads; ++i) {
+      const int k = k_t + i * (kThreads / kPerK);
+      const int64_t gr = r0 + row_t, gk = k0 + k, left = rows - gr;
+      const int bytes = gk < depth && left > 0 ? static_cast<int>(left < 4 ? left : 4) * 4 : 0;
+      copy16(s + k * kLD + row_t, bytes ? p + gk * v.sk + gr : p, bytes);
+    }
+  } else if constexpr (M == kKMajor) {  // whole 32-byte sectors, 32 distinct banks
+    const int row_t = (t / 32) * 4 + (t % 32) / 8, k_t = t % 8;
+#pragma unroll
+    for (int i = 0; i < ROWS * kBK / kThreads; ++i) {
+      const int dr = (i / (kBK / 8)) * (kThreads / 8), dk = (i % (kBK / 8)) * 8;
+      const int64_t gr = r0 + row_t + dr, gk = k0 + k_t + dk;
+      const bool valid = gr < rows && gk < depth;
+      copy4(s + (k_t + dk) * kLD + row_t + dr, valid ? p + gr * v.sr + gk : p, valid);
+    }
+  } else {  // rolled: more live addresses would spill at a register cap
+#pragma unroll 1
+    for (int i = 0; i < ROWS * kBK / kThreads; ++i) {
+      const int row = t % ROWS, k = t / ROWS + i * (kThreads / ROWS);
+      const int64_t gr = r0 + row, gk = k0 + k;
+      const bool valid = gr < rows && gk < depth;
+      copy4(s + k * kLD + row, valid ? p + gr * v.sr + gk * v.sk : p, valid);
+    }
+  }
+}
+
+template <int MA, int MB>
+__global__ void __launch_bounds__(kThreads, MATMUL_MIN_BLOCKS)
     matmul_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                       float* __restrict__ c, Dims d, View va, View vb) {
-  __shared__ __align__(16) float as[2][kBK][kLD];
-  __shared__ __align__(16) float bs[2][kBK][kLD];
+                       float* __restrict__ c, Dims d, View va, View vb, bool vec_store) {
+  extern __shared__ float4 smem[];
+  float* stages = reinterpret_cast<float*>(smem);  // [kStages][a: kBK x kLDA, b: kBK x kLDB]
 
   const int64_t batch = blockIdx.z;
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
@@ -117,75 +165,111 @@ __global__ void __launch_bounds__(kThreads, 2)
   b += batch * vb.sb;
   c += batch * d.m * d.n;
 
-  const int tx = threadIdx.x % 16;  // column group
-  const int ty = threadIdx.x / 16;  // row group
+  // warp w owns rows 32 (w / kWarpsN) .. +32 and columns 8 kTN (w % kWarpsN)
+  // .. +8 kTN; lane (lane / 8, lane % 8) holds rows rm + {0..3} and rm + 16
+  // + {0..3}, columns cn + 32q + {0..3} for q < kTN / 4
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rm = (warp / kWarpsN) * 32 + (lane / 8) * 4;
+  const int cn = (warp % kWarpsN) * 8 * kTN + (lane % 8) * 4;
 
-  float acc[8][8];
+  float acc[8][kTN];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
 
-  // b is staged as rows n, so its view swaps (k, n) to (n, k)
-  const View vbt{vb.sb, vb.sc, vb.sr};
-  const Staging<AK> sa(va);
-  const Staging<BK> sb(vbt);
-  float ra[kLoads], rb[kLoads];
   const int64_t chunks = (d.k + kBK - 1) / kBK;
-  if (chunks > 0) {
-    sa.load(a, va, m0, 0, d.m, d.k, ra);
-    sb.load(b, vbt, n0, 0, d.n, d.k, rb);
-    sa.store(as[0], ra);
-    sb.store(bs[0], rb);
-  }
-  __syncthreads();
-
-  for (int64_t ch = 0; ch < chunks; ++ch) {
-    const int cur = static_cast<int>(ch & 1);
-    const bool more = ch + 1 < chunks;
-    if (more) {  // the next chunk's global loads overlap this chunk's products
-      sa.load(a, va, m0, (ch + 1) * kBK, d.m, d.k, ra);
-      sb.load(b, vbt, n0, (ch + 1) * kBK, d.n, d.k, rb);
+  auto stage = [&](int64_t ch) { return stages + static_cast<int>(ch % kStages) * kStage; };
+  auto load = [&](int64_t ch) {
+    load_chunk<MA, kBM>(stage(ch), a, va, m0, ch * kBK, d.m, d.k);
+    load_chunk<MB, kBN>(stage(ch) + kBK * kLDA, b, vb, n0, ch * kBK, d.n, d.k);
+  };
+  // this thread's operands at k = kk of a stage: 8 values of a, kTN of b
+  float av[2][8], bv[2][kTN];
+  auto fetch = [&](const float* s, int kk, float (&x)[8], float (&y)[kTN]) {
+    const float4 a0 = *reinterpret_cast<const float4*>(s + kk * kLDA + rm);
+    const float4 a1 = *reinterpret_cast<const float4*>(s + kk * kLDA + rm + 16);
+    x[0] = a0.x, x[1] = a0.y, x[2] = a0.z, x[3] = a0.w;
+    x[4] = a1.x, x[5] = a1.y, x[6] = a1.z, x[7] = a1.w;
+#pragma unroll
+    for (int q = 0; q < kTN / 4; ++q) {
+      const float4 t = *reinterpret_cast<const float4*>(s + kBK * kLDA + kk * kLDB + cn + 32 * q);
+      y[4 * q] = t.x, y[4 * q + 1] = t.y, y[4 * q + 2] = t.z, y[4 * q + 3] = t.w;
     }
+  };
+
+#pragma unroll
+  for (int ch = 0; ch < kStages - 1; ++ch) {
+    if (ch < chunks) load(ch);
+    commit();  // empty groups keep the count uniform
+  }
+  for (int64_t ch = 0; ch < chunks; ++ch) {
+    wait_pending<kStages - 2>();  // chunk ch has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; and stage ch - 1 is free
+    const float* s = stage(ch);
+    fetch(s, 0, av[0], bv[0]);  // read before the copies are issued
+    if (ch + kStages - 1 < chunks) load(ch + kStages - 1);
+    commit();
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[cur][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[cur][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[cur][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[cur][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      const int cur = kk % 2;  // the operands of k = kk
+      if (kk + 1 < kBK)        // the other set fills while these FMAs run
+        fetch(s, kk + 1, av[cur ^ 1], bv[cur ^ 1]);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[cur][i], bv[cur][j], acc[i][j]);
     }
-    if (more) {  // the other buffer was last read before the previous barrier
-      sa.store(as[cur ^ 1], ra);
-      sb.store(bs[cur ^ 1], rb);
-    }
-    __syncthreads();
   }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int64_t gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const int64_t gm = m0 + rm + (i < 4 ? i : 12 + i);
     if (gm >= d.m) continue;
+    float* row = c + gm * d.n;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int64_t gn = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (gn < d.n) c[gm * d.n + gn] = acc[i][j];
+    for (int q = 0; q < kTN / 4; ++q) {
+      const int64_t gn = n0 + cn + 32 * q;
+      if (vec_store && gn + 3 < d.n) {
+        *reinterpret_cast<float4*>(row + gn) =
+            make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gn + j < d.n) row[gn + j] = acc[i][4 * q + j];
     }
   }
 }
 
-template <bool AK, bool BK>
+template <int MA, int MB>
 int launch(const float* a, const float* b, float* c, const Dims& d, const View& va,
-           const View& vb, cudaStream_t s) {
+           const View& vb, bool vec_store, cudaStream_t s) {
+  auto kernel = matmul_tile_kernel<MA, MB>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((d.n + kBN - 1) / kBN),
                   static_cast<unsigned>((d.m + kBM - 1) / kBM), static_cast<unsigned>(d.r));
-  matmul_tile_kernel<AK, BK><<<grid, kThreads, 0, s>>>(a, b, c, d, va, vb);
+  kernel<<<grid, kThreads, kSmemBytes, s>>>(a, b, c, d, va, vb, vec_store);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int MA>
+int launch_b(int mb, const float* a, const float* b, float* c, const Dims& d, const View& va,
+             const View& vb, bool vec_store, cudaStream_t s) {
+  switch (mb) {
+    case kRowVec: return launch<MA, kRowVec>(a, b, c, d, va, vb, vec_store, s);
+    case kKMajor: return launch<MA, kKMajor>(a, b, c, d, va, vb, vec_store, s);
+    default: return launch<MA, kRowScalar>(a, b, c, d, va, vb, vec_store, s);
+  }
+}
+
+// How an operand's chunks are copied (see Mode).
+int mode_of(const float* p, const View& v) {
+  if (v.sr == 1 && reinterpret_cast<uintptr_t>(p) % 16 == 0 && v.sk % 4 == 0 && v.sb % 4 == 0)
+    return kRowVec;
+  return v.sk == 1 ? kKMajor : kRowScalar;
 }
 
 }  // namespace
@@ -201,16 +285,16 @@ int bagua_matmul_tile(const float* a, const float* b, float* c, const int64_t* d
       (d.n + kBN - 1) / kBN > 0x7fffffffLL || (d.m + kBM - 1) / kBM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const View va{strides[0], strides[1], strides[2]};
-  const View vb{strides[3], strides[4], strides[5]};
+  const View vb{strides[3], strides[5], strides[4]};  // b as (batch, n, k)
+  // float4 stores where every row of every batch entry starts 16-byte aligned
+  const bool vec_store = reinterpret_cast<uintptr_t>(c) % 16 == 0 && d.n % 4 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // coalesce along the dim with stride 1: a's k (row-major x, g) or m (x^T);
-  // b's n (row-major w, g) or k (w^T)
-  const bool ak = va.sc == 1 && va.sr != 1;
-  const bool bk = vb.sr == 1 && vb.sc != 1;
-  if (ak)
-    return bk ? launch<true, true>(a, b, c, d, va, vb, s) : launch<true, false>(a, b, c, d, va, vb, s);
-  return bk ? launch<false, true>(a, b, c, d, va, vb, s)
-            : launch<false, false>(a, b, c, d, va, vb, s);
+  const int mb = mode_of(b, vb);
+  switch (mode_of(a, va)) {
+    case kRowVec: return launch_b<kRowVec>(mb, a, b, c, d, va, vb, vec_store, s);
+    case kKMajor: return launch_b<kKMajor>(mb, a, b, c, d, va, vb, vec_store, s);
+    default: return launch_b<kRowScalar>(mb, a, b, c, d, va, vb, vec_store, s);
+  }
 }
 
 }  // extern "C"

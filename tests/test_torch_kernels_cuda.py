@@ -153,6 +153,10 @@ def attention_inputs(device, b, tq, tk, h, h_kv, d, kind, kv_dtype=torch.float32
     elif kind == "firstcol":  # only the first key survives
         mask = torch.zeros((b, tq, tk), dtype=torch.bool, device=device)
         mask[:, :, 0] = True
+    elif kind == "gaps":  # q tiles 1 and 3 of 64 rows dead: live tiles not contiguous
+        mask = torch.rand((b, tq, tk), generator=gen, device=device) < 0.5
+        mask[:, 64:128] = False
+        mask[:, 192:256] = False
     else:
         mask = torch.rand((b, tq, tk), generator=gen, device=device) < 0.5
         mask[:, 1] = False  # a fully masked row
@@ -170,6 +174,14 @@ ATTENTION_CASES = [
     (1, 96, 80, 8, 2, 128, "causal", torch.bfloat16),
     (1, 50, 70, 2, 1, 8, "random", torch.float16),
     (2, 64, 64, 2, 2, 32, "dead", torch.float32),
+    # the dk/dv kernel's staging: tq not a multiple of its 64-query step; live
+    # q tiles with dead ones between (a wrongly prefetched tile would show);
+    # GQA g = 4 with bf16 K/V at d 128; rows off 16-byte boundaries (4-byte
+    # copies of q and do, byte reads of the mask)
+    (1, 100, 128, 2, 2, 128, "causal", torch.float32),
+    (1, 320, 128, 4, 2, 64, "gaps", torch.float32),
+    (1, 128, 128, 8, 2, 128, "causal", torch.bfloat16),
+    (1, 70, 90, 3, 1, 7, "random", torch.float32),
 ]
 
 
@@ -189,14 +201,19 @@ def test_flash_attention_kernels_match_plain(cuda_device, case):
         dq = fa.flash_attention_bwd_dq(qf, k, v, mask, m, dl, do)
         dk, dv = fa.flash_attention_bwd_dkv(qf, k, v, mask, m, dl, do)
         dq_w = fa.flash_attention_bwd_dq_plain(qf, k, v, mask, m, dl, do)
-        dk_w, dv_w = fa.flash_attention_bwd_dkv_plain(qf, k, v, mask, m, dl, do)
+        # dk and dv against the f32 values that the K/V type rounds (K/V
+        # widened exactly): a bf16 or f16 result may round the other way
+        # than the plain version's own cast, so it is held to the value
+        # itself, within the tolerance plus its one rounding step
+        dk_w, dv_w = fa.flash_attention_bwd_dkv_plain(qf, k.float(), v.float(), mask, m, dl, do)
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     for name, g, w, tol in zip("olm", got, want, (2e-4, 2e-4, 2e-5)):
         assert g.shape == w.shape and close(g, w, tol), name
+    assert dq.dtype == torch.float32 and dk.dtype == dv.dtype == kv_dtype
     for name, g, w in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w)):
-        assert g.shape == w.shape and g.dtype == w.dtype and close(g, w, 3e-4), name
+        assert g.shape == w.shape and close(g, w, 3e-4), name
     if kind == "dead":
         assert torch.all(got[2] == fa.NEG) and not got[0].any() and not got[1].any()
         assert not dq.any() and not dk.any() and not dv.any()
@@ -260,10 +277,14 @@ def matmul_close(got: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> bool:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(9, 7, 10), (1, 1, 1), (16, 32, 48), (300, 1000, 130),
-                                   (128, 4096, 256), (257, 5, 129)])
+                                   (128, 4096, 256), (257, 5, 129),
+                                   (129, 20, 129), (129, 37, 257), (128, 48, 128)])
 def test_matmul_tile_matches_torch(cuda_device, shape):
-    """Edge shapes (ragged m, n and k, tiles larger than the operands), 2-D
-    and as a batch of 3 ranks; one launch per call."""
+    """Edge shapes (ragged m, n and k, tiles larger than the operands; m
+    one past a 128-row tile, n one past 128 and 256 columns; k under one
+    16-deep stage, not a multiple of it, and fewer chunks than the 4
+    pipeline stages), 2-D and as a batch of 3 ranks; a second launch gives
+    the same bits; one launch per call."""
     m, k, n = shape
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     x = torch.randn((3, m, k), generator=gen, device=cuda_device)
@@ -273,24 +294,42 @@ def test_matmul_tile_matches_torch(cuda_device, shape):
     assert got.is_contiguous() and matmul_close(got, x, w)
     one = cm.matmul_tile(x[1], w[1])
     assert torch.equal(one, got[1])  # a rank's result does not depend on the batch
-    assert cm.matmul_tile.launches == 2
+    assert torch.equal(cm.matmul_tile(x, w), got)  # deterministic: no split k, no atomics
+    assert cm.matmul_tile.launches == 3
 
 
 @pytest.mark.cuda
 def test_matmul_tile_reads_strides(cuda_device):
     """The backward's transposed operands, the ring's per-rank block views
-    and an expanded (stride 0) operand go in uncopied and agree."""
+    and an expanded (stride 0) operand go in uncopied and agree; so do all
+    four layouts of (a, b) (each of k or m/n with stride 1), aligned and one
+    element off a 16-byte boundary (no 16-byte copies), and views with no
+    dim of stride 1."""
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     x = torch.randn((4, 96, 200), generator=gen, device=cuda_device)
     w = torch.randn((4, 200, 72), generator=gen, device=cuda_device)
     g = torch.randn((4, 96, 72), generator=gen, device=cuda_device)
+
+    def layout(shape, transposed, offset):
+        """A (4, *shape) operand: row-major or a transposed view, starting
+        `offset` elements into its storage."""
+        rows, cols = shape[::-1] if transposed else shape
+        t = torch.randn(4 * rows * cols + offset, generator=gen, device=cuda_device)[offset:]
+        t = t.view(4, rows, cols)
+        return t.transpose(1, 2) if transposed else t
+
     cases = [
         (g, w.transpose(1, 2)),                  # dx = g . w^T
         (x.transpose(1, 2), g),                  # dw = x^T . g
         (x[:, 32:64], w),                        # a row block of every rank
         (x.transpose(1, 2)[:, 7:150], x[:, :, 7:150]),  # both transposed, offset
         (x[:1].expand(4, -1, -1), w),            # batch stride 0
+        (x[:, :, ::2], w[:, ::2]),               # no dim of stride 1
     ]
+    for ta in (False, True):
+        for tb in (False, True):
+            for offset in (0, 1):
+                cases.append((layout((131, 45), ta, offset), layout((45, 133), tb, offset)))
     for a, b in cases:
         got = cm.matmul_tile(a, b)
         torch.cuda.synchronize()
