@@ -26,10 +26,11 @@ wrapper                                     replaces the Pallas kernel
 :func:`matmul_tile`                         ``_matmul_kernel`` (pallas_call :299)
 ==========================================  ================================
 
-:func:`matmul_tile` runs ``csrc/collective_matmul.cu`` on CUDA f32 tensors,
-raises for other types there, and runs :func:`matmul_tile_plain` on CPU
-tensors (any type, as ``jnp.dot`` does).  :class:`TileMatmulFn` is its
-gradient, through the same kernel.  The JAX package's ``use_pallas``
+:func:`matmul_tile` runs ``csrc/collective_matmul.cu`` on CUDA f32 tensors
+and :func:`matmul_tile_plain` on CPU tensors.  Other types (bf16, f16,
+f64) take ``x @ w`` on either device, as the reference's
+``matmul_tile_pallas`` sends them to ``jnp.dot`` outside its kernel.
+:class:`TileMatmulFn` is its gradient, by the same rule.  The JAX package's ``use_pallas``
 switch, its evidence gate and ``get_collective_matmul`` are not carried
 over: dispatch is by device, so the rings always take :func:`matmul_tile`.
 """
@@ -73,8 +74,15 @@ def matmul_tile(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in f32 through the tile kernel, one launch for every batch
     entry: ``(m, k) @ (k, n)`` or ``(R, m, k) @ (R, k, n)``.  Both operands
     are read through their strides (transposed views need no copy); the
-    result is contiguous.  CPU tensors take :func:`matmul_tile_plain`."""
-    if x.device.type == "cpu":
+    result is contiguous.  CPU tensors take :func:`matmul_tile_plain`.
+
+    The kernel takes f32 operands only.  Operands that are not both f32
+    take ``x @ w`` (:func:`matmul_tile_plain`) on either device, decided by
+    dtype before any launch, with no launch counted: the reference's rule,
+    whose ``matmul_tile_pallas`` returns ``jnp.dot(x, w)`` for them outside
+    its Pallas kernel (``bagua_tpu/kernels/collective_matmul.py:247-248,
+    262-263``)."""
+    if x.device.type == "cpu" or x.dtype != torch.float32 or w.dtype != torch.float32:
         return matmul_tile_plain(x, w)
     what = "matmul_tile"
     if x.device.type != "cuda" or w.device != x.device:
@@ -84,9 +92,6 @@ def matmul_tile(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             or x.shape[:-2] != w.shape[:-2]:
         raise ValueError(f"{what}: expected (m, k) @ (k, n) or (R, m, k) @ (R, k, n), got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise NotImplementedError(f"{what}: the CUDA kernel takes float32 operands, got {x.dtype} "
-                                  f"and {w.dtype}")
     x3, w3 = (x[None], w[None]) if x.dim() == 2 else (x, w)
     R, m, k = x3.shape
     n = w3.shape[2]
@@ -111,9 +116,10 @@ KERNELS = (matmul_tile,)
 
 class TileMatmulFn(torch.autograd.Function):
     """Differentiable :func:`matmul_tile`, the twin of ``_tile_matmul``'s
-    ``custom_vjp``: ``dx = g . w^T`` and ``dw = x^T . g`` through the same
-    kernel, on transposed views.  Only the products that
-    ``ctx.needs_input_grad`` asks for launch (XLA drops the unused half)."""
+    ``custom_vjp``: ``dx = g . w^T`` and ``dw = x^T . g`` through
+    :func:`matmul_tile` on transposed views (the kernel for f32, ``x @ w``
+    for other types).  Only the products that ``ctx.needs_input_grad`` asks
+    for run (XLA drops the unused half)."""
 
     @staticmethod
     def forward(ctx, x, w):

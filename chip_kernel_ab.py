@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times two versions of the port's tile GEMM and flash-attention dk/dv
+"""Times two versions of the port's tile GEMM and three flash-attention
 kernels on one card, in turns, at the main paths' shapes.
 
     git archive <commit> | tar -x -C _chipcheck/parent
@@ -15,11 +15,14 @@ its ``nvcc`` flags (space-separated; ``-DMATMUL_MIN_BLOCKS=1`` is
 source) and times it beside the others.  Every timing is ``chip_smoke``'s
 ``median_ms``, taken in the order parent, this tree, this tree, parent (and
 each variant after), at each of path (a)'s five tile products
-(``chip_smoke.sp_mlp_gemms``) and each distinct block of the Llama sp 4
-slice (``chip_smoke.zigzag_pair_masks``), then summed per step as
-``chip_smoke.py`` sums them.  Each library's output is first held to
-``chip_smoke.py``'s gates (``matmul_tol``; ``ATTENTION_TOLS``).  Prints each build's ``ptxas`` lines, one line
-per shape and one JSON line of the sums; exits non-zero without a card.
+(``chip_smoke.sp_mlp_gemms``) and, for the forward (``block_attention``),
+dq and dk/dv, at each distinct block of the Llama sp 4 slice
+(``chip_smoke.zigzag_pair_masks``), with f32 K/V as the slice runs them
+and again with bf16 K/V; then summed per step as ``chip_smoke.py`` sums
+them.  Each library's output is first held to ``chip_smoke.py``'s gates
+(``matmul_tol``; ``ATTENTION_TOLS``).  Prints each build's ``ptxas``
+lines, one line per shape and one JSON line of the sums; exits non-zero
+without a card.
 """
 
 import argparse
@@ -102,15 +105,15 @@ def gemm_cases(device):
         yield name, per_step, x, w
 
 
-def attention_cases(device):
+def attention_cases(device, kv_dtype=torch.float32):
     """The Llama sp 4 slice's distinct blocks, with the calls a step makes of
-    each, as chip_smoke's attention phase builds them."""
+    each, as chip_smoke's attention phase builds them (K/V in ``kv_dtype``)."""
     cfg = cs.llama_slice_config()
     h, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
     t2 = cs.LLAMA_SEQ // (2 * cs.RANKS)
     gen = torch.Generator(device=device).manual_seed(4)
     qf, k, v, dl, do = cs.attention_inputs(gen, device, cs.RANKS * cs.LLAMA_BATCH, t2, t2, h,
-                                           cfg.num_kv_heads, d)
+                                           cfg.num_kv_heads, d, kv_dtype)
     blocks = {}
     for mask in cs.zigzag_pair_masks(cs.RANKS, t2, device):
         key = mask.cpu().numpy().tobytes()
@@ -176,16 +179,26 @@ def main(argv) -> int:
             record("matmul_tile", case, per_step,
                    turns(libs["collective_matmul"], cm, lambda: cm.matmul_tile(x, w), check_gemm))
             del x, w, want
-        for case, per_step, args_ in attention_cases(device):
-            want = fa.flash_attention_bwd_dkv_plain(*args_)
+        for kv_dtype, suffix in ((torch.float32, ""), (torch.bfloat16, " (bf16 K/V)")):
+            for case, per_step, args_ in attention_cases(device, kv_dtype):
+                for kernel, plain, n_args in ((fa.block_attention, fa.block_attention_plain, 4),
+                                              (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain, 7),
+                                              (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain, 7)):
+                    name, call_args = kernel.__name__, args_[:n_args]
+                    # against the f32 values (K/V widened exactly): a bf16 dk or dv may
+                    # round the other way than the plain version's own cast
+                    want = plain(*(a.float() if i in (1, 2) else a for i, a in enumerate(call_args)))
+                    want = want if isinstance(want, tuple) else (want,)
 
-            def check_dkv(who, got):
-                if not all(cs.close(g, w, tol) for g, w, tol in
-                           zip(got, want, cs.ATTENTION_TOLS["flash_attention_bwd_dkv"])):
-                    raise AssertionError(f"{who} flash_attention_bwd_dkv on {case}: outside the tolerance")
+                    def check(who, got):
+                        got = got if isinstance(got, tuple) else (got,)
+                        if not all(g.shape == w.shape and cs.close(g, w, tol) for g, w, tol in
+                                   zip(got, want, cs.ATTENTION_TOLS[name])):
+                            raise AssertionError(f"{who} {name} on {case}{suffix}: outside the tolerance")
 
-            record("flash_attention_bwd_dkv", case, per_step,
-                   turns(libs["flash_attention"], fa, lambda: fa.flash_attention_bwd_dkv(*args_), check_dkv))
+                    record(name + suffix, case, per_step,
+                           turns(libs["flash_attention"], fa, lambda: kernel(*call_args), check))
+                    del want
     cs.log(smi)
     print(json.dumps({"per_step_ms": sums, "note": "sum over a step of the faster of each "
                       "version's timings at each shape"}), flush=True)

@@ -20,7 +20,8 @@ and no result line:
    collective-matmul rings within ``matmul_tol`` of ``x @ w`` (path (a)'s
    five products, the backward's through transposed views, the rings'
    row-block views; edge shapes; a rank batch with a stride-0 operand),
-   a tolerance that TF32-rounded inputs miss at path (a)'s shapes.
+   a tolerance that TF32-rounded inputs miss at path (a)'s shapes; bf16,
+   f16 and f64 operands take ``x @ w`` with no launch (the reference's rule).
    Times them with CUDA events (the median of 5 batches of 10 back-to-back
    calls, each batch enqueued while the card is kept busy, after 3 warm-up
    calls) beside the least time the card could take (bytes over 3.35 TB/s,
@@ -647,6 +648,15 @@ def phase_matmul_kernels(ledger: Ledger, device) -> None:
         x = torch.randn((1, 300, 1000), generator=gen, device=device).expand(3, -1, -1)
         w = torch.randn((3, 1000, 130), generator=gen, device=device)
         shares["3 ranks, stride-0 x"] = ledger.compare_matmul("3 ranks, stride-0 x", x, w)
+        # the reference's dtype rule: operands that are not both f32 take
+        # x @ w (jnp.dot there) and launch nothing
+        launches = cm.matmul_tile.launches
+        for dtype in (torch.bfloat16, torch.float16, torch.float64):
+            xd, wd = x[:, :40, :64].to(dtype), w[:, :64, :56].to(dtype)
+            if not same(cm.matmul_tile(xd, wd), xd @ wd):
+                raise AssertionError(f"matmul_tile on {dtype} operands is not x @ w")
+        if cm.matmul_tile.launches != launches:
+            raise AssertionError("matmul_tile launched its f32 kernel for other types")
     row = ledger.rows["matmul_tile"]
     log(f"[kernels] matmul_tile: {row['checks']} comparisons within {matmul_tol(1):.3e} sqrt(K) "
         f"(|x| |w|) (max abs error {row['max_abs_err']:.3e}, at most {max(shares.values()):.2e} of "

@@ -17,6 +17,7 @@ from bagua_tpu_torch.kernels import flash_attention as fa
 from bagua_tpu_torch.kernels import minmax_uint8 as port
 from bagua_tpu_torch.kernels import quantized_ring as qr
 from bagua_tpu_torch.parallel.ring_attention import ring_attention
+from bagua_tpu_torch.parallel.tensor_parallel import ColumnParallelDense, RowParallelDense
 
 
 @pytest.fixture()
@@ -157,6 +158,13 @@ def attention_inputs(device, b, tq, tk, h, h_kv, d, kind, kv_dtype=torch.float32
         mask = torch.rand((b, tq, tk), generator=gen, device=device) < 0.5
         mask[:, 64:128] = False
         mask[:, 192:256] = False
+    elif kind == "keygaps":  # k tiles 1 and 3 dead for every query: live k tiles not contiguous
+        mask = torch.rand((b, tq, tk), generator=gen, device=device) < 0.5
+        mask[:, :, 64:128] = False
+        mask[:, :, 192:256] = False
+    elif kind == "deadqtile":  # queries 128:256 see no key, beside live ones
+        mask = torch.rand((b, tq, tk), generator=gen, device=device) < 0.5
+        mask[:, 128:256] = False
     else:
         mask = torch.rand((b, tq, tk), generator=gen, device=device) < 0.5
         mask[:, 1] = False  # a fully masked row
@@ -182,6 +190,20 @@ ATTENTION_CASES = [
     (1, 320, 128, 4, 2, 64, "gaps", torch.float32),
     (1, 128, 128, 8, 2, 128, "causal", torch.bfloat16),
     (1, 70, 90, 3, 1, 7, "random", torch.float32),
+    # the forward's and dq's staging of k tiles: live k tiles with dead ones
+    # between (a wrongly prefetched K/V tile would show); tk not a multiple
+    # of 64 with aligned views; 128 queries whose keys are all dead beside
+    # live ones (a dead CTA of each kernel); GQA g = 4 with bf16 K/V at d 128 over 4 k
+    # tiles (the stages alternate more than once); bf16 rows 16-byte aligned
+    # with d not a multiple of 8; K/V rows off 16-byte boundaries (4-byte
+    # copies of f32, plain loads of f16)
+    (1, 128, 320, 2, 2, 64, "keygaps", torch.float32),
+    (1, 128, 208, 2, 1, 128, "random", torch.float32),
+    (1, 320, 192, 2, 2, 64, "deadqtile", torch.float32),
+    (1, 128, 256, 8, 2, 128, "causal", torch.bfloat16),
+    (1, 64, 130, 2, 2, 24, "random", torch.bfloat16),
+    (1, 64, 200, 2, 1, 6, "random", torch.float32),
+    (1, 70, 150, 2, 1, 7, "random", torch.float16),
 ]
 
 
@@ -217,6 +239,9 @@ def test_flash_attention_kernels_match_plain(cuda_device, case):
     if kind == "dead":
         assert torch.all(got[2] == fa.NEG) and not got[0].any() and not got[1].any()
         assert not dq.any() and not dk.any() and not dv.any()
+    if kind == "deadqtile":
+        o, l, m = (t[:, :, 128:256] for t in got)
+        assert torch.all(m == fa.NEG) and not o.any() and not l.any() and not dq[:, 128:256].any()
     assert [fn.launches for fn in fa.KERNELS] == [1, 1, 1]
 
 
@@ -345,11 +370,44 @@ def test_matmul_tile_reads_strides(cuda_device):
 
 
 @pytest.mark.cuda
-def test_matmul_tile_refuses_other_types(cuda_device):
-    x = torch.randn((8, 8), device=cuda_device)
+def test_matmul_tile_other_types_take_x_at_w(cuda_device):
+    """Operands that are not both f32 take ``x @ w`` on the card, the same
+    dtype and bits, with no launch: the reference's ``matmul_tile_pallas``
+    sends them to ``jnp.dot`` outside its kernel.  A fused bf16
+    Row(scatter_output) -> Column(gather_input) pair over tp 2 runs forward
+    and backward on the card and agrees with the same pair on the CPU:
+    outputs and gradients within 2^-5 of each tensor's largest magnitude (8
+    bf16 rounding steps there; the two devices accumulate each product's
+    f32 sums in other orders before rounding to bf16)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn((3, 40, 24), generator=gen, device=cuda_device)
+    w = torch.randn((3, 24, 56), generator=gen, device=cuda_device)
     for dtype in (torch.bfloat16, torch.float16, torch.float64):
-        with pytest.raises(NotImplementedError, match="float32"):
-            cm.matmul_tile(x.to(dtype), x.to(dtype))
+        a, b = x.to(dtype), w.to(dtype)
+        got = cm.matmul_tile(a, b)
+        assert got.dtype == dtype and torch.equal(got, a @ b)
+        assert torch.equal(cm.matmul_tile(a[0], b[0].t().contiguous().t()), a[0] @ b[0])
+
+    tp, tokens = 2, 32
+    cpu = torch.Generator().manual_seed(9)
+    leaves = {"row": (torch.randn((tp, 16, 24), generator=cpu), torch.randn((tp, 24), generator=cpu)),
+              "col": (torch.randn((tp, 24, 16), generator=cpu), torch.randn((tp, 16), generator=cpu))}
+    x = torch.randn((tp, tokens, 16), generator=cpu)
+    outs = []
+    for device in (cuda_device, torch.device("cpu")):
+        kw = dict(fused=True, dtype=torch.bfloat16, group=BaguaProcessGroup([device] * tp), device=device)
+        row = RowParallelDense(16, 24, tp, "intra", scatter_output=True, **kw)
+        col = ColumnParallelDense(24, 32, tp, "intra", gather_input=True, **kw)
+        params = {name: {"kernel": k.to(device, torch.bfloat16).requires_grad_(),
+                         "bias": b.to(device, torch.bfloat16).requires_grad_()}
+                  for name, (k, b) in leaves.items()}
+        y = col(params["col"], row(params["row"], x.to(device)))
+        (y.float() ** 2).sum().backward()
+        outs.append([y.detach()] + [t.grad for p in params.values() for t in p.values()])
+    for g, want in zip(*outs):
+        assert g.dtype == want.dtype == torch.bfloat16 and g.shape == want.shape
+        g, want = g.cpu().float(), want.float()
+        assert (g - want).abs().max() <= 2.0 ** -5 * want.abs().max()
     assert cm.matmul_tile.launches == 0
 
 

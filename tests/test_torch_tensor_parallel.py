@@ -109,17 +109,20 @@ class JaxPair(fnn.Module):
 
     tp: int
     fused: object
+    dtype: object = jnp.float32
 
     @fnn.compact
     def __call__(self, x):
-        y = jtp.RowParallelDense(12, self.tp, "tp", fused=self.fused, scatter_output=True)(x)
-        return jtp.ColumnParallelDense(8, self.tp, "tp", fused=self.fused, gather_input=True)(y)
+        y = jtp.RowParallelDense(12, self.tp, "tp", fused=self.fused, scatter_output=True,
+                                 dtype=self.dtype)(x)
+        return jtp.ColumnParallelDense(8, self.tp, "tp", fused=self.fused, gather_input=True,
+                                       dtype=self.dtype)(y)
 
 
 class PortPair(torch.nn.Module):
-    def __init__(self, tp, fused, k_local):
+    def __init__(self, tp, fused, k_local, dtype=torch.float32):
         super().__init__()
-        kw = dict(group=tgroup(tp), device="cpu")
+        kw = dict(group=tgroup(tp), device="cpu", dtype=dtype)
         self.RowParallelDense_0 = ttp.RowParallelDense(k_local, 12, tp, "intra", fused=fused,
                                                        scatter_output=True, **kw)
         self.ColumnParallelDense_0 = ttp.ColumnParallelDense(12, 8, tp, "intra", fused=fused,
@@ -146,6 +149,41 @@ def test_sequence_parallel_pair_matches_jax(tp, fused):
     assert got.shape == (tp, 8, 8 // tp)
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     assert_grads(grads, want_grads)
+
+
+#: bf16 parity: every element within 2^-5 of its tensor's largest magnitude,
+#: 8 bf16 rounding steps (2^-8 relative) there.  Both frameworks round each
+#: product and each ring add to bf16, but accumulate the f32 dot products in
+#: other orders, so a rounding can go the other way and carry through the
+#: following products; a wrong product or ring order misses by O(1).
+BF16_TOL = 2.0 ** -5
+
+
+def test_sequence_parallel_pair_bf16_matches_jax():
+    """The fused Row(scatter_output) -> Column(gather_input) pair in bf16 over
+    tp 2: every ring step's tile product of bf16 operands is ``x @ w`` in the
+    port, as ``matmul_tile_pallas`` sends them to ``jnp.dot`` in the
+    reference.  Outputs and parameter gradients in bf16 within BF16_TOL."""
+    tp = 2
+    x = np.random.RandomState(12).randn(8, 20).astype(np.float32)
+    k_local = 20 // tp
+    jpair = JaxPair(tp, True, jnp.bfloat16)
+    trees = [jax.tree.map(lambda a: np.asarray(a).astype(jnp.bfloat16), t)
+             for t in per_rank_params(jpair, jnp.asarray(x[:, :k_local]), tp)]
+    want, want_grads = jax_run(jpair, trees, x, tp, P(None, "tp"), P("tp"))
+    assert want.dtype == jnp.bfloat16
+    params = tree_map(lambda t: t.to(torch.bfloat16).requires_grad_(), stacked_params_from_jax(
+        [jax.tree.map(lambda a: a.astype(np.float32), t) for t in trees]))
+    out = PortPair(tp, True, k_local, torch.bfloat16)(params, torch.from_numpy(np.stack(np.split(x, tp, axis=1))))
+    (out ** 2).sum().backward()
+    assert out.dtype == torch.bfloat16 and out.shape == (tp, 8, 8 // tp)
+    assert [n for n, _ in tree_flatten_with_names(params)] == \
+        [jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_flatten_with_path(want_grads)[0]]
+    got = [out.detach()] + [t.grad for t in tree_leaves(params)]
+    wants = [want] + jax.tree.leaves(want_grads)
+    for g, w in zip(got, wants):
+        g, w = g.float().numpy(), np.asarray(w, dtype=np.float32)
+        np.testing.assert_allclose(g, w, rtol=0, atol=BF16_TOL * np.abs(w).max())
 
 
 def test_indivisible_tokens_fall_back_or_raise():
