@@ -19,20 +19,43 @@
 // Design.  The TPU kernels hold a whole chunk in VMEM for one grid step; on
 // this card a chunk reaches 25.7 M elements (VGG16's Dense_0 kernel split 4
 // ways), far beyond a block's shared memory, so a chunk-wide min/max needs a
-// reduction across blocks.  Each call is split into passes over tiles of
-// kTile elements of one row (one block per tile, no atomics, deterministic):
+// reduction across blocks (no atomics; deterministic: min/max do not depend
+// on the order they fold in).
 //   compress   (3 launches): tile min/max -> finish per row (min/max, scale,
-//                            upper) -> quantize tile by tile
+//                            upper) -> quantize tile by tile (kTile a block)
 //   decompress (1 launch):   elementwise, each block computes its row's scale
-//   fused      (3 launches): dequantize the n peers, sum them left to right
-//                            in peer order (/ n when averaging) into an f32
-//                            scratch with tile min/max -> finish per row ->
-//                            quantize the scratch
-// Bound: all three are bounded by device-memory bytes.  Least bytes per
-// element of a chunk: compress 4 in + 1 out, decompress 1 in + 4 out, fused
-// n in + 1 out.  Bytes actually moved: compress reads x twice (9 B/elem);
-// the fused path writes and re-reads its f32 scratch, 8 B per element of the
-// reduced chunk beyond the bound.  Cutting that extra traffic is later work.
+//   fused      (2 launches, 1 for a chunk of one 4096-element tile): below
+// Bound: device-memory bytes.  Least bytes per element of a chunk: compress
+// 4 in + 1 out, decompress 1 in + 4 out, fused n in + 1 out.  Compress reads
+// x twice (9 B an element); decompress moves its 5.
+//
+// The fused reduce, per element of a rank's chunk (n peers):
+//   * No division.  A peer's dequantized value takes one of 256 values, so
+//     each CTA builds, in shared memory, the table of every peer's 256
+//     values, each entry dequantize() itself (bitwise the division): n KB,
+//     built once a CTA for n <= kGroup = 32, else group by group in
+//     increasing p per tile.  The average divides by n (__fdiv_rn), or
+//     multiplies by 1/n where n is a power of two: the same number.
+//   * A thread holds 16 neighbouring elements: one 16-byte load of each
+//     peer, 4 peers' loads issued together (a byte at a time, 16 strided
+//     elements, where the chunk or a pointer is not 16-byte aligned).
+//   * Pass 1 (fused_sum_minmax) sums the peers left to right from +0 and
+//     folds min/max as integer keys (MinMax: one integer min and max an
+//     element); one partial a CTA.  Pass 2 (fused_quantize): every CTA folds
+//     its rank's partials, then quantizes the sums, recomputed from the u8
+//     inputs by the same operations in the same order for n < 8 (2n + 1
+//     bytes an element: 9 at n = 4), read back from the (R, chunk) f32 red
+//     from n = 8 on (n + 9 bytes; equal at n = 8).
+//   * Each pass runs one wave of 4 CTAs an SM over all ranks (2 for pass 1
+//     storing red, whose group walk needs more registers), each CTA walking
+//     tiles of 4096 elements; a chunk of one tile takes fused_one_tile, one
+//     launch with the sums in registers.
+// ptxas (sm_90a, nvcc 12.8, -fmad=false): the fused kernels use 40-64
+// registers at 4 CTAs an SM (92 for pass 1 storing red), static shared
+// memory 64-80 bytes beside their n KB of tables, and no stack frame and no
+// spill in any instantiation (PERF.md holds the build's lines).
+
+#include <algorithm>
 
 #include "xla_float.cuh"
 
@@ -86,64 +109,346 @@ tile_minmax(const float* __restrict__ x, float2* __restrict__ partial,
   if (threadIdx.x == 0) partial[blockIdx.x] = make_float2(mn, mx);
 }
 
-// Pass 1 of the fused path: dequantize the n peers of one tile of rank r,
-// sum them in peer order, write the f32 result and the tile's min/max.
-// kVec: each thread takes 4 neighbouring elements, one 4-byte load per
-// peer and one 16-byte store; each element's sum is the same sequence of
-// additions either way.
-template <bool kAverage, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-tile_dequant_reduce(const uint8_t* __restrict__ q, const float* __restrict__ minmax,
-                    float* __restrict__ red, float2* __restrict__ partial,
-                    int64_t n, int64_t chunk, int64_t tiles) {
-  extern __shared__ float2 peer[];  // (scale, lower) of each peer
-  const int64_t r = blockIdx.x / tiles;
-  const int64_t begin = (blockIdx.x - r * tiles) * kTile;
-  const int64_t end = tile_end(begin, chunk);
-  for (int64_t p = threadIdx.x; p < n; p += kThreads) {
-    const float pmn = minmax[2 * (r * n + p)], pmx = minmax[2 * (r * n + p) + 1];
-    const float s = safe_scale(pmn, pmx);
-    peer[p] = make_float2(s, __fsub_rn(rintf(__fmul_rn(pmx, s)), kLevels));
+// ---------------------------------------------------------------------------
+// The fused reduce, in two launches with no division per element.
+//
+// Each CTA serves one rank and walks the tiles c, c + ctas, ... of its chunk
+// (kFusedTile elements each, kPer per thread: 16 neighbours, one 16-byte load
+// per peer, or a stride of the block on the scalar path).  A peer's
+// dequantized value takes one of 256 values, so the CTA keeps a table of
+// them in shared memory, each entry dequantize() itself.  Pass 1 sums the
+// peers left to right from +0 and folds the tile min/max into one partial
+// per CTA (and, from kScratchPeers peers on, stores the sums in red); pass 2
+// folds the rank's partials in every CTA, then quantizes the sums, read back
+// from red or recomputed from the u8 inputs by the same operations in the
+// same order.
+// ---------------------------------------------------------------------------
+
+constexpr int kFusedThreads = 256;
+constexpr int kPer = 16;                              // elements a thread holds per tile
+constexpr int64_t kFusedTile = kFusedThreads * kPer;  // 4096 elements of one rank's chunk
+constexpr int kGroup = 32;                            // peers' tables in shared memory at once
+constexpr int kBatch = 4;                             // peers whose loads go out together
+constexpr int kScratchPeers = 8;  // from here on the sums go through red: n + 9 <= 2n + 1 bytes
+static_assert(kScratchPeers <= kGroup, "the recomputing passes build every table at once");
+// CTAs an SM each pass asks registers for, and sizes its grid by: the
+// recomputing passes (knobs for chip_kernel_ab.py --variant), then pass 1
+// storing its sums (which may walk groups of tables) and pass 2 reading them
+#ifndef FUSED_CTAS_PASS1
+#define FUSED_CTAS_PASS1 4
+#endif
+#ifndef FUSED_CTAS_PASS2
+#define FUSED_CTAS_PASS2 4
+#endif
+constexpr int kStoreCtas = 2;
+constexpr int kFromRedCtas = 4;
+constexpr int kMaxCtasPerRank = 1024;
+constexpr int kMaxPeers = 6144;
+
+enum Average { kSum = 0, kDivide = 1, kMultiply = 2 };  // kMultiply: by 1/n, n a power of 2
+
+// Tables of peers p0 .. p0 + cnt - 1: tab[k * 256 + l] = dequantize(l) of
+// peer p0 + k.  Every thread of the CTA calls it.
+__device__ __forceinline__ void build_tables(float* tab, const float* __restrict__ mm, int p0,
+                                             int cnt) {
+  __syncthreads();  // the previous group's lookups are done
+  for (int e = threadIdx.x; e < cnt * 256; e += kFusedThreads) {
+    const int p = p0 + (e >> 8);
+    const float pmx = mm[2 * p + 1];
+    const float s = safe_scale(mm[2 * p], pmx);
+    tab[e] = dequantize(static_cast<uint8_t>(e & 255), s, __fsub_rn(rintf(__fmul_rn(pmx, s)), kLevels));
   }
   __syncthreads();
-  const uint8_t* qr = q + r * n * chunk;
-  float* out = red + r * chunk;
-  const float nf = static_cast<float>(n);
-  float mn = INFINITY, mx = -INFINITY;
+}
+
+// Column of this thread's element k in the tile that starts at begin.
+template <bool kVec>
+__device__ __forceinline__ int64_t column(int64_t begin, int k) {
+  return kVec ? begin + threadIdx.x * kPer + k : begin + k * kFusedThreads + threadIdx.x;
+}
+
+__device__ __forceinline__ void add_levels(float (&acc)[kPer], int k0, uint32_t w, const float* t) {
+  acc[k0] = __fadd_rn(acc[k0], t[w & 0xFFu]);
+  acc[k0 + 1] = __fadd_rn(acc[k0 + 1], t[(w >> 8) & 0xFFu]);
+  acc[k0 + 2] = __fadd_rn(acc[k0 + 2], t[(w >> 16) & 0xFFu]);
+  acc[k0 + 3] = __fadd_rn(acc[k0 + 3], t[w >> 24]);
+}
+
+// acc[k] += peer p's value at column k, for p = p0 .. p0 + cnt - 1 in order.
+template <bool kVec>
+__device__ __forceinline__ void accumulate(float (&acc)[kPer], const uint8_t* __restrict__ qr,
+                                           const float* tab, int p0, int cnt, int64_t chunk,
+                                           int64_t begin, int64_t end) {
   if (kVec) {
-    for (int64_t i = begin / 4 + threadIdx.x; i < end / 4; i += kThreads) {
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int64_t p = 0; p < n; ++p) {
-        const float2 pl = peer[p];
-        const uchar4 v = reinterpret_cast<const uchar4*>(qr + p * chunk)[i];
-        acc.x = __fadd_rn(acc.x, dequantize(v.x, pl.x, pl.y));
-        acc.y = __fadd_rn(acc.y, dequantize(v.y, pl.x, pl.y));
-        acc.z = __fadd_rn(acc.z, dequantize(v.z, pl.x, pl.y));
-        acc.w = __fadd_rn(acc.w, dequantize(v.w, pl.x, pl.y));
+    const int64_t c0 = column<true>(begin, 0);
+    if (c0 >= end) return;
+    int k = 0;
+    for (; k + kBatch <= cnt; k += kBatch) {
+      uint4 v[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        v[b] = *reinterpret_cast<const uint4*>(qr + (p0 + k + b) * chunk + c0);
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const float* t = tab + (k + b) * 256;
+        add_levels(acc, 0, v[b].x, t);
+        add_levels(acc, 4, v[b].y, t);
+        add_levels(acc, 8, v[b].z, t);
+        add_levels(acc, 12, v[b].w, t);
       }
-      if (kAverage) {
-        acc = make_float4(__fdiv_rn(acc.x, nf), __fdiv_rn(acc.y, nf),
-                          __fdiv_rn(acc.z, nf), __fdiv_rn(acc.w, nf));
-      }
-      reinterpret_cast<float4*>(out)[i] = acc;
-      mn = xla::min(xla::min(mn, acc.x), xla::min(acc.y, xla::min(acc.z, acc.w)));
-      mx = xla::max(xla::max(mx, acc.x), xla::max(acc.y, xla::max(acc.z, acc.w)));
+    }
+    for (; k < cnt; ++k) {
+      const uint4 v = *reinterpret_cast<const uint4*>(qr + (p0 + k) * chunk + c0);
+      const float* t = tab + k * 256;
+      add_levels(acc, 0, v.x, t);
+      add_levels(acc, 4, v.y, t);
+      add_levels(acc, 8, v.z, t);
+      add_levels(acc, 12, v.w, t);
     }
   } else {
-    for (int64_t i = begin + threadIdx.x; i < end; i += kThreads) {
-      float acc = 0.0f;
-      for (int64_t p = 0; p < n; ++p) {
-        const float2 pl = peer[p];
-        acc = __fadd_rn(acc, dequantize(qr[p * chunk + i], pl.x, pl.y));
+    for (int k = 0; k < cnt; ++k) {
+      const uint8_t* qp = qr + (p0 + k) * chunk;
+      uint8_t b[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int64_t c = column<false>(begin, i);
+        b[i] = c < end ? qp[c] : 0;
       }
-      if (kAverage) acc = __fdiv_rn(acc, nf);
-      out[i] = acc;
-      mn = xla::min(mn, acc);
-      mx = xla::max(mx, acc);
+      const float* t = tab + k * 256;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) acc[i] = __fadd_rn(acc[i], t[b[i]]);
     }
   }
-  xla::block_minmax<kThreads>(mn, mx);
+}
+
+// The thread's kPer sums of the tile [begin, end) of rank r, [/ n].  With
+// more than kGroup peers the tables are rebuilt group by group (kGroups:
+// the caller may have that many; else n <= kGroup and the tables are built).
+template <bool kVec, bool kGroups>
+__device__ __forceinline__ void tile_sums(float (&acc)[kPer], const uint8_t* __restrict__ qr,
+                                          const float* __restrict__ mm, float* tab, int n,
+                                          int64_t chunk, int64_t begin, int64_t end, int mode,
+                                          float recip) {
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) acc[i] = 0.0f;
+  if (!kGroups || n <= kGroup) {
+    accumulate<kVec>(acc, qr, tab, 0, n, chunk, begin, end);
+  } else {
+    for (int p0 = 0; p0 < n; p0 += kGroup) {
+      const int cnt = n - p0 < kGroup ? n - p0 : kGroup;
+      build_tables(tab, mm, p0, cnt);
+      accumulate<kVec>(acc, qr, tab, p0, cnt, chunk, begin, end);
+    }
+  }
+  if (mode == kDivide) {
+    const float nf = static_cast<float>(n);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[i] = __fdiv_rn(acc[i], nf);
+  } else if (mode == kMultiply) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[i] = __fmul_rn(acc[i], recip);
+  }
+}
+
+__device__ __forceinline__ int64_t fused_end(int64_t begin, int64_t chunk) {
+  return begin + kFusedTile < chunk ? begin + kFusedTile : chunk;
+}
+
+// Running min/max in XLA's order (NaN propagates, -0 below +0).  Each value
+// becomes an integer key that orders as the floats do, -0 below +0 and
+// NaNs beyond the infinities, so an element costs one integer min and one
+// max; get() turns any NaN into both results.
+struct MinMax {
+  static constexpr int32_t kPosInf = 0x7f800000, kNegInf = static_cast<int32_t>(0x807fffff);
+  int32_t lo = kPosInf, hi = kNegInf;
+  __device__ __forceinline__ static int32_t key(float x) {
+    const int32_t b = __float_as_int(x);
+    return b ^ ((b >> 31) & 0x7fffffff);
+  }
+  __device__ __forceinline__ void add(float x) {
+    const int32_t k = key(x);
+    lo = k < lo ? k : lo;
+    hi = k > hi ? k : hi;
+  }
+  __device__ __forceinline__ void get(float& mn, float& mx) const {
+    if (lo < kNegInf || hi > kPosInf) {
+      mn = mx = __int_as_float(0x7fffffff);
+    } else {
+      mn = __int_as_float(lo ^ ((lo >> 31) & 0x7fffffff));
+      mx = __int_as_float(hi ^ ((hi >> 31) & 0x7fffffff));
+    }
+  }
+};
+
+// Folds this thread's sums of the tile [begin, end) into m; kStore: stores
+// them in out.
+template <bool kVec, bool kStore>
+__device__ __forceinline__ void fold_sums(const float (&acc)[kPer], float* __restrict__ out,
+                                          int64_t begin, int64_t end, MinMax& m) {
+  if (kVec) {
+    const int64_t c0 = column<true>(begin, 0);
+    if (c0 >= end) return;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) m.add(acc[i]);
+    if (kStore) {
+      float4* o4 = reinterpret_cast<float4*>(out + c0);
+#pragma unroll
+      for (int j = 0; j < kPer / 4; ++j)
+        o4[j] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int64_t c = column<false>(begin, i);
+      if (c < end) {
+        m.add(acc[i]);
+        if (kStore) out[c] = acc[i];
+      }
+    }
+  }
+}
+
+// Quantizes this thread's sums of the tile [begin, end) with (scale, upper).
+template <bool kVec>
+__device__ __forceinline__ void quantize_sums(const float (&acc)[kPer], uint8_t* __restrict__ qo,
+                                              int64_t begin, int64_t end, float2 p) {
+  if (kVec) {
+    const int64_t c0 = column<true>(begin, 0);
+    if (c0 >= end) return;
+    uint32_t w[kPer / 4];
+#pragma unroll
+    for (int j = 0; j < kPer / 4; ++j)
+      w[j] = static_cast<uint32_t>(quantize(acc[4 * j], p.x, p.y)) |
+             static_cast<uint32_t>(quantize(acc[4 * j + 1], p.x, p.y)) << 8 |
+             static_cast<uint32_t>(quantize(acc[4 * j + 2], p.x, p.y)) << 16 |
+             static_cast<uint32_t>(quantize(acc[4 * j + 3], p.x, p.y)) << 24;
+    *reinterpret_cast<uint4*>(qo + c0) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int64_t c = column<false>(begin, i);
+      if (c < end) qo[c] = quantize(acc[i], p.x, p.y);
+    }
+  }
+}
+
+// Pass 1: the sums of every tile this CTA walks, their min/max folded into
+// partial[blockIdx.x]; kStore: the sums stored in red.
+template <bool kVec, bool kStore>
+__global__ void __launch_bounds__(kFusedThreads, kStore ? kStoreCtas : FUSED_CTAS_PASS1)
+fused_sum_minmax(const uint8_t* __restrict__ q, const float* __restrict__ minmax,
+                 float* __restrict__ red, float2* __restrict__ partial, int n, int64_t chunk,
+                 int64_t tiles, int ctas, int mode, float recip) {
+  extern __shared__ float tab[];
+  const int r = blockIdx.x / ctas;
+  const uint8_t* qr = q + static_cast<int64_t>(r) * n * chunk;
+  const float* mm = minmax + 2LL * r * n;
+  float* out = red + static_cast<int64_t>(r) * chunk;
+  if (n <= kGroup) build_tables(tab, mm, 0, n);
+  MinMax m;
+  for (int64_t t = blockIdx.x - r * ctas; t < tiles; t += ctas) {
+    const int64_t begin = t * kFusedTile, end = fused_end(begin, chunk);
+    float acc[kPer];
+    tile_sums<kVec, kStore>(acc, qr, mm, tab, n, chunk, begin, end, mode, recip);
+    fold_sums<kVec, kStore>(acc, out, begin, end, m);
+  }
+  float mn, mx;
+  m.get(mn, mx);
+  xla::block_minmax<kFusedThreads>(mn, mx);
   if (threadIdx.x == 0) partial[blockIdx.x] = make_float2(mn, mx);
+}
+
+// Pass 2: every CTA folds its rank's parts partials into (scale, upper);
+// the first writes mm_out.  Then the sums of each tile, from red
+// (kFromRed) or recomputed, are quantized.
+template <bool kVec, bool kFromRed>
+__global__ void __launch_bounds__(kFusedThreads, kFromRed ? kFromRedCtas : FUSED_CTAS_PASS2)
+fused_quantize(const uint8_t* __restrict__ q, const float* __restrict__ minmax,
+               const float* __restrict__ red, const float2* __restrict__ partial,
+               uint8_t* __restrict__ q_out, float* __restrict__ mm_out, int n, int64_t chunk,
+               int64_t tiles, int parts, int ctas, int mode, float recip) {
+  extern __shared__ float tab[];
+  __shared__ float2 params;  // (scale, upper)
+  const int r = blockIdx.x / ctas;
+  const int c = blockIdx.x - r * ctas;
+  const uint8_t* qr = q + static_cast<int64_t>(r) * n * chunk;
+  const float* mm = minmax + 2LL * r * n;
+  const float* in = red + static_cast<int64_t>(r) * chunk;
+  uint8_t* qo = q_out + static_cast<int64_t>(r) * chunk;
+  float mn = INFINITY, mx = -INFINITY;
+  for (int i = threadIdx.x; i < parts; i += kFusedThreads) {
+    const float2 p = partial[r * parts + i];
+    mn = xla::min(mn, p.x);
+    mx = xla::max(mx, p.y);
+  }
+  xla::block_minmax<kFusedThreads>(mn, mx);
+  if (threadIdx.x == 0) {
+    const float s = safe_scale(mn, mx);
+    params = make_float2(s, rintf(__fmul_rn(mx, s)));
+    if (c == 0) {
+      mm_out[2 * r] = mn;
+      mm_out[2 * r + 1] = mx;
+    }
+  }
+  if (!kFromRed && n <= kGroup) build_tables(tab, mm, 0, n);  // its barriers publish params
+  else __syncthreads();
+  const float2 p = params;
+  for (int64_t t = c; t < tiles; t += ctas) {
+    const int64_t begin = t * kFusedTile, end = fused_end(begin, chunk);
+    float acc[kPer];
+    if (kFromRed) {
+      if (kVec) {
+        const int64_t c0 = column<true>(begin, 0);
+        if (c0 < end) {
+          const float4* i4 = reinterpret_cast<const float4*>(in + c0);
+#pragma unroll
+          for (int j = 0; j < kPer / 4; ++j) {
+            const float4 v = i4[j];
+            acc[4 * j] = v.x, acc[4 * j + 1] = v.y, acc[4 * j + 2] = v.z, acc[4 * j + 3] = v.w;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int64_t col = column<false>(begin, i);
+          acc[i] = col < end ? in[col] : 0.0f;
+        }
+      }
+    } else {
+      tile_sums<kVec, false>(acc, qr, mm, tab, n, chunk, begin, end, mode, recip);
+    }
+    quantize_sums<kVec>(acc, qo, begin, end, p);
+  }
+}
+
+// A chunk of one tile: one CTA per rank sums, reduces and quantizes it in a
+// single launch, the sums held in registers.
+template <bool kVec>
+__global__ void __launch_bounds__(kFusedThreads)
+fused_one_tile(const uint8_t* __restrict__ q, const float* __restrict__ minmax,
+               uint8_t* __restrict__ q_out, float* __restrict__ mm_out, int n, int64_t chunk,
+               int mode, float recip) {
+  extern __shared__ float tab[];
+  __shared__ float2 params;  // (scale, upper)
+  const int r = blockIdx.x;
+  const uint8_t* qr = q + static_cast<int64_t>(r) * n * chunk;
+  const float* mm = minmax + 2LL * r * n;
+  if (n <= kGroup) build_tables(tab, mm, 0, n);
+  float acc[kPer];
+  tile_sums<kVec, true>(acc, qr, mm, tab, n, chunk, 0, chunk, mode, recip);
+  MinMax m;
+  fold_sums<kVec, false>(acc, nullptr, 0, chunk, m);
+  float mn, mx;
+  m.get(mn, mx);
+  xla::block_minmax<kFusedThreads>(mn, mx);
+  if (threadIdx.x == 0) {
+    const float s = safe_scale(mn, mx);
+    params = make_float2(s, rintf(__fmul_rn(mx, s)));
+    mm_out[2 * r] = mn;
+    mm_out[2 * r + 1] = mx;
+  }
+  __syncthreads();
+  quantize_sums<kVec>(acc, q_out + static_cast<int64_t>(r) * chunk, 0, chunk, params);
 }
 
 // Pass 2: one block per row folds the tiles' min/max and derives the row's
@@ -221,6 +526,17 @@ dequantize_tile(const uint8_t* __restrict__ q, const float* __restrict__ minmax,
 
 int64_t tiles_of(int64_t chunk) { return (chunk + kTile - 1) / kTile; }
 
+int64_t fused_tiles(int64_t chunk) { return (chunk + kFusedTile - 1) / kFusedTile; }
+
+// CTAs a rank for a fused pass: one wave of `resident` CTAs over all ranks at
+// most (kMaxCtasPerRank a rank), each walking the same number of tiles but
+// for the last ones.
+int64_t fused_ctas(int64_t tiles, int64_t ranks, int64_t resident) {
+  const int64_t most = std::min<int64_t>(std::max<int64_t>(resident / ranks, 1), kMaxCtasPerRank);
+  const int64_t walk = (tiles + most - 1) / most;
+  return (tiles + walk - 1) / walk;
+}
+
 bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -234,8 +550,13 @@ bool grid_ok(int64_t rows, int64_t chunk) {
 
 extern "C" {
 
-// Tiles per row; the caller sizes the scratch as 2 * rows * (tiles + 1) floats.
-int64_t bagua_minmax_u8_tiles(int64_t chunk) { return tiles_of(chunk); }
+// Tiles per row; the caller sizes the scratch as 2 * rows * (tiles + 1) floats
+// (also room for the fused reduce's partials: at most one per tile, and at
+// most kMaxCtasPerRank a rank).
+int64_t bagua_minmax_u8_tiles(int64_t chunk) {
+  const int64_t fused = std::min<int64_t>(fused_tiles(chunk), kMaxCtasPerRank);
+  return std::max(tiles_of(chunk), fused);
+}
 
 // x (rows, chunk) f32 -> q (rows, chunk) u8, minmax (rows, 2) f32.
 int bagua_compress_minmax_u8(const float* x, uint8_t* q, float* minmax,
@@ -274,36 +595,47 @@ int bagua_decompress_minmax_u8(const uint8_t* q, const float* minmax, float* out
 }
 
 // q (R, n, chunk) u8, minmax (R, n, 2) f32 -> q_out (R, chunk) u8,
-// mm_out (R, 2) f32.  red is an (R, chunk) f32 scratch, scratch holds
-// 2 * R * (tiles + 1) floats.
+// mm_out (R, 2) f32.  red is an (R, chunk) f32 scratch (used from
+// kScratchPeers peers on), scratch holds 2 * R * (tiles + 1) floats.
 int bagua_fused_reduce_minmax_u8(const uint8_t* q, const float* minmax,
                                  uint8_t* q_out, float* mm_out, float* red,
                                  float* scratch, int64_t ranks, int64_t n,
                                  int64_t chunk, int average, void* stream) {
-  const size_t smem = static_cast<size_t>(n) * sizeof(float2);
-  if (!grid_ok(ranks, chunk) || n <= 0 || smem > 48 * 1024)
+  if (!grid_ok(ranks, chunk) || n <= 0 || n > kMaxPeers)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t tiles = tiles_of(chunk);
-  float2* partial = reinterpret_cast<float2*>(scratch);
-  float2* qparams = partial + ranks * tiles;
-  const unsigned grid = static_cast<unsigned>(ranks * tiles);
-  const bool vec = chunk % 4 == 0 && aligned(q, 4) && aligned(red, 16) && aligned(q_out, 4);
-  if (average && vec)
-    tile_dequant_reduce<true, true><<<grid, kThreads, smem, s>>>(q, minmax, red, partial, n, chunk, tiles);
-  else if (average)
-    tile_dequant_reduce<true, false><<<grid, kThreads, smem, s>>>(q, minmax, red, partial, n, chunk, tiles);
-  else if (vec)
-    tile_dequant_reduce<false, true><<<grid, kThreads, smem, s>>>(q, minmax, red, partial, n, chunk, tiles);
-  else
-    tile_dequant_reduce<false, false><<<grid, kThreads, smem, s>>>(q, minmax, red, partial, n, chunk, tiles);
-  cudaError_t err = cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  finish_minmax<<<static_cast<unsigned>(ranks), kThreads, 0, s>>>(partial, mm_out, qparams, tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mode = !average ? kSum : (n & (n - 1)) == 0 ? kMultiply : kDivide;
+  const float recip = 1.0f / static_cast<float>(n);  // exact where it is used
+  const size_t smem = std::min<int64_t>(n, kGroup) * 256 * sizeof(float);
+  const int64_t tiles = fused_tiles(chunk);
+  if (tiles == 1) {
+    const bool vec = chunk % kPer == 0 && aligned(q, 16) && aligned(q_out, 16);
+    auto* one = vec ? fused_one_tile<true> : fused_one_tile<false>;
+    one<<<static_cast<unsigned>(ranks), kFusedThreads, smem, s>>>(q, minmax, q_out, mm_out,
+                                                                 static_cast<int>(n), chunk, mode, recip);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool store = n >= kScratchPeers;
+  const int64_t ctas1 = fused_ctas(tiles, ranks, sms * (store ? kStoreCtas : FUSED_CTAS_PASS1));
+  const int64_t ctas2 = fused_ctas(tiles, ranks, sms * (store ? kFromRedCtas : FUSED_CTAS_PASS2));
+  if (ranks * std::max(ctas1, ctas2) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = chunk % kPer == 0 && aligned(q, 16) && aligned(q_out, 16) && aligned(red, 16);
+  float2* partial = reinterpret_cast<float2*>(scratch);
+  auto* pass1 = vec ? (store ? fused_sum_minmax<true, true> : fused_sum_minmax<true, false>)
+                    : (store ? fused_sum_minmax<false, true> : fused_sum_minmax<false, false>);
+  pass1<<<static_cast<unsigned>(ranks * ctas1), kFusedThreads, smem, s>>>(
+      q, minmax, red, partial, static_cast<int>(n), chunk, tiles, static_cast<int>(ctas1), mode, recip);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (vec) quantize_tile<true><<<grid, kThreads, 0, s>>>(red, qparams, q_out, chunk, tiles);
-  else quantize_tile<false><<<grid, kThreads, 0, s>>>(red, qparams, q_out, chunk, tiles);
+  auto* pass2 = vec ? (store ? fused_quantize<true, true> : fused_quantize<true, false>)
+                    : (store ? fused_quantize<false, true> : fused_quantize<false, false>);
+  pass2<<<static_cast<unsigned>(ranks * ctas2), kFusedThreads, store ? 0 : smem, s>>>(
+      q, minmax, red, partial, q_out, mm_out, static_cast<int>(n), chunk, tiles,
+      static_cast<int>(ctas1), static_cast<int>(ctas2), mode, recip);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,166 +25,312 @@
 // (bagua_tpu_torch/kernels/quantized_ring.py), by XLA's float rules
 // (xla_float.cuh).
 //
-// Design.  One block (CTA) per quantization row, over a grid of ranks x
-// blocks-per-shard rows (25,088 rows of 4096 at VGG16's Dense_0 bucket over 4
-// ranks): the ring calls the hop once per step for every rank at once.
-//   pass 1: load the incoming bytes (4 per thread where the row allows) and
-//           the local f32 partial (16 bytes per thread), dequantize with the
-//           row's scale (derived once), form s, reduce min/max over the CTA;
-//   pass 2: derive scale2/upper2 once, quantize s, store q2 and err, thread 0
-//           stores mm2.
-// s stays in shared memory while its 4 B bytes fit in 32 KB (B <= 8192; the
-// default B = 4096 takes 16 KB), which with the static shared memory stays
-// under the 48 KB a launch gets without opting in; above that pass 2
-// recomputes s from the inputs, the same arithmetic, so the result stays
-// bitwise.  Every even B works; nothing falls back.
+// Design.  One CTA per row over a grid of ranks x blocks-per-shard rows
+// (25,088 rows of 4096 at VGG16's Dense_0 bucket over 4 ranks): the ring
+// calls the hop once per step for every rank at once.  Per row:
+//   * No division per element.  The incoming levels take 256 (int8) or 16
+//     (int4) values: the CTA builds their table from the row's (min, max)
+//     before pass 1, and after the min/max the same from (scale2, lower2)
+//     for err; each entry is dequantize() itself, so a lookup is bitwise the
+//     division.
+//   * A thread holds 16 elements in registers: 16 bytes of q (int8; 8 for
+//     int4) and 4 float4 of local, a whole row's loads issued before its
+//     reduction (int4: before its table is built).  So s stays in registers
+//     between the passes and every input is read once.  Rows up to 4096
+//     elements take B/16 threads rounded to a warp, up to 16384 up to 1024
+//     threads; longer rows walk in sections of 256 x 16 elements, twice
+//     (pass 2 computes s again, by the same arithmetic).
+//   * Min/max over the CTA: shuffles, one barrier, and every thread folds
+//     the warps' results (no broadcast barrier).
+//   * Occupancy decides the speed: the short-row vector kernel asks for 6
+//     (int8, 40 registers) or 5 (int4, 48) CTAs an SM, so VGG16's buckets of
+//     about 600 rows run in one wave.  A persistent CTA staging its next
+//     row by cp.async, and one prefetching it into registers, measured
+//     slower (PERF.md).
+// Every even B works; nothing falls back.
 // Bound: device-memory bytes.  Least traffic per element: int8 1 + 4 in and
 // 1 + 4 out, int4 0.5 + 4 in and 0.5 + 4 out, plus 16 B of sidecars per row;
-// this kernel moves exactly that (it reads each input once).
+// this kernel moves exactly that for B <= 16384.
+// ptxas (sm_90a, nvcc 12.8, -fmad=false): the short-row vector kernels 40
+// (int8) and 48 (int4) registers, the other instantiations 50-156 (at most
+// 64 where 1024 threads run), static shared memory up to 2.3 KB; no stack
+// frame and no spill in any instantiation (PERF.md holds the build's lines).
 
 #include "xla_float.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int64_t kSmemBytes = 32 * 1024;
+// CTAs of 256 threads an SM the short-row vector kernels ask registers for
+// (knobs for chip_kernel_ab.py --variant)
+#ifndef HOP_MIN_BLOCKS_8
+#define HOP_MIN_BLOCKS_8 6
+#endif
+#ifndef HOP_MIN_BLOCKS_4
+#define HOP_MIN_BLOCKS_4 5
+#endif
 
-template <int kW>
-__device__ __forceinline__ void load(const uint8_t* p, uint8_t (&v)[kW]) {
-  if constexpr (kW == 4) {
-    const uchar4 u = *reinterpret_cast<const uchar4*>(p);
-    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
-  } else {
-    v[0] = *p;
-  }
-}
+constexpr int kPer = 16;           // elements of a row a thread holds
+constexpr int kShortThreads = 256;  // rows up to 4096 elements
+constexpr int kLongThreads = 1024;  // rows up to 16384 elements, still in registers
+constexpr int kWalkThreads = 256;   // longer rows, which pass 2 reads again
 
-template <int kW>
-__device__ __forceinline__ void load(const float* p, float (&v)[kW]) {
-  if constexpr (kW == 4) {
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
-  } else {
-    v[0] = *p;
-  }
-}
+// int8: a byte is one element, a thread holds 16 bytes.  int4: a byte holds
+// element j (low nibble) and j + B/2 (high), a thread holds 8 bytes.
+template <int kBits>
+struct Hop {
+  static constexpr int kLevels = kBits == 8 ? 256 : 16;
+  static constexpr float kL = kBits == 8 ? 255.0f : 15.0f;
+  static constexpr int kBytes = kBits == 8 ? 16 : 8;
+  static constexpr int kWords = kBytes / 4;
+};
 
-template <int kW>
-__device__ __forceinline__ void store(uint8_t* p, const uint8_t (&v)[kW]) {
-  if constexpr (kW == 4) *reinterpret_cast<uchar4*>(p) = make_uchar4(v[0], v[1], v[2], v[3]);
-  else *p = v[0];
-}
-
-template <int kW>
-__device__ __forceinline__ void store(float* p, const float (&v)[kW]) {
-  if constexpr (kW == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else *p = v[0];
-}
+// One thread's bytes of q (4 to a word) and local values of a section.
+template <int kBits>
+struct Raw {
+  uint32_t w[Hop<kBits>::kWords];
+  float l[kPer];
+};
 
 __device__ __forceinline__ float dequantize(uint32_t level, float scale, float lower) {
   return __fdiv_rn(__fadd_rn(static_cast<float>(level), lower), scale);
 }
 
-// s of the kW bytes at column j: lo[k] is element j + k, hi[k] (int4 only)
-// element half + j + k.
-template <int kBits, int kW>
-__device__ __forceinline__ void sums(const uint8_t* qr, const float* lr, int64_t j, int64_t half,
-                                     float scale, float lower, float (&lo)[kW], float (&hi)[kW]) {
-  uint8_t b[kW];
-  float l[kW];
-  load<kW>(qr + j, b);
-  load<kW>(lr + j, l);
+__device__ __forceinline__ uint32_t byte_of(const uint32_t* w, int k) {
+  return (w[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+}
+
+__device__ __forceinline__ void load4(const float* p, float* l) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  l[0] = v.x, l[1] = v.y, l[2] = v.z, l[3] = v.w;
+}
+
+__device__ __forceinline__ void store4(float* p, const float* e) {
+  *reinterpret_cast<float4*>(p) = make_float4(e[0], e[1], e[2], e[3]);
+}
+
+// This thread's bytes of the section of a q row that starts at base: kBytes
+// neighbours from base + threadIdx.x * kBytes (vector path), or byte k at
+// base + k * blockDim.x + threadIdx.x (scalar path).  Returns how many of
+// them lie in the row (they come first).
+template <int kBits, bool kVec>
+__device__ __forceinline__ int bytes_in_row(int64_t base, int64_t cols) {
+  constexpr int kB = Hop<kBits>::kBytes;
+  if (kVec) return base + threadIdx.x * kB < cols ? kB : 0;
+  const int64_t rest = cols - base - threadIdx.x;
+  if (rest <= 0) return 0;
+  const int64_t n = (rest + blockDim.x - 1) / blockDim.x;
+  return n < kB ? static_cast<int>(n) : kB;
+}
+
+template <int kBits, bool kVec>
+__device__ __forceinline__ void load_raw(Raw<kBits>& raw, const uint8_t* __restrict__ qr,
+                                         const float* __restrict__ lr, int64_t base,
+                                         int64_t half, int nv) {
+  constexpr int kB = Hop<kBits>::kBytes;
+  if (kVec) {
+    if (!nv) return;
+    const int64_t j0 = base + threadIdx.x * kB;
+    if constexpr (kBits == 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(qr + j0);
+      raw.w[0] = v.x, raw.w[1] = v.y, raw.w[2] = v.z, raw.w[3] = v.w;
 #pragma unroll
-  for (int k = 0; k < kW; ++k)
-    lo[k] = __fadd_rn(dequantize(kBits == 8 ? b[k] : b[k] & 0xFu, scale, lower), l[k]);
-  if constexpr (kBits == 4) {
-    load<kW>(lr + half + j, l);
+      for (int k = 0; k < kPer; k += 4) load4(lr + j0 + k, raw.l + k);
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(qr + j0);
+      raw.w[0] = v.x, raw.w[1] = v.y;
 #pragma unroll
-    for (int k = 0; k < kW; ++k) hi[k] = __fadd_rn(dequantize(b[k] >> 4, scale, lower), l[k]);
+      for (int k = 0; k < kB; k += 4) {
+        load4(lr + j0 + k, raw.l + k);
+        load4(lr + half + j0 + k, raw.l + kB + k);
+      }
+    }
+  } else {
+    const int64_t j0 = base + threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < Hop<kBits>::kWords; ++i) raw.w[i] = 0;
+#pragma unroll
+    for (int k = 0; k < kB; ++k) {
+      if (k < nv) {
+        const int64_t j = j0 + static_cast<int64_t>(k) * blockDim.x;
+        raw.w[k >> 2] |= static_cast<uint32_t>(qr[j]) << (8 * (k & 3));
+        raw.l[k] = lr[j];
+        if constexpr (kBits == 4) raw.l[kB + k] = lr[half + j];
+      }
+    }
   }
 }
 
-// kW: bytes of q per thread per step (4: vector loads); kSmem: s kept in
-// shared memory between the passes.
-template <int kBits, int kW, bool kSmem>
-__global__ void __launch_bounds__(kThreads)
+// s = dequantize(q) + local: s[k] is byte k's element (int4: s[k] its low
+// nibble's, s[8 + k] its high nibble's).  tab holds each level's
+// dequantize(), the same expression.
+template <int kBits>
+__device__ __forceinline__ void sums(float (&s)[kPer], const Raw<kBits>& raw, const float* tab) {
+  constexpr int kB = Hop<kBits>::kBytes;
+#pragma unroll
+  for (int k = 0; k < kB; ++k) {
+    const uint32_t b = byte_of(raw.w, k);
+    if constexpr (kBits == 8) {
+      s[k] = __fadd_rn(tab[b], raw.l[k]);
+    } else {
+      s[k] = __fadd_rn(tab[b & 0xFu], raw.l[k]);
+      s[kB + k] = __fadd_rn(tab[b >> 4], raw.l[kB + k]);
+    }
+  }
+}
+
+// Folds the first nv bytes' elements of s into (mn, mx).
+template <int kBits>
+__device__ __forceinline__ void fold(const float (&s)[kPer], int nv, float& mn, float& mx) {
+  constexpr int kB = Hop<kBits>::kBytes;
+#pragma unroll
+  for (int k = 0; k < kB; ++k) {
+    if (k < nv) {
+      mn = xla::min(mn, s[k]);
+      mx = xla::max(mx, s[k]);
+      if constexpr (kBits == 4) {
+        mn = xla::min(mn, s[kB + k]);
+        mx = xla::max(mx, s[kB + k]);
+      }
+    }
+  }
+}
+
+// q2 and err of this thread's elements (laid out as sums() lays them);
+// tab holds each level's (level + lower2) / scale2.
+template <int kBits, bool kVec>
+__device__ __forceinline__ void requantize(const float (&s)[kPer], uint8_t* __restrict__ qo,
+                                           float* __restrict__ er, int64_t base, int64_t half,
+                                           int nv, float scale2, float upper2, float lower2,
+                                           const float* tab) {
+  constexpr int kB = Hop<kBits>::kBytes;
+  uint32_t w[Hop<kBits>::kWords];
+  float e[kPer];
+#pragma unroll
+  for (int i = 0; i < Hop<kBits>::kWords; ++i) w[i] = 0;
+#pragma unroll
+  for (int k = 0; k < kB; ++k) {
+    const float lvl = __fsub_rn(xla::min(rintf(__fmul_rn(s[k], scale2)), upper2), lower2);
+    uint32_t b;
+    if constexpr (kBits == 8) {
+      b = xla::to_u8(lvl);
+      e[k] = __fsub_rn(s[k], tab[b]);
+    } else {
+      const float lvh = __fsub_rn(xla::min(rintf(__fmul_rn(s[kB + k], scale2)), upper2), lower2);
+      b = (static_cast<uint32_t>(xla::to_s32(lvl)) | (static_cast<uint32_t>(xla::to_s32(lvh)) << 4)) & 0xFFu;
+      e[k] = __fsub_rn(s[k], tab[b & 0xFu]);
+      e[kB + k] = __fsub_rn(s[kB + k], tab[b >> 4]);
+    }
+    w[k >> 2] |= b << (8 * (k & 3));
+  }
+  if (kVec) {
+    if (!nv) return;
+    const int64_t j0 = base + threadIdx.x * kB;
+    if constexpr (kBits == 8) {
+      *reinterpret_cast<uint4*>(qo + j0) = make_uint4(w[0], w[1], w[2], w[3]);
+#pragma unroll
+      for (int k = 0; k < kPer; k += 4) store4(er + j0 + k, e + k);
+    } else {
+      *reinterpret_cast<uint2*>(qo + j0) = make_uint2(w[0], w[1]);
+#pragma unroll
+      for (int k = 0; k < kB; k += 4) {
+        store4(er + j0 + k, e + k);
+        store4(er + half + j0 + k, e + kB + k);
+      }
+    }
+  } else {
+    const int64_t j0 = base + threadIdx.x;
+#pragma unroll
+    for (int k = 0; k < kB; ++k) {
+      if (k < nv) {
+        const int64_t j = j0 + static_cast<int64_t>(k) * blockDim.x;
+        qo[j] = static_cast<uint8_t>(byte_of(w, k));
+        er[j] = e[k];
+        if constexpr (kBits == 4) er[half + j] = e[kB + k];
+      }
+    }
+  }
+}
+
+// (mn, mx) over the block (a whole number of warps); every thread gets it.
+__device__ __forceinline__ void block_minmax_all(float& mn, float& mx, float* s_mn, float* s_mx) {
+  for (int off = 16; off > 0; off >>= 1) {
+    mn = xla::min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    mx = xla::max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    s_mn[threadIdx.x >> 5] = mn;
+    s_mx[threadIdx.x >> 5] = mx;
+  }
+  __syncthreads();
+  mn = s_mn[0], mx = s_mx[0];
+  for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) {
+    mn = xla::min(mn, s_mn[w]);
+    mx = xla::max(mx, s_mx[w]);
+  }
+}
+
+// One CTA per row.  kResident: blockDim.x * kBytes bytes of q cover the
+// row, whose values stay in registers between the passes, so each input is
+// read once; else both passes walk the row in sections and pass 2 computes
+// s again, by the same arithmetic.
+template <int kBits, bool kVec, int kMaxThreads, bool kResident>
+__global__ void __launch_bounds__(kMaxThreads, kVec && kMaxThreads == kShortThreads && kResident
+                                                   ? (kBits == 8 ? HOP_MIN_BLOCKS_8 : HOP_MIN_BLOCKS_4) : 1)
 hop_kernel(const uint8_t* __restrict__ q, const float* __restrict__ minmax,
            const float* __restrict__ local, uint8_t* __restrict__ q_out,
            float* __restrict__ mm_out, float* __restrict__ err, int64_t block) {
-  constexpr float kL = kBits == 8 ? 255.0f : 15.0f;
-  extern __shared__ float4 s_raw[];
-  float* s_buf = reinterpret_cast<float*>(s_raw);
-  __shared__ float2 params;  // (scale2, upper2)
+  using H = Hop<kBits>;
+  __shared__ float tab_in[H::kLevels], tab_out[H::kLevels];
+  __shared__ float s_mn[kMaxThreads / 32], s_mx[kMaxThreads / 32];
   const int64_t row = blockIdx.x;
   const int64_t cols = kBits == 8 ? block : block / 2;  // bytes of a q row
   const int64_t half = block / 2;
+  const int64_t section = static_cast<int64_t>(blockDim.x) * H::kBytes;
   const uint8_t* qr = q + row * cols;
   const float* lr = local + row * block;
-  const float mx_in = minmax[2 * row + 1];
-  const float scale = xla::safe_scale(minmax[2 * row], mx_in, kL);
-  const float lower = __fsub_rn(rintf(__fmul_rn(mx_in, scale)), kL);
-
-  float mn = INFINITY, mx = -INFINITY;
-  for (int64_t j = threadIdx.x * kW; j < cols; j += kThreads * kW) {
-    float lo[kW], hi[kW];
-    sums<kBits, kW>(qr, lr, j, half, scale, lower, lo, hi);
-#pragma unroll
-    for (int k = 0; k < kW; ++k) {
-      mn = xla::min(mn, lo[k]);
-      mx = xla::max(mx, lo[k]);
-      if constexpr (kBits == 4) {
-        mn = xla::min(mn, hi[k]);
-        mx = xla::max(mx, hi[k]);
-      }
-    }
-    if constexpr (kSmem) {
-      store<kW>(s_buf + j, lo);
-      if constexpr (kBits == 4) store<kW>(s_buf + half + j, hi);
-    }
+  // int4: the first section's loads go out before the table is built (int8's
+  // raw section and table build do not fit its 40 registers together)
+  constexpr bool kEarly = kBits == 4;
+  Raw<kBits> raw;
+  if (kEarly) load_raw<kBits, kVec>(raw, qr, lr, 0, half, bytes_in_row<kBits, kVec>(0, cols));
+  {
+    const float mx_in = minmax[2 * row + 1];
+    const float scale = xla::safe_scale(minmax[2 * row], mx_in, H::kL);
+    const float lower = __fsub_rn(rintf(__fmul_rn(mx_in, scale)), H::kL);
+    for (int l = threadIdx.x; l < H::kLevels; l += blockDim.x) tab_in[l] = dequantize(l, scale, lower);
   }
-  xla::block_minmax<kThreads>(mn, mx);
+  __syncthreads();
+
+  float s[kPer];
+  float mn = INFINITY, mx = -INFINITY;
+  for (int64_t base = 0; base < cols; base += section) {
+    const int nv = bytes_in_row<kBits, kVec>(base, cols);
+    if (base || !kEarly) load_raw<kBits, kVec>(raw, qr, lr, base, half, nv);
+    sums<kBits>(s, raw, tab_in);
+    fold<kBits>(s, nv, mn, mx);
+    if (kResident) break;
+  }
+  block_minmax_all(mn, mx, s_mn, s_mx);
+  const float scale2 = xla::safe_scale(mn, mx, H::kL);
+  const float upper2 = rintf(__fmul_rn(mx, scale2));
+  const float lower2 = __fsub_rn(upper2, H::kL);
   if (threadIdx.x == 0) {
     mm_out[2 * row] = mn;
     mm_out[2 * row + 1] = mx;
-    const float sc = xla::safe_scale(mn, mx, kL);
-    params = make_float2(sc, rintf(__fmul_rn(mx, sc)));
   }
+  for (int l = threadIdx.x; l < H::kLevels; l += blockDim.x) tab_out[l] = dequantize(l, scale2, lower2);
   __syncthreads();
-  const float scale2 = params.x, upper2 = params.y;
-  const float lower2 = __fsub_rn(upper2, kL);
 
   uint8_t* qo = q_out + row * cols;
   float* er = err + row * block;
-  for (int64_t j = threadIdx.x * kW; j < cols; j += kThreads * kW) {
-    float lo[kW], hi[kW];
-    if constexpr (kSmem) {
-      load<kW>(s_buf + j, lo);
-      if constexpr (kBits == 4) load<kW>(s_buf + half + j, hi);
-    } else {
-      sums<kBits, kW>(qr, lr, j, half, scale, lower, lo, hi);
+  for (int64_t base = 0; base < cols; base += section) {
+    const int nv = bytes_in_row<kBits, kVec>(base, cols);
+    if (!kResident) {
+      load_raw<kBits, kVec>(raw, qr, lr, base, half, nv);
+      sums<kBits>(s, raw, tab_in);
     }
-    uint8_t b[kW];
-    float e[kW];
-#pragma unroll
-    for (int k = 0; k < kW; ++k) {
-      const float lvl = __fsub_rn(xla::min(rintf(__fmul_rn(lo[k], scale2)), upper2), lower2);
-      if constexpr (kBits == 8) {
-        b[k] = xla::to_u8(lvl);
-      } else {
-        const float lvh = __fsub_rn(xla::min(rintf(__fmul_rn(hi[k], scale2)), upper2), lower2);
-        const uint32_t packed = static_cast<uint32_t>(xla::to_s32(lvl)) |
-                                (static_cast<uint32_t>(xla::to_s32(lvh)) << 4);
-        b[k] = static_cast<uint8_t>(packed & 0xFFu);
-      }
-      e[k] = __fsub_rn(lo[k], dequantize(kBits == 8 ? b[k] : b[k] & 0xFu, scale2, lower2));
-    }
-    store<kW>(qo + j, b);
-    store<kW>(er + j, e);
-    if constexpr (kBits == 4) {
-#pragma unroll
-      for (int k = 0; k < kW; ++k) e[k] = __fsub_rn(hi[k], dequantize(b[k] >> 4, scale2, lower2));
-      store<kW>(er + half + j, e);
-    }
+    requantize<kBits, kVec>(s, qo, er, base, half, nv, scale2, upper2, lower2, tab_out);
+    if (kResident) break;
   }
 }
 
@@ -192,22 +338,35 @@ bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <int kBits>
-void launch(const uint8_t* q, const float* minmax, const float* local, uint8_t* q_out,
-            float* mm_out, float* err, int64_t rows, int64_t block, bool vec, cudaStream_t s) {
+template <int kBits, bool kVec>
+int launch(const uint8_t* q, const float* minmax, const float* local, uint8_t* q_out,
+           float* mm_out, float* err, int64_t rows, int64_t block, cudaStream_t s) {
+  constexpr int kB = Hop<kBits>::kBytes;
+  const int64_t cols = kBits == 8 ? block : block / 2;
+  const int64_t threads = ((cols + kB - 1) / kB + 31) / 32 * 32;
   const unsigned grid = static_cast<unsigned>(rows);
-  const int64_t smem = block * static_cast<int64_t>(sizeof(float));
-  if (smem <= kSmemBytes) {
-    if (vec)
-      hop_kernel<kBits, 4, true><<<grid, kThreads, smem, s>>>(q, minmax, local, q_out, mm_out, err, block);
-    else
-      hop_kernel<kBits, 1, true><<<grid, kThreads, smem, s>>>(q, minmax, local, q_out, mm_out, err, block);
+  if (threads <= kShortThreads) {
+    hop_kernel<kBits, kVec, kShortThreads, true><<<grid, static_cast<unsigned>(threads), 0, s>>>(
+        q, minmax, local, q_out, mm_out, err, block);
+  } else if (threads <= kLongThreads) {
+    hop_kernel<kBits, kVec, kLongThreads, true><<<grid, static_cast<unsigned>(threads), 0, s>>>(
+        q, minmax, local, q_out, mm_out, err, block);
   } else {
-    if (vec)
-      hop_kernel<kBits, 4, false><<<grid, kThreads, 0, s>>>(q, minmax, local, q_out, mm_out, err, block);
-    else
-      hop_kernel<kBits, 1, false><<<grid, kThreads, 0, s>>>(q, minmax, local, q_out, mm_out, err, block);
+    hop_kernel<kBits, kVec, kWalkThreads, false><<<grid, kWalkThreads, 0, s>>>(
+        q, minmax, local, q_out, mm_out, err, block);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kBits>
+int launch(const uint8_t* q, const float* minmax, const float* local, uint8_t* q_out,
+           float* mm_out, float* err, int64_t rows, int64_t block, cudaStream_t s) {
+  constexpr int kB = Hop<kBits>::kBytes;
+  const int64_t cols = kBits == 8 ? block : block / 2;
+  const bool vec = cols % kB == 0 && aligned(q, kB) && aligned(q_out, kB) &&
+                   aligned(local, 16) && aligned(err, 16);
+  return vec ? launch<kBits, true>(q, minmax, local, q_out, mm_out, err, rows, block, s)
+             : launch<kBits, false>(q, minmax, local, q_out, mm_out, err, rows, block, s);
 }
 
 }  // namespace
@@ -223,12 +382,8 @@ int bagua_qr_hop(const uint8_t* q, const float* minmax, const float* local,
   if (rows <= 0 || rows > 0x7fffffffLL || block < 2 || block % 2 || (bits != 8 && bits != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t cols = bits == 8 ? block : block / 2;
-  const bool vec = cols % 4 == 0 && aligned(q, 4) && aligned(q_out, 4) &&
-                   aligned(local, 16) && aligned(err, 16);
-  if (bits == 8) launch<8>(q, minmax, local, q_out, mm_out, err, rows, block, vec, s);
-  else launch<4>(q, minmax, local, q_out, mm_out, err, rows, block, vec, s);
-  return static_cast<int>(cudaGetLastError());
+  return bits == 8 ? launch<8>(q, minmax, local, q_out, mm_out, err, rows, block, s)
+                   : launch<4>(q, minmax, local, q_out, mm_out, err, rows, block, s);
 }
 
 }  // extern "C"

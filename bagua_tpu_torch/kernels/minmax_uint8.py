@@ -24,10 +24,12 @@ wrapper                         replaces the Pallas kernel
 
 Dispatch is by device and nothing else: a tensor on the CPU goes to the
 plain version, a CUDA tensor launches the kernel (or raises).  Each wrapper
-counts its kernel launches in ``<wrapper>.launches``; the plain path leaves
-the count alone.  The kernels are bounded by device-memory bytes; the CUDA
-source's header says what each moves and how many launches one call makes
-(compress 3, decompress 1, fused 3).
+counts its kernel launches in ``<wrapper>.launches``, one a call; the plain
+path leaves the count alone.  The kernels are bounded by device-memory
+bytes; the CUDA source's header says what each moves and how many kernels
+one call runs (compress 3, decompress 1, fused 2, or 1 where the chunk is
+a single tile of 4096).  The fused kernel looks each peer's dequantized
+levels up in a table (:func:`level_table_plain` is its plain twin).
 
 Bitwise parity with the jnp reference needs three things the obvious torch
 spelling gets wrong: ``scalar / tensor`` is computed as a multiply by the
@@ -91,6 +93,19 @@ def _quantize(x, mn, mx):
     lower = upper - LEVELS
     level = torch.minimum(torch.round(x * scale), upper)
     return _to_uint8(level - lower)
+
+
+def level_table_plain(minmax: torch.Tensor, levels: float = LEVELS) -> torch.Tensor:
+    """The value each level ``0 .. levels`` of a row dequantizes to, for every
+    row of ``minmax`` ``(rows, 2)``: ``(rows, levels + 1)`` float32.  The
+    fused reduce and the ring hop build these tables on the card in place of
+    a division per element; used by the tests, which hold them against the
+    JAX package's dequantize."""
+    mn, mx = minmax[:, 0:1], minmax[:, 1:2]
+    scale = _safe_scale(mn, mx, levels)
+    lower = torch.round(mx * scale) - levels
+    q = torch.arange(int(levels) + 1, dtype=torch.float32, device=minmax.device)
+    return (q + lower) / scale
 
 
 def compress_minmax_uint8_plain(chunks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

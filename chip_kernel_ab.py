@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
-"""Times two versions of the port's tile GEMM and three flash-attention
-kernels on one card, in turns, at the main paths' shapes.
+"""Times two versions of the port's CUDA kernels on one card, in turns, at
+the main paths' shapes.
 
     git archive <commit> | tar -x -C _chipcheck/parent
-    python3 chip_kernel_ab.py --parent _chipcheck/parent [--variant="-DNAME=VALUE ..." ...]
+    python3 chip_kernel_ab.py --parent _chipcheck/parent [--kernels codec,attention,gemm] \
+        [--variant="[source:]-DNAME=VALUE ..." ...]
 
 ``--parent`` is an unpacked tree of another commit of this repository.
-Its ``collective_matmul.cu`` and ``flash_attention.cu`` are built with this
-tree's ``nvcc`` flags into ``<parent>/ab_build/``; both versions keep the
-same C interface, so this tree's wrappers drive either library.  Each
-``--variant`` builds this tree's ``collective_matmul.cu`` once more with
-its ``nvcc`` flags (space-separated; ``-DMATMUL_MIN_BLOCKS=1`` is
-``__launch_bounds__(256, 1)``, the other knobs are at the top of the
-source) and times it beside the others.  Every timing is ``chip_smoke``'s
-``median_ms``, taken in the order parent, this tree, this tree, parent (and
-each variant after), at each of path (a)'s five tile products
-(``chip_smoke.sp_mlp_gemms``) and, for the forward (``block_attention``),
-dq and dk/dv, at each distinct block of the Llama sp 4 slice
-(``chip_smoke.zigzag_pair_masks``), with f32 K/V as the slice runs them
-and again with bf16 K/V; then summed per step as ``chip_smoke.py`` sums
-them.  Each library's output is first held to ``chip_smoke.py``'s gates
-(``matmul_tol``; ``ATTENTION_TOLS``).  Prints each build's ``ptxas``
-lines, one line per shape and one JSON line of the sums; exits non-zero
-without a card.
+The sources of the chosen kernel families (``--kernels``, all three by
+default: ``codec`` is ``minmax_uint8.cu`` and ``quantized_ring.cu``,
+``attention`` ``flash_attention.cu``, ``gemm`` ``collective_matmul.cu``)
+are built from that tree with this tree's ``nvcc`` flags into
+``<parent>/ab_build/``; both versions keep the same C interface, so this
+tree's wrappers drive either library.  Each ``--variant`` builds one of
+this tree's sources once more with extra ``nvcc`` flags (space-separated,
+after ``source:``; no source means ``collective_matmul``, where
+``-DMATMUL_MIN_BLOCKS=1`` is ``__launch_bounds__(256, 1)``; each source's
+knobs are at its top: ``FUSED_CTAS_PASS1``/``FUSED_CTAS_PASS2`` in
+``minmax_uint8.cu``, ``HOP_MIN_BLOCKS_8``/``HOP_MIN_BLOCKS_4`` in
+``quantized_ring.cu``) and times it beside the others.  Every
+timing is ``chip_smoke``'s ``median_ms``, taken in the order parent, this
+tree, this tree, parent (and each variant after):
+
+- codec: compress, the fused reduce, decompress and the int8 and int4
+  hops at every bucket of VGG16 over 4 ranks (``chip_smoke.slice_shapes``,
+  inputs from ``pipeline_inputs`` and ``hop_inputs``), the hops twice a
+  step (RANKS - 2);
+- gemm: path (a)'s five tile products (``chip_smoke.sp_mlp_gemms``);
+- attention: the forward (``block_attention``), dq and dk/dv at each
+  distinct block of the Llama sp 4 slice (``chip_smoke.zigzag_pair_masks``),
+  with f32 K/V as the slice runs them and again with bf16 K/V;
+
+then summed per step as ``chip_smoke.py`` sums them.  Each library's
+output is first held to ``chip_smoke.py``'s gates (codecs and hops
+bitwise; ``matmul_tol``; ``ATTENTION_TOLS``).  Prints each build's
+``ptxas`` lines, one line per shape and one JSON line: the per-step sums,
+each kernel's time at its largest shape (VGG16's Dense_0 bucket for the
+codecs), and each kernel's worst ratio of this tree's time to the
+parent's over its shapes.  Exits non-zero without a card.
 """
 
 import argparse
@@ -30,6 +45,7 @@ import contextlib
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -39,9 +55,14 @@ import chip_smoke as cs
 from bagua_tpu_torch.kernels import _build
 from bagua_tpu_torch.kernels import collective_matmul as cm
 from bagua_tpu_torch.kernels import flash_attention as fa
+from bagua_tpu_torch.kernels import minmax_uint8 as mm8
+from bagua_tpu_torch.kernels import quantized_ring as qr
 from bagua_tpu_torch.models.llama import llama_7b_config
 
-SOURCES = {"collective_matmul": cm, "flash_attention": fa}
+SOURCES = {"collective_matmul": cm, "flash_attention": fa, "minmax_uint8": mm8, "quantized_ring": qr}
+#: the sources of each kernel family
+FAMILIES = {"gemm": ("collective_matmul",), "attention": ("flash_attention",),
+            "codec": ("minmax_uint8", "quantized_ring")}
 
 
 def build(src: str, out: str, extra=()) -> subprocess.Popen:
@@ -49,6 +70,22 @@ def build(src: str, out: str, extra=()) -> subprocess.Popen:
     name = os.path.basename(src)[:-3]
     cmd = [_build.nvcc_path(), *_build.flags(name), *extra, "-o", out, src]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas(text: str) -> str:
+    """Each kernel's registers, stack frame and spills, from ``nvcc -Xptxas
+    -v``'s output."""
+    rows, name = [], "?"
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", line.split("'")[1])
+            name = name[:name.find("Ev")] if "Ev" in name else name
+        elif "bytes stack frame" in line:
+            stack, stores, loads = re.findall(r"(\d+) bytes", line)[:3]
+            spill = f", {stack} B stack, {stores}/{loads} B spilled" if int(stack) or int(stores) else ""
+        elif "registers" in line:
+            rows.append(f"{name} {re.search(r'Used (\d+) registers', line).group(1)} regs{spill}")
+    return " | ".join(rows)
 
 
 def typed(module, path: str) -> ctypes.CDLL:
@@ -124,49 +161,96 @@ def attention_cases(device, kv_dtype=torch.float32):
         yield f"block {n} (live share {float(mask.float().mean()):.3f})", calls, (qf, k, v, mask, m, dl, do)
 
 
+def codec_cases(device):
+    """Every bucket of VGG16 over RANKS ranks with the five codec and hop
+    calls a step makes of it, as chip_smoke's kernels phase builds them:
+    (case, [(kernel, calls a step, source, arguments)])."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    for numel, chunk in cs.slice_shapes(cs.vgg16_plan()):
+        x = torch.randn((cs.RANKS, numel), generator=gen, device=device) * 1e-3
+        flat, fused_in, dec_in = cs.pipeline_inputs(x, cs.RANKS)
+        calls = [("compress_minmax_uint8", 1, "minmax_uint8", (flat,)),
+                 ("decompress_reduce_requantize", 1, "minmax_uint8", fused_in),
+                 ("decompress_minmax_uint8", 1, "minmax_uint8", dec_in)]
+        incoming = x[:, :chunk] + x[:, chunk:2 * chunk]
+        for bits in (8, 4):
+            calls.append((f"hop_dequant_add_requant_int{bits}", cs.RANKS - 2, "quantized_ring",
+                          cs.hop_inputs(incoming, x[:, 2 * chunk:3 * chunk], cs.BLOCK, bits)))
+        yield f"bucket of {numel} elements", calls
+        del x, flat, fused_in, dec_in, incoming, calls
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, help="an unpacked tree of the commit to compare with")
+    ap.add_argument("--kernels", default=",".join(FAMILIES),
+                    help=f"comma-separated kernel families to time, of {', '.join(FAMILIES)}")
     ap.add_argument("--variant", action="append", default=[],
-                    help="nvcc flags (space-separated) for one more build of this tree's tile GEMM")
+                    help="[source:]nvcc flags (space-separated) for one more build of this tree's "
+                         "source (collective_matmul where none is named)")
     args = ap.parse_args(argv)
+    families = args.kernels.split(",")
+    if not set(families) <= set(FAMILIES):
+        ap.error(f"--kernels takes {', '.join(FAMILIES)}, got {args.kernels}")
+    sources = [name for f in families for name in FAMILIES[f]]
     smi = cs.phase_device()
     device = torch.device("cuda", 0)
 
-    _build.build(list(SOURCES))
+    _build.build(sources)
     jobs = {}
-    for name in SOURCES:
+    for name in sources:
         src = os.path.join(args.parent, "bagua_tpu_torch", "kernels", "csrc", f"{name}.cu")
         out = os.path.join(args.parent, "ab_build", f"lib{name}.so")
         jobs[("parent", name)] = (out, build(src, out))
-    for i, flag in enumerate(args.variant):
-        out = os.path.join(args.parent, "ab_build", f"libcollective_matmul-variant{i}.so")
-        jobs[(flag, "collective_matmul")] = (out, build(os.path.join(_build.CSRC_DIR, "collective_matmul.cu"),
-                                                         out, flag.split()))
-    libs = {name: {"tree": module._lib()} for name, module in SOURCES.items()}
-    for name in SOURCES:
+    for i, variant in enumerate(args.variant):
+        name, flag = variant.split(":", 1) if ":" in variant else ("collective_matmul", variant)
+        if name not in sources:
+            ap.error(f"--variant {variant!r}: {name} is not among the sources timed")
+        out = os.path.join(args.parent, "ab_build", f"lib{name}-variant{i}.so")
+        jobs[(flag, name)] = (out, build(os.path.join(_build.CSRC_DIR, f"{name}.cu"), out, flag.split()))
+    libs = {name: {"tree": SOURCES[name]._lib()} for name in sources}
+    for name in sources:
         with open(f"{_build.library_path(name)}.log") as f:
-            regs = [line.split("ptxas info    : ")[-1].strip() for line in f if "registers" in line]
-        cs.log(f"[build] tree {name}.cu: {' | '.join(regs)}")
+            cs.log(f"[build] tree {name}.cu: {ptxas(f.read())}")
     for (who, name), (out, proc) in jobs.items():
         text, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed on {who} {name}.cu:\n{text}")
-        regs = [line.split("ptxas info    : ")[-1].strip() for line in text.splitlines() if "registers" in line]
-        cs.log(f"[build] {who} {name}.cu: {' | '.join(regs)}")
+        cs.log(f"[build] {who} {name}.cu: {ptxas(text)}")
         libs[name][who] = typed(SOURCES[name], out)
 
-    sums = {}
+    sums, largest, worst = {}, {}, {}
 
-    def record(kernel, case, per_step, times):
+    def record(kernel, case, per_step, times, size=0):
         row = sums.setdefault(kernel, {})
         for who, ms in times.items():
             row[who] = row.get(who, 0.0) + per_step * min(ms)
+        if size >= largest.get(kernel, (-1, None))[0]:
+            largest[kernel] = (size, {who: min(ms) for who, ms in times.items()})
+        ratio = min(times["tree"]) / min(times["parent"])
+        worst[kernel] = max(worst.get(kernel, 0.0), ratio)
         cs.log(f"[ab] {kernel} {case}, {per_step} a step: " + ", ".join(
-            f"{who} {' / '.join(f'{t:.4f}' for t in ms)} ms" for who, ms in times.items()))
+            f"{who} {' / '.join(f'{t:.4f}' for t in ms)} ms" for who, ms in times.items()) +
+            f"; tree / parent {ratio:.4f}")
 
+    if "codec" in families:
+        for case, calls in codec_cases(device):
+            for kernel, per_step, source, call_args in calls:
+                wrapper, plain = cs.KERNELS[kernel][:2]
+                want = plain(*call_args)
+                want = want if isinstance(want, tuple) else (want,)
+
+                def check_codec(who, got):
+                    got = got if isinstance(got, tuple) else (got,)
+                    if not all(cs.same(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(f"{who} {kernel} on {case}: not bitwise its plain version")
+
+                record(kernel, case, per_step,
+                       turns(libs[source], SOURCES[source], lambda: wrapper(*call_args), check_codec),
+                       size=call_args[0].numel())
+                del want
     with cs._no_tf32():
-        for case, per_step, x, w in gemm_cases(device):
+        for case, per_step, x, w in ([] if "gemm" not in families else gemm_cases(device)):
             want = cm.matmul_tile_plain(x, w)
 
             def check_gemm(who, got):
@@ -177,9 +261,11 @@ def main(argv) -> int:
                        f"bitwise torch.matmul: {cs.same(got, want)}")
 
             record("matmul_tile", case, per_step,
-                   turns(libs["collective_matmul"], cm, lambda: cm.matmul_tile(x, w), check_gemm))
+                   turns(libs["collective_matmul"], cm, lambda: cm.matmul_tile(x, w), check_gemm),
+                   size=x.numel() * w.shape[-1])
             del x, w, want
-        for kv_dtype, suffix in ((torch.float32, ""), (torch.bfloat16, " (bf16 K/V)")):
+        for kv_dtype, suffix in ((torch.float32, ""), (torch.bfloat16, " (bf16 K/V)")) \
+                if "attention" in families else ():
             for case, per_step, args_ in attention_cases(device, kv_dtype):
                 for kernel, plain, n_args in ((fa.block_attention, fa.block_attention_plain, 4),
                                               (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain, 7),
@@ -197,11 +283,15 @@ def main(argv) -> int:
                             raise AssertionError(f"{who} {name} on {case}{suffix}: outside the tolerance")
 
                     record(name + suffix, case, per_step,
-                           turns(libs["flash_attention"], fa, lambda: kernel(*call_args), check))
+                           turns(libs["flash_attention"], fa, lambda: kernel(*call_args), check),
+                           size=int(call_args[3].sum()))
                     del want
     cs.log(smi)
-    print(json.dumps({"per_step_ms": sums, "note": "sum over a step of the faster of each "
-                      "version's timings at each shape"}), flush=True)
+    print(json.dumps({"per_step_ms": sums, "largest_shape_ms": {k: v[1] for k, v in largest.items()},
+                      "worst_tree_over_parent": worst,
+                      "note": "sums over a step of the faster of each version's timings at each "
+                              "shape; the largest shape is VGG16's Dense_0 bucket for the codecs"}),
+          flush=True)
     return 0
 
 

@@ -73,6 +73,53 @@ def test_kernels_match_plain_on_constants(cuda_device, value):
     assert bitwise(q2, q2_p) and bitwise(mm2, mm2_p)
 
 
+def check_fused(q: torch.Tensor, mm: torch.Tensor, average: bool) -> None:
+    """The fused reduce equals its plain version bitwise and counts one
+    launch a call."""
+    before = port.decompress_reduce_requantize.launches
+    got = port.decompress_reduce_requantize(q, mm, average)
+    want = port.decompress_reduce_requantize_plain(q, mm, average)
+    torch.cuda.synchronize()
+    assert port.decompress_reduce_requantize.launches == before + 1
+    assert bitwise(got[0], want[0]) and bitwise(got[1], want[1])
+
+
+def fused_inputs(device, ranks: int, n: int, chunk: int, seed: int = 3):
+    """Each rank's n received chunks, compressed by the plain codec."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((ranks * n, chunk), generator=gen, device=device) * 3.0
+    q, mm = port.compress_minmax_uint8_plain(x)
+    return q.reshape(ranks, n, chunk), mm.reshape(ranks, n, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("average", [True, False], ids=["avg", "sum"])
+@pytest.mark.parametrize("shape", [
+    # (R, n, chunk): R > 1; n on both sides of the recompute/scratch choice
+    # (n < 8 recomputes the sums, n >= 8 stores them), powers of two and
+    # not; 33 and 64 peers (tables beyond one group of 32); chunks of one
+    # element and at the 4096-element tile (one launch) and one past it
+    (3, 4, 40000), (2, 1, 9000), (1, 3, 20000), (2, 5, 8208), (1, 8, 12288), (1, 9, 5000),
+    (1, 16, 4100), (1, 64, 9000), (1, 33, 4097), (1, 64, 300), (4, 4, 1), (1, 4, 4095),
+    (2, 4, 4096), (2, 4, 4097), (1, 9, 4096),
+])
+def test_fused_reduce_matches_plain(cuda_device, shape, average):
+    check_fused(*fused_inputs(cuda_device, *shape), average)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [40000, 4096])
+def test_fused_reduce_reads_unaligned_views(cuda_device, chunk):
+    """q one byte off a 16-byte boundary: the scalar path."""
+    q, mm = fused_inputs(cuda_device, 2, 4, chunk)
+    buf = torch.empty(q.numel() + 1, dtype=torch.uint8, device=cuda_device)
+    off = buf[1:].view(q.shape)
+    off.copy_(q)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    for average in (True, False):
+        check_fused(off, mm, average)
+
+
 def check_hop(incoming: torch.Tensor, local: torch.Tensor, bits: int) -> None:
     """The hop kernel equals its plain version bitwise on packages the
     block codec made from ``incoming``, and counts one launch."""
@@ -91,10 +138,13 @@ def check_hop(incoming: torch.Tensor, local: torch.Tensor, bits: int) -> None:
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
 @pytest.mark.parametrize("shape", [(64, 4096), (5, 2), (7, 6), (9, 130), (3, 4098), (2, 8192),
-                                   (2, 8194), (2, 12288), (2, 65538)])
+                                   (2, 8194), (2, 12288), (2, 65538), (1, 4096), (800, 4096),
+                                   (3000, 4096), (5, 32), (4, 16), (3, 4112), (2, 16384), (2, 16386)])
 def test_hop_matches_plain(cuda_device, bits, shape):
     """Random blocks at the ring's block size and at ragged ones: vector
-    and scalar loads, s in shared memory and recomputed."""
+    and scalar loads; one row to several waves of CTAs (6 or 5 a SM); rows
+    held in registers by 256 threads (B <= 4096) and by up to 1024 (B <=
+    16384), and longer rows walked twice."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     incoming = torch.randn(shape, generator=gen, device=cuda_device) * 3.0
     local = torch.randn(shape, generator=gen, device=cuda_device)

@@ -173,3 +173,50 @@ def test_fused_reduce_constant_saturates_as_jnp():
         torch.from_numpy(np.array(q))[None], torch.from_numpy(np.array(mm))[None]
     )
     assert (q_port == 255).all() and (np.asarray(q_pl) == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# The identities the CUDA kernels lean on
+# ---------------------------------------------------------------------------
+
+
+def level_sidecars():
+    """(min, max) rows of several kinds: random ranges, constant chunks, huge
+    (3.4e38) and tiny (1e-38) magnitudes."""
+    rng = np.random.RandomState(12)
+    lo = (rng.randn(6) * 3.0).astype(np.float32)
+    return {
+        "random": np.stack([lo, lo + np.abs(rng.randn(6)).astype(np.float32) * 5.0], 1),
+        "constant": np.array([[1.5, 1.5], [0.0, 0.0], [-7.0, -7.0], [2.5, 2.5]], np.float32),
+        "huge": np.array([[3.4e38, 3.4e38], [-3.4e38, 3.4e38], [1e32, 3.4e38], [-3.4e38, -1e30]],
+                         np.float32),
+        "tiny": np.array([[1e-38, 1e-38], [-1e-38, 1e-38], [0.0, 1e-38], [-1e-38, 0.0]], np.float32),
+    }
+
+
+@pytest.mark.parametrize("case", list(level_sidecars()))
+def test_level_table_is_the_dequantize(case):
+    """The fused kernel looks each peer's values up in a table of its 256
+    levels instead of dividing: the table equals the JAX package's
+    dequantize of those levels, bit for bit."""
+    mm = level_sidecars()[case]
+    levels = np.tile(np.arange(256, dtype=np.uint8), (mm.shape[0], 1))
+    want = ref.decompress_minmax_uint8(jnp.asarray(levels), jnp.asarray(mm))
+    assert_bitwise(port.level_table_plain(torch.from_numpy(mm)).numpy(), want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16])
+def test_divide_by_power_of_two_is_multiply_by_reciprocal(n):
+    """Where n is a power of two the fused kernel averages by multiplying by
+    1/n: both round the same exact quotient, subnormals included.  Checked
+    in IEEE arithmetic (numpy, torch), as the kernel computes it (no
+    fast-math, no flush to zero); XLA's CPU backend flushes subnormals, so
+    it cannot witness the identity."""
+    rng = np.random.RandomState(13)
+    bits = rng.randint(0, 2 ** 32, size=1 << 16, dtype=np.uint64).astype(np.uint32)
+    x = bits.view(np.float32)
+    x = np.concatenate([x[~np.isnan(x)], np.array([1e-45, -1e-45, 3e-39, -1.2e-38, 0.0, -0.0], np.float32)])
+    recip = np.float32(1.0) / np.float32(n)
+    assert_bitwise(x * recip, x / np.float32(n))
+    t = torch.from_numpy(x)
+    assert_bitwise((t * recip).numpy(), (t / torch.full_like(t, n)).numpy())

@@ -137,6 +137,42 @@ def test_int32_convert_follows_xla():
     np.testing.assert_array_equal(port._to_int32(torch.from_numpy(v)).numpy(), want)
 
 
+def level_sidecars():
+    """(min, max) rows of several kinds: random ranges, constant blocks, huge
+    (3.4e38) and tiny (1e-38) magnitudes."""
+    rng = np.random.RandomState(14)
+    lo = (rng.randn(6) * 3.0).astype(np.float32)
+    return {
+        "random": np.stack([lo, lo + np.abs(rng.randn(6)).astype(np.float32) * 5.0], 1),
+        "constant": np.array([[1.5, 1.5], [0.0, 0.0], [-7.0, -7.0], [2.5, 2.5]], np.float32),
+        "huge": np.array([[3.4e38, 3.4e38], [-3.4e38, 3.4e38], [1e32, 3.4e38], [-3.4e38, -1e30]],
+                         np.float32),
+        "tiny": np.array([[1e-38, 1e-38], [-1e-38, 1e-38], [0.0, 1e-38], [-1e-38, 0.0]], np.float32),
+    }
+
+
+@pytest.mark.parametrize("case", list(level_sidecars()))
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_hop_level_table_is_the_dequantize(bits, case):
+    """The hop kernel looks the incoming package's values (and, after the
+    min/max, the requantized levels' values for err) up in a table of the
+    row's 256 or 16 levels instead of dividing: the table equals the JAX
+    package's dequantize of those levels, bit for bit.  int4 packs level j
+    into both nibbles of byte j, so both halves of the block read the table."""
+    mm = level_sidecars()[case]
+    rows, count = mm.shape[0], 256 if bits == 8 else 16
+    got = minmax_uint8.level_table_plain(torch.from_numpy(mm), 255.0 if bits == 8 else port.LEVELS4)
+    if bits == 8:
+        levels = np.tile(np.arange(count, dtype=np.uint8), (rows, 1))
+        want = ref.decompress_minmax_uint8(jnp.asarray(levels), jnp.asarray(mm))
+    else:
+        packed = np.tile((np.arange(count) * 0x11).astype(np.uint8), (rows, 1))
+        want = np.asarray(ref.decompress_minmax_uint4(jnp.asarray(packed), jnp.asarray(mm)))
+        assert_bitwise(want[:, :count], want[:, count:])
+        want = want[:, :count]
+    assert_bitwise(got.numpy(), want)
+
+
 @pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
 @pytest.mark.parametrize("case", list(_int4_cases()))
 def test_hop_plain_bitwise(bits, case):
