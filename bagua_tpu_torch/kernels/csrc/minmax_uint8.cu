@@ -21,13 +21,32 @@
 // ways), far beyond a block's shared memory, so a chunk-wide min/max needs a
 // reduction across blocks (no atomics; deterministic: min/max do not depend
 // on the order they fold in).
-//   compress   (3 launches): tile min/max -> finish per row (min/max, scale,
-//                            upper) -> quantize tile by tile (kTile a block)
+//   compress   (1 launch up to kRowMax = 16384 elements a chunk, else 2): below
 //   decompress (1 launch):   elementwise, each block computes its row's scale
 //   fused      (2 launches, 1 for a chunk of one 4096-element tile): below
 // Bound: device-memory bytes.  Least bytes per element of a chunk: compress
 // 4 in + 1 out, decompress 1 in + 4 out, fused n in + 1 out.  Compress reads
-// x twice (9 B an element); decompress moves its 5.
+// a chunk longer than kRowMax twice (9 B an element, less what the second
+// read finds in L2); decompress moves its 5.
+//
+// Compress.  Min/max fold as integer keys (MinMax: one integer min and max
+// an element, where XLA's NaN- and sign-aware float min/max is six
+// instructions), warps by redux.sync.
+//   * A chunk of at most kRowMax elements is one CTA's (compress_rows): a
+//     thread holds 16 elements, its four 16-byte loads issued before the
+//     fold; the block folds by one barrier, every thread derives (scale,
+//     upper) and quantizes from registers, 16 bytes stored at once.  Every
+//     input is read once.  Rows up to 4096 take 256 threads (the int8
+//     ring's blocks; 6 CTAs an SM), up to 16384 up to 1024.
+//   * Longer chunks: pass 1 (compress_fold) is one wave of CTAs over all
+//     rows, each row's share of the CTAs walking its tiles (256 threads x 4
+//     16-byte loads in flight each) and writing one partial of keys; pass 2
+//     (compress_quantize), the same grid, folds the row's partials in every
+//     CTA and quantizes the CTA's tiles in the reverse of pass 1's order, so
+//     the bytes pass 1 read last, which the 50 MB L2 may still hold, are
+//     read first.
+//   * Chunks not a whole number of 16 elements, or views off a 16-byte
+//     boundary, load and store element by element (a stride of the block).
 //
 // The fused reduce, per element of a rank's chunk (n peers):
 //   * No division.  A peer's dequantized value takes one of 256 values, so
@@ -52,8 +71,10 @@
 //     launch with the sums in registers.
 // ptxas (sm_90a, nvcc 12.8, -fmad=false): the fused kernels use 40-64
 // registers at 4 CTAs an SM (92 for pass 1 storing red), static shared
-// memory 64-80 bytes beside their n KB of tables, and no stack frame and no
-// spill in any instantiation (PERF.md holds the build's lines).
+// memory 64-80 bytes beside their n KB of tables; compress's one-pass
+// kernels 32 registers on the vector path (so 8 CTAs of 256 an SM fit) and
+// 46-48 on the scalar, its two passes 29-32 (8 CTAs an SM); no stack frame
+// and no spill in any instantiation (PERF.md holds the build's lines).
 
 #include <algorithm>
 
@@ -62,7 +83,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kTile = 16384;  // elements of one row per block
+constexpr int64_t kTile = 16384;  // elements of one row per decompress block
 constexpr float kLevels = 255.0f;
 
 __device__ __forceinline__ int64_t tile_end(int64_t begin, int64_t chunk) {
@@ -78,35 +99,14 @@ __device__ __forceinline__ uint8_t quantize(float x, float scale, float upper) {
   return xla::to_u8(__fsub_rn(level, __fsub_rn(upper, kLevels)));
 }
 
-__device__ __forceinline__ float dequantize(uint8_t q, float scale, float lower) {
-  return __fdiv_rn(__fadd_rn(static_cast<float>(q), lower), scale);
+// Four elements' levels with p = (scale, upper), the first in the low byte.
+__device__ __forceinline__ uint32_t quantize4(float a, float b, float c, float d, float2 p) {
+  return static_cast<uint32_t>(quantize(a, p.x, p.y)) | static_cast<uint32_t>(quantize(b, p.x, p.y)) << 8 |
+         static_cast<uint32_t>(quantize(c, p.x, p.y)) << 16 | static_cast<uint32_t>(quantize(d, p.x, p.y)) << 24;
 }
 
-// Pass 1 of compress: min/max of one tile of one row.
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-tile_minmax(const float* __restrict__ x, float2* __restrict__ partial,
-            int64_t chunk, int64_t tiles) {
-  const int64_t row = blockIdx.x / tiles;
-  const int64_t begin = (blockIdx.x - row * tiles) * kTile;
-  const int64_t end = tile_end(begin, chunk);
-  const float* xr = x + row * chunk;
-  float mn = INFINITY, mx = -INFINITY;
-  if (kVec) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    for (int64_t i = begin / 4 + threadIdx.x; i < end / 4; i += kThreads) {
-      const float4 v = x4[i];
-      mn = xla::min(xla::min(mn, v.x), xla::min(v.y, xla::min(v.z, v.w)));
-      mx = xla::max(xla::max(mx, v.x), xla::max(v.y, xla::max(v.z, v.w)));
-    }
-  } else {
-    for (int64_t i = begin + threadIdx.x; i < end; i += kThreads) {
-      mn = xla::min(mn, xr[i]);
-      mx = xla::max(mx, xr[i]);
-    }
-  }
-  xla::block_minmax<kThreads>(mn, mx);
-  if (threadIdx.x == 0) partial[blockIdx.x] = make_float2(mn, mx);
+__device__ __forceinline__ float dequantize(uint8_t q, float scale, float lower) {
+  return __fdiv_rn(__fadd_rn(static_cast<float>(q), lower), scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -451,49 +451,182 @@ fused_one_tile(const uint8_t* __restrict__ q, const float* __restrict__ minmax,
   quantize_sums<kVec>(acc, q_out + static_cast<int64_t>(r) * chunk, 0, chunk, params);
 }
 
-// Pass 2: one block per row folds the tiles' min/max and derives the row's
-// quantization parameters (scale, upper).
-__global__ void __launch_bounds__(kThreads)
-finish_minmax(const float2* __restrict__ partial, float* __restrict__ minmax,
-              float2* __restrict__ qparams, int64_t tiles) {
-  const int64_t row = blockIdx.x;
-  float mn = INFINITY, mx = -INFINITY;
-  for (int64_t t = threadIdx.x; t < tiles; t += kThreads) {
-    const float2 p = partial[row * tiles + t];
-    mn = xla::min(mn, p.x);
-    mx = xla::max(mx, p.y);
+// ---------------------------------------------------------------------------
+// Compress: one launch for a chunk a CTA holds, two for longer ones.
+// ---------------------------------------------------------------------------
+
+constexpr int kRowThreads = 256;                              // chunks up to 4096 elements
+constexpr int kRowMinBlocks = 6;                              // CTAs an SM of 256 (32 registers)
+constexpr int kLongRowThreads = 1024;                         // up to kRowMax, still in registers
+constexpr int64_t kRowMax = kLongRowThreads * kPer;           // 16384
+constexpr int kWalkThreads = 256;                             // the two-pass kernels
+constexpr int kWalkLoads = 4;                                 // 16-byte loads a thread a tile
+constexpr int64_t kWalkTile = kWalkThreads * 4 * kWalkLoads;  // 4096 elements of a row
+constexpr int kWalkCtas = 8;                                  // CTAs an SM of each pass
+
+// m folded over the block (a whole number of warps, at most 32); every
+// thread gets the result.
+__device__ __forceinline__ void block_keys(MinMax& m, int32_t* s_lo, int32_t* s_hi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  m.lo = __reduce_min_sync(0xffffffffu, m.lo);
+  m.hi = __reduce_max_sync(0xffffffffu, m.hi);
+  if (lane == 0) {
+    s_lo[warp] = m.lo;
+    s_hi[warp] = m.hi;
   }
-  xla::block_minmax<kThreads>(mn, mx);
-  if (threadIdx.x == 0) {
-    minmax[2 * row] = mn;
-    minmax[2 * row + 1] = mx;
-    const float s = safe_scale(mn, mx);
-    qparams[row] = make_float2(s, rintf(__fmul_rn(mx, s)));
+  __syncthreads();
+  const bool live = lane < static_cast<int>(blockDim.x >> 5);
+  m.lo = __reduce_min_sync(0xffffffffu, live ? s_lo[lane] : MinMax::kPosInf);
+  m.hi = __reduce_max_sync(0xffffffffu, live ? s_hi[lane] : MinMax::kNegInf);
+}
+
+// The row's (min, max) from its folded keys, as (scale, upper); the
+// caller's writer stores (min, max) in mm.
+__device__ __forceinline__ float2 row_params(const MinMax& m, float* mm, bool writer) {
+  float mn, mx;
+  m.get(mn, mx);
+  if (writer) {
+    mm[0] = mn;
+    mm[1] = mx;
+  }
+  const float s = safe_scale(mn, mx);
+  return make_float2(s, rintf(__fmul_rn(mx, s)));
+}
+
+// One CTA a row of at most kMaxThreads * kPer elements.  Vector path: the
+// thread's kPer neighbours from threadIdx.x * kPer; scalar path: element k
+// at k * blockDim.x + threadIdx.x.
+template <bool kVec, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads, kVec && kMaxThreads == kRowThreads ? kRowMinBlocks : 1)
+compress_rows(const float* __restrict__ x, uint8_t* __restrict__ q, float* __restrict__ minmax,
+              int chunk) {
+  __shared__ int32_t s_lo[kMaxThreads / 32], s_hi[kMaxThreads / 32];
+  const int64_t row = blockIdx.x;
+  const float* xr = x + row * chunk;
+  const int c0 = kVec ? threadIdx.x * kPer : threadIdx.x;
+  float v[kPer];
+  MinMax m;
+  if (kVec) {
+    if (c0 < chunk) {
+#pragma unroll
+      for (int j = 0; j < kPer / 4; ++j) {
+        const float4 f = *reinterpret_cast<const float4*>(xr + c0 + 4 * j);
+        v[4 * j] = f.x, v[4 * j + 1] = f.y, v[4 * j + 2] = f.z, v[4 * j + 3] = f.w;
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) m.add(v[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = c0 + i * static_cast<int>(blockDim.x);
+      v[i] = c < chunk ? xr[c] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (c0 + i * static_cast<int>(blockDim.x) < chunk) m.add(v[i]);
+  }
+  block_keys(m, s_lo, s_hi);
+  const float2 p = row_params(m, minmax + 2 * row, threadIdx.x == 0);
+  uint8_t* qr = q + row * chunk;
+  if (kVec) {
+    if (c0 < chunk)
+      *reinterpret_cast<uint4*>(qr + c0) =
+          make_uint4(quantize4(v[0], v[1], v[2], v[3], p), quantize4(v[4], v[5], v[6], v[7], p),
+                     quantize4(v[8], v[9], v[10], v[11], p), quantize4(v[12], v[13], v[14], v[15], p));
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = c0 + i * static_cast<int>(blockDim.x);
+      if (c < chunk) qr[c] = quantize(v[i], p.x, p.y);
+    }
   }
 }
 
-// Pass 3: quantize one tile of one row with the row's (scale, upper).
+// Element (vector path: float4) k of this thread in the tile that starts
+// at begin: a stride of the block, so each load of a warp is contiguous.
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-quantize_tile(const float* __restrict__ x, const float2* __restrict__ qparams,
-              uint8_t* __restrict__ q, int64_t chunk, int64_t tiles) {
-  const int64_t row = blockIdx.x / tiles;
-  const int64_t begin = (blockIdx.x - row * tiles) * kTile;
-  const int64_t end = tile_end(begin, chunk);
-  const float2 p = qparams[row];
+__device__ __forceinline__ int64_t walk_column(int64_t begin, int k) {
+  return begin + (static_cast<int64_t>(k) * kWalkThreads + threadIdx.x) * (kVec ? 4 : 1);
+}
+
+// This thread's elements of the tile at begin: kWalkLoads float4 (vector
+// path) or 4 * kWalkLoads floats, those past the row's end left unset.
+template <bool kVec>
+__device__ __forceinline__ void walk_load(float (&v)[4 * kWalkLoads], const float* __restrict__ xr,
+                                          int64_t begin, int64_t chunk) {
+#pragma unroll
+  for (int k = 0; k < (kVec ? kWalkLoads : 4 * kWalkLoads); ++k) {
+    const int64_t c = walk_column<kVec>(begin, k);
+    if (c < chunk) {
+      if (kVec) {
+        const float4 f = *reinterpret_cast<const float4*>(xr + c);
+        v[4 * k] = f.x, v[4 * k + 1] = f.y, v[4 * k + 2] = f.z, v[4 * k + 3] = f.w;
+      } else {
+        v[k] = xr[c];
+      }
+    }
+  }
+}
+
+// Pass 1 over chunks longer than kRowMax: CTA c of each row's ctas walks
+// the tiles c, c + ctas, ... and writes its keys' (lo, hi) to
+// partial[blockIdx.x].
+template <bool kVec>
+__global__ void __launch_bounds__(kWalkThreads, kWalkCtas)
+compress_fold(const float* __restrict__ x, int2* __restrict__ partial, int64_t chunk, int64_t tiles,
+              int ctas) {
+  __shared__ int32_t s_lo[kWalkThreads / 32], s_hi[kWalkThreads / 32];
+  const int64_t row = blockIdx.x / ctas;
+  const float* xr = x + row * chunk;
+  MinMax m;
+  for (int64_t t = blockIdx.x - row * ctas; t < tiles; t += ctas) {
+    const int64_t begin = t * kWalkTile;
+    float v[4 * kWalkLoads];
+    walk_load<kVec>(v, xr, begin, chunk);
+#pragma unroll
+    for (int k = 0; k < 4 * kWalkLoads; ++k)
+      if (walk_column<kVec>(begin, kVec ? k / 4 : k) < chunk) m.add(v[k]);
+  }
+  block_keys(m, s_lo, s_hi);
+  if (threadIdx.x == 0) partial[blockIdx.x] = make_int2(m.lo, m.hi);
+}
+
+// Pass 2, on pass 1's grid: every CTA folds its row's ctas partials, the
+// first writes the row's (min, max); then CTA c quantizes the tiles pass 1's
+// CTA c walked, last first.
+template <bool kVec>
+__global__ void __launch_bounds__(kWalkThreads, kWalkCtas)
+compress_quantize(const float* __restrict__ x, const int2* __restrict__ partial,
+                  uint8_t* __restrict__ q, float* __restrict__ minmax, int64_t chunk, int64_t tiles,
+                  int ctas) {
+  __shared__ int32_t s_lo[kWalkThreads / 32], s_hi[kWalkThreads / 32];
+  const int64_t row = blockIdx.x / ctas;
+  const int64_t c = blockIdx.x - row * ctas;
+  MinMax m;
+  for (int i = threadIdx.x; i < ctas; i += kWalkThreads) {
+    const int2 k = partial[row * ctas + i];
+    m.lo = k.x < m.lo ? k.x : m.lo;
+    m.hi = k.y > m.hi ? k.y : m.hi;
+  }
+  block_keys(m, s_lo, s_hi);
+  const float2 p = row_params(m, minmax + 2 * row, c == 0 && threadIdx.x == 0);
   const float* xr = x + row * chunk;
   uint8_t* qr = q + row * chunk;
-  if (kVec) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    uchar4* q4 = reinterpret_cast<uchar4*>(qr);
-    for (int64_t i = begin / 4 + threadIdx.x; i < end / 4; i += kThreads) {
-      const float4 v = x4[i];
-      q4[i] = make_uchar4(quantize(v.x, p.x, p.y), quantize(v.y, p.x, p.y),
-                          quantize(v.z, p.x, p.y), quantize(v.w, p.x, p.y));
+  for (int64_t t = c + (tiles - 1 - c) / ctas * ctas; t >= 0; t -= ctas) {
+    const int64_t begin = t * kWalkTile;
+    float v[4 * kWalkLoads];
+    walk_load<kVec>(v, xr, begin, chunk);
+#pragma unroll
+    for (int k = 0; k < (kVec ? kWalkLoads : 4 * kWalkLoads); ++k) {
+      const int64_t col = walk_column<kVec>(begin, k);
+      if (col < chunk) {
+        if (kVec)
+          *reinterpret_cast<uint32_t*>(qr + col) = quantize4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3], p);
+        else
+          qr[col] = quantize(v[k], p.x, p.y);
+      }
     }
-  } else {
-    for (int64_t i = begin + threadIdx.x; i < end; i += kThreads)
-      qr[i] = quantize(xr[i], p.x, p.y);
   }
 }
 
@@ -528,13 +661,20 @@ int64_t tiles_of(int64_t chunk) { return (chunk + kTile - 1) / kTile; }
 
 int64_t fused_tiles(int64_t chunk) { return (chunk + kFusedTile - 1) / kFusedTile; }
 
-// CTAs a rank for a fused pass: one wave of `resident` CTAs over all ranks at
-// most (kMaxCtasPerRank a rank), each walking the same number of tiles but
-// for the last ones.
-int64_t fused_ctas(int64_t tiles, int64_t ranks, int64_t resident) {
+// CTAs a rank (a row) for a pass of the fused reduce or compress: one wave
+// of `resident` CTAs over all ranks at most (kMaxCtasPerRank a rank), each
+// walking the same number of tiles but for the last ones.
+int64_t wave_ctas(int64_t tiles, int64_t ranks, int64_t resident) {
   const int64_t most = std::min<int64_t>(std::max<int64_t>(resident / ranks, 1), kMaxCtasPerRank);
   const int64_t walk = (tiles + most - 1) / most;
   return (tiles + walk - 1) / walk;
+}
+
+// The current device's SMs.
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
@@ -550,34 +690,54 @@ bool grid_ok(int64_t rows, int64_t chunk) {
 
 extern "C" {
 
-// Tiles per row; the caller sizes the scratch as 2 * rows * (tiles + 1) floats
-// (also room for the fused reduce's partials: at most one per tile, and at
-// most kMaxCtasPerRank a rank).
+// Partials a row of chunk elements may need, less one: the caller sizes the
+// scratch of compress and the fused reduce as 2 * rows * (tiles + 1) floats,
+// or passes none where tiles is -1.  The sentinel is the fused reduce's: a
+// chunk of one 4096-element tile, which it takes in one launch without
+// scratch (so does compress).  Compress also leaves the scratch of chunks of
+// 4097 to kRowMax elements unread (at most 10 floats a row).  At most one
+// partial a tile of either and kMaxCtasPerRank a row.
 int64_t bagua_minmax_u8_tiles(int64_t chunk) {
-  const int64_t fused = std::min<int64_t>(fused_tiles(chunk), kMaxCtasPerRank);
-  return std::max(tiles_of(chunk), fused);
+  static_assert(kWalkTile == kFusedTile, "one count of tiles serves compress and the fused reduce");
+  return chunk <= kFusedTile ? -1 : std::min<int64_t>(fused_tiles(chunk), kMaxCtasPerRank);
 }
 
-// x (rows, chunk) f32 -> q (rows, chunk) u8, minmax (rows, 2) f32.
+// x (rows, chunk) f32 -> q (rows, chunk) u8, minmax (rows, 2) f32.  scratch:
+// see bagua_minmax_u8_tiles; unread for chunks up to kRowMax, may be null.
 int bagua_compress_minmax_u8(const float* x, uint8_t* q, float* minmax,
                              float* scratch, int64_t rows, int64_t chunk,
                              void* stream) {
-  if (!grid_ok(rows, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || rows > 0x7fffffffLL || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t tiles = tiles_of(chunk);
-  float2* partial = reinterpret_cast<float2*>(scratch);
-  float2* qparams = partial + rows * tiles;
-  const bool vec = chunk % 4 == 0 && aligned(x, 16) && aligned(q, 4);
-  const unsigned grid = static_cast<unsigned>(rows * tiles);
-  if (vec) tile_minmax<true><<<grid, kThreads, 0, s>>>(x, partial, chunk, tiles);
-  else tile_minmax<false><<<grid, kThreads, 0, s>>>(x, partial, chunk, tiles);
-  cudaError_t err = cudaGetLastError();
+  const unsigned grid = static_cast<unsigned>(rows);
+  if (chunk <= kRowMax) {
+    const int n = static_cast<int>(chunk);
+    const bool vec = n % kPer == 0 && aligned(x, 16) && aligned(q, 16);
+    const unsigned threads = static_cast<unsigned>(((n + kPer - 1) / kPer + 31) / 32 * 32);
+    if (threads <= kRowThreads) {
+      auto* k = vec ? compress_rows<true, kRowThreads> : compress_rows<false, kRowThreads>;
+      k<<<grid, threads, 0, s>>>(x, q, minmax, n);
+    } else {
+      auto* k = vec ? compress_rows<true, kLongRowThreads> : compress_rows<false, kLongRowThreads>;
+      k<<<grid, threads, 0, s>>>(x, q, minmax, n);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  finish_minmax<<<static_cast<unsigned>(rows), kThreads, 0, s>>>(partial, minmax, qparams, tiles);
+  const int64_t tiles = fused_tiles(chunk);
+  const int64_t ctas = wave_ctas(tiles, rows, sms * kWalkCtas);
+  if (rows * ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = chunk % 4 == 0 && aligned(x, 16) && aligned(q, 4);
+  int2* partial = reinterpret_cast<int2*>(scratch);
+  const unsigned wave = static_cast<unsigned>(rows * ctas);
+  (vec ? compress_fold<true> : compress_fold<false>)<<<wave, kWalkThreads, 0, s>>>(
+      x, partial, chunk, tiles, static_cast<int>(ctas));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (vec) quantize_tile<true><<<grid, kThreads, 0, s>>>(x, qparams, q, chunk, tiles);
-  else quantize_tile<false><<<grid, kThreads, 0, s>>>(x, qparams, q, chunk, tiles);
+  (vec ? compress_quantize<true> : compress_quantize<false>)<<<wave, kWalkThreads, 0, s>>>(
+      x, partial, q, minmax, chunk, tiles, static_cast<int>(ctas));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -603,9 +763,8 @@ int bagua_fused_reduce_minmax_u8(const uint8_t* q, const float* minmax,
                                  int64_t chunk, int average, void* stream) {
   if (!grid_ok(ranks, chunk) || n <= 0 || n > kMaxPeers)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mode = !average ? kSum : (n & (n - 1)) == 0 ? kMultiply : kDivide;
@@ -620,8 +779,8 @@ int bagua_fused_reduce_minmax_u8(const uint8_t* q, const float* minmax,
     return static_cast<int>(cudaGetLastError());
   }
   const bool store = n >= kScratchPeers;
-  const int64_t ctas1 = fused_ctas(tiles, ranks, sms * (store ? kStoreCtas : FUSED_CTAS_PASS1));
-  const int64_t ctas2 = fused_ctas(tiles, ranks, sms * (store ? kFromRedCtas : FUSED_CTAS_PASS2));
+  const int64_t ctas1 = wave_ctas(tiles, ranks, sms * (store ? kStoreCtas : FUSED_CTAS_PASS1));
+  const int64_t ctas2 = wave_ctas(tiles, ranks, sms * (store ? kFromRedCtas : FUSED_CTAS_PASS2));
   if (ranks * std::max(ctas1, ctas2) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = chunk % kPer == 0 && aligned(q, 16) && aligned(q_out, 16) && aligned(red, 16);
   float2* partial = reinterpret_cast<float2*>(scratch);

@@ -27,9 +27,10 @@ plain version, a CUDA tensor launches the kernel (or raises).  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``, one a call; the plain
 path leaves the count alone.  The kernels are bounded by device-memory
 bytes; the CUDA source's header says what each moves and how many kernels
-one call runs (compress 3, decompress 1, fused 2, or 1 where the chunk is
-a single tile of 4096).  The fused kernel looks each peer's dequantized
-levels up in a table (:func:`level_table_plain` is its plain twin).
+one call runs (compress 1 where a chunk has at most 16384 elements, else 2;
+decompress 1; fused 2, or 1 where the chunk is a single tile of 4096).  The
+fused kernel looks each peer's dequantized levels up in a table
+(:func:`level_table_plain` is its plain twin).
 
 Bitwise parity with the jnp reference needs three things the obvious torch
 spelling gets wrong: ``scalar / tensor`` is computed as a multiply by the
@@ -40,7 +41,7 @@ and the casts and reductions follow XLA's rules (see :func:`_to_uint8`,
 """
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -164,6 +165,7 @@ def _lib() -> ctypes.CDLL:
         for fn, (argtypes, restype) in _SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
+        lib._bagua_tiles = {}  # chunk -> bagua_minmax_u8_tiles(chunk)
         lib._bagua_typed = True
     return lib
 
@@ -180,9 +182,23 @@ def _cuda_operand(t: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> 
     return t.contiguous()
 
 
-def _scratch(rows: int, chunk: int, device) -> torch.Tensor:
-    tiles = _lib().bagua_minmax_u8_tiles(chunk)
+def _scratch(rows: int, chunk: int, device) -> Optional[torch.Tensor]:
+    """Scratch for compress or the fused reduce of ``rows`` chunks of
+    ``chunk`` elements: ``2 * rows * (tiles + 1)`` floats, with ``tiles`` as
+    the library reports it once per chunk length; None where it reports -1
+    (chunks of at most 4096 elements, which both take in one launch with no
+    scratch; compress also leaves the scratch of chunks up to 16384 unread)."""
+    lib = _lib()
+    tiles = lib._bagua_tiles.get(chunk)
+    if tiles is None:
+        tiles = lib._bagua_tiles[chunk] = lib.bagua_minmax_u8_tiles(chunk)
+    if tiles < 0:
+        return None
     return torch.empty(2 * rows * (tiles + 1), dtype=torch.float32, device=device)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _check(err: int, what: str) -> None:
@@ -212,7 +228,7 @@ def compress_minmax_uint8(chunks: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     scratch = _scratch(rows, chunk, x.device)
     with torch.cuda.device(x.device):
         err = _lib().bagua_compress_minmax_u8(
-            x.data_ptr(), q.data_ptr(), minmax.data_ptr(), scratch.data_ptr(),
+            x.data_ptr(), q.data_ptr(), minmax.data_ptr(), _ptr(scratch),
             rows, chunk, _stream(x.device),
         )
     _check(err, "compress_minmax_uint8")
@@ -262,7 +278,7 @@ def decompress_reduce_requantize(
     with torch.cuda.device(q.device):
         err = _lib().bagua_fused_reduce_minmax_u8(
             q.data_ptr(), minmax.data_ptr(), q2.data_ptr(), mm2.data_ptr(),
-            red.data_ptr(), scratch.data_ptr(), ranks, n, chunk, int(bool(average)),
+            red.data_ptr(), _ptr(scratch), ranks, n, chunk, int(bool(average)),
             _stream(q.device),
         )
     _check(err, "decompress_reduce_requantize")

@@ -4,7 +4,7 @@ the main paths' shapes.
 
     git archive <commit> | tar -x -C _chipcheck/parent
     python3 chip_kernel_ab.py --parent _chipcheck/parent [--kernels codec,attention,gemm] \
-        [--variant="[source:]-DNAME=VALUE ..." ...]
+        [--variant="[source:]-DNAME=VALUE ..." ...] [--ring-block 4096]
 
 ``--parent`` is an unpacked tree of another commit of this repository.
 The sources of the chosen kernel families (``--kernels``, all three by
@@ -25,7 +25,11 @@ tree, this tree, parent (and each variant after):
 - codec: compress, the fused reduce, decompress and the int8 and int4
   hops at every bucket of VGG16 over 4 ranks (``chip_smoke.slice_shapes``,
   inputs from ``pipeline_inputs`` and ``hop_inputs``), the hops twice a
-  step (RANKS - 2);
+  step (RANKS - 2); and compress and decompress at the int8 ring's blocks
+  (``ring_codec_inputs``: two calls of each a step), summed apart as
+  ``compress_minmax_uint8 (int8 ring)`` and ``decompress_minmax_uint8
+  (int8 ring)``; the ring's blocks and the hops' are ``--ring-block``
+  elements (``chip_smoke.BLOCK``, the ring's default, unless given);
 - gemm: path (a)'s five tile products (``chip_smoke.sp_mlp_gemms``);
 - attention: the forward (``block_attention``), dq and dk/dv at each
   distinct block of the Llama sp 4 slice (``chip_smoke.zigzag_pair_masks``),
@@ -161,23 +165,34 @@ def attention_cases(device, kv_dtype=torch.float32):
         yield f"block {n} (live share {float(mask.float().mean()):.3f})", calls, (qf, k, v, mask, m, dl, do)
 
 
-def codec_cases(device):
-    """Every bucket of VGG16 over RANKS ranks with the five codec and hop
-    calls a step makes of it, as chip_smoke's kernels phase builds them:
-    (case, [(kernel, calls a step, source, arguments)])."""
+def codec_cases(device, block=cs.BLOCK):
+    """Every bucket of VGG16 over RANKS ranks with the codec and hop calls a
+    step makes of it, as chip_smoke's kernels phase builds them: ByteGrad's
+    compress, fused reduce and decompress, the int8 ring's two compresses
+    and two decompresses (summed apart, as ``<kernel> (int8 ring)``), and
+    the hops, the ring's in blocks of ``block`` elements: (case, [(kernel,
+    sum, calls a step, source, arguments)])."""
     gen = torch.Generator(device=device).manual_seed(1)
+    ring = " (int8 ring)"
     for numel, chunk in cs.slice_shapes(cs.vgg16_plan()):
         x = torch.randn((cs.RANKS, numel), generator=gen, device=device) * 1e-3
         flat, fused_in, dec_in = cs.pipeline_inputs(x, cs.RANKS)
-        calls = [("compress_minmax_uint8", 1, "minmax_uint8", (flat,)),
-                 ("decompress_reduce_requantize", 1, "minmax_uint8", fused_in),
-                 ("decompress_minmax_uint8", 1, "minmax_uint8", dec_in)]
+        calls = [("compress_minmax_uint8", "compress_minmax_uint8", 1, "minmax_uint8", (flat,)),
+                 ("decompress_reduce_requantize", "decompress_reduce_requantize", 1, "minmax_uint8",
+                  fused_in),
+                 ("decompress_minmax_uint8", "decompress_minmax_uint8", 1, "minmax_uint8", dec_in)]
+        comp_in, rs_dec, ag_dec = cs.ring_codec_inputs(x, block)
+        calls += [("compress_minmax_uint8", "compress_minmax_uint8" + ring, 1, "minmax_uint8", (b,))
+                  for b in comp_in]
+        calls += [("decompress_minmax_uint8", "decompress_minmax_uint8" + ring, 1, "minmax_uint8", d)
+                  for d in (rs_dec, ag_dec)]
         incoming = x[:, :chunk] + x[:, chunk:2 * chunk]
         for bits in (8, 4):
-            calls.append((f"hop_dequant_add_requant_int{bits}", cs.RANKS - 2, "quantized_ring",
-                          cs.hop_inputs(incoming, x[:, 2 * chunk:3 * chunk], cs.BLOCK, bits)))
+            name = f"hop_dequant_add_requant_int{bits}"
+            calls.append((name, name, cs.RANKS - 2, "quantized_ring",
+                          cs.hop_inputs(incoming, x[:, 2 * chunk:3 * chunk], block, bits)))
         yield f"bucket of {numel} elements", calls
-        del x, flat, fused_in, dec_in, incoming, calls
+        del x, flat, fused_in, dec_in, comp_in, rs_dec, ag_dec, incoming, calls
 
 
 def main(argv) -> int:
@@ -188,6 +203,8 @@ def main(argv) -> int:
     ap.add_argument("--variant", action="append", default=[],
                     help="[source:]nvcc flags (space-separated) for one more build of this tree's "
                          "source (collective_matmul where none is named)")
+    ap.add_argument("--ring-block", type=int, default=cs.BLOCK,
+                    help="elements of a block of the quantized ring's codec and hop cases")
     args = ap.parse_args(argv)
     families = args.kernels.split(",")
     if not set(families) <= set(FAMILIES):
@@ -234,8 +251,8 @@ def main(argv) -> int:
             f"; tree / parent {ratio:.4f}")
 
     if "codec" in families:
-        for case, calls in codec_cases(device):
-            for kernel, per_step, source, call_args in calls:
+        for case, calls in codec_cases(device, args.ring_block):
+            for kernel, sum_name, per_step, source, call_args in calls:
                 wrapper, plain = cs.KERNELS[kernel][:2]
                 want = plain(*call_args)
                 want = want if isinstance(want, tuple) else (want,)
@@ -245,7 +262,7 @@ def main(argv) -> int:
                     if not all(cs.same(g, w) for g, w in zip(got, want)):
                         raise AssertionError(f"{who} {kernel} on {case}: not bitwise its plain version")
 
-                record(kernel, case, per_step,
+                record(sum_name, case, per_step,
                        turns(libs[source], SOURCES[source], lambda: wrapper(*call_args), check_codec),
                        size=call_args[0].numel())
                 del want

@@ -13,7 +13,9 @@ and no result line:
 3. kernels -- holds each kernel against its plain PyTorch version at the
    main paths' shapes, at ragged and at degenerate ones: the codec and hop
    kernels bitwise (VGG16's 10 MiB buckets over 4 ranks: ByteGrad's chunks
-   and the quantized ring's blocks of 4096), the three attention kernels
+   and the quantized ring's blocks of 4096, where the int8 ring compresses
+   and decompresses twice a step; those four calls are summed per int8-ring
+   step on ``[kernels]`` lines of their own), the three attention kernels
    within ATTENTION_TOLS (the Llama slice's half-blocks, 4 ranks folded
    into the batch, 32 heads of 128; GQA, bf16 K/V, 200x300 with d 24 and
    64, a fully masked block, first-key-only rows), the tile GEMM of the
@@ -220,6 +222,9 @@ class Ledger:
     def __init__(self):
         self.rows = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                                 bound_by="bytes", library_ms=None, checks=0) for name in KERNELS}
+        #: sums over the steps of other slices than the kernel's own:
+        #: step -> kernel -> {ms, plain_ms, bound_ms}
+        self.other_steps = {}
 
     def compare(self, name: str, case: str, *args, **kwargs):
         """The kernel against its plain version: bitwise, or within
@@ -257,19 +262,22 @@ class Ledger:
         return share
 
     def time(self, name: str, nbytes: int, ops: int, *args, per_step: int = 1, library=None,
-             **kwargs):
+             step=None, **kwargs):
         """Times one call; adds ``per_step`` times it (the calls one step
-        makes at this shape) to the kernel's per-step sums.  ``library``: a
-        callable whose time is the library call's for the same work."""
+        makes at this shape) to the kernel's per-step sums, or, where
+        ``step`` names another slice's step, to ``other_steps[step]``.
+        ``library``: a callable whose time is the library call's for the
+        same work."""
         wrapper, plain, _, _ = KERNELS[name]
-        row = self.rows[name]
+        row = self.rows[name] if step is None else self.other_steps.setdefault(step, {}).setdefault(
+            name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0))
         ms = median_ms(lambda: wrapper(*args, **kwargs))
         plain_ms = median_ms(lambda: plain(*args, **kwargs))
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         row["ms"] += per_step * ms
         row["plain_ms"] += per_step * plain_ms
         row["bound_ms"] += per_step * max(bytes_ms, ops_ms)
-        if ops_ms > bytes_ms:
+        if ops_ms > bytes_ms and step is None:
             row["bound_by"] = "operations"
         if library is not None:
             row["library_ms"] = (row["library_ms"] or 0.0) + per_step * library()
@@ -343,6 +351,30 @@ def pipeline_inputs(x: torch.Tensor, n: int):
     return x.reshape(ranks * n, chunk), (q_recv, mm_recv), (qg, mmg)
 
 
+def ring_codec_inputs(x: torch.Tensor, block: int):
+    """The int8 ring's codec inputs for stacked flats ``x`` (R, L) over R
+    ranks, each blocked as ``quantized_ring._pad_to_blocks`` pads it: the
+    reduce-scatter's step-0 blocks (rank i's shard (i - 1) mod R) and the
+    all-gather's shard blocks (the shards' sums), which it compresses; the
+    reduce-scatter's one decompress (its step-0 and arrived packages, 2
+    blocks a block) and the all-gather's (every rank's copy of all R
+    shards' packages)."""
+    ranks = x.shape[0]
+    shards = x.reshape(ranks, ranks, -1)
+    idx = torch.arange(ranks, device=x.device)
+    blocks = lambda t: qr._pad_to_blocks(t, block)[0].reshape(-1, block)
+    local0, owned = blocks(shards[idx, (idx - 1) % ranks]), blocks(shards.sum(0))
+    q, mm = mm8.compress_minmax_uint8_plain(torch.cat([local0, owned]))
+    rows = owned.shape[0]
+    return (local0, owned), (q, mm), (q[rows:].repeat(ranks, 1), mm[rows:].repeat(ranks, 1))
+
+
+def codec_cost(rows: int, chunk: int, ops_per_element: int):
+    """(bytes, f32 operations) of compress or decompress over (rows, chunk):
+    4 + 1 bytes an element and the 8-byte sidecar a row, each moved once."""
+    return rows * chunk * 5 + rows * 8, rows * chunk * ops_per_element
+
+
 def hop_inputs(incoming: torch.Tensor, local: torch.Tensor, block: int, bits: int):
     """The hop's inputs for every rank's shard, ``(RANKS, S)`` each, padded
     to blocks as the ring pads them: the incoming packages (compressed by
@@ -374,15 +406,24 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
         ledger.compare("decompress_reduce_requantize", case + " (sum)", *fused_in, average=False)
         ledger.compare("decompress_minmax_uint8", case, *dec_in)
         t = {
-            "compress": ledger.time("compress_minmax_uint8", rows * chunk * 5 + rows * 8,
-                                    rows * chunk * 6, flat),
+            "compress": ledger.time("compress_minmax_uint8", *codec_cost(rows, chunk, 6), flat),
             "fused reduce": ledger.time("decompress_reduce_requantize",
                                         rows * chunk + rows * 8 + RANKS * (chunk + 8),
                                         rows * chunk * 3 + RANKS * chunk * 5, *fused_in),
-            "decompress": ledger.time("decompress_minmax_uint8", rows * chunk * 5 + rows * 8,
-                                      rows * chunk * 2, *dec_in),
+            "decompress": ledger.time("decompress_minmax_uint8", *codec_cost(rows, chunk, 2), *dec_in),
         }
         del flat, fused_in, dec_in
+        # the int8 ring's codec calls, one of each a step at this bucket
+        comp_in, rs_dec, ag_dec = ring_codec_inputs(x, BLOCK)
+        for what, blocks in zip(("reduce-scatter step 0", "all-gather"), comp_in):
+            ledger.compare("compress_minmax_uint8", f"{case}, int8 ring {what}", blocks)
+            t[f"compress, int8 ring {what}"] = ledger.time(
+                "compress_minmax_uint8", *codec_cost(*blocks.shape, 6), blocks, step="int8 ring")
+        for what, dec in (("reduce-scatter", rs_dec), ("all-gather", ag_dec)):
+            ledger.compare("decompress_minmax_uint8", f"{case}, int8 ring {what}", *dec)
+            t[f"decompress, int8 ring {what}"] = ledger.time(
+                "decompress_minmax_uint8", *codec_cost(*dec[0].shape, 2), *dec, step="int8 ring")
+        del comp_in, rs_dec, ag_dec
         # the ring's hop: each rank's shard of chunk elements in blocks, the
         # incoming partial sum of a few ranks' gradients and the local one
         incoming = x[:, :chunk] + x[:, chunk:2 * chunk]
@@ -440,6 +481,10 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
         log(f"[kernels] {name}: {row['checks']} comparisons bitwise, per step over "
             f"{plan.num_buckets} buckets {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms)")
+    for step, sums in ledger.other_steps.items():
+        for name, row in sums.items():
+            log(f"[kernels] {name} per {step} step over {plan.num_buckets} buckets {row['ms']:.4f} ms "
+                f"(plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms)")
 
 
 #: the Llama slice: llama_7b_config at its published width, cut to 2 layers
@@ -1327,6 +1372,9 @@ def main(argv) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+        for step, sums in ledger.other_steps.items():
+            if name in sums:
+                kernels[-1].setdefault("other_steps", {})[step] = sums[name]
         if name == "matmul_tile":
             kernels[-1]["library"] = "torch.matmul in f32, TF32 off (the plain version is the same call)"
         elif row["library_ms"] is not None:

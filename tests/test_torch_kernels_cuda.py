@@ -73,6 +73,76 @@ def test_kernels_match_plain_on_constants(cuda_device, value):
     assert bitwise(q2, q2_p) and bitwise(mm2, mm2_p)
 
 
+def check_compress(x: torch.Tensor) -> None:
+    """Compress equals its plain version bitwise and counts one launch a
+    call."""
+    before = port.compress_minmax_uint8.launches
+    q, mm = port.compress_minmax_uint8(x)
+    q_p, mm_p = port.compress_minmax_uint8_plain(x)
+    torch.cuda.synchronize()
+    assert port.compress_minmax_uint8.launches == before + 1
+    assert bitwise(q, q_p) and bitwise(mm, mm_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 7, 16, 250, 4095, 4096, 4097, 16384, 16385, 65539])
+def test_compress_on_both_sides_of_each_path(cuda_device, chunk):
+    """Chunks held by one CTA of 32 to 256 threads (up to 4096 elements),
+    of up to 1024 (up to 16384), and walked in two passes beyond; vector
+    and scalar loads."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for rows in (1, 3, 16):
+        check_compress(torch.randn((rows, chunk), generator=gen, device=cuda_device) * 3.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [6 * 132 + 1, 3000])
+def test_compress_ring_blocks(cuda_device, rows):
+    """The int8 ring's (rows, 4096) blocks, more rows than one wave of the
+    one-pass kernel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    check_compress(torch.randn((rows, 4096), generator=gen, device=cuda_device))
+
+
+def _scatter_specials(chunk: int, device) -> torch.Tensor:
+    """Rows whose NaN, signed zeros and infinities sit far apart (in other
+    tiles and, for long rows, other CTAs of the two-pass kernels)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.rand((7, chunk), generator=gen, device=device) + 0.5
+    far = [chunk // 7, chunk // 2, chunk - 1]
+    x[0, far[1]] = float("nan")
+    x.view(torch.int32)[1, far[2]] = 0xFFC00001 - 2 ** 32  # a NaN with the sign bit set
+    x[2, far[0]], x[2, far[2]] = -0.0, 0.0  # min -0 (XLA orders -0 below +0)
+    x[3] = -x[3]
+    x[3, far[0]], x[3, far[2]] = 0.0, -0.0  # max +0
+    x[4, far[0]], x[4, far[2]] = float("inf"), float("-inf")
+    x[5] = 0.0
+    x[5, far[1]] = -0.0
+    x[6, far[0]], x[6, far[1]] = float("-inf"), float("nan")
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [4096, 16384, 300_000, 2_000_003])
+def test_compress_specials_in_far_tiles(cuda_device, chunk):
+    x = _scatter_specials(chunk, cuda_device)
+    assert torch.isnan(x[1]).any() and torch.signbit(x[1][torch.isnan(x[1])]).all()
+    check_compress(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [4096, 16384, 40000])
+def test_compress_reads_unaligned_views(cuda_device, chunk):
+    """x one element off a 16-byte boundary: the scalar path of each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn((5, chunk), generator=gen, device=cuda_device)
+    buf = torch.empty(x.numel() + 1, device=cuda_device)
+    off = buf[1:].view(x.shape)
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    check_compress(off)
+
+
 def check_fused(q: torch.Tensor, mm: torch.Tensor, average: bool) -> None:
     """The fused reduce equals its plain version bitwise and counts one
     launch a call."""

@@ -220,3 +220,69 @@ def test_divide_by_power_of_two_is_multiply_by_reciprocal(n):
     assert_bitwise(x * recip, x / np.float32(n))
     t = torch.from_numpy(x)
     assert_bitwise((t * recip).numpy(), (t / torch.full_like(t, n)).numpy())
+
+
+#: MinMax's keys (csrc/minmax_uint8.cu): the identities of its lo and hi
+K_POS_INF, K_NEG_INF = np.int32(0x7F800000), np.int32(-0x7F800001)
+
+
+def keys_minmax(x: np.ndarray):
+    """A numpy mirror of the CUDA kernels' ``MinMax``: each element's key
+    ``b ^ ((b >> 31) & 0x7fffffff)`` of its bits ``b`` orders as the floats
+    do, -0 below +0 and NaNs beyond the infinities; the row's integer min
+    and max of the keys (from +inf's and -inf's keys) turn back into floats,
+    and a NaN anywhere makes both results NaN."""
+    b = np.ascontiguousarray(x, np.float32).view(np.int32)
+    key = b ^ ((b >> 31) & np.int32(0x7FFFFFFF))
+    lo = np.minimum(key.min(axis=1), K_POS_INF)
+    hi = np.maximum(key.max(axis=1), K_NEG_INF)
+    nan = (lo < K_NEG_INF) | (hi > K_POS_INF)
+    mn, mx = ((k ^ ((k >> 31) & np.int32(0x7FFFFFFF))).view(np.float32) for k in (lo, hi))
+    mn[nan] = mx[nan] = np.nan
+    return mn, mx
+
+
+def flush_subnormals(v: np.ndarray) -> np.ndarray:
+    v = np.array(v, np.float32)
+    sub = (v != 0) & (np.abs(v) < np.finfo(np.float32).tiny)
+    v[sub] = np.copysign(np.float32(0.0), v[sub])
+    return v
+
+
+def assert_same_floats(got, want):
+    """Bitwise, a NaN matching a NaN whatever its sign and payload."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    nan = np.isnan(got)
+    np.testing.assert_array_equal(nan, np.isnan(want))
+    np.testing.assert_array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32))
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 8, 33, 256])
+def test_integer_keys_are_xla_min_max(width):
+    """Compress, the fused reduce and its one-tile kernel fold a row's
+    min/max as integer keys instead of XLA's NaN- and sign-aware float
+    min/max.  Over rows of random bit patterns, most elements replaced by
+    NaNs of both signs, infinities, signed zeros, subnormals and normals,
+    the mirror of that fold equals ``jnp.min``/``jnp.max``.  XLA's CPU
+    backend flushes subnormals where it compares two values (a one-element
+    row keeps its subnormal), so there both sides are flushed before they
+    are compared; unflushed, the mirror equals the port's plain
+    ``_row_min``/``_row_max``, which the kernels are held against on the
+    card in IEEE arithmetic."""
+    rng = np.random.RandomState(20 + width)
+    special = np.array([np.nan, np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45, 3e-39,
+                        -1.2e-38, 1.0, -2.0, 3.4e38, -3.4e38], np.float32)
+    special[1] = np.uint32(0xFFC00001).view(np.float32)  # a NaN with the sign bit set
+    rows = 2000
+    x = rng.randint(0, 2 ** 32, size=(rows, width), dtype=np.uint64).astype(np.uint32).view(np.float32)
+    share = rng.choice([0.0, 0.5, 0.9, 1.0], size=(rows, 1))  # rows with no special value, too
+    pick = rng.rand(rows, width) < share
+    x = np.where(pick, special[rng.randint(0, len(special), (rows, width))], x)
+    mn, mx = keys_minmax(x)
+    want_mn, want_mx = jnp.min(jnp.asarray(x), axis=1), jnp.max(jnp.asarray(x), axis=1)
+    assert_same_floats(flush_subnormals(mn), flush_subnormals(want_mn))
+    assert_same_floats(flush_subnormals(mx), flush_subnormals(want_mx))
+    t = torch.from_numpy(x)
+    assert_same_floats(mn, port._row_min(t)[:, 0].numpy())
+    assert_same_floats(mx, port._row_max(t)[:, 0].numpy())
+    assert np.isnan(mn).any() and not np.isnan(mn).all()
