@@ -25,3 +25,11 @@ GlobalAlgorithmRegistry.register(
     ByteGradAlgorithm,
     "centralized synchronous 8-bit compressed gradient allreduce",
 )
+
+
+def build_algorithm(name: str, lr: float = 1e-3, qadam_warmup_steps: int = 10, **kwargs) -> Algorithm:
+    """Construct any registered algorithm by name, as the JAX package's
+    ``build_algorithm`` does for benches and tests.  ``lr`` and ``qadam_warmup_steps``
+    configure QAdam's bundled optimizer there; QAdam is not ported, so
+    ``"qadam"`` raises the registry's KeyError and they are not read."""
+    return Algorithm.init(name, **kwargs)

@@ -1,15 +1,17 @@
 """Algorithm plugin base: data-parallel relaxations as step stages.
 
 The port of ``bagua_tpu/algorithms/base.py``.  An algorithm is a set of
-stages the DDP engine composes around each rank's backward pass and the
-optimizer step, all on rank-stacked tensors:
+stages the DDP engine composes around the backward pass and the optimizer
+step, all on rank-stacked tensors:
 
-    backward (per rank) → transform_gradients → optimizer step
+    on_step_start → backward → transform_gradients → optimizer step
+                              (or, with overlap, overlap_exchange per
+                               bucket inside the backward, then
+                               finalize_overlap)
+    → on_step_end
 
-The stage receives a :class:`StepContext` carrying the process group, the
-step counter and the bucket plan.  The JAX package's other stages
-(``on_step_start``/``on_step_end``, the overlap hooks) arrive with the
-algorithms that need them.
+Every stage receives a :class:`StepContext` carrying the process group, the
+step counter and the bucket plan.
 """
 
 import dataclasses
@@ -29,10 +31,39 @@ class StepContext:
     plan: Optional[BucketPlan] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class OverlapCapability:
+    """One algorithm's report on the backward-overlapped execution mode,
+    which the engine's ``overlap`` knob resolves against.
+
+    ``mode`` says what rides the backward pass: ``"gradient"`` (each
+    bucket's gradients, exchanged by :meth:`AlgorithmImpl.overlap_exchange`
+    as the backward completes them), ``"weight"`` or ``"post_step"`` (the
+    decentralized and stale algorithms', not ported yet).  ``auto`` gates
+    the ``"auto"`` resolution apart from an explicit ``overlap=True``: auto
+    never changes numerics.  ``reason`` names the class and the cause when
+    the mode is refused."""
+
+    supported: bool
+    mode: str = "gradient"
+    auto: bool = True
+    reason: str = ""
+
+
 class AlgorithmImpl:
     """A reified algorithm bound to a process group."""
 
     algo_name = ""
+
+    #: algorithms that implement :meth:`overlap_exchange` set this True
+    supports_overlap = False
+
+    #: what the overlap mode exchanges per bucket (see :class:`OverlapCapability`)
+    overlap_mode = "gradient"
+
+    #: False for algorithms whose :meth:`step_variant` changes across steps:
+    #: ``overlap`` must not anchor their exchange differently from step to step
+    stable_step_variant = True
 
     def __init__(self, process_group: BaguaProcessGroup, hierarchical: bool = False):
         self.process_group = process_group
@@ -48,8 +79,9 @@ class AlgorithmImpl:
         )
 
     def bind_plan(self, plan: BucketPlan) -> None:
-        """Called by the engine when the bucket plan is set, before
-        :meth:`init_state`, so state laid out per bucket sees the plan."""
+        """Called by the engine whenever the bucket plan changes (init and
+        every rebucket), before :meth:`init_state`, so state laid out per
+        bucket sees the plan."""
         self._bound_plan = plan
 
     def init_state(self, params) -> Any:
@@ -57,10 +89,70 @@ class AlgorithmImpl:
         rank-stacked like the parameters."""
         return ()
 
+    # -- step stages ----------------------------------------------------------
+
+    def on_step_start(self, params, state, ctx: StepContext):
+        return params, state
+
     def transform_gradients(self, grads, params, state, ctx: StepContext):
         """Runs between the backward pass and the optimizer step; gradients
         in, gradients out.  Centralized algorithms communicate here."""
         return grads, params, state
+
+    def on_step_end(self, params, state, ctx: StepContext):
+        return params, state
+
+    # -- overlap execution mode -----------------------------------------------
+
+    def overlap_capability(self) -> OverlapCapability:
+        """The report ``overlap="auto"`` and ``overlap=True`` resolve
+        against, with a reason that names the class and the cause."""
+        name = type(self).__name__
+        if not self.supports_overlap:
+            return OverlapCapability(
+                False,
+                reason=f"{name} does not implement overlap_exchange (no per-bucket "
+                "backward hook); pass overlap=False or 'auto'",
+            )
+        if not self.stable_step_variant:
+            return OverlapCapability(
+                False,
+                reason=f"{name} switches its step variant across steps (step_variant); "
+                "per-bucket backward hooks would anchor its exchange inconsistently "
+                "— pass overlap=False or 'auto'",
+            )
+        if getattr(self, "holds_bucketized_state", False):
+            return OverlapCapability(
+                False,
+                reason=f"{name} keeps per-bucket state; its exchange cannot be split "
+                "into independent backward-time bucket collectives — pass "
+                "overlap=False or 'auto'",
+            )
+        return OverlapCapability(True, mode=self.overlap_mode)
+
+    def overlap_exchange(self, bucket_idx: int, grads, ctx: StepContext, params_leaves=None):
+        """Exchange ONE bucket from inside the backward pass (``"gradient"``
+        mode): ``grads`` are the bucket's stacked gradient leaves in slot
+        order, complete at this point; return them exchanged, same shapes
+        and dtypes.  With overlap on, the engine calls this per bucket and
+        :meth:`finalize_overlap` in place of :meth:`transform_gradients`."""
+        raise NotImplementedError(self.overlap_capability().reason)
+
+    def finalize_overlap(self, grads, params, state, ctx: StepContext):
+        """After the backward pass of an overlap step: receives the
+        exchanged gradients, may finish whole-tree work; the identity by
+        default.  Same contract as :meth:`transform_gradients`."""
+        return grads, params, state
+
+    # -- control ----------------------------------------------------------------
+
+    def need_reset(self, step: int) -> bool:
+        """Does the step need rebuilding at this step (a warm-up switch)?"""
+        return False
+
+    def step_variant(self, step: int) -> str:
+        """Which variant of the step runs at this step."""
+        return "default"
 
 
 class Algorithm:

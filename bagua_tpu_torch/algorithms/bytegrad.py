@@ -21,6 +21,7 @@ and nothing is compressed; ``intra_size=1`` compresses across every rank.
 import torch
 
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContext
+from bagua_tpu_torch.bucket import flatten_bucket_leaves, split_bucket_flat
 from bagua_tpu_torch.communication import (
     INTER_AXIS,
     INTRA_AXIS,
@@ -58,6 +59,7 @@ def compressed_allreduce(flat: torch.Tensor, group, axis=None, average: bool = T
 
 class ByteGradAlgorithmImpl(AlgorithmImpl):
     algo_name = "bytegrad"
+    supports_overlap = True
 
     def __init__(self, process_group, hierarchical: bool = True, average: bool = True):
         super().__init__(process_group, hierarchical=hierarchical)
@@ -82,6 +84,14 @@ class ByteGradAlgorithmImpl(AlgorithmImpl):
         flats = ctx.plan.bucketize(grads)
         out = [self._exchange_flat(flat, spec) for flat, spec in zip(flats, ctx.plan.specs)]
         return ctx.plan.debucketize(out), params, state
+
+    def overlap_exchange(self, bucket_idx: int, grads, ctx: StepContext, params_leaves=None):
+        """One bucket's compressed pipeline from inside the backward pass,
+        on the very flat tensor :meth:`BucketPlan.bucketize` builds (same
+        chunks, same quantizer inputs), so it gives the monolithic path's
+        bits."""
+        spec = ctx.plan.specs[bucket_idx]
+        return split_bucket_flat(self._exchange_flat(flatten_bucket_leaves(grads, spec), spec), spec)
 
 
 class ByteGradAlgorithm(Algorithm):

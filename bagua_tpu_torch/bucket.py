@@ -56,6 +56,9 @@ class BucketSpec:
     def nbytes(self) -> int:
         return self.numel * dtype_itemsize(self.dtype)
 
+    def declarations(self) -> List[TensorDeclaration]:
+        return [TensorDeclaration(name=s.name, num_elements=s.numel, dtype=s.dtype) for s in self.slots]
+
 
 class BucketPlan:
     """A full tensor→bucket assignment for one tree structure."""
@@ -77,6 +80,61 @@ class BucketPlan:
         shapes = {n: tuple(leaf.shape) for n, leaf in named}
         return cls(split_declarations(decls, shapes, bucket_size_bytes, align_elems), tree)
 
+    @classmethod
+    def from_declarations(
+        cls, buckets: Sequence[Sequence[TensorDeclaration]], tree, align_elems: int = 1
+    ) -> "BucketPlan":
+        """A plan from a given bucket assignment (an autotuner's, or one
+        carried in a plan payload): slots in the given order, each bucket
+        padded to ``align_elems``."""
+        shapes = {n: tuple(leaf.shape) for n, leaf in tree_flatten_with_names(tree)}
+        specs = []
+        for bi, bucket in enumerate(buckets):
+            if not bucket:
+                raise ValueError(f"bucket {bi} in supplied assignment is empty")
+            dtypes = {td.dtype for td in bucket}
+            if len(dtypes) != 1:
+                raise ValueError(
+                    f"bucket {bi} mixes dtypes {sorted(dtypes)}; buckets must be dtype-homogeneous"
+                )
+            slots, offset = [], 0
+            for td in bucket:
+                slots.append(TensorSlot(name=td.name, shape=shapes[td.name], dtype=td.dtype, offset=offset))
+                offset += td.num_elements
+            specs.append(BucketSpec(tuple(slots), align_size(offset, align_elems), bucket[0].dtype))
+        return cls(specs, tree)
+
+    def group_leaves(self, tree) -> List[Dict[str, torch.Tensor]]:
+        """The tree's leaves grouped per bucket, ``{slot name: leaf}`` in slot
+        order, without building the flat tensors."""
+        by_name = dict(tree_flatten_with_names(tree))
+        return [{s.name: by_name[s.name] for s in spec.slots} for spec in self.specs]
+
+    def ungroup_leaves(self, groups: Sequence[Dict[str, torch.Tensor]]):
+        """Rebuild the tree from :meth:`group_leaves` groups."""
+        leaves: Dict[str, torch.Tensor] = {}
+        for group in groups:
+            leaves.update(group)
+        return tree_unflatten(
+            self._structure, [leaves[name] for name in tree_leaf_names(self._structure)]
+        )
+
+    def backward_order(self) -> List[int]:
+        """Bucket indices in expected gradient-readiness order: by each
+        bucket's latest leaf in tree order, descending, as the JAX package
+        orders them.  Buckets fill in tree order, so the last bucket's leaves
+        are the first the backward pass completes; tree order sorts names
+        (``Conv_10`` before ``Conv_2``), so for deep models this is an
+        approximation of the order the backward really takes."""
+        pos = {name: i for i, name in enumerate(tree_leaf_names(self._structure))}
+        return sorted(
+            range(len(self.specs)),
+            key=lambda bi: -max(pos.get(s.name, -1) for s in self.specs[bi].slots),
+        )
+
+    def declarations(self) -> List[List[TensorDeclaration]]:
+        return [spec.declarations() for spec in self.specs]
+
     def bucketize(self, tree) -> List[torch.Tensor]:
         """Fuse the tree's leaves into one flat tensor per bucket."""
         by_name = dict(tree_flatten_with_names(tree))
@@ -87,12 +145,10 @@ class BucketPlan:
 
     def debucketize(self, flats: Sequence[torch.Tensor]):
         """Rebuild the tree from fused tensors (views into them)."""
-        leaves: Dict[str, torch.Tensor] = {}
-        for spec, flat in zip(self.specs, flats):
-            leaves.update(zip((s.name for s in spec.slots), split_bucket_flat(flat, spec)))
-        return tree_unflatten(
-            self._structure, [leaves[name] for name in tree_leaf_names(self._structure)]
-        )
+        return self.ungroup_leaves([
+            dict(zip((s.name for s in spec.slots), split_bucket_flat(flat, spec)))
+            for spec, flat in zip(self.specs, flats)
+        ])
 
     @property
     def num_buckets(self) -> int:

@@ -67,6 +67,7 @@ class VGG(nn.Module):
         device = resolve_device(device)
         self.cfg = tuple(cfg)
         self.compute_dtype = compute_dtype
+        self.image_size, self.num_classes = image_size, num_classes
         channels, side, i = in_channels, image_size, 0
         for v in self.cfg:
             if v == "M":

@@ -14,12 +14,18 @@ logger = logging.getLogger(__name__)
 class Trainer:
     """Minimal fit loop over :class:`~bagua_tpu_torch.ddp.DistributedDataParallel`.
 
-    ``loss_fn``, ``optimizer``, ``algorithm`` and ``process_group`` are as
-    for the engine.  After :meth:`fit`, ``self.losses`` holds the last
+    ``loss_fn``, ``optimizer``, ``algorithm``, ``process_group``,
+    ``bucket_size_bytes`` and ``overlap`` are as for the engine (overlap
+    ``"auto"`` by default, as the JAX ``Trainer``; ``overlap=False`` pins the
+    monolithic step).  After :meth:`fit`, ``self.losses`` holds the last
     step's per-rank losses."""
 
-    def __init__(self, loss_fn: Callable, optimizer: Callable, algorithm: Algorithm, process_group=None):
-        self.ddp = DistributedDataParallel(loss_fn, optimizer, algorithm, process_group=process_group)
+    def __init__(self, loss_fn: Callable, optimizer: Callable, algorithm: Algorithm, process_group=None,
+                 bucket_size_bytes: Optional[int] = None, overlap="auto"):
+        self.ddp = DistributedDataParallel(
+            loss_fn, optimizer, algorithm, process_group=process_group,
+            bucket_size_bytes=bucket_size_bytes, overlap=overlap,
+        )
         self.losses = None
 
     def init_state(self, params) -> TrainState:

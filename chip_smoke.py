@@ -37,13 +37,22 @@ and no result line:
    with the int4 ring, a small Llama over 4 zigzag ranks and at tp 2 x sp 2,
    and the fused sequence-parallel MLP pair at tp 4, on the card and on the
    CPU (plain versions) from the same weights and data, and holds each pair
-   of runs' losses and parameters together within stated tolerances.
+   of runs' losses and parameters together within stated tolerances; the
+   small VGG's ByteGrad and int8 runs take the overlap mode (the engine's
+   default), and on the card (cuDNN deterministic, this phase only) they
+   equal the monolithic runs bit for bit.
 5. slice   -- trains full-width VGG16 (224x224, 1000 classes, bf16
    compute, f32 parameters, batch 32 per rank) over 4 ranks on this one
-   card through ``Trainer.fit``, 5 steps each with ByteGrad (``intra_size=1``:
+   card through ``Trainer.fit`` with the monolithic step (``overlap=False``),
+   5 steps each with ByteGrad (``intra_size=1``:
    every rank its own node, so the whole exchange is compressed) and with
    ``GradientAllReduceAlgorithm(wire_precision="int8")`` and ``"int4"``
-   (flat: a ring of 4, 2 hops per bucket); then Llama at ``llama_7b_config``'s
+   (flat: a ring of 4, 2 hops per bucket); then through the synthetic
+   benchmark's twin (``examples/synthetic_benchmark.run``) with ByteGrad,
+   the int8 ring and the f32 wire (``fuse="tuple"``), 5 steps monolithic
+   and 5 with every bucket's exchange issued from inside the backward pass
+   on a side stream (overlap), checking that each bucket is exchanged once
+   a step in ``backward_order()``; then Llama at ``llama_7b_config``'s
    width (2 layers, one sequence of 4096 tokens, f32) over 4 ranks, 5 AdamW
    steps of ``examples.llama_pretrain.train_step``, once as 4 zigzag ring
    ranks (sp 4) and once at tp 2 x sp 2 (path (b)); then path (a): the
@@ -53,7 +62,9 @@ and no result line:
    ``ParallelMLP(fused=True)`` against ``fused=False``.  Checks the loss
    is finite, the ranks' parameters are bitwise equal (Llama) and every
    kernel's launch count, per path.  ``--profile`` then traces one more
-   step of each with ``torch.profiler``.
+   step of each with ``torch.profiler``; for an overlap step also the
+   exchange's kernel time (its side stream) and the part of it that ran
+   while a kernel of the main stream ran.
 6. prints one JSON line naming each kernel with its launches and times,
    then the result line ``{"ok": true, "device": {...}}``.
 """
@@ -61,6 +72,7 @@ and no result line:
 import contextlib
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -75,6 +87,7 @@ import torch.nn.functional as F
 from bagua_tpu_torch import BaguaProcessGroup, init_process_group
 from bagua_tpu_torch.algorithms import ByteGradAlgorithm, GradientAllReduceAlgorithm
 from bagua_tpu_torch.examples import llama_pretrain as lp
+from bagua_tpu_torch.examples import synthetic_benchmark as sb
 from bagua_tpu_torch.communication import allgather, allreduce
 from bagua_tpu_torch.defs import ReduceOp
 from bagua_tpu_torch.kernels import _build
@@ -792,18 +805,32 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def _small_trainer(name, device):
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms: the same convolution gradients
+    from one run to the next."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _small_trainer(name, device, overlap="auto"):
     group = BaguaProcessGroup([device] * RANKS, intra_size=1)
     return Trainer(vgg_loss_fn(VGG(device=device, **REF_VGG)),
-                   lambda ps: torch.optim.SGD(ps, lr=REF_LR), REF_ALGORITHMS[name][0](), group)
+                   lambda ps: torch.optim.SGD(ps, lr=REF_LR), REF_ALGORITHMS[name][0](), group,
+                   overlap=overlap)
 
 
-def _train_small_vgg(name, device, params, batch):
+def _train_small_vgg(name, device, params, batch, overlap="auto"):
     """REF_STEPS steps of the small f32 VGG over RANKS ranks (``intra_size=1``)
-    with algorithm ``name``.  Returns every step's per-rank losses, the
-    final rank-0 parameters, the widest quantization level the exchange met
-    and the int4 residuals carried into the next step."""
-    trainer = _small_trainer(name, device)
+    with algorithm ``name`` (overlap as the engine resolves ``overlap``).
+    Returns every step's per-rank losses, the final rank-0 parameters, the
+    widest quantization level the exchange met and the int4 residuals
+    carried into the next step."""
+    trainer = _small_trainer(name, device, overlap)
     state = trainer.init_state(tree_map(lambda t: t.to(device), params))
     batch = tuple(t.to(device) for t in batch)
     width, losses = 0.0, []
@@ -865,7 +892,17 @@ def phase_reference(device) -> None:
       two lie within one such level; where no level flipped, the residual
       carries the partial sums' noise, at most RANKS x noise a step, plus a
       thousandth of the level.  A residual that is not carried over, not
-      fed back or zero fails this."""
+      fed back or zero fails this.
+
+    ByteGrad and the int8 ring run with overlap (the engine's ``"auto"``) on
+    both devices; on the card each also runs monolithic (``overlap=False``),
+    and the two card runs' losses and parameters must be bitwise equal.  The
+    whole phase runs with cuDNN's deterministic algorithms."""
+    with _deterministic():
+        _reference_vgg(device)
+
+
+def _reference_vgg(device) -> None:
     gen = torch.Generator().manual_seed(2)
     params = module_params(VGG(device="cpu", generator=gen, **REF_VGG))
     side = REF_VGG["image_size"]
@@ -877,6 +914,12 @@ def phase_reference(device) -> None:
     for name, (_, k, _) in REF_ALGORITHMS.items():
         with _no_tf32():
             got_losses, got, _, got_resid = _train_small_vgg(name, device, params, batch)
+            overlap = _small_trainer(name, device).ddp.overlap_enabled
+            if overlap:
+                mono_losses, mono, _, _ = _train_small_vgg(name, device, params, batch, overlap=False)
+                if not (all(same(a, b) for a, b in zip(got_losses, mono_losses))
+                        and all(same(a, b) for a, b in zip(tree_leaves(got), tree_leaves(mono)))):
+                    raise AssertionError(f"{name}: overlap and monolithic runs on the card differ")
         want_losses, want, width, want_resid = _train_small_vgg(name, torch.device("cpu"), params, batch)
         for step, rtol in ((0, 1e-5), (REF_STEPS - 1, 1e-4)):
             if not torch.allclose(got_losses[step], want_losses[step], rtol=rtol, atol=0.0):
@@ -894,7 +937,10 @@ def phase_reference(device) -> None:
                                      REF_STEPS * RANKS * noise + 1e-3 * level, level)
             carry = (f"; residuals carried over up to {r_max:.3e}, card vs "
                      f"CPU within {r_err:.3e} (level {level:.3e}), {r_beyond}")
-        log(f"[reference] small VGG, {REF_STEPS} {name} steps, card vs CPU: losses "
+        if overlap:
+            carry += "; overlap on the card bitwise equal to monolithic"
+        log(f"[reference] small VGG, {REF_STEPS} {name} steps{' (overlap)' if overlap else ''}, "
+            f"card vs CPU: losses "
             f"{got_losses[0].mean():.6f} -> {got_losses[-1].mean():.6f} vs "
             f"{want_losses[0].mean():.6f} -> {want_losses[-1].mean():.6f}; parameters within "
             f"{err:.3e} (tolerance {REF_STEPS * REF_LR * k * width:.3e}), {beyond}{carry}")
@@ -913,32 +959,72 @@ SLICE_PATHS = {
 }
 
 
-def _busy_ms(prof) -> float:
-    """The card is busy while any of its activities runs: the union of
-    their intervals (milliseconds)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in spans:
-        if stop > end:
-            busy_us, end = busy_us + stop - max(start, end), stop
-    return busy_us / 1e3
+def _union(spans):
+    """Sorted, disjoint intervals covering ``spans`` (start, end) pairs."""
+    merged = []
+    for start, stop in sorted(spans):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], stop)
+        else:
+            merged.append([start, stop])
+    return merged
 
 
-def profile_step(name: str, step) -> None:
+def _length(intervals) -> float:
+    return sum(stop - start for start, stop in intervals)
+
+
+def _overlap_length(a, b) -> float:
+    """The length of the intersection of two disjoint sorted interval lists."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def profile_step(name: str, step, side=None) -> None:
     """Traces one call of ``step`` with ``torch.profiler``: the card's
-    kernels by time, its busy time and idle share of the wall time."""
+    kernels by time, its busy time (the union of its activities' intervals)
+    and idle share of the wall time.  With ``side``, the stream an overlap
+    step's exchange runs on (found in the trace by a marker kernel launched
+    on it first): that stream's busy time and the part of it during which
+    an activity of another stream (the backward's: the main stream and
+    cuDNN's own) also ran."""
     from torch.profiler import ProfilerActivity, profile as trace
 
     with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if side is not None:
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     log(f"[profile] {name}:\n" + prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-    busy = _busy_ms(prof)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    marker = [e for e in events if "spin_kernel" in e.name]
+    events = [e for e in events if "spin_kernel" not in e.name]
+    busy = _length(_union((e.time_range.start, e.time_range.end) for e in events)) / 1e3
     log(f"[profile] {name}, one traced step: {wall_ms:.1f} ms wall, card busy {busy:.1f} ms, "
-        f"idle share {1 - busy / wall_ms:.3f}")
+        f"idle share {1 - busy / wall_ms:.3f}; streams {sorted({e.device_resource_id for e in events})}")
+    if side is None:
+        return
+    if len(marker) != 1:
+        log(f"[profile] {name}: {len(marker)} marker kernels in the trace, want 1; the exchange's "
+            "stream not measured")
+        return
+    stream = marker[0].device_resource_id
+    exchange = _union((e.time_range.start, e.time_range.end) for e in events if e.device_resource_id == stream)
+    others = _union((e.time_range.start, e.time_range.end) for e in events if e.device_resource_id != stream)
+    side_ms, hidden_ms = _length(exchange) / 1e3, _overlap_length(exchange, others) / 1e3
+    log(f"[profile] {name}: the exchange's stream {stream} busy {side_ms:.1f} ms, of which "
+        f"{hidden_ms:.1f} ms ({hidden_ms / max(side_ms, 1e-9):.3f}) while another stream ran; the "
+        f"other streams busy {_length(others) / 1e3:.1f} ms")
 
 
 def phase_slice(device, profile: bool, name: str):
@@ -951,7 +1037,7 @@ def phase_slice(device, profile: bool, name: str):
                                compute_dtype=torch.bfloat16, device=device)
     trainer = Trainer(
         vgg_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
-        algorithm(), group,
+        algorithm(), group, overlap=False,
     )
     state = trainer.init_state(params)
     del params
@@ -990,6 +1076,69 @@ def phase_slice(device, profile: bool, name: str):
     if profile:
         profile_step(name, lambda: trainer.fit(state, batches, n_steps=1))
     return launches
+
+
+#: the overlap paths, through the synthetic benchmark's twin: name ->
+#: (algorithm name, its arguments, launches per step and bucket)
+OVERLAP_PATHS = {
+    "ByteGrad": ("bytegrad", {}, SLICE_PATHS["ByteGrad"][1]),
+    "int8 ring": ("gradient_allreduce", {"wire_precision": "int8"}, SLICE_PATHS["int8 ring"][1]),
+    "f32 tuple": ("gradient_allreduce", {"fuse": "tuple"}, {}),
+}
+
+
+def phase_overlap(device, profile: bool, name: str) -> dict:
+    """STEPS steps of full-width VGG16 through the synthetic benchmark's
+    twin (``sb.run``: 1 warm-up step, STEPS - 1 timed) with the wire
+    ``name``, monolithic and then with overlap, each from the same weights.
+    Checks finite losses, the ranks' parameters bitwise equal, the launch
+    counts (STEPS x buckets x per bucket) and, with overlap, that every
+    bucket was exchanged once a step in ``backward_order()``.  Returns the
+    two runs' summed launch counts."""
+    algorithm, kwargs, per_bucket = OVERLAP_PATHS[name]
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    total, times = {}, {}
+    for overlap in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, params = sb.build("vgg16", torch.bfloat16, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        result = sb.run(model, params, group, algorithm, kwargs, batch_size=BATCH_PER_RANK,
+                        num_iters=STEPS - 1, num_warmup=1, overlap=overlap)
+        launches = read_launches()
+        del params
+        ddp, what = result.ddp, f"{name} ({'overlap' if overlap else 'monolithic'})"
+        if ddp.overlap_enabled is not overlap:
+            raise AssertionError(f"{what}: the engine resolved overlap={ddp.overlap_enabled}")
+        if not torch.isfinite(result.losses).all():
+            raise AssertionError(f"{what}: non-finite loss {result.losses.tolist()}")
+        for leaf in tree_leaves(result.state.params):
+            if not all(torch.equal(leaf[0], leaf[r]) for r in range(1, RANKS)):
+                raise AssertionError(f"{what}: ranks' parameters differ after the steps")
+        buckets = ddp.plan.num_buckets
+        want = {kernel: STEPS * buckets * per_bucket.get(kernel, 0) for kernel in KERNELS}
+        if launches != want:
+            raise AssertionError(f"{what}: launch counts {launches}, want {want}")
+        exchanges = [STEPS if overlap else 0] * buckets
+        order = ddp.plan.backward_order() if overlap else []
+        if ddp.exchange_counts != exchanges or ddp.exchange_order != order:
+            raise AssertionError(f"{what}: exchanges per bucket {ddp.exchange_counts}, want {exchanges}; "
+                                 f"last step's order {ddp.exchange_order}, want {order}")
+        times[overlap] = (result.step_seconds * 1e3, torch.cuda.max_memory_allocated() / 2**30)
+        total = {k: total.get(k, 0) + n for k, n in launches.items()}
+        log(f"[overlap] VGG16 bf16, {RANKS} ranks x batch {BATCH_PER_RANK}, {what}, {buckets} buckets: "
+            f"warm-up step {result.warmup_seconds:.3f} s, then {times[overlap][0]:.1f} ms/step, peak memory "
+            f"{times[overlap][1]:.1f} GiB; exchanges per bucket {ddp.exchange_counts} in order "
+            f"{ddp.exchange_order}; launches {launches}")
+        if profile:
+            profile_step(what, lambda: ddp.train_step(result.state, result.batch), ddp.side_stream)
+        del result, ddp, model
+    log(f"[overlap] {name}: overlap {times[True][0]:.1f} ms/step against monolithic {times[False][0]:.1f} "
+        f"(ratio {times[True][0] / times[False][0]:.3f}); peak memory {times[True][1]:.1f} against "
+        f"{times[False][1]:.1f} GiB")
+    return total
 
 
 REF_LLAMA = LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
@@ -1357,6 +1506,8 @@ def main(argv) -> int:
     for name in SLICE_PATHS:
         per_path[name] = phase_slice(device, profile, name)
         torch.cuda.empty_cache()
+    for name in OVERLAP_PATHS:
+        per_path[f"{name} via the synthetic benchmark"] = phase_overlap(device, profile, name)
     per_path["Llama"] = phase_llama_slice(device, profile)
     torch.cuda.empty_cache()
     per_path["Llama tp"] = phase_llama_slice(device, profile, (1, 2, 2))

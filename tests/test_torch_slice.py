@@ -33,7 +33,7 @@ import bagua_tpu_torch
 from bagua_tpu_torch.algorithms import Algorithm, ByteGradAlgorithm, GradientAllReduceAlgorithm
 from bagua_tpu_torch.bucket import BucketPlan
 from bagua_tpu_torch.communication import BaguaProcessGroup, ReduceOp
-from bagua_tpu_torch.convert import params_from_jax
+from bagua_tpu_torch.convert import params_from_jax, stacked_params_from_jax
 from bagua_tpu_torch.ddp import DistributedDataParallel
 from bagua_tpu_torch.kernels import minmax_uint8
 from bagua_tpu_torch.models import mlp
@@ -118,7 +118,8 @@ def test_init_process_group_needs_cuda(monkeypatch):
 def test_registry_and_unported_options(tgroup):
     """The registry builds both algorithms by name, the quantized wires
     included; what is not ported yet raises instead of running something
-    else."""
+    else, and overlap=True on an algorithm that cannot overlap raises with
+    the class and the cause."""
     assert isinstance(Algorithm.init("bytegrad"), ByteGradAlgorithm)
     gar = Algorithm.init("gradient_allreduce", hierarchical=True)
     assert isinstance(gar, GradientAllReduceAlgorithm) and gar.reify(tgroup).hierarchical
@@ -128,8 +129,9 @@ def test_registry_and_unported_options(tgroup):
     assert impl.wire_precision == "int8" and not impl.holds_bucketized_state
     with pytest.raises(ValueError, match="wire_precision must be one of"):
         GradientAllReduceAlgorithm(wire_precision="int2").reify(tgroup)
-    with pytest.raises(NotImplementedError, match="overlap=True"):
-        DistributedDataParallel(mlp.mse_loss, torch.optim.SGD, ByteGradAlgorithm(), tgroup, overlap=True)
+    with pytest.raises(ValueError, match="GradientAllReduceAlgorithmImpl keeps per-bucket state"):
+        DistributedDataParallel(mlp.mse_loss, torch.optim.SGD,
+                                GradientAllReduceAlgorithm(wire_precision="int4"), tgroup, overlap=True)
 
 
 def test_models_need_cuda_by_default(monkeypatch):
@@ -239,6 +241,30 @@ def test_small_vgg_loss_and_grads_match_flax():
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5 * np.abs(w).max())
 
 
+def test_one_pass_rank_grads_match_flax():
+    """The engine's one backward over all ranks (``vmap`` of the loss over
+    rank-stacked parameters, each rank its own copy and its own slice of the
+    batch) against each rank's ``jax.value_and_grad``, within the tolerance
+    of :func:`test_small_vgg_loss_and_grads_match_flax`."""
+    model, params = small_vgg_params()
+    ranks = 4
+    per_rank = [jax.tree.map(lambda p, r=r: p * np.float32(1 + 0.1 * r), params) for r in range(ranks)]
+    rng = np.random.RandomState(7)
+    x = rng.rand(ranks * 2, 16, 16, 3).astype(np.float32)
+    y = rng.randint(0, 10, size=(ranks * 2,)).astype(np.int32)
+    tgroup = BaguaProcessGroup([torch.device("cpu")] * ranks, intra_size=1)
+    ddp = DistributedDataParallel(vgg_loss_fn(VGG(image_size=16, device="cpu", **SMALL_VGG)),
+                                  torch.optim.SGD, ByteGradAlgorithm(), tgroup)
+    losses, grads = ddp._rank_grads(stacked_params_from_jax(per_rank), (torch.from_numpy(x), torch.from_numpy(y)))
+    for r in range(ranks):
+        batch = (jnp.asarray(x[2 * r:2 * r + 2]), jnp.asarray(y[2 * r:2 * r + 2]))
+        loss, want = jax.value_and_grad(flax_vgg_loss_fn(model))(per_rank[r], batch)
+        np.testing.assert_allclose(losses[r].item(), float(loss), rtol=1e-5)
+        for g, w in zip(tree_leaves(grads), jax.tree.leaves(want)):
+            w = np.asarray(w)
+            np.testing.assert_allclose(g[r].numpy(), w, rtol=1e-5, atol=1e-5 * np.abs(w).max())
+
+
 # ---------------------------------------------------------------------------
 # Trainer.fit against the JAX package's DDP
 # ---------------------------------------------------------------------------
@@ -313,7 +339,7 @@ def test_trainer_fit_matches_jax_ddp(group, tgroup, algo):
 def test_port_imports_no_jax():
     """Importing every module of the port, and the chip smoke script, loads
     neither JAX nor the JAX package; the walk reaches the tensor-parallel
-    slice's modules."""
+    slice's modules and the synthetic benchmark's twin."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -321,7 +347,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'bagua_tpu')]\n"
         "assert not bad, bad\n"
-        "need = ['bagua_tpu_torch.kernels.collective_matmul', 'bagua_tpu_torch.parallel.tensor_parallel']\n"
+        "need = ['bagua_tpu_torch.kernels.collective_matmul', 'bagua_tpu_torch.parallel.tensor_parallel',\n"
+        "        'bagua_tpu_torch.examples.synthetic_benchmark']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )
