@@ -15,4 +15,5 @@ from bagua_tpu_torch.communication import (  # noqa: F401
     alltoall,
     get_default_group,
     init_process_group,
+    reduce_scatter,
 )

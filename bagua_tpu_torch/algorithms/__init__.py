@@ -27,6 +27,22 @@ GlobalAlgorithmRegistry.register(
 )
 
 
+def _zero_factory(**kwargs):
+    # Imported lazily: bagua_tpu_torch.sharded.algorithm imports this
+    # package's modules, so an eager import here would be circular.
+    from bagua_tpu_torch.sharded.algorithm import ZeroAlgorithm
+
+    return ZeroAlgorithm(**kwargs)
+
+
+GlobalAlgorithmRegistry.register(
+    "zero",
+    _zero_factory,
+    "ZeRO-sharded exchange: reduce-scatter grads, shard-only optimizer "
+    "update, deferred all-gather into the next step",
+)
+
+
 def build_algorithm(name: str, lr: float = 1e-3, qadam_warmup_steps: int = 10, **kwargs) -> Algorithm:
     """Construct any registered algorithm by name, as the JAX package's
     ``build_algorithm`` does for benches and tests.  ``lr`` and ``qadam_warmup_steps``

@@ -134,7 +134,8 @@ class AlgorithmImpl:
         """Exchange ONE bucket from inside the backward pass (``"gradient"``
         mode): ``grads`` are the bucket's stacked gradient leaves in slot
         order, complete at this point; return them exchanged, same shapes
-        and dtypes.  With overlap on, the engine calls this per bucket and
+        and dtypes (a ``sharded_update`` algorithm returns ``[shard]``, the
+        bucket's shards alone).  With overlap on, the engine calls this per bucket and
         :meth:`finalize_overlap` in place of :meth:`transform_gradients`."""
         raise NotImplementedError(self.overlap_capability().reason)
 

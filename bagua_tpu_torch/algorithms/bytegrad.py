@@ -38,6 +38,21 @@ from bagua_tpu_torch.kernels.minmax_uint8 import (
 )
 
 
+def compressed_reduce_scatter(flat: torch.Tensor, group, axis=None, average: bool = True):
+    """The scatter stage of the compressed allreduce of the stacked
+    ``(size, numel)`` tensor over ``axis``: compress, all-to-all, fused
+    reduce.  Returns each rank's reduced chunk, still quantized: ``(q2
+    (size, 1, chunk) uint8, minmax2 (size, 1, 2))``."""
+    n = axis_size(group, axis)
+    size, numel = flat.shape
+    chunk = numel // n
+    q, mm = compress_minmax_uint8(flat.reshape(size * n, chunk))
+    # (size, n, chunk): rank r's row j is member j's chunk for r
+    q_recv = alltoall(q.reshape(size, n, chunk), group, axis)
+    mm_recv = alltoall(mm.reshape(size, n, 2), group, axis)
+    return decompress_reduce_requantize(q_recv, mm_recv, average=average)
+
+
 def compressed_allreduce(flat: torch.Tensor, group, axis=None, average: bool = True) -> torch.Tensor:
     """The scatter-gather compressed allreduce of the stacked ``(size,
     numel)`` tensor over ``axis``."""
@@ -46,11 +61,7 @@ def compressed_allreduce(flat: torch.Tensor, group, axis=None, average: bool = T
         return flat
     size, numel = flat.shape
     chunk = numel // n
-    q, mm = compress_minmax_uint8(flat.reshape(size * n, chunk))
-    # (size, n, chunk): rank r's row j is member j's chunk for r
-    q_recv = alltoall(q.reshape(size, n, chunk), group, axis)
-    mm_recv = alltoall(mm.reshape(size, n, 2), group, axis)
-    q2, mm2 = decompress_reduce_requantize(q_recv, mm_recv, average=average)
+    q2, mm2 = compressed_reduce_scatter(flat, group, axis, average)
     qg = allgather(q2, group, axis)  # (size, n, chunk)
     mmg = allgather(mm2, group, axis)  # (size, n, 2)
     out = decompress_minmax_uint8(qg.reshape(size * n, chunk), mmg.reshape(size * n, 2))

@@ -191,6 +191,30 @@ def allreduce(
     return _ungrouped(red.unsqueeze(1).expand_as(g), group, axis)
 
 
+def reduce_scatter(
+    send: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
+    comm: Optional[BaguaProcessGroup] = None, axis=None,
+) -> torch.Tensor:
+    """Reduce-scatter of each rank's slice over ``axis`` (SUM or AVG): the
+    member with index i gets the reduced values of the i-th of n equal
+    chunks of the slice's first dim.  Sums and divides as :func:`allreduce`
+    does, so each chunk is bitwise that chunk of the allreduce."""
+    group = comm or get_default_group()
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVG):
+        raise NotImplementedError(f"reduce_scatter supports SUM and AVG, not {op.name}")
+    g = _grouped(send, group, axis)
+    G, n, m = g.shape[:3]
+    if m % n:
+        raise ValueError(f"reduce_scatter: dim {m} does not divide into {n} chunks")
+    red = g[:, 0]
+    for i in range(1, n):
+        red = red + g[:, i]
+    if op == ReduceOp.AVG:
+        red = red / torch.full_like(red, n)
+    return _ungrouped(red.reshape(G, n, m // n, *g.shape[3:]), group, axis)
+
+
 def hierarchical_allreduce(
     send: torch.Tensor, op: ReduceOp = ReduceOp.AVG,
     comm: Optional[BaguaProcessGroup] = None,

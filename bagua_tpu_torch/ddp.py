@@ -26,11 +26,22 @@ The optimizer is a factory, ``lambda params: torch.optim.SGD(params, ...)``,
 called once on the stacked parameter tensors; an elementwise optimizer
 updates each rank's slice on its own, as ``vmap`` of the optax update does.
 The step updates the parameters and the optimizer state in place.
+
+Sharded update: an algorithm with ``sharded_update`` (``zero``) leaves each
+rank the reduced gradients of its shard of every bucket only, and its
+exchange returns those shards, bucket by bucket, in place of a gradient
+tree.  The engine
+then calls the factory once on the shard rows of a
+:class:`~bagua_tpu_torch.sharded.updater.ShardedOptimizerUpdater` in place
+of the stacked parameters, steps it in place of the optimizer, and hands the
+updated shards to the algorithm, which gathers them into the parameters at
+the next step's start (:meth:`DistributedDataParallel.finalize_pending_updates`
+does it at once).
 """
 
 import dataclasses
 import time
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Union
 
 import torch
 
@@ -39,6 +50,8 @@ from bagua_tpu_torch.bucket import BucketPlan, tree_leaf_names
 from bagua_tpu_torch.communication import BaguaProcessGroup, get_default_group
 from bagua_tpu_torch.defs import TensorDeclaration
 from bagua_tpu_torch.env import get_default_bucket_size
+from bagua_tpu_torch.sharded.layout import ShardLayout
+from bagua_tpu_torch.sharded.updater import ShardedOptimizerUpdater, ShardedOptState
 from bagua_tpu_torch.utils import SpeedMeter, tree_leaves, tree_map, tree_unflatten
 
 #: who asked for a configuration switch (``rebucket``, ``apply_precision_plan``):
@@ -69,7 +82,9 @@ def validate_switch_reason(reason: str) -> str:
 @dataclasses.dataclass
 class TrainState:
     params: Any  # tree of rank-stacked tensors, leading axis = group.size
-    optimizer: torch.optim.Optimizer  # over the stacked leaves; its state is stacked too
+    #: over the stacked leaves, its state stacked too; under a sharded-update
+    #: algorithm the updater's state, over each rank's shards
+    optimizer: Union[torch.optim.Optimizer, ShardedOptState]
     algo_state: Any
     step: int
 
@@ -114,6 +129,13 @@ class DistributedDataParallel:
                 raise ValueError(cap.reason)
         self.overlap = overlap
         self.plan: Optional[BucketPlan] = None
+        #: set when the algorithm reports ``sharded_update`` (zero): the
+        #: shard-only optimizer phase runs in place of the optimizer step
+        self._sharded_updater: Optional[ShardedOptimizerUpdater] = None
+        #: the shard layout the live state was built under, kept by the
+        #: first rebucket since the state was last migrated; the next
+        #: train_step migrates the state to the current layout
+        self._pending_reshard: Optional[ShardLayout] = None
         #: 0 for init()'s plan, +1 per rebucket()
         self.plan_version = 0
         #: the reason family of the last configuration switch
@@ -138,16 +160,19 @@ class DistributedDataParallel:
 
     def init(self, params) -> TrainState:
         """Replicate one copy of ``params`` to every rank (the reference
-        broadcasting from rank 0) and build the optimizer over the stacks."""
+        broadcasting from rank 0) and build the optimizer over the stacks
+        (under a sharded-update algorithm, over each rank's shards)."""
         n, device = self.group.size, self.group.device
         self._tree_template = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
         self._adopt_plan(self.impl.tensors_to_buckets(params, self.bucket_size_bytes))
+        self._pending_reshard = None
         stacked = tree_map(
             lambda p: p.detach().to(device).unsqueeze(0).repeat(n, *([1] * p.dim())), params
         )
+        updater = self._sharded_updater
         return TrainState(
             params=stacked,
-            optimizer=self.optimizer(tree_leaves(stacked)),
+            optimizer=updater.init(stacked) if updater else self.optimizer(tree_leaves(stacked)),
             algo_state=self.impl.init_state(params),
             step=0,
         )
@@ -155,6 +180,8 @@ class DistributedDataParallel:
     def _adopt_plan(self, plan: BucketPlan) -> None:
         self.plan = plan
         self.impl.bind_plan(plan)
+        if getattr(self.impl, "sharded_update", False):
+            self._sharded_updater = ShardedOptimizerUpdater(self.optimizer, plan, self.group)
         self.exchange_counts = [0] * plan.num_buckets
 
     # -- the backward pass ------------------------------------------------------
@@ -208,7 +235,8 @@ class DistributedDataParallel:
 
     def _overlapped_grads(self, params, batch, ctx: StepContext):
         """One backward with each bucket's exchange issued from inside it;
-        returns ``(losses, exchanged grads tree)``."""
+        returns ``(losses, exchanged grads tree)`` (under a sharded update,
+        the buckets' shards)."""
         plan, impl, device = self.plan, self.impl, self.group.device
         if device.type == "cuda" and self.side_stream is None:
             self.side_stream = torch.cuda.Stream(device)
@@ -253,6 +281,9 @@ class DistributedDataParallel:
             issue(bi)
         if side is not None:
             torch.cuda.current_stream(device).wait_stream(side)
+        if self._sharded_updater is not None:
+            # a sharded update's exchange is each bucket's shard alone
+            return losses.detach(), [out[0] for out in exchanged]
         groups = [dict(zip((s.name for s in spec.slots), out)) for spec, out in zip(plan.specs, exchanged)]
         return losses.detach(), plan.ungroup_leaves(groups)
 
@@ -269,6 +300,8 @@ class DistributedDataParallel:
                     f"global batch {t.shape[0]} not divisible by group size {self.group.size}"
                 )
         batch = tree_map(lambda t: t.to(self.group.device, non_blocking=True), batch)
+        if self._pending_reshard is not None:
+            state = self._apply_pending_reshard(state)
         impl = self.impl
         ctx = StepContext(group=self.group, step=state.step, plan=self.plan)
         params, algo_state = impl.on_step_start(state.params, state.algo_state, ctx)
@@ -284,10 +317,14 @@ class DistributedDataParallel:
         else:
             losses, grads = self._rank_grads(params, batch)
             grads, params, algo_state = impl.transform_gradients(grads, params, algo_state, ctx)
-        for p, g in zip(tree_leaves(params), tree_leaves(grads)):
-            p.grad = g
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
+        if self._sharded_updater is not None:
+            pending, _, params = self._sharded_updater.update_shards(grads, params, state.optimizer)
+            algo_state = impl.stash_updates(algo_state, pending)
+        else:
+            for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+                p.grad = g
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
         params, algo_state = impl.on_step_end(params, algo_state, ctx)
         return TrainState(params, state.optimizer, algo_state, state.step + 1), losses
 
@@ -296,7 +333,9 @@ class DistributedDataParallel:
     def rebucket(self, plan: BucketPlan, predicted_exposed_ms: Optional[float] = None,
                  reason: str = "planner") -> None:
         """Adopt a new bucket plan; the next step's hooks and exchanges
-        follow it.  ``reason`` speaks the switch vocabulary
+        follow it, and under a sharded-update algorithm the next step first
+        migrates the optimizer's shards and the pending parameter shards to
+        the new layout.  ``reason`` speaks the switch vocabulary
         (``planner | health:<kind> | autopilot:<incident> | manual``).
         ``predicted_exposed_ms`` is the planner's prediction for the plan,
         which the JAX engine's telemetry records; the port has no telemetry
@@ -307,6 +346,10 @@ class DistributedDataParallel:
                 f"{type(self.impl).__name__} keeps per-bucket state; re-bucketing "
                 "mid-training would desync it"
             )
+        if self._sharded_updater is not None and self._pending_reshard is None:
+            # the layout the live state was built under: the first of a
+            # burst of rebuckets keeps it
+            self._pending_reshard = self._sharded_updater.layout
         self._adopt_plan(plan)
         self.plan_version += 1
         self._plan_source = reason.partition(":")[0]
@@ -326,12 +369,17 @@ class DistributedDataParallel:
         if wp is not None:
             config["wire_precision"] = str(wp)
             config["bucket_precisions"] = [str(p) for p in self.impl.bucket_precisions(self.plan)]
-        return {
+        payload = {
             "plan_version": self.plan_version,
             "bucket_size_bytes": int(self.bucket_size_bytes),
             "buckets": [[dataclasses.asdict(td) for td in bucket] for bucket in self.plan.declarations()],
             "config": config,
         }
+        if self._sharded_updater is not None:
+            # the shard geometry, so that a resume can re-shard the
+            # per-rank optimizer state it finds
+            payload["shard"] = self._sharded_updater.layout.payload()
+        return payload
 
     def adopt_plan_payload(self, payload: dict) -> bool:
         """Adopt an exported plan payload (an elastic resume).  Returns True
@@ -400,6 +448,54 @@ class DistributedDataParallel:
         new = impl.bucket_precisions(self.plan) if self.plan is not None else None
         self._plan_source = reason.partition(":")[0]
         return new != old
+
+    # -- the sharded update --------------------------------------------------------
+
+    def clear_pending_reshard(self) -> None:
+        """Drop a queued shard-layout migration: for a resume whose state is
+        already in the just-adopted plan's layout (the rebucket inside
+        :meth:`adopt_plan_payload` queued one for live state that is about
+        to be replaced)."""
+        self._pending_reshard = None
+
+    def _apply_pending_reshard(self, state: TrainState) -> TrainState:
+        """Migrate the live sharded state from the layout it was built under
+        to the current plan's (queued by :meth:`rebucket`): the optimizer's
+        rows and state and the pending shards, value for value by tensor
+        name, on the host.  One host round trip per plan swap."""
+        old, self._pending_reshard = self._pending_reshard, None
+        new = self._sharded_updater.layout
+        return TrainState(
+            params=state.params,
+            optimizer=self._sharded_updater.reshard_state(state.optimizer, old),
+            algo_state=self.impl.reshard_host_state(state.algo_state, old, new),
+            step=state.step,
+        )
+
+    def finalize_pending_updates(self, state: TrainState) -> TrainState:
+        """Gather the last step's updated parameter shards into the
+        parameters now instead of at the next step's start.  Call it before
+        reading the parameters (``params_unstacked``, eval, a checkpoint)
+        under a sharded-update algorithm: until then they lag their update
+        by one step.  The identity for other algorithms; idempotent, since
+        the gather replaces the parameters with the same shards each time."""
+        if self._sharded_updater is None:
+            return state
+        if self._pending_reshard is not None:
+            state = self._apply_pending_reshard(state)
+        ctx = StepContext(group=self.group, step=state.step, plan=self.plan)
+        params, algo_state = self.impl.on_step_start(state.params, state.algo_state, ctx)
+        return TrainState(params, state.optimizer, algo_state, state.step)
+
+    def optimizer_state_bytes(self, state: TrainState) -> int:
+        """Bytes of optimizer state one rank holds: the state tensors' bytes
+        over the group size (they are rank-stacked).  A sharded update's
+        parameter rows are parameters, not state, and are not counted."""
+        opt = state.optimizer
+        opts = (opt.sharded, opt.local) if isinstance(opt, ShardedOptState) else (opt,)
+        total = sum(v.numel() * v.element_size() for o in opts if o is not None
+                    for st in o.state.values() for v in st.values() if torch.is_tensor(v))
+        return total // self.group.size
 
     # -- convenience --------------------------------------------------------------
 

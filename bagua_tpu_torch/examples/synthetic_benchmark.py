@@ -15,6 +15,9 @@ ByteGrad's compressed allreduce returns the gradient untouched, so a
 one-card group measures no compressor.
 
     python3 -m bagua_tpu_torch.examples.synthetic_benchmark --ranks 4 --intra-size 1 --algorithm bytegrad
+
+``--algorithm`` takes any registered algorithm: ``zero`` runs ZeRO on the
+f32 wire, its parameters one step behind their update (as the reference's).
 """
 
 import argparse

@@ -3,9 +3,12 @@
 
 Parameters keep the JAX package's layout and flax's names: conv kernels
 HWIO, Dense kernels ``(in, out)``, modules ``Conv_<i>`` and ``Dense_<i>``.
-The forward permutes for ``F.conv2d`` (NCHW view of the NHWC input, OIHW
+The forward permutes for the convolution (NCHW view of the NHWC input, OIHW
 view of the kernel) and flattens in NHWC order before ``Dense_0``, so a
 flax parameter tree drops in unchanged (:mod:`bagua_tpu_torch.convert`).
+The convolution is :func:`~bagua_tpu_torch.models._rank_ops.rank_conv2d`:
+under the engine's ``vmap`` over the ranks it runs one convolution per
+rank on that rank's NHWC view, not one grouped convolution.
 Compute runs in ``compute_dtype`` by explicit casts, as flax does; the
 logits come back in float32.  Parameters are built on ``device``, by
 default the current CUDA device (raises without one).
@@ -18,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from bagua_tpu_torch.models._rank_ops import rank_conv2d
 from bagua_tpu_torch.utils import lecun_normal, resolve_device
 
 # 'M' = 2x2 max pool; ints = conv output channels (VGG16 = config D)
@@ -40,7 +44,7 @@ class Conv(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):  # x: NCHW
-        y = F.conv2d(x, self.kernel.to(self.dtype).permute(3, 2, 0, 1), padding=1)
+        y = rank_conv2d(x, self.kernel.to(self.dtype).permute(3, 2, 0, 1), 1)
         return y + self.bias.to(self.dtype)[:, None, None]
 
 

@@ -1,0 +1,277 @@
+"""Shard layout: how each bucket's flat payload splits across ranks (the
+port of ``bagua_tpu/sharded/layout.py``).
+
+The ZeRO exchange (:mod:`bagua_tpu_torch.sharded.algorithm`) reduce-scatters every
+bucket, so rank ``r`` owns the contiguous flat slice
+``[r * numel/n, (r+1) * numel/n)`` of each bucket — the same row-major chunk
+order :func:`~bagua_tpu_torch.communication.reduce_scatter` scatters and
+:func:`~bagua_tpu_torch.communication.allgather` concatenates.  Bucket ``numel`` is always divisible by ``n``: the engine
+builds every plan with ``align_elems = group.size``
+(:meth:`~bagua_tpu_torch.algorithms.base.AlgorithmImpl.tensors_to_buckets` and
+``BucketPlan.from_declarations`` call sites both pad the tail slot).
+
+This module is the *geometry* half of the subsystem: a frozen description of
+the shard boundaries derived from a :class:`~bagua_tpu_torch.bucket.BucketPlan`
+(or from a snapshot manifest's plan payload + its recorded world size), plus
+host-side numpy resharding that is **element-value-preserving**: stacked
+shard rows are reassembled into full bucket flats, mapped to per-tensor
+values by slot name, and re-sliced under a different plan and/or shard
+count.  Mid-training ``rebucket`` goes through them, and so will an elastic
+resume into a resized gang (not ported yet), so there is exactly one place
+where shard arithmetic can be wrong.
+"""
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from bagua_tpu_torch.utils import align_size, from_bagua_datatype, tree_flatten_with_names
+
+__all__ = [
+    "np_dtype",
+    "to_host",
+    "to_device",
+    "ShardSlot",
+    "BucketShard",
+    "DtypeGroup",
+    "ShardLayout",
+    "reshard_bucket_rows",
+    "reshard_group_flat",
+    "assemble_full_flats",
+    "build_shard_rows",
+    "flat_tree_values",
+]
+
+
+def np_dtype(name: str) -> np.dtype:
+    """The numpy dtype a bucket of bagua dtype ``name`` is resharded in.
+    numpy has no bfloat16, so a bf16 value rides as its 16-bit pattern:
+    resharding only moves values, and zero fill is +0 in both."""
+    if name == "bf16":
+        return np.dtype(np.int16)
+    return torch.empty(0, dtype=from_bagua_datatype(name)).numpy().dtype
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array for host-side resharding (bf16 as
+    its bit pattern, see :func:`np_dtype`)."""
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def to_device(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """Inverse of :func:`to_host`."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return (t.view(dtype) if dtype == torch.bfloat16 else t.to(dtype)).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSlot:
+    """One tensor's flat placement inside its bucket."""
+
+    name: str
+    numel: int
+    offset: int
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketShard:
+    """One bucket's shard geometry (``numel`` includes alignment padding)."""
+
+    slots: Tuple[ShardSlot, ...]
+    numel: int
+    shard_numel: int
+    dtype: str  # bagua dtype string ("f32", ...)
+
+    def np_dtype(self):
+        return np_dtype(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class DtypeGroup:
+    """The per-dtype fusion unit of the sharded optimizer update: every
+    bucket of one dtype contributes its rank shard to ONE ``(n,
+    shard_total)`` tensor that the optimizer steps (the dtype-group fusion
+    of the JAX package's ``contrib.fuse_optimizer``)."""
+
+    dtype: str
+    buckets: Tuple[int, ...]  # bucket indices, plan order
+    shard_total: int  # sum of member shard_numels
+
+    def np_dtype(self):
+        return np_dtype(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """Shard geometry of one bucket plan at one world size."""
+
+    n_shards: int
+    buckets: Tuple[BucketShard, ...]
+    groups: Tuple[DtypeGroup, ...]
+
+    @classmethod
+    def _build(cls, n_shards: int, raw: Sequence[Tuple[List[ShardSlot], int, str]]):
+        buckets = []
+        by_dtype: Dict[str, List[int]] = {}
+        order: List[str] = []
+        for bi, (slots, numel, dtype) in enumerate(raw):
+            if numel % n_shards != 0:
+                raise ValueError(
+                    f"bucket {bi} numel {numel} not divisible by {n_shards} "
+                    "shards — the plan was not aligned to the group size"
+                )
+            buckets.append(
+                BucketShard(tuple(slots), numel, numel // n_shards, dtype)
+            )
+            if dtype not in by_dtype:
+                order.append(dtype)
+            by_dtype.setdefault(dtype, []).append(bi)
+        groups = tuple(
+            DtypeGroup(
+                dtype=dt,
+                buckets=tuple(by_dtype[dt]),
+                shard_total=sum(buckets[bi].shard_numel for bi in by_dtype[dt]),
+            )
+            for dt in order
+        )
+        return cls(n_shards=n_shards, buckets=tuple(buckets), groups=groups)
+
+    @classmethod
+    def from_plan(cls, plan, n_shards: int) -> "ShardLayout":
+        raw = [
+            (
+                [ShardSlot(s.name, s.numel, s.offset) for s in spec.slots],
+                spec.numel,
+                spec.dtype,
+            )
+            for spec in plan.specs
+        ]
+        return cls._build(n_shards, raw)
+
+    @classmethod
+    def from_payload(cls, plan_payload: Dict, n_shards: int) -> "ShardLayout":
+        """Rebuild the layout a *snapshot* was written under: the manifest's
+        plan payload (``DistributedDataParallel.export_plan_payload``) plus
+        the manifest's recorded world size.  Padding is recomputed exactly as
+        ``BucketPlan.from_declarations(align_elems=n_shards)`` did."""
+        raw = []
+        for bucket in plan_payload.get("buckets", []):
+            slots, offset = [], 0
+            for td in bucket:
+                slots.append(ShardSlot(td["name"], int(td["num_elements"]), offset))
+                offset += int(td["num_elements"])
+            raw.append((slots, align_size(offset, n_shards), bucket[0]["dtype"]))
+        return cls._build(n_shards, raw)
+
+    def payload(self) -> Dict:
+        """JSON-serializable shard record for snapshot manifests (auditable
+        geometry; reconstruction uses the plan payload + world size)."""
+        return {
+            "n_shards": self.n_shards,
+            "buckets": [
+                {"numel": b.numel, "shard_numel": b.shard_numel, "dtype": b.dtype}
+                for b in self.buckets
+            ],
+        }
+
+    def group_for(self, dtype: str) -> Optional[DtypeGroup]:
+        for g in self.groups:
+            if g.dtype == dtype:
+                return g
+        return None
+
+
+# -- host-side (numpy) resharding ---------------------------------------------
+
+
+def _slot_values(rows_list: Sequence[np.ndarray], layout: ShardLayout):
+    """Stacked shard rows -> ``{tensor_name: flat values}`` (padding dropped
+    implicitly: slots never cover the alignment tail)."""
+    values: Dict[str, np.ndarray] = {}
+    for rows, b in zip(rows_list, layout.buckets):
+        full = np.asarray(rows).reshape(-1)  # row r == flat[r*shard:(r+1)*shard]
+        for s in b.slots:
+            values[s.name] = full[s.offset : s.offset + s.numel]
+    return values
+
+
+def _build_rows(values: Dict[str, np.ndarray], layout: ShardLayout, indices=None):
+    out = []
+    for bi in range(len(layout.buckets)) if indices is None else indices:
+        b = layout.buckets[bi]
+        full = np.zeros((b.numel,), dtype=b.np_dtype())
+        for s in b.slots:
+            v = values.get(s.name)
+            if v is not None:
+                m = min(s.numel, v.size)
+                full[s.offset : s.offset + m] = v[:m].astype(full.dtype, copy=False)
+        out.append(full.reshape(layout.n_shards, b.shard_numel))
+    return out
+
+
+def assemble_full_flats(rows_list: Sequence[np.ndarray], layout: ShardLayout):
+    """Stacked shard rows -> full per-bucket flats (tests/debugging)."""
+    return [np.asarray(rows).reshape(-1) for rows in rows_list]
+
+
+def build_shard_rows(
+    values: Dict[str, np.ndarray], layout: ShardLayout, indices=None
+) -> List[np.ndarray]:
+    """Per-tensor flat values -> rank-stacked per-bucket shard rows
+    ``(layout.n_shards, shard_numel)`` — row ``r`` is exactly rank ``r``'s
+    contiguous flat shard of the bucket, alignment padding (and any tensor
+    missing from ``values``) zero-filled.  The scatter half of the
+    element-value-preserving contract: feeding a whole tree's values here
+    produces the state a sharded gang would hold, so an algorithm switch
+    can seed ``pending`` parameter shards / optimizer moments without ever
+    running an exchange.  ``indices`` restricts to a subset of buckets
+    (plan order), e.g. one dtype group's members."""
+    return _build_rows(values, layout, indices=indices)
+
+
+def flat_tree_values(tree) -> Dict[str, np.ndarray]:
+    """``{leaf name: flattened numpy leaf}`` for a (single-rank) tree of
+    tensors — the name-keyed form both resharding directions speak (slot
+    names are the leaves' names by construction)."""
+    return {name: to_host(leaf).reshape(-1) for name, leaf in tree_flatten_with_names(tree)}
+
+
+def reshard_bucket_rows(
+    rows_list: Sequence[np.ndarray], old: ShardLayout, new: ShardLayout
+) -> List[np.ndarray]:
+    """Re-shard per-bucket stacked rows ``(old.n_shards, old_shard_numel)``
+    into the new layout's ``(new.n_shards, new_shard_numel)`` arrays.
+    Element-value-preserving by slot name; tensors absent from the old layout
+    (and all alignment padding) land as zeros."""
+    return _build_rows(_slot_values(rows_list, old), new)
+
+
+def reshard_group_flat(
+    flat: np.ndarray, old: ShardLayout, new: ShardLayout, dtype: str
+) -> np.ndarray:
+    """Re-shard one dtype group's stacked optimizer-state vector.
+
+    ``flat`` is ``(old.n_shards, old_group.shard_total)`` — the rank-stacked
+    concatenation of each member bucket's rank shard, in group bucket order
+    (the exact layout :class:`~bagua_tpu_torch.sharded.updater.
+    ShardedOptimizerUpdater` hands the optimizer).  Returns
+    ``(new.n_shards, new_group.shard_total)``."""
+    og, ng = old.group_for(dtype), new.group_for(dtype)
+    if og is None or ng is None:
+        raise ValueError(f"dtype group {dtype!r} missing from a shard layout")
+    flat = np.asarray(flat)
+    rows_list, col = [], 0
+    for bi in og.buckets:
+        sh = old.buckets[bi].shard_numel
+        rows_list.append(flat[:, col : col + sh])
+        col += sh
+    values = _slot_values(rows_list, dataclasses.replace(old, buckets=tuple(
+        old.buckets[bi] for bi in og.buckets
+    ), groups=()))
+    new_rows = _build_rows(values, new, indices=ng.buckets)
+    if not new_rows:
+        return np.zeros((new.n_shards, 0), dtype=flat.dtype)
+    return np.concatenate(new_rows, axis=1)

@@ -33,14 +33,16 @@ and no result line:
    tile GEMM beside ``torch.matmul``.  Then the two rings at path (a)'s
    shapes: ``ag_matmul`` bidir bitwise equal to uni, both rings equal to
    ``allgather`` + matmul and ``allreduce`` + slice.
-4. reference -- trains a small f32 VGG with ByteGrad, with the int8 ring and
-   with the int4 ring, a small Llama over 4 zigzag ranks and at tp 2 x sp 2,
-   and the fused sequence-parallel MLP pair at tp 4, on the card and on the
-   CPU (plain versions) from the same weights and data, and holds each pair
-   of runs' losses and parameters together within stated tolerances; the
-   small VGG's ByteGrad and int8 runs take the overlap mode (the engine's
-   default), and on the card (cuDNN deterministic, this phase only) they
-   equal the monolithic runs bit for bit.
+4. reference -- trains a small f32 VGG with ByteGrad, with the int8 ring,
+   with the int4 ring, with the f32 wire and with ZeRO on each of the four,
+   a small Llama over 4 zigzag ranks and at tp 2 x sp 2, and the fused
+   sequence-parallel MLP pair at tp 4, on the card and on the CPU (plain
+   versions) from the same weights and data, and holds each pair of runs'
+   losses and parameters together within stated tolerances; the small
+   VGG's runs but int4's take the overlap mode (the engine's default), and
+   on the card (cuDNN deterministic, this phase only) they equal the
+   monolithic runs bit for bit, and ZeRO's f32 and ByteGrad runs the
+   unsharded f32 and ByteGrad runs.
 5. slice   -- trains full-width VGG16 (224x224, 1000 classes, bf16
    compute, f32 parameters, batch 32 per rank) over 4 ranks on this one
    card through ``Trainer.fit`` with the monolithic step (``overlap=False``),
@@ -52,7 +54,11 @@ and no result line:
    the int8 ring and the f32 wire (``fuse="tuple"``), 5 steps monolithic
    and 5 with every bucket's exchange issued from inside the backward pass
    on a side stream (overlap), checking that each bucket is exchanged once
-   a step in ``backward_order()``; then Llama at ``llama_7b_config``'s
+   a step in ``backward_order()``; then ZeRO through the twin (reduce-scatter,
+   an optimizer step on each rank's shards, the parameters' all-gather at
+   the next step's start): the f32 wire, ByteGrad and the int8 ring with
+   overlap, ByteGrad and the int4 ring monolithic, 5 steps each, with the
+   optimizer state per rank; then Llama at ``llama_7b_config``'s
    width (2 layers, one sequence of 4096 tokens, f32) over 4 ranks, 5 AdamW
    steps of ``examples.llama_pretrain.train_step``, once as 4 zigzag ring
    ranks (sp 4) and once at tp 2 x sp 2 (path (b)); then path (a): the
@@ -101,6 +107,7 @@ from bagua_tpu_torch.parallel.ring_attention import zigzag_order
 from bagua_tpu_torch.parallel.tensor_parallel import (
     ColumnParallelDense, ParallelMLP, RowParallelDense, gelu,
 )
+from bagua_tpu_torch.sharded import ZeroAlgorithm
 from bagua_tpu_torch.trainer import Trainer
 from bagua_tpu_torch.utils import tree_flatten_with_names, tree_leaves, tree_map, tree_unflatten
 
@@ -425,7 +432,12 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
                                         rows * chunk * 3 + RANKS * chunk * 5, *fused_in),
             "decompress": ledger.time("decompress_minmax_uint8", *codec_cost(rows, chunk, 2), *dec_in),
         }
-        del flat, fused_in, dec_in
+        # ZeRO's ByteGrad decompresses each rank's own reduced chunk only
+        own = [a.reshape(RANKS, -1) for a in mm8.decompress_reduce_requantize_plain(*fused_in)]
+        ledger.compare("decompress_minmax_uint8", f"{case}, ZeRO's own chunk", *own)
+        t["decompress, ZeRO's own chunk"] = ledger.time(
+            "decompress_minmax_uint8", *codec_cost(RANKS, chunk, 2), *own, step="ZeRO ByteGrad")
+        del flat, fused_in, dec_in, own
         # the int8 ring's codec calls, one of each a step at this bucket
         comp_in, rs_dec, ag_dec = ring_codec_inputs(x, BLOCK)
         for what, blocks in zip(("reduce-scatter step 0", "all-gather"), comp_in):
@@ -762,15 +774,28 @@ def phase_rings(device) -> None:
 REF_STEPS, REF_LR = 3, 0.05
 REF_VGG = dict(num_classes=10, cfg=(16, "M", 32, "M"), classifier_width=64, image_size=32)
 #: the reference phase's algorithms: name -> (algorithm, quantizations one
-#: element meets per exchange, levels)
+#: element meets per exchange, levels); 0 quantizations for the f32 wire.
+#: ZeRO's reduce-scatter quantizes as the ring's first leg or ByteGrad's
+#: scatter stage; its parameter all-gather is exact
 REF_ALGORITHMS = {
     "ByteGrad": (ByteGradAlgorithm, 2, 255.0),
     "int8 ring": (functools.partial(GradientAllReduceAlgorithm, wire_precision="int8"), RANKS, 255.0),
     "int4 ring": (functools.partial(GradientAllReduceAlgorithm, wire_precision="int4"), RANKS + 1, 15.0),
+    "f32": (GradientAllReduceAlgorithm, 0, None),
+    "ZeRO f32": (ZeroAlgorithm, 0, None),
+    "ZeRO ByteGrad": (functools.partial(ZeroAlgorithm, compression="bytegrad"), 2, 255.0),
+    "ZeRO int8 ring": (functools.partial(ZeroAlgorithm, wire_precision="int8"), RANKS - 1, 255.0),
+    "ZeRO int4 ring": (functools.partial(ZeroAlgorithm, wire_precision="int4"), RANKS, 15.0),
 }
+#: ZeRO runs that must equal an unsharded one on the card bit for bit
+ZERO_TWINS = {"ZeRO f32": "f32", "ZeRO ByteGrad": "ByteGrad"}
 #: the share of elements that may lie beyond rounding: those a flipped level
 #: moved (a flip disturbs at most its own block)
 FLIPPED_SHARE = 0.05
+#: the f32 wires: each step's averaged gradient differs from the CPU's by at
+#: most the gradient noise at equal parameters; the parameters' own
+#: differences may grow it over the steps, by this factor at most
+F32_GROWTH = 4
 
 
 def _level_width(name, trainer, state, batch) -> float:
@@ -778,13 +803,17 @@ def _level_width(name, trainer, state, batch) -> float:
     units of the averaged gradient.  ByteGrad: over each rank's chunks and
     the chunks of their mean.  The ring: every partial sum of a bucket lies
     within plus or minus the sum over ranks of each rank's largest
-    |gradient + residual|, divided by the RANKS of the average."""
+    |gradient + residual|, divided by the RANKS of the average.  The f32
+    wire: 0."""
+    levels = REF_ALGORITHMS[name][2]
+    if levels is None:
+        return 0.0
+    state = trainer.ddp.finalize_pending_updates(state)
     _, grads = trainer.ddp._rank_grads(state.params, batch)
     resid = state.algo_state.get("qr_residual") if isinstance(state.algo_state, dict) else None
-    levels = REF_ALGORITHMS[name][2]
     width = 0.0
     for i, flat in enumerate(trainer.ddp.plan.bucketize(grads)):
-        if name == "ByteGrad":
+        if name.endswith("ByteGrad"):
             for chunks in (flat.reshape(-1, flat.shape[1] // RANKS), flat.mean(0).reshape(RANKS, -1)):
                 width = max(width, float((chunks.amax(1) - chunks.amin(1)).max()) / levels)
             continue
@@ -840,6 +869,7 @@ def _train_small_vgg(name, device, params, batch, overlap="auto"):
         losses.append(trainer.losses.cpu())
     resid = [r.cpu() for r in state.algo_state.get("qr_residual", ())] \
         if isinstance(state.algo_state, dict) else []
+    state = trainer.ddp.finalize_pending_updates(state)
     return losses, tree_map(lambda t: t.cpu(), trainer.ddp.params_unstacked(state)), width, resid
 
 
@@ -883,10 +913,14 @@ def phase_reference(device) -> None:
       away at each of the k quantizations an element meets (ByteGrad 2:
       compress and requantize; the ring RANKS: the first compress, RANKS - 2
       hops and the all-gather's compress; int4 one more, for the error
-      carried over in the residual).  So every element lies within
-      REF_STEPS x REF_LR x k x the widest averaged level; where no level
-      flipped, within REF_STEPS x REF_LR x (noise + a thousandth of that
-      level), and at most FLIPPED_SHARE of the elements lie beyond.
+      carried over in the residual; ZeRO's reduce-scatter one quantization
+      fewer than the ring, none in its exact all-gather).  So every element
+      lies within REF_STEPS x REF_LR x k x the widest averaged level; where
+      no level flipped, within REF_STEPS x REF_LR x (noise + a thousandth of
+      that level), and at most FLIPPED_SHARE of the elements lie beyond.
+      The f32 wires (``gradient_allreduce`` and ZeRO's) within REF_STEPS x
+      REF_LR x F32_GROWTH x noise, all but FLIPPED_SHARE within REF_STEPS x
+      REF_LR x noise.
     - int4 residuals: each element is one quantization's error, within half
       a level in sum space (RANKS averaged levels) on either device, so the
       two lie within one such level; where no level flipped, the residual
@@ -894,10 +928,12 @@ def phase_reference(device) -> None:
       thousandth of the level.  A residual that is not carried over, not
       fed back or zero fails this.
 
-    ByteGrad and the int8 ring run with overlap (the engine's ``"auto"``) on
-    both devices; on the card each also runs monolithic (``overlap=False``),
-    and the two card runs' losses and parameters must be bitwise equal.  The
-    whole phase runs with cuDNN's deterministic algorithms."""
+    Every wire but int4 runs with overlap (the engine's ``"auto"``) on both
+    devices; on the card each also runs monolithic (``overlap=False``), and
+    the two card runs' losses and parameters must be bitwise equal.  ZeRO's
+    f32 and ByteGrad runs must also equal the unsharded f32 and (flat)
+    ByteGrad runs on the card bit for bit (ZERO_TWINS).  The whole phase
+    runs with cuDNN's deterministic algorithms."""
     with _deterministic():
         _reference_vgg(device)
 
@@ -911,22 +947,31 @@ def _reference_vgg(device) -> None:
     with _no_tf32():
         noise = _gradient_noise(device, params, batch)
     log(f"[reference] card vs CPU gradients at the same parameters within {noise:.3e}")
+    card = {}
+
+    def equal_runs(a, b):
+        return all(same(x, y) for x, y in zip(a[0], b[0])) and \
+            all(same(x, y) for x, y in zip(tree_leaves(a[1]), tree_leaves(b[1])))
+
     for name, (_, k, _) in REF_ALGORITHMS.items():
         with _no_tf32():
             got_losses, got, _, got_resid = _train_small_vgg(name, device, params, batch)
+            card[name] = (got_losses, got)
             overlap = _small_trainer(name, device).ddp.overlap_enabled
             if overlap:
                 mono_losses, mono, _, _ = _train_small_vgg(name, device, params, batch, overlap=False)
-                if not (all(same(a, b) for a, b in zip(got_losses, mono_losses))
-                        and all(same(a, b) for a, b in zip(tree_leaves(got), tree_leaves(mono)))):
+                if not equal_runs(card[name], (mono_losses, mono)):
                     raise AssertionError(f"{name}: overlap and monolithic runs on the card differ")
+        if name in ZERO_TWINS and not equal_runs(card[name], card[ZERO_TWINS[name]]):
+            raise AssertionError(f"{name}: differs on the card from the unsharded {ZERO_TWINS[name]} run")
         want_losses, want, width, want_resid = _train_small_vgg(name, torch.device("cpu"), params, batch)
         for step, rtol in ((0, 1e-5), (REF_STEPS - 1, 1e-4)):
             if not torch.allclose(got_losses[step], want_losses[step], rtol=rtol, atol=0.0):
                 raise AssertionError(f"{name}: step {step + 1} losses {got_losses[step].tolist()} "
                                      f"vs CPU {want_losses[step].tolist()}")
-        err, beyond = _within(name, "parameters", tree_leaves(got), tree_leaves(want),
-                             REF_STEPS * REF_LR * (noise + 1e-3 * width), REF_STEPS * REF_LR * k * width)
+        tight = REF_STEPS * REF_LR * (noise + 1e-3 * width)
+        loose = REF_STEPS * REF_LR * (k * width if k else F32_GROWTH * noise)
+        err, beyond = _within(name, "parameters", tree_leaves(got), tree_leaves(want), tight, loose)
         carry = ""
         if want_resid:
             level = RANKS * width
@@ -939,11 +984,13 @@ def _reference_vgg(device) -> None:
                      f"CPU within {r_err:.3e} (level {level:.3e}), {r_beyond}")
         if overlap:
             carry += "; overlap on the card bitwise equal to monolithic"
+        if name in ZERO_TWINS:
+            carry += f"; bitwise equal on the card to the unsharded {ZERO_TWINS[name]} run"
         log(f"[reference] small VGG, {REF_STEPS} {name} steps{' (overlap)' if overlap else ''}, "
             f"card vs CPU: losses "
             f"{got_losses[0].mean():.6f} -> {got_losses[-1].mean():.6f} vs "
             f"{want_losses[0].mean():.6f} -> {want_losses[-1].mean():.6f}; parameters within "
-            f"{err:.3e} (tolerance {REF_STEPS * REF_LR * k * width:.3e}), {beyond}{carry}")
+            f"{err:.3e} (tolerance {loose:.3e}), {beyond}{carry}")
 
 
 #: the slice's paths: name -> (algorithm, launches per step and bucket of
@@ -1130,8 +1177,9 @@ def phase_overlap(device, profile: bool, name: str) -> dict:
         total = {k: total.get(k, 0) + n for k, n in launches.items()}
         log(f"[overlap] VGG16 bf16, {RANKS} ranks x batch {BATCH_PER_RANK}, {what}, {buckets} buckets: "
             f"warm-up step {result.warmup_seconds:.3f} s, then {times[overlap][0]:.1f} ms/step, peak memory "
-            f"{times[overlap][1]:.1f} GiB; exchanges per bucket {ddp.exchange_counts} in order "
-            f"{ddp.exchange_order}; launches {launches}")
+            f"{times[overlap][1]:.1f} GiB, optimizer state {ddp.optimizer_state_bytes(result.state)} B per "
+            f"rank; exchanges per bucket {ddp.exchange_counts} in order {ddp.exchange_order}; "
+            f"launches {launches}")
         if profile:
             profile_step(what, lambda: ddp.train_step(result.state, result.batch), ddp.side_stream)
         del result, ddp, model
@@ -1139,6 +1187,79 @@ def phase_overlap(device, profile: bool, name: str) -> dict:
         f"(ratio {times[True][0] / times[False][0]:.3f}); peak memory {times[True][1]:.1f} against "
         f"{times[False][1]:.1f} GiB")
     return total
+
+
+#: ZeRO through the synthetic benchmark's twin: name -> (ZeroAlgorithm's
+#: arguments, overlap, launches per step and bucket).  The reduce-scatter
+#: legs only: ByteGrad decompresses its own chunk, the ring runs its first
+#: compress, RANKS - 2 hops and one decompress; the parameter all-gather
+#: launches nothing
+ZERO_PATHS = {
+    "ZeRO f32": ({}, True, {}),
+    "ZeRO ByteGrad": ({"compression": "bytegrad"}, True, SLICE_PATHS["ByteGrad"][1]),
+    "ZeRO int8 ring": ({"wire_precision": "int8"}, True,
+                       {"compress_minmax_uint8": 1, "decompress_minmax_uint8": 1,
+                        "hop_dequant_add_requant_int8": RANKS - 2}),
+    "ZeRO ByteGrad (monolithic)": ({"compression": "bytegrad"}, False, SLICE_PATHS["ByteGrad"][1]),
+    "ZeRO int4 ring (monolithic)": ({"wire_precision": "int4"}, False,
+                                    {"hop_dequant_add_requant_int4": RANKS - 2}),
+}
+
+
+def phase_zero(device, profile: bool, name: str) -> dict:
+    """STEPS steps of full-width VGG16 under ZeRO through the synthetic
+    benchmark's twin (``sb.run(..., "zero", ...)``: 1 warm-up step, STEPS -
+    1 timed) on the path ``name``.  Checks finite losses, the ranks'
+    parameters bitwise equal after the last gather, the launch counts, the
+    census (with overlap, each bucket once a step in ``backward_order()``)
+    and the optimizer state per rank (SGD momentum over each rank's shards:
+    4 bytes an element of the padded buckets over RANKS).  Returns the
+    launch counts."""
+    kwargs, overlap, per_bucket = ZERO_PATHS[name]
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = sb.build("vgg16", torch.bfloat16, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = sb.run(model, params, group, "zero", kwargs, batch_size=BATCH_PER_RANK,
+                    num_iters=STEPS - 1, num_warmup=1, overlap=overlap)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    ddp = result.ddp
+    if ddp.overlap_enabled is not overlap:
+        raise AssertionError(f"{name}: the engine resolved overlap={ddp.overlap_enabled}")
+    if not torch.isfinite(result.losses).all():
+        raise AssertionError(f"{name}: non-finite loss {result.losses.tolist()}")
+    state = ddp.finalize_pending_updates(result.state)
+    for leaf in tree_leaves(state.params):
+        if not all(torch.equal(leaf[0], leaf[r]) for r in range(1, RANKS)):
+            raise AssertionError(f"{name}: ranks' parameters differ after the last gather")
+    buckets = ddp.plan.num_buckets
+    want = {kernel: STEPS * buckets * per_bucket.get(kernel, 0) for kernel in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches}, want {want}")
+    exchanges = [STEPS if overlap else 0] * buckets
+    order = ddp.plan.backward_order() if overlap else []
+    if ddp.exchange_counts != exchanges or ddp.exchange_order != order:
+        raise AssertionError(f"{name}: exchanges per bucket {ddp.exchange_counts}, want {exchanges}; "
+                             f"last step's order {ddp.exchange_order}, want {order}")
+    opt_bytes = ddp.optimizer_state_bytes(state)
+    if opt_bytes != 4 * sum(spec.numel for spec in ddp.plan.specs) // RANKS:
+        raise AssertionError(f"{name}: optimizer state {opt_bytes} B per rank")
+    step_ms = result.step_seconds * 1e3
+    log(f"[zero] VGG16 bf16, {RANKS} ranks x batch {BATCH_PER_RANK}, {name}, {buckets} buckets: warm-up "
+        f"step {result.warmup_seconds:.3f} s, then {step_ms:.1f} ms/step = "
+        f"{BATCH_PER_RANK / result.step_seconds:.1f} img/s per rank, "
+        f"{RANKS * BATCH_PER_RANK / result.step_seconds:.1f} img/s on the card; loss "
+        f"{result.losses.tolist()}; peak memory {peak:.1f} GiB; optimizer state {opt_bytes} B per rank "
+        f"(shard rows {sum(r.numel() * r.element_size() for r in state.optimizer.rows) // RANKS} B); "
+        f"exchanges per bucket {ddp.exchange_counts} in order {ddp.exchange_order}; launches {launches}")
+    if profile:
+        profile_step(name, lambda: ddp.train_step(state, result.batch), ddp.side_stream)
+    return launches
 
 
 REF_LLAMA = LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
@@ -1508,6 +1629,8 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
     for name in OVERLAP_PATHS:
         per_path[f"{name} via the synthetic benchmark"] = phase_overlap(device, profile, name)
+    for name in ZERO_PATHS:
+        per_path[name] = phase_zero(device, profile, name)
     per_path["Llama"] = phase_llama_slice(device, profile)
     torch.cuda.empty_cache()
     per_path["Llama tp"] = phase_llama_slice(device, profile, (1, 2, 2))

@@ -9,18 +9,21 @@ Each turn is a process of its own that imports ``bagua_tpu_torch`` from one
 tree, in the order parent, this tree, this tree, parent.  A turn trains
 VGG16 at ``chip_smoke.py``'s shape (224x224, 1000 classes, bf16 compute,
 f32 parameters, batch 32 a rank, weights and data from seed 0) over 4 ranks
-of the one card (``intra_size=1``) through ``Trainer.fit``, with ByteGrad
-and with the int8 ring: the monolithic step (``overlap=False`` where the
-tree's ``Trainer`` takes the knob; a tree without it has no other step)
-and, where the tree has it, the overlap step.  Each path: 2 warm-up steps,
-then ``--steps`` steps ending in ``torch.cuda.synchronize()``; its ms/step
-and its peak memory (``torch.cuda.max_memory_allocated``).  Prints each
-turn's numbers and a JSON line with the faster of each tree's two turns per
-path.  Exits non-zero without a card.
+of the one card (``intra_size=1``) through ``Trainer.fit`` with SGD
+momentum, on each wire of WIRES the tree has: the monolithic step
+(``overlap=False`` where the tree's ``Trainer`` takes the knob; a tree
+without it has no other step) and, where the tree has it, the overlap
+step.  Each path: 2 warm-up steps,
+then ``--steps`` steps ending in ``torch.cuda.synchronize()``; its ms/step,
+its peak memory (``torch.cuda.max_memory_allocated``) and, where the engine
+reports it, its optimizer state per rank.  Prints each turn's numbers and a
+JSON line with the faster of each tree's two turns per path.  Exits
+non-zero without a card.
 """
 
 import argparse
 import gc
+import importlib.util
 import inspect
 import itertools
 import json
@@ -30,6 +33,15 @@ import sys
 import time
 
 WARMUP = 2
+#: wire -> (module, class, arguments); a tree without the module skips it
+WIRES = {
+    "ByteGrad": ("bagua_tpu_torch.algorithms", "ByteGradAlgorithm", {}),
+    "int8 ring": ("bagua_tpu_torch.algorithms", "GradientAllReduceAlgorithm", {"wire_precision": "int8"}),
+    "f32": ("bagua_tpu_torch.algorithms", "GradientAllReduceAlgorithm", {}),
+    "ZeRO f32": ("bagua_tpu_torch.sharded", "ZeroAlgorithm", {}),
+    "ZeRO ByteGrad": ("bagua_tpu_torch.sharded", "ZeroAlgorithm", {"compression": "bytegrad"}),
+    "ZeRO int8 ring": ("bagua_tpu_torch.sharded", "ZeroAlgorithm", {"wire_precision": "int8"}),
+}
 
 
 def worker(root: str, steps: int) -> dict:
@@ -38,15 +50,17 @@ def worker(root: str, steps: int) -> dict:
     import torch
 
     from bagua_tpu_torch import init_process_group
-    from bagua_tpu_torch.algorithms import ByteGradAlgorithm, GradientAllReduceAlgorithm
     from bagua_tpu_torch.models.vgg import init_vgg16, vgg_loss_fn
     from bagua_tpu_torch.trainer import Trainer
 
     assert os.path.abspath(sys.modules["bagua_tpu_torch"].__file__).startswith(os.path.abspath(root))
     device = torch.device("cuda", 0)
     group = init_process_group([device] * 4, intra_size=1)
-    wires = {"ByteGrad": ByteGradAlgorithm,
-             "int8 ring": lambda: GradientAllReduceAlgorithm(wire_precision="int8")}
+    wires = {}
+    for name, (module, cls, kwargs) in WIRES.items():
+        if importlib.util.find_spec(module) is not None:
+            wires[name] = lambda module=module, cls=cls, kwargs=kwargs: \
+                getattr(importlib.import_module(module), cls)(**kwargs)
     modes = {"monolithic": {"overlap": False}, "overlap": {"overlap": True}} \
         if "overlap" in inspect.signature(Trainer).parameters else {"monolithic": {}}
     out = {}
@@ -73,6 +87,8 @@ def worker(root: str, steps: int) -> dict:
         if not torch.isfinite(trainer.losses).all():
             raise AssertionError(f"{wire} {mode}: non-finite loss {trainer.losses.tolist()}")
         out[f"{wire} {mode}"] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if hasattr(trainer.ddp, "optimizer_state_bytes"):
+            out[f"{wire} {mode}"]["optimizer_bytes_per_rank"] = trainer.ddp.optimizer_state_bytes(state)
         del state, trainer, model, batch
     return out
 
@@ -104,7 +120,9 @@ def main(argv) -> int:
             return proc.returncode
         turn = json.loads(proc.stdout.strip().splitlines()[-1])
         for path, row in turn.items():
-            print(f"[ab] {tree} {path}: {row['ms']:.2f} ms/step, peak {row['peak_gib']:.2f} GiB", flush=True)
+            opt = f", optimizer state {row['optimizer_bytes_per_rank']} B per rank" \
+                if "optimizer_bytes_per_rank" in row else ""
+            print(f"[ab] {tree} {path}: {row['ms']:.2f} ms/step, peak {row['peak_gib']:.2f} GiB{opt}", flush=True)
             prev = best.setdefault(tree, {}).get(path)
             if prev is None or row["ms"] < prev["ms"]:
                 best[tree][path] = row

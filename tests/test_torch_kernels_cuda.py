@@ -551,3 +551,54 @@ def test_rings_on_card_match_cpu(cuda_device, ring):
             assert torch.equal(uni, ag.detach())
     for g, want in zip(*outs):
         assert torch.allclose(g, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batched_weight", [True, False], ids=["batched", "unbatched"])
+def test_rank_conv2d_on_card_matches_per_rank_loop(cuda_device, dtype, batched_weight):
+    """``rank_conv2d`` under ``vmap`` on the card, cuDNN deterministic: the
+    output and the input and weight gradients bitwise equal to a loop of
+    ``F.conv2d`` over the ranks; each rank's NHWC input and output stay
+    channels_last; each stacked leaf's hook fires once."""
+    import torch.nn.functional as F
+
+    from bagua_tpu_torch.models._rank_ops import rank_conv2d
+
+    ranks = 4
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((ranks, 8, 28, 28, 64), generator=gen, device=cuda_device).to(dtype)  # NHWC
+    w = (torch.randn((ranks, 3, 3, 64, 128), generator=gen, device=cuda_device) * 0.05).to(dtype)  # HWIO
+    if not batched_weight:
+        w = w[0]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        fired = []
+        wl.register_post_accumulate_grad_hook(lambda _t: fired.append("w"))
+
+        def conv(xr, wr):  # vmap refuses is_contiguous: the layout is read outside it
+            return rank_conv2d(xr.permute(0, 3, 1, 2), wr.permute(3, 2, 0, 1), 1)
+
+        y = torch.func.vmap(conv, in_dims=(0, 0 if batched_weight else None))(xl, wl)
+        (y.float() ** 2).sum().backward()
+        assert fired == ["w"]
+        gws = []
+        for r in range(ranks):
+            xr = x[r].clone().requires_grad_(True)
+            wr = (w[r] if batched_weight else w).clone().requires_grad_(True)
+            yr = F.conv2d(xr.permute(0, 3, 1, 2), wr.permute(3, 2, 0, 1), padding=1)
+            assert yr.is_contiguous(memory_format=torch.channels_last)
+            assert y[r].is_contiguous(memory_format=torch.channels_last)
+            assert bitwise(y[r], yr)
+            (yr.float() ** 2).sum().backward()
+            assert bitwise(xl.grad[r], xr.grad)
+            if batched_weight:
+                assert bitwise(wl.grad[r], wr.grad)
+            else:
+                gws.append(wr.grad)
+        if not batched_weight:  # the expanded weight's gradient: a sum over the ranks
+            assert bitwise(wl.grad, torch.stack(gws).sum(0))
+    finally:
+        torch.backends.cudnn.deterministic = saved

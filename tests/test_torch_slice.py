@@ -339,7 +339,7 @@ def test_trainer_fit_matches_jax_ddp(group, tgroup, algo):
 def test_port_imports_no_jax():
     """Importing every module of the port, and the chip smoke script, loads
     neither JAX nor the JAX package; the walk reaches the tensor-parallel
-    slice's modules and the synthetic benchmark's twin."""
+    slice's modules, the synthetic benchmark's twin and ZeRO's modules."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -348,7 +348,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'bagua_tpu')]\n"
         "assert not bad, bad\n"
         "need = ['bagua_tpu_torch.kernels.collective_matmul', 'bagua_tpu_torch.parallel.tensor_parallel',\n"
-        "        'bagua_tpu_torch.examples.synthetic_benchmark']\n"
+        "        'bagua_tpu_torch.examples.synthetic_benchmark', 'bagua_tpu_torch.sharded.updater',\n"
+        "        'bagua_tpu_torch.models._rank_ops']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )

@@ -21,8 +21,9 @@ LINE = re.compile(r"^model=vgg16 algorithm=(\S+) batch=2/chip chips=4: [0-9.]+ s
                   r"final loss [0-9.]+$")
 
 
-@pytest.mark.parametrize("algorithm, kwargs", [("bytegrad", {}), ("gradient_allreduce", {"wire_precision": "int8"})],
-                         ids=["bytegrad", "int8"])
+@pytest.mark.parametrize("algorithm, kwargs", [("bytegrad", {}), ("gradient_allreduce", {"wire_precision": "int8"}),
+                                               ("zero", {}), ("zero", {"compression": "bytegrad"})],
+                         ids=["bytegrad", "int8", "zero", "zero-bytegrad"])
 def test_run_matches_trainer(capsys, algorithm, kwargs):
     group = BaguaProcessGroup([torch.device("cpu")] * 4, intra_size=1)
     model = VGG(device="cpu", generator=torch.Generator().manual_seed(0), **SMALL_VGG)
