@@ -10,9 +10,20 @@ from bagua_tpu_torch.algorithms.bytegrad import (  # noqa: F401
     ByteGradAlgorithm,
     ByteGradAlgorithmImpl,
 )
+from bagua_tpu_torch.algorithms.decentralized import (  # noqa: F401
+    DecentralizedAlgorithm,
+    DecentralizedAlgorithmImpl,
+    LowPrecisionDecentralizedAlgorithm,
+    LowPrecisionDecentralizedAlgorithmImpl,
+)
 from bagua_tpu_torch.algorithms.gradient_allreduce import (  # noqa: F401
     GradientAllReduceAlgorithm,
     GradientAllReduceAlgorithmImpl,
+)
+from bagua_tpu_torch.algorithms.q_adam import (  # noqa: F401
+    QAdamAlgorithm,
+    QAdamAlgorithmImpl,
+    QAdamOptimizer,
 )
 
 GlobalAlgorithmRegistry.register(
@@ -24,6 +35,38 @@ GlobalAlgorithmRegistry.register(
     "bytegrad",
     ByteGradAlgorithm,
     "centralized synchronous 8-bit compressed gradient allreduce",
+)
+
+GlobalAlgorithmRegistry.register(
+    "decentralized",
+    DecentralizedAlgorithm,
+    "decentralized synchronous full-precision peer weight averaging",
+)
+GlobalAlgorithmRegistry.register(
+    "low_precision_decentralized",
+    LowPrecisionDecentralizedAlgorithm,
+    "decentralized synchronous 8-bit compressed ring weight exchange",
+)
+GlobalAlgorithmRegistry.register(
+    "qadam",
+    QAdamAlgorithm,
+    "centralized synchronous quantized-momentum Adam",
+)
+
+
+class NoCommAlgorithm(Algorithm):
+    """No communication: every stage is the identity.  For an optimizer
+    that owns its communication, or to debug one rank's math inside the
+    distributed engine: the ranks train apart."""
+
+    def reify(self, process_group) -> AlgorithmImpl:
+        return AlgorithmImpl(process_group)
+
+
+GlobalAlgorithmRegistry.register(
+    "none",
+    NoCommAlgorithm,
+    "no communication (optimizer-owned comm, or debugging)",
 )
 
 
@@ -45,7 +88,9 @@ GlobalAlgorithmRegistry.register(
 
 def build_algorithm(name: str, lr: float = 1e-3, qadam_warmup_steps: int = 10, **kwargs) -> Algorithm:
     """Construct any registered algorithm by name, as the JAX package's
-    ``build_algorithm`` does for benches and tests.  ``lr`` and ``qadam_warmup_steps``
-    configure QAdam's bundled optimizer there; QAdam is not ported, so
-    ``"qadam"`` raises the registry's KeyError and they are not read."""
+    ``build_algorithm`` does for benches and tests: ``"qadam"`` gets a
+    ``QAdamOptimizer(lr=lr, warmup_steps=qadam_warmup_steps)`` unless
+    ``q_adam_optimizer`` is given; no other algorithm reads the two."""
+    if name == "qadam" and "q_adam_optimizer" not in kwargs:
+        kwargs["q_adam_optimizer"] = QAdamOptimizer(lr=lr, warmup_steps=qadam_warmup_steps)
     return Algorithm.init(name, **kwargs)

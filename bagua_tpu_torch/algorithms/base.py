@@ -11,7 +11,13 @@ step, all on rank-stacked tensors:
     → on_step_end
 
 Every stage receives a :class:`StepContext` carrying the process group, the
-step counter and the bucket plan.
+step counter, the bucket plan and ``extras``, a dict the stages of one
+step share (an overlap step puts the algorithm's state there, under
+``"algo_state"``, for the per-bucket exchanges that read it).
+
+A stage may return new parameter tensors: the engine copies each into the
+stacked tensor the optimizer holds (:class:`~bagua_tpu_torch.ddp.TrainState`'s
+``params``), before the optimizer step and again after :meth:`AlgorithmImpl.on_step_end`.
 """
 
 import dataclasses
@@ -29,6 +35,7 @@ class StepContext:
     group: BaguaProcessGroup
     step: int
     plan: Optional[BucketPlan] = None
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +45,12 @@ class OverlapCapability:
 
     ``mode`` says what rides the backward pass: ``"gradient"`` (each
     bucket's gradients, exchanged by :meth:`AlgorithmImpl.overlap_exchange`
-    as the backward completes them), ``"weight"`` or ``"post_step"`` (the
-    decentralized and stale algorithms', not ported yet).  ``auto`` gates
+    as the backward completes them), ``"weight"`` (each bucket's *weights*,
+    exchanged by ``overlap_exchange(..., params_leaves=...)`` as the
+    backward completes the bucket's gradients; the exchanged weights are
+    what the optimizer steps: decentralized SGD) or ``"post_step"`` (the
+    monolithic step's stages on a plan of several buckets, the exchange
+    after the optimizer: low-precision decentralized).  ``auto`` gates
     the ``"auto"`` resolution apart from an explicit ``overlap=True``: auto
     never changes numerics.  ``reason`` names the class and the cause when
     the mode is refused."""
@@ -64,6 +75,12 @@ class AlgorithmImpl:
     #: False for algorithms whose :meth:`step_variant` changes across steps:
     #: ``overlap`` must not anchor their exchange differently from step to step
     stable_step_variant = True
+
+    #: set by the engine to whether overlap is on before every
+    #: :meth:`tensors_to_buckets` (``init`` and ``rebucket``): algorithms
+    #: that bucket by mode (the decentralized pair: one bucket for the whole
+    #: model monolithically, the default plan under overlap) read it
+    overlap_hint = False
 
     def __init__(self, process_group: BaguaProcessGroup, hierarchical: bool = False):
         self.process_group = process_group
@@ -131,12 +148,17 @@ class AlgorithmImpl:
         return OverlapCapability(True, mode=self.overlap_mode)
 
     def overlap_exchange(self, bucket_idx: int, grads, ctx: StepContext, params_leaves=None):
-        """Exchange ONE bucket from inside the backward pass (``"gradient"``
-        mode): ``grads`` are the bucket's stacked gradient leaves in slot
-        order, complete at this point; return them exchanged, same shapes
-        and dtypes (a ``sharded_update`` algorithm returns ``[shard]``, the
-        bucket's shards alone).  With overlap on, the engine calls this per bucket and
-        :meth:`finalize_overlap` in place of :meth:`transform_gradients`."""
+        """Exchange ONE bucket from inside the backward pass: ``grads`` are
+        the bucket's stacked gradient leaves in slot order, complete at this
+        point.  ``"gradient"`` mode: return them exchanged, same shapes and
+        dtypes (a ``sharded_update`` algorithm returns ``[shard]``, the
+        bucket's shards alone).  ``"weight"`` mode: ``params_leaves`` are
+        the bucket's stacked parameter leaves; return the exchanged
+        parameters, which replace them.  A weight exchange reads no
+        gradient: on the card it waits only for the step's start, not for
+        the backward.  With overlap on, the engine calls
+        this per bucket and :meth:`finalize_overlap` in place of
+        :meth:`transform_gradients`."""
         raise NotImplementedError(self.overlap_capability().reason)
 
     def finalize_overlap(self, grads, params, state, ctx: StepContext):

@@ -173,6 +173,44 @@ def ppermute_shift(
     return _ungrouped(torch.roll(_grouped(x, group, axis), shift, dims=1), group, axis)
 
 
+def ppermute_apply(
+    x: torch.Tensor, perm, comm: Optional[BaguaProcessGroup] = None, axis=None
+) -> torch.Tensor:
+    """An explicit permutation within each collective over ``axis``: for
+    every ``(src, dst)`` pair of member indices, member dst receives member
+    src's slice.  Members that no pair names as a destination receive
+    zeros, as ``lax.ppermute`` gives them; a member may be the source and
+    the destination of one pair each at most."""
+    group = comm or get_default_group()
+    g = _grouped(x, group, axis)
+    n = g.shape[1]
+    perm = [(int(s), int(d)) for s, d in perm]
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute_apply: {perm} names a source or a destination twice")
+    if not all(0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute_apply: {perm} names a member outside 0..{n - 1}")
+    # one gather (each slice copied once), then zeros where no pair arrives
+    source = dict(zip(dsts, srcs))
+    out = g[:, [source.get(d, d) for d in range(n)]]
+    out[:, [d for d in range(n) if d not in source]] = 0
+    return _ungrouped(out, group, axis)
+
+
+def broadcast_inplace(
+    x: torch.Tensor, src_rank: int = 0, comm: Optional[BaguaProcessGroup] = None, axis=None
+) -> torch.Tensor:
+    """Every member of each collective over ``axis`` receives member
+    ``src_rank``'s slice, as the JAX package computes it: a sum over the
+    members of each slice masked to zeros but at ``src_rank``, so a NaN on
+    another member does not reach the result, and a -0 at the source sums
+    to +0."""
+    group = comm or get_default_group()
+    me = rank_id(group, axis).reshape(group.size, *([1] * (x.dim() - 1)))
+    masked = torch.where(me == src_rank, x, torch.zeros_like(x))
+    return allreduce(masked, ReduceOp.SUM, group, axis)
+
+
 def allreduce(
     send: torch.Tensor, op: ReduceOp = ReduceOp.AVG,
     comm: Optional[BaguaProcessGroup] = None, axis=None,

@@ -10,9 +10,18 @@ summed losses, so the backward walks the layers once for all ranks, as the
 JAX package's ``shard_map`` does.  A step then runs either
 
     monolithic: backward → transform_gradients (every bucket) → optimizer
-    overlap:    backward, each bucket's overlap_exchange issued from a
-                gradient hook as the backward completes it
-                → finalize_overlap → optimizer
+                → on_step_end
+    overlap, by the algorithm's mode (``overlap_capability().mode``):
+      gradient: backward, each bucket's gradients exchanged by
+                overlap_exchange from a gradient hook as the backward
+                completes them → finalize_overlap → optimizer → on_step_end
+      weight:   the same hooks exchange each bucket's *weights*
+                (decentralized SGD); the exchanged weights are what the
+                optimizer steps, with the local gradients
+      post_step: the monolithic stages on the multi-bucket plan the
+                algorithm picks under overlap (``overlap_hint``), then
+                finalize_overlap before the optimizer (low-precision
+                decentralized exchanges in on_step_end)
 
 Overlap hooks: one ``register_post_accumulate_grad_hook`` per stacked
 leaf, registered for the step and removed after it.  A bucket counts the
@@ -25,7 +34,13 @@ do; the optimizer's stream waits for it.
 The optimizer is a factory, ``lambda params: torch.optim.SGD(params, ...)``,
 called once on the stacked parameter tensors; an elementwise optimizer
 updates each rank's slice on its own, as ``vmap`` of the optax update does.
-The step updates the parameters and the optimizer state in place.
+The step updates the parameters and the optimizer state in place.  A stage
+that returns new parameter tensors (decentralized's averaged weights,
+low-precision decentralized's ``on_step_end``) has them copied into those
+stacked tensors, before the optimizer step and again after
+``on_step_end``, so the optimizer always steps what the algorithm made.
+``optimizer=None`` takes the algorithm's bundled one (QAdam's
+``QAdamOptimizer.to_torch()``).
 
 Sharded update: an algorithm with ``sharded_update`` (``zero``) leaves each
 rank the reduced gradients of its shard of every bucket only, and its
@@ -96,7 +111,9 @@ class DistributedDataParallel:
     Args:
         loss_fn: ``loss_fn(params, batch) -> scalar`` on one rank's batch;
             it runs under ``torch.func.vmap`` over the ranks.
-        optimizer: ``optimizer(list_of_tensors) -> torch.optim.Optimizer``.
+        optimizer: ``optimizer(list_of_tensors) -> torch.optim.Optimizer``,
+            or None for an algorithm that bundles its own (QAdam); any
+            other algorithm raises ValueError then.
         algorithm: an :class:`~bagua_tpu_torch.algorithms.base.Algorithm`.
         process_group: defaults to the global group.
         bucket_size_bytes: communication bucket size.
@@ -110,16 +127,24 @@ class DistributedDataParallel:
     def __init__(
         self,
         loss_fn: Callable,
-        optimizer: Callable,
+        optimizer: Optional[Callable],
         algorithm: Algorithm,
         process_group: Optional[BaguaProcessGroup] = None,
         bucket_size_bytes: Optional[int] = None,
         overlap="auto",
     ):
         self.loss_fn = loss_fn
-        self.optimizer = optimizer
         self.group = process_group or get_default_group()
         self.impl: AlgorithmImpl = algorithm.reify(self.group)
+        if optimizer is None:
+            bundled = getattr(self.impl, "optimizer", None)
+            if bundled is None or not hasattr(bundled, "to_torch"):
+                raise ValueError(
+                    "optimizer is required unless the algorithm bundles one "
+                    "(e.g. QAdamAlgorithm)"
+                )
+            optimizer = bundled.to_torch()
+        self.optimizer = optimizer
         self.bucket_size_bytes = bucket_size_bytes or get_default_bucket_size()
         if overlap not in (True, False, "auto"):
             raise ValueError(f"overlap must be True, False or 'auto', got {overlap!r}")
@@ -128,6 +153,7 @@ class DistributedDataParallel:
             if not cap.supported:
                 raise ValueError(cap.reason)
         self.overlap = overlap
+        self.impl.overlap_hint = self.overlap_enabled
         self.plan: Optional[BucketPlan] = None
         #: set when the algorithm reports ``sharded_update`` (zero): the
         #: shard-only optimizer phase runs in place of the optimizer step
@@ -164,6 +190,7 @@ class DistributedDataParallel:
         (under a sharded-update algorithm, over each rank's shards)."""
         n, device = self.group.size, self.group.device
         self._tree_template = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
+        self.impl.overlap_hint = self.overlap_enabled
         self._adopt_plan(self.impl.tensors_to_buckets(params, self.bucket_size_bytes))
         self._pending_reshard = None
         stacked = tree_map(
@@ -233,31 +260,43 @@ class DistributedDataParallel:
                    for bi, idx in enumerate(slots) for i in idx]
         return slots, handles
 
-    def _overlapped_grads(self, params, batch, ctx: StepContext):
-        """One backward with each bucket's exchange issued from inside it;
-        returns ``(losses, exchanged grads tree)`` (under a sharded update,
-        the buckets' shards)."""
+    def _overlapped(self, params, batch, ctx: StepContext, weight: bool = False):
+        """One backward with each bucket's exchange issued from inside it.
+        Returns ``(losses, grads, params)``: gradient mode, the exchanged
+        gradients tree (under a sharded update, the buckets' shards) and
+        ``params`` as given; weight mode, the local gradients and the
+        exchanged parameters.  On the card the exchange runs on the side
+        stream, which reads the weights beside the backward; the main
+        stream waits for it before anything writes them.  A gradient
+        exchange waits for the backward queued so far; a weight exchange
+        reads no gradient and waits only for the step's start."""
         plan, impl, device = self.plan, self.impl, self.group.device
         if device.type == "cuda" and self.side_stream is None:
             self.side_stream = torch.cuda.Stream(device)
         side = self.side_stream if device.type == "cuda" else None
         leaves = self._grad_leaves(params)
+        weights = tree_leaves(params)
         order = plan.backward_order()
         ready = [False] * plan.num_buckets
         exchanged: List[Optional[list]] = [None] * plan.num_buckets
         self.exchange_order = []
+        start = torch.cuda.current_stream(device).record_event() if side is not None else None
 
         def issue(bi):
             grads = [self._grad(leaves[i]) for i in slots[bi]]
+            kwargs = {"params_leaves": [weights[i] for i in slots[bi]]} if weight else {}
             if side is None:
-                exchanged[bi] = impl.overlap_exchange(bi, grads, ctx)
+                exchanged[bi] = impl.overlap_exchange(bi, grads, ctx, **kwargs)
             else:
                 # autograd runs hooks on its own thread, with the backward's
                 # stream current there
                 main = torch.cuda.current_stream(device)
-                side.wait_stream(main)
+                if weight:
+                    side.wait_event(start)
+                else:
+                    side.wait_stream(main)
                 with torch.cuda.stream(side):
-                    out = impl.overlap_exchange(bi, grads, ctx)
+                    out = impl.overlap_exchange(bi, grads, ctx, **kwargs)
                 for g in grads:
                     g.record_stream(side)
                 for t in out:
@@ -283,9 +322,21 @@ class DistributedDataParallel:
             torch.cuda.current_stream(device).wait_stream(side)
         if self._sharded_updater is not None:
             # a sharded update's exchange is each bucket's shard alone
-            return losses.detach(), [out[0] for out in exchanged]
-        groups = [dict(zip((s.name for s in spec.slots), out)) for spec, out in zip(plan.specs, exchanged)]
-        return losses.detach(), plan.ungroup_leaves(groups)
+            return losses.detach(), [out[0] for out in exchanged], params
+        groups = plan.ungroup_leaves(
+            [dict(zip((s.name for s in spec.slots), out)) for spec, out in zip(plan.specs, exchanged)])
+        if weight:
+            return losses.detach(), tree_unflatten(params, [self._grad(leaf) for leaf in leaves]), groups
+        return losses.detach(), groups, params
+
+    @staticmethod
+    @torch.no_grad()
+    def _write_params(stacked, params) -> None:
+        """Copy each parameter a stage returned as a new tensor into the
+        stacked tensor of ``stacked`` the optimizer holds."""
+        for dst, src in zip(tree_leaves(stacked), tree_leaves(params)):
+            if src is not dst:
+                dst.copy_(src)
 
     # -- the step -----------------------------------------------------------------
 
@@ -305,28 +356,29 @@ class DistributedDataParallel:
         impl = self.impl
         ctx = StepContext(group=self.group, step=state.step, plan=self.plan)
         params, algo_state = impl.on_step_start(state.params, state.algo_state, ctx)
-        if self.overlap_enabled:
-            mode = impl.overlap_capability().mode
-            if mode != "gradient":
-                raise NotImplementedError(
-                    f"overlap mode {mode!r} of {type(impl).__name__} is not ported yet; "
-                    "only 'gradient' runs (pass overlap=False)"
-                )
-            losses, grads = self._overlapped_grads(params, batch, ctx)
-            grads, params, algo_state = impl.finalize_overlap(grads, params, algo_state, ctx)
+        mode = impl.overlap_capability().mode if self.overlap_enabled else None
+        if mode in ("gradient", "weight"):
+            # the per-bucket exchanges that read the algorithm's state
+            # (QAdam's momentum) find it here
+            ctx.extras["algo_state"] = algo_state
+            losses, grads, params = self._overlapped(params, batch, ctx, weight=mode == "weight")
         else:
             losses, grads = self._rank_grads(params, batch)
             grads, params, algo_state = impl.transform_gradients(grads, params, algo_state, ctx)
+        if mode is not None:
+            grads, params, algo_state = impl.finalize_overlap(grads, params, algo_state, ctx)
+        self._write_params(state.params, params)
         if self._sharded_updater is not None:
-            pending, _, params = self._sharded_updater.update_shards(grads, params, state.optimizer)
+            pending, _, params = self._sharded_updater.update_shards(grads, state.params, state.optimizer)
             algo_state = impl.stash_updates(algo_state, pending)
         else:
-            for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+            for p, g in zip(tree_leaves(state.params), tree_leaves(grads)):
                 p.grad = g
             state.optimizer.step()
             state.optimizer.zero_grad(set_to_none=True)
-        params, algo_state = impl.on_step_end(params, algo_state, ctx)
-        return TrainState(params, state.optimizer, algo_state, state.step + 1), losses
+        params, algo_state = impl.on_step_end(state.params, algo_state, ctx)
+        self._write_params(state.params, params)
+        return TrainState(state.params, state.optimizer, algo_state, state.step + 1), losses
 
     # -- the bucket plan ----------------------------------------------------------
 
@@ -350,6 +402,7 @@ class DistributedDataParallel:
             # the layout the live state was built under: the first of a
             # burst of rebuckets keeps it
             self._pending_reshard = self._sharded_updater.layout
+        self.impl.overlap_hint = self.overlap_enabled
         self._adopt_plan(plan)
         self.plan_version += 1
         self._plan_source = reason.partition(":")[0]
@@ -420,6 +473,7 @@ class DistributedDataParallel:
         if ov is not None and ov != self.overlap:
             if not (ov is True and not self.impl.overlap_capability().supported):
                 self.overlap = ov
+                self.impl.overlap_hint = self.overlap_enabled
         precisions = cfg.get("bucket_precisions")
         if precisions and getattr(self.impl, "wire_precision", None) == "auto":
             self.apply_precision_plan(list(precisions), reason=reason)

@@ -5,7 +5,9 @@
 The same flags and the same result line, computed the same way: one
 random batch from ``numpy.random.RandomState(0)``, ``--num-warmup`` steps,
 then ``--num-iters`` timed steps ending when the card is idle; samples per
-second per rank.  SGD(0.01, momentum 0.9), as the reference's optax sgd.
+second per rank.  SGD(0.01, momentum 0.9), as the reference's optax sgd;
+``qadam`` brings its own optimizer (``lr=1e-3``, warmup 10 steps unless
+``algorithm_kwargs`` give a ``QAdamOptimizer``).
 Only ``--model vgg16`` runs (224x224, 1000 classes, bf16 compute unless
 ``--fp32``); ``bert-large`` is not ported.
 
@@ -69,10 +71,8 @@ def run(model: VGG, params, group, algorithm: str = "gradient_allreduce", algori
     the reference's result line."""
     device = group.device
     algo = build_algorithm(algorithm, lr=1e-3, qadam_warmup_steps=10, **(algorithm_kwargs or {}))
-    ddp = DistributedDataParallel(
-        vgg_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9), algo,
-        process_group=group, overlap=overlap,
-    )
+    optimizer = None if algorithm == "qadam" else lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9)
+    ddp = DistributedDataParallel(vgg_loss_fn(model), optimizer, algo, process_group=group, overlap=overlap)
     state = ddp.init(params)
     rng = np.random.RandomState(0)
     n, side = batch_size * group.size, model.image_size

@@ -137,6 +137,7 @@ def tree_unflatten(template, leaves) -> Any:
     return build(template)
 
 
-def tree_map(fn: Callable, tree) -> Any:
-    """Apply ``fn`` to every leaf."""
-    return tree_unflatten(tree, [fn(leaf) for leaf in tree_leaves(tree)])
+def tree_map(fn: Callable, tree, *rest) -> Any:
+    """Apply ``fn`` to every leaf, and to the leaves of ``rest`` (trees of
+    the same structure) beside it."""
+    return tree_unflatten(tree, [fn(*leaves) for leaves in zip(tree_leaves(tree), *map(tree_leaves, rest))])

@@ -15,7 +15,11 @@ and no result line:
    kernels bitwise (VGG16's 10 MiB buckets over 4 ranks: ByteGrad's chunks
    and the quantized ring's blocks of 4096, where the int8 ring compresses
    and decompresses twice a step; those four calls are summed per int8-ring
-   step on ``[kernels]`` lines of their own), the three attention kernels
+   step on ``[kernels]`` lines of their own; low-precision decentralized's
+   whole-model row a rank, ``(4, 138,357,544)``, each 10 MiB bucket one
+   row a rank as its overlap run compresses it, and a ragged ``(3, 2^27 +
+   1)``, its compress and three decompresses summed per step, monolithic
+   and overlap, on lines of their own), the three attention kernels
    within ATTENTION_TOLS (the Llama slice's half-blocks, 4 ranks folded
    into the batch, 32 heads of 128; GQA, bf16 K/V, 200x300 with d 24 and
    64, a fully masked block, first-key-only rows), the tile GEMM of the
@@ -42,7 +46,10 @@ and no result line:
    VGG's runs but int4's take the overlap mode (the engine's default), and
    on the card (cuDNN deterministic, this phase only) they equal the
    monolithic runs bit for bit, and ZeRO's f32 and ByteGrad runs the
-   unsharded f32 and ByteGrad runs.
+   unsharded f32 and ByteGrad runs; then decentralized SGD (``all``,
+   ``shift_one``), low-precision decentralized and QAdam on the small VGG,
+   card against CPU, each also with overlap on the card (bitwise equal to
+   monolithic; low precision within ``LP_OVERLAP_TOL``).
 5. slice   -- trains full-width VGG16 (224x224, 1000 classes, bf16
    compute, f32 parameters, batch 32 per rank) over 4 ranks on this one
    card through ``Trainer.fit`` with the monolithic step (``overlap=False``),
@@ -58,7 +65,10 @@ and no result line:
    an optimizer step on each rank's shards, the parameters' all-gather at
    the next step's start): the f32 wire, ByteGrad and the int8 ring with
    overlap, ByteGrad and the int4 ring monolithic, 5 steps each, with the
-   optimizer state per rank; then Llama at ``llama_7b_config``'s
+   optimizer state per rank; then the decentralized pair and QAdam through
+   the twin, 6 steps each (``DP_PATHS``: launches per step and bucket, the
+   census, the algorithm state per rank); then the MNIST twin
+   (``gradient_allreduce`` + Adam and ``"none"``); then Llama at ``llama_7b_config``'s
    width (2 layers, one sequence of 4096 tokens, f32) over 4 ranks, 5 AdamW
    steps of ``examples.llama_pretrain.train_step``, once as 4 zigzag ring
    ranks (sp 4) and once at tp 2 x sp 2 (path (b)); then path (a): the
@@ -69,7 +79,8 @@ and no result line:
    is finite, the ranks' parameters are bitwise equal (Llama) and every
    kernel's launch count, per path.  ``--profile`` then traces one more
    step of each with ``torch.profiler``; for an overlap step also the
-   exchange's kernel time (its side stream) and the part of it that ran
+   exchange's kernel time (its side stream, found by marker kernels
+   launched on it before and after the step) and the part of it that ran
    while a kernel of the main stream ran.
 6. prints one JSON line naming each kernel with its launches and times,
    then the result line ``{"ok": true, "device": {...}}``.
@@ -91,8 +102,13 @@ import torch
 import torch.nn.functional as F
 
 from bagua_tpu_torch import BaguaProcessGroup, init_process_group
-from bagua_tpu_torch.algorithms import ByteGradAlgorithm, GradientAllReduceAlgorithm
+from bagua_tpu_torch.algorithms import (
+    ByteGradAlgorithm, DecentralizedAlgorithm, GradientAllReduceAlgorithm, LowPrecisionDecentralizedAlgorithm,
+    QAdamAlgorithm, QAdamOptimizer,
+)
+from bagua_tpu_torch.ddp import DistributedDataParallel
 from bagua_tpu_torch.examples import llama_pretrain as lp
+from bagua_tpu_torch.examples import mnist
 from bagua_tpu_torch.examples import synthetic_benchmark as sb
 from bagua_tpu_torch.communication import allgather, allreduce
 from bagua_tpu_torch.defs import ReduceOp
@@ -438,6 +454,17 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
         t["decompress, ZeRO's own chunk"] = ledger.time(
             "decompress_minmax_uint8", *codec_cost(RANKS, chunk, 2), *own, step="ZeRO ByteGrad")
         del flat, fused_in, dec_in, own
+        # low-precision decentralized with overlap: the bucket one row a rank,
+        # one compress and three decompresses a step
+        lp = f"{case}, low-precision overlap row"
+        q, mm = ledger.compare("compress_minmax_uint8", lp, x)
+        ledger.compare("decompress_minmax_uint8", lp, q, mm)
+        step = "low-precision decentralized (overlap)"
+        t["compress, low-precision overlap row"] = ledger.time(
+            "compress_minmax_uint8", *codec_cost(RANKS, numel, 6), x, step=step)
+        t["decompress, low-precision overlap row"] = ledger.time(
+            "decompress_minmax_uint8", *codec_cost(RANKS, numel, 2), q, mm, per_step=3, step=step)
+        del q, mm
         # the int8 ring's codec calls, one of each a step at this bucket
         comp_in, rs_dec, ag_dec = ring_codec_inputs(x, BLOCK)
         for what, blocks in zip(("reduce-scatter step 0", "all-gather"), comp_in):
@@ -500,6 +527,7 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
             # sum requantizes where upper - levels may round
             ledger.compare(f"hop_dequant_add_requant_int{bits}", case,
                            *hop_inputs(x, x, x.shape[1] + x.shape[1] % 2, bits))
+    phase_lp_kernels(ledger, plan, device, gen)
     for name, row in ledger.rows.items():
         if name in ATTENTION_TOLS or name == "matmul_tile":
             continue
@@ -507,9 +535,44 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
             f"{plan.num_buckets} buckets {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms)")
     for step, sums in ledger.other_steps.items():
+        over = "one bucket" if step == "low-precision decentralized" else f"{plan.num_buckets} buckets"
         for name, row in sums.items():
-            log(f"[kernels] {name} per {step} step over {plan.num_buckets} buckets {row['ms']:.4f} ms "
+            log(f"[kernels] {name} per {step} step over {over} {row['ms']:.4f} ms "
                 f"(plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms)")
+
+
+def lp_row_elements(plan) -> int:
+    """Elements of low-precision decentralized's one bucket for the model
+    of ``plan``: every parameter, padded to the RANKS ranks."""
+    total = sum(s.numel for spec in plan.specs for s in spec.slots)
+    return -(-total // RANKS) * RANKS
+
+
+def phase_lp_kernels(ledger: Ledger, plan, device, gen) -> None:
+    """Compress and decompress at low-precision decentralized's shape: the
+    whole model one row per rank, ``(RANKS, lp_row_elements)`` (f32 past
+    2^31 bytes), bitwise, and timed per step (1 compress, 3 decompresses)
+    under ``other_steps``; then a ragged long row, ``(3, 2^27 + 1)`` (the
+    scalar paths)."""
+    numel = lp_row_elements(plan)
+    x = torch.randn((RANKS, numel), generator=gen, device=device) * 1e-3
+    case = f"low-precision decentralized row of {numel} elements"
+    q, mm = ledger.compare("compress_minmax_uint8", case, x)
+    ledger.compare("decompress_minmax_uint8", case, q, mm)
+    step = "low-precision decentralized"
+    t = {"compress": ledger.time("compress_minmax_uint8", *codec_cost(RANKS, numel, 6), x, step=step),
+         "decompress (x3)": ledger.time("decompress_minmax_uint8", *codec_cost(RANKS, numel, 2), q, mm,
+                                        per_step=3, step=step)}
+    for name, (ms, plain_ms, bound_ms) in t.items():
+        log(f"[kernels] {case} x {RANKS} ranks: {name} {ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms")
+    del x, q, mm
+    torch.cuda.empty_cache()
+    x = torch.randn((3, 2**27 + 1), generator=gen, device=device)
+    q, mm = ledger.compare("compress_minmax_uint8", "ragged long row (3, 2^27 + 1)", x)
+    ledger.compare("decompress_minmax_uint8", "ragged long row (3, 2^27 + 1)", q, mm)
+    del x, q, mm
+    torch.cuda.empty_cache()
 
 
 #: the Llama slice: llama_7b_config at its published width, cut to 2 layers
@@ -1037,21 +1100,28 @@ def profile_step(name: str, step, side=None) -> None:
     """Traces one call of ``step`` with ``torch.profiler``: the card's
     kernels by time, its busy time (the union of its activities' intervals)
     and idle share of the wall time.  With ``side``, the stream an overlap
-    step's exchange runs on (found in the trace by a marker kernel launched
-    on it first): that stream's busy time and the part of it during which
-    an activity of another stream (the backward's: the main stream and
-    cuDNN's own) also ran."""
+    step's exchange runs on (found in the trace by marker kernels launched
+    on it before and after the step; the trace may miss its first kernel,
+    so the second is launched after the step and the side stream is
+    synchronized before the trace stops): that stream's busy time and the
+    part of it during which an activity of another stream (the backward's:
+    the main stream and cuDNN's own) also ran."""
     from torch.profiler import ProfilerActivity, profile as trace
 
-    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def mark():
         if side is not None:
             with torch.cuda.stream(side):
                 torch.cuda._sleep(1)
+            side.synchronize()
+
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mark()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        mark()
     log(f"[profile] {name}:\n" + prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     marker = [e for e in events if "spin_kernel" in e.name]
@@ -1061,11 +1131,13 @@ def profile_step(name: str, step, side=None) -> None:
         f"idle share {1 - busy / wall_ms:.3f}; streams {sorted({e.device_resource_id for e in events})}")
     if side is None:
         return
-    if len(marker) != 1:
-        log(f"[profile] {name}: {len(marker)} marker kernels in the trace, want 1; the exchange's "
-            "stream not measured")
+    streams = {e.device_resource_id for e in marker}
+    if len(streams) != 1:
+        log(f"[profile] {name}: {len(marker)} marker kernels on streams {sorted(streams)} in the trace, "
+            "want 1 or 2 on one stream; the exchange's stream not measured")
         return
-    stream = marker[0].device_resource_id
+    stream, = streams
+    log(f"[profile] {name}: {len(marker)} of 2 marker kernels in the trace")
     exchange = _union((e.time_range.start, e.time_range.end) for e in events if e.device_resource_id == stream)
     others = _union((e.time_range.start, e.time_range.end) for e in events if e.device_resource_id != stream)
     side_ms, hidden_ms = _length(exchange) / 1e3, _overlap_length(exchange, others) / 1e3
@@ -1259,6 +1331,246 @@ def phase_zero(device, profile: bool, name: str) -> dict:
         f"exchanges per bucket {ddp.exchange_counts} in order {ddp.exchange_order}; launches {launches}")
     if profile:
         profile_step(name, lambda: ddp.train_step(state, result.batch), ddp.side_stream)
+    return launches
+
+
+#: QAdam on the small VGG: the twin's lr, the compression phase from step 2
+#: on, and eps 1e-3, not the default 1e-8.  After a warmup this short the
+#: second moment has seen one gradient (the moments update on the first
+#: warmup step only): a weight whose gradient was zero or tiny then steps
+#: by m / (bc1 (sqrt(v) + eps)) once it gets a larger one.  At 1e-8 the
+#: loss runs away within 6 steps in both packages
+#: (tests/test_torch_q_adam.py::test_short_warmup_runs_away_at_the_default_eps)
+QADAM = dict(lr=1e-3, warmup_steps=2, eps=1e-3)
+#: QAdam at full width: full-width VGG16's loss is NaN by its sixth step at
+#: the twin's lr (1e-3) and eps 1e-8, and 1.8e16 at eps 1e-3, so lr 1e-5.
+#: The step's work does not depend on the values
+QADAM_FULL = dict(QADAM, lr=1e-5)
+#: the decentralized pair and QAdam on the small VGG: name -> (algorithm
+#: factory, steps); QAdam crosses its warmup -> compression switch
+REF_DP = {
+    "decentralized all": (functools.partial(DecentralizedAlgorithm, peer_selection_mode="all"), REF_STEPS),
+    "decentralized shift_one": (functools.partial(DecentralizedAlgorithm, peer_selection_mode="shift_one"),
+                                REF_STEPS),
+    "low-precision decentralized": (LowPrecisionDecentralizedAlgorithm, REF_STEPS),
+    "QAdam": (lambda: QAdamAlgorithm(QAdamOptimizer(**QADAM)), 5),
+}
+#: small buckets, so that the small VGG's overlap runs have several
+REF_DP_BUCKET = 1 << 16
+#: low-precision decentralized with overlap against monolithic: every
+#: element of every replica quantizes otherwise (per-bucket min/max), and
+#: the trajectories part through the gradients; the JAX package's bound
+#: for this pair (tests/test_overlap_compressed.py:148-151)
+LP_OVERLAP_TOL = 2e-2
+
+
+def _train_small_dp(name, device, params, batch, overlap):
+    """The small f32 VGG over RANKS ranks (``intra_size=1``) with the
+    algorithm ``name`` of REF_DP: every step's per-rank losses, every
+    rank's final parameters and, for low-precision decentralized, the
+    widest level of the weight differences it compressed (the range of
+    each rank's replica update over 255)."""
+    factory, steps = REF_DP[name]
+    group = BaguaProcessGroup([device] * RANKS, intra_size=1)
+    optimizer = None if name == "QAdam" else (lambda ps: torch.optim.SGD(ps, lr=REF_LR))
+    ddp = DistributedDataParallel(vgg_loss_fn(VGG(device=device, **REF_VGG)), optimizer, factory(), group,
+                                  bucket_size_bytes=REF_DP_BUCKET, overlap=overlap)
+    state = ddp.init(tree_map(lambda t: t.to(device), params))
+    batch = tuple(t.to(device) for t in batch)
+    losses, width = [], 0.0
+    for _ in range(steps):
+        before = list(state.algo_state["weight"]) if isinstance(state.algo_state, dict) and \
+            "weight" in state.algo_state else []
+        state, step_losses = ddp.train_step(state, batch)
+        losses.append(step_losses.cpu())
+        for new, old in zip(state.algo_state["weight"] if before else [], before):
+            d = new - old
+            width = max(width, float((d.amax(1) - d.amin(1)).max()) / 255.0)
+    return losses, [t.cpu() for t in tree_leaves(state.params)], width, ddp
+
+
+def phase_reference_dp(device) -> None:
+    """Decentralized SGD (``all`` and ``shift_one``), low-precision
+    decentralized and QAdam on the small f32 VGG, on the card and on the
+    CPU (plain versions) from the same weights and data, every rank's
+    parameters held together (decentralized leaves the ranks apart):
+
+    - decentralized: f32 rounding only, as the f32 wire's bound:
+      REF_STEPS x REF_LR x F32_GROWTH x noise, all but FLIPPED_SHARE within
+      REF_STEPS x REF_LR x noise;
+    - low-precision decentralized: a difference one rounding away may land
+      one level away at each replica's update, carried into the next step:
+      REF_STEPS x (3 levels + REF_LR x F32_GROWTH x noise), all but
+      FLIPPED_SHARE within REF_STEPS x (REF_LR x noise + a thousandth of a
+      level), the level the widest of either run;
+    - QAdam: each step moves a parameter by about lr (Adam's normalized
+      step), the momentum quantized: within 5 x lr, all but FLIPPED_SHARE
+      within a thousandth of that.
+
+    On the card each runs monolithic and with overlap (small buckets, so
+    several): decentralized's and QAdam's overlap runs equal their
+    monolithic runs bit for bit (cuDNN deterministic); low-precision
+    decentralized's per-bucket min/max is another quantization, within
+    LP_OVERLAP_TOL of the monolithic run and not equal to it."""
+    gen = torch.Generator().manual_seed(2)
+    params = module_params(VGG(device="cpu", generator=gen, **REF_VGG))
+    side = REF_VGG["image_size"]
+    batch = (torch.rand((RANKS * 8, side, side, 3), generator=gen),
+             torch.randint(0, REF_VGG["num_classes"], (RANKS * 8,), generator=gen))
+    with _no_tf32():
+        noise = _gradient_noise(device, params, batch)
+    with _deterministic(), _no_tf32():
+        for name, (_, steps) in REF_DP.items():
+            got_losses, got, width, ddp = _train_small_dp(name, device, params, batch, overlap=False)
+            ov_losses, ov, ov_width, ov_ddp = _train_small_dp(name, device, params, batch, overlap=True)
+            want_losses, want, want_width, _ = _train_small_dp(name, torch.device("cpu"), params, batch, False)
+            if not ov_ddp.overlap_enabled or ov_ddp.plan.num_buckets < 2:
+                raise AssertionError(f"{name}: the overlap run has {ov_ddp.plan.num_buckets} buckets")
+            width = max(width, ov_width, want_width)
+            lr = QADAM["lr"] if name == "QAdam" else REF_LR
+            if name == "QAdam":
+                loose, tight = steps * lr, steps * lr * 1e-3
+            elif name.startswith("low-precision"):
+                loose = steps * (3 * width + lr * F32_GROWTH * noise)
+                tight = steps * (lr * noise + 1e-3 * width)
+            else:
+                loose, tight = steps * lr * F32_GROWTH * noise, steps * lr * noise
+            for step, rtol in ((0, 1e-5), (steps - 1, 1e-4 if name != "QAdam" else 1e-3)):
+                if not torch.allclose(got_losses[step], want_losses[step], rtol=rtol, atol=0.0):
+                    raise AssertionError(f"{name}: step {step + 1} losses {got_losses[step].tolist()} "
+                                         f"vs CPU {want_losses[step].tolist()}")
+            err, beyond = _within(name, "parameters", got, want, tight, loose)
+            if name.startswith("low-precision"):
+                ov_err = max(abs_err(a, b) for a, b in zip(ov, got))
+                if all(same(a, b) for a, b in zip(ov, got)) or not all(
+                        torch.allclose(a, b, rtol=LP_OVERLAP_TOL, atol=LP_OVERLAP_TOL) for a, b in zip(ov, got)):
+                    raise AssertionError(f"{name}: overlap differs from monolithic by {ov_err:.3e}; want "
+                                         f"within rtol and atol {LP_OVERLAP_TOL} and not bit for bit")
+                mode = (f"overlap ({ov_ddp.plan.num_buckets} buckets) within {ov_err:.3e} of monolithic "
+                        f"(tolerance {LP_OVERLAP_TOL}), level {width:.3e}")
+            else:
+                if not (all(same(a, b) for a, b in zip(ov, got)) and
+                        all(same(a, b) for a, b in zip(ov_losses, got_losses))):
+                    raise AssertionError(f"{name}: overlap and monolithic runs on the card differ")
+                mode = f"overlap ({ov_ddp.plan.num_buckets} buckets) bitwise equal to monolithic"
+            log(f"[reference] small VGG, {steps} {name} steps, card vs CPU: losses "
+                f"{got_losses[0].mean():.6f} -> {got_losses[-1].mean():.6f} vs "
+                f"{want_losses[0].mean():.6f} -> {want_losses[-1].mean():.6f}; parameters within "
+                f"{err:.3e} (tolerance {loose:.3e}), {beyond}; {mode}")
+
+
+def algo_state_bytes(state) -> int:
+    """Bytes of algorithm state one rank holds: the distinct tensors of the
+    state over the ranks (they are rank-stacked)."""
+    seen = {}
+    for t in tree_leaves(state.algo_state):
+        if torch.is_tensor(t):
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values()) // RANKS
+
+
+#: the decentralized pair and QAdam through the synthetic benchmark's twin:
+#: name -> (algorithm, its arguments, overlap, launches per step and bucket
+#: of each kernel on the steps that run it).  Low-precision decentralized
+#: compresses its bucket's (RANKS, numel) difference once and decompresses
+#: three times a step; QAdam runs ByteGrad's pipeline on its compression
+#: steps only (every step from QADAM_FULL's warmup on)
+DP_STEPS = 6
+LP_PER_BUCKET = {"compress_minmax_uint8": 1, "decompress_minmax_uint8": 3}
+DP_PATHS = {
+    "decentralized shift_one": ("decentralized", {"peer_selection_mode": "shift_one"}, False, {}),
+    "decentralized shift_one (overlap)": ("decentralized", {"peer_selection_mode": "shift_one"}, True, {}),
+    "decentralized all": ("decentralized", {"peer_selection_mode": "all"}, False, {}),
+    "low-precision decentralized": ("low_precision_decentralized", {}, False, LP_PER_BUCKET),
+    "low-precision decentralized (overlap)": ("low_precision_decentralized", {}, True, LP_PER_BUCKET),
+    "QAdam": ("qadam", {}, False, SLICE_PATHS["ByteGrad"][1]),
+    "QAdam (overlap)": ("qadam", {}, True, SLICE_PATHS["ByteGrad"][1]),
+}
+
+
+def phase_dp(device, profile: bool, name: str) -> dict:
+    """DP_STEPS steps of full-width VGG16 through the synthetic benchmark's
+    twin (1 warm-up step, DP_STEPS - 1 timed) with the path ``name`` of
+    DP_PATHS; QAdam with ``QAdamOptimizer(**QADAM_FULL)``.  Checks finite
+    losses, the launch counts (per bucket, on every step or on QAdam's
+    compression steps), the census (overlap in the weight and gradient
+    modes: each bucket once a step in
+    ``backward_order()``; low precision's post-step mode issues nothing
+    from the backward) and, for the centralized QAdam, the ranks'
+    parameters bitwise equal.  Prints ms/step, img/s per rank, the peak
+    memory and the algorithm's state per rank; returns the launch counts."""
+    algorithm, kwargs, overlap, per_bucket = DP_PATHS[name]
+    if algorithm == "qadam":
+        kwargs = {"q_adam_optimizer": QAdamOptimizer(**QADAM_FULL)}
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = sb.build("vgg16", torch.bfloat16, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = sb.run(model, params, group, algorithm, kwargs, batch_size=BATCH_PER_RANK,
+                    num_iters=DP_STEPS - 1, num_warmup=1, overlap=overlap)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    ddp = result.ddp
+    if ddp.overlap_enabled is not overlap:
+        raise AssertionError(f"{name}: the engine resolved overlap={ddp.overlap_enabled}")
+    if not torch.isfinite(result.losses).all():
+        raise AssertionError(f"{name}: non-finite loss {result.losses.tolist()}")
+    if algorithm == "qadam":
+        for leaf in tree_leaves(result.state.params):
+            if not all(torch.equal(leaf[0], leaf[r]) for r in range(1, RANKS)):
+                raise AssertionError(f"{name}: ranks' parameters differ after the steps")
+    buckets = ddp.plan.num_buckets
+    steps = DP_STEPS - QADAM_FULL["warmup_steps"] if algorithm == "qadam" else DP_STEPS
+    want = {kernel: steps * buckets * per_bucket.get(kernel, 0) for kernel in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches}, want {want}")
+    if algorithm == "low_precision_decentralized":
+        # the kernels phase held the codec at these rows
+        kernels_plan = vgg16_plan()
+        checked = [n for n, _ in slice_shapes(kernels_plan)] if overlap else [lp_row_elements(kernels_plan)]
+        if [spec.numel for spec in ddp.plan.specs] != checked:
+            raise AssertionError(f"{name}: buckets of {[spec.numel for spec in ddp.plan.specs]} elements, "
+                                 f"the kernels phase checked rows of {checked}")
+    hooked = overlap and algorithm != "low_precision_decentralized"
+    exchanges = [DP_STEPS if hooked else 0] * buckets
+    order = ddp.plan.backward_order() if hooked else []
+    if ddp.exchange_counts != exchanges or ddp.exchange_order != order:
+        raise AssertionError(f"{name}: exchanges per bucket {ddp.exchange_counts}, want {exchanges}; "
+                             f"last step's order {ddp.exchange_order}, want {order}")
+    step_ms = result.step_seconds * 1e3
+    log(f"[dp] VGG16 bf16, {RANKS} ranks x batch {BATCH_PER_RANK}, {name}, {buckets} bucket(s): warm-up "
+        f"step {result.warmup_seconds:.3f} s, then {step_ms:.1f} ms/step = "
+        f"{BATCH_PER_RANK / result.step_seconds:.1f} img/s per rank, "
+        f"{RANKS * BATCH_PER_RANK / result.step_seconds:.1f} img/s on the card; loss "
+        f"{result.losses.tolist()}; peak memory {peak:.1f} GiB; algorithm state "
+        f"{algo_state_bytes(result.state)} B per rank, optimizer state "
+        f"{ddp.optimizer_state_bytes(result.state)} B per rank; exchanges per bucket "
+        f"{ddp.exchange_counts}; launches {launches}")
+    if profile:
+        profile_step(name, lambda: ddp.train_step(result.state, result.batch), ddp.side_stream if hooked else None)
+    return launches
+
+
+def phase_mnist(device) -> dict:
+    """The MNIST twin (``examples/mnist.py``) on the card, 3 steps over
+    RANKS ranks with ``gradient_allreduce`` and Adam, then with ``"none"``:
+    finite losses, no kernel launched.  Returns the launch counts."""
+    reset_launches()
+    for algorithm in ("gradient_allreduce", "none"):
+        t0 = time.perf_counter()
+        loss, acc = mnist.main(["--algorithm", algorithm, "--ranks", str(RANKS), "--steps", "3",
+                                "--epochs", "1", "--batch-size", "256"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"MNIST twin, {algorithm}: non-finite loss {loss}")
+        log(f"[mnist] {algorithm}, {RANKS} ranks, 3 steps: loss {loss:.4f}, train accuracy {acc:.3f}, "
+            f"{time.perf_counter() - t0:.1f} s with the data and the evaluation")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"MNIST twin: launch counts {launches}, want none")
     return launches
 
 
@@ -1621,6 +1933,7 @@ def main(argv) -> int:
     phase_rings(device)
     torch.cuda.empty_cache()
     phase_reference(device)
+    phase_reference_dp(device)
     phase_llama_reference(device)
     phase_tp_reference(device)
     per_path = {}
@@ -1631,6 +1944,10 @@ def main(argv) -> int:
         per_path[f"{name} via the synthetic benchmark"] = phase_overlap(device, profile, name)
     for name in ZERO_PATHS:
         per_path[name] = phase_zero(device, profile, name)
+    for name in DP_PATHS:
+        per_path[name] = phase_dp(device, profile, name)
+    torch.cuda.empty_cache()
+    per_path["MNIST"] = phase_mnist(device)
     per_path["Llama"] = phase_llama_slice(device, profile)
     torch.cuda.empty_cache()
     per_path["Llama tp"] = phase_llama_slice(device, profile, (1, 2, 2))

@@ -3,14 +3,15 @@
 one card, in turns.
 
     git archive <commit> | tar -x -C _chipcheck/parent
-    python3 chip_step_ab.py --parent _chipcheck/parent [--steps 10]
+    python3 chip_step_ab.py --parent _chipcheck/parent [--steps 10] [--wires "f32,QAdam"]
 
 Each turn is a process of its own that imports ``bagua_tpu_torch`` from one
 tree, in the order parent, this tree, this tree, parent.  A turn trains
 VGG16 at ``chip_smoke.py``'s shape (224x224, 1000 classes, bf16 compute,
 f32 parameters, batch 32 a rank, weights and data from seed 0) over 4 ranks
 of the one card (``intra_size=1``) through ``Trainer.fit`` with SGD
-momentum, on each wire of WIRES the tree has: the monolithic step
+momentum (QAdam: its own optimizer), on each wire of WIRES the tree has (``--wires``: those named alone):
+the monolithic step
 (``overlap=False`` where the tree's ``Trainer`` takes the knob; a tree
 without it has no other step) and, where the tree has it, the overlap
 step.  Each path: 2 warm-up steps,
@@ -41,11 +42,29 @@ WIRES = {
     "ZeRO f32": ("bagua_tpu_torch.sharded", "ZeroAlgorithm", {}),
     "ZeRO ByteGrad": ("bagua_tpu_torch.sharded", "ZeroAlgorithm", {"compression": "bytegrad"}),
     "ZeRO int8 ring": ("bagua_tpu_torch.sharded", "ZeroAlgorithm", {"wire_precision": "int8"}),
+    "decentralized shift_one": ("bagua_tpu_torch.algorithms.decentralized", "DecentralizedAlgorithm",
+                                {"peer_selection_mode": "shift_one"}),
+    "decentralized all": ("bagua_tpu_torch.algorithms.decentralized", "DecentralizedAlgorithm", {}),
+    "low-precision decentralized": ("bagua_tpu_torch.algorithms.decentralized",
+                                    "LowPrecisionDecentralizedAlgorithm", {}),
+    # its bundled optimizer (SGD at lr), compression from step 2 on:
+    # chip_smoke.QADAM_FULL (at larger lr a warmup this short runs away)
+    "QAdam": ("bagua_tpu_torch.algorithms.q_adam", "QAdamAlgorithm",
+              {"lr": 1e-5, "warmup_steps": 2, "eps": 1e-3}),
 }
 
 
-def worker(root: str, steps: int) -> dict:
-    """One turn: every path of the tree at ``root``."""
+def _algorithm(module: str, cls: str, kwargs: dict):
+    """``cls(**kwargs)`` from ``module``; QAdam's arguments build its
+    ``QAdamOptimizer``."""
+    mod = importlib.import_module(module)
+    if cls == "QAdamAlgorithm":
+        return mod.QAdamAlgorithm(mod.QAdamOptimizer(**kwargs))
+    return getattr(mod, cls)(**kwargs)
+
+
+def worker(root: str, steps: int, names) -> dict:
+    """One turn: every path of the tree at ``root`` on the wires ``names``."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -57,10 +76,10 @@ def worker(root: str, steps: int) -> dict:
     device = torch.device("cuda", 0)
     group = init_process_group([device] * 4, intra_size=1)
     wires = {}
-    for name, (module, cls, kwargs) in WIRES.items():
+    for name in names:
+        module, cls, kwargs = WIRES[name]
         if importlib.util.find_spec(module) is not None:
-            wires[name] = lambda module=module, cls=cls, kwargs=kwargs: \
-                getattr(importlib.import_module(module), cls)(**kwargs)
+            wires[name] = lambda module=module, cls=cls, kwargs=kwargs: _algorithm(module, cls, kwargs)
     modes = {"monolithic": {"overlap": False}, "overlap": {"overlap": True}} \
         if "overlap" in inspect.signature(Trainer).parameters else {"monolithic": {}}
     out = {}
@@ -70,8 +89,9 @@ def worker(root: str, steps: int) -> dict:
         gen = torch.Generator(device=device).manual_seed(0)
         model, params = init_vgg16(gen, image_size=224, num_classes=1000, compute_dtype=torch.bfloat16,
                                    device=device)
-        trainer = Trainer(vgg_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
-                          algorithm(), group, **kwargs)
+        algo = algorithm()
+        optimizer = None if hasattr(algo, "optimizer") else lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9)
+        trainer = Trainer(vgg_loss_fn(model), optimizer, algo, group, **kwargs)
         state = trainer.init_state(params)
         del params
         batch = (torch.rand((128, 224, 224, 3), generator=gen, device=device),
@@ -97,10 +117,15 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an unpacked tree of the commit to compare with")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--wires", default=",".join(WIRES), help="comma-separated names of WIRES (default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    names = args.wires.split(",")
+    unknown = [n for n in names if n not in WIRES]
+    if unknown:
+        ap.error(f"unknown wires {unknown}; WIRES has {list(WIRES)}")
     if args.worker:
-        print(json.dumps(worker(args.worker, args.steps)), flush=True)
+        print(json.dumps(worker(args.worker, args.steps, names)), flush=True)
         return 0
     import torch
 
@@ -114,7 +139,8 @@ def main(argv) -> int:
     best = {}
     for tree, root in (("parent", args.parent), ("tree", here), ("tree", here), ("parent", args.parent)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
-                               "--steps", str(args.steps)], capture_output=True, text=True, timeout=900)
+                               "--steps", str(args.steps), "--wires", args.wires],
+                              capture_output=True, text=True, timeout=900)
         if proc.returncode:
             print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
             return proc.returncode

@@ -602,3 +602,107 @@ def test_rank_conv2d_on_card_matches_per_rank_loop(cuda_device, dtype, batched_w
             assert bitwise(wl.grad, torch.stack(gws).sum(0))
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+# ---------------------------------------------------------------------------
+# Low-precision decentralized and QAdam at VGG16's full width
+# ---------------------------------------------------------------------------
+
+#: low-precision decentralized's row: every VGG16 parameter (138,357,544,
+#: padded to 4 ranks) one row per rank, 2.2 GB of f32 over the 4 rows
+LP_ROWS = (4, 138_357_544)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [LP_ROWS, (3, 2**27 + 1)], ids=["vgg16-rows", "ragged"])
+def test_codec_at_long_rows(cuda_device, shape):
+    """Compress and decompress bitwise at the low-precision row (past 2^31
+    bytes of input) and at a ragged long row (the scalar paths), one
+    launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn(shape, generator=gen, device=cuda_device) * 1e-3
+    x[-1, -1] = 0.5  # the last row's range set by its last element
+    check_compress(x)
+    q, mm = port.compress_minmax_uint8_plain(x)
+    del x
+    out = port.decompress_minmax_uint8(q, mm)
+    assert port.decompress_minmax_uint8.launches == 1
+    assert bitwise(out, port.decompress_minmax_uint8_plain(q, mm))
+
+
+def _vgg16_stacked(gen, device, ranks=4, scale=1.0):
+    """Random rank-stacked tensors of VGG16's parameter shapes."""
+    from bagua_tpu_torch.models.vgg import module_params, vgg16
+
+    shapes = module_params(vgg16(device="meta"))
+    return {m: {n: torch.randn((ranks, *t.shape), generator=gen, device=device) * scale
+                for n, t in leaves.items()} for m, leaves in shapes.items()}
+
+
+def _plain_codec(monkeypatch, module, names):
+    for name in names:
+        monkeypatch.setattr(module, name, getattr(port, f"{name}_plain"))
+
+
+@pytest.mark.cuda
+def test_low_precision_step_at_full_width_matches_plain_codec(cuda_device, monkeypatch):
+    """One low-precision decentralized ``on_step_end`` on VGG16's whole
+    model (one bucket, 4 ranks) with the kernels, and again with the plain
+    codec on the card, on the same post-optimizer parameters and replicas:
+    bit for bit; 1 compress and 3 decompresses."""
+    from bagua_tpu_torch.algorithms import LowPrecisionDecentralizedAlgorithm
+    from bagua_tpu_torch.algorithms import decentralized as dec
+    from bagua_tpu_torch.algorithms.base import StepContext
+
+    group = BaguaProcessGroup([cuda_device] * 4, intra_size=1)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    params = _vgg16_stacked(gen, cuda_device, scale=1e-2)
+    impl = LowPrecisionDecentralizedAlgorithm().reify(group)
+    impl.bind_plan(impl.tensors_to_buckets({m: {n: t[0] for n, t in v.items()} for m, v in params.items()}))
+    plan = impl._bound_plan
+    assert plan.num_buckets == 1 and plan.specs[0].numel == LP_ROWS[1]
+    flat = plan.bucketize(params)[0]
+    state = {k: [flat + torch.randn(flat.shape, generator=gen, device=cuda_device) * 1e-3]
+             for k in ("weight", "left", "right")}
+    del flat
+    ctx = StepContext(group, 0, plan)
+    got_p, got = impl.on_step_end(params, state, ctx)
+    got_p = plan.bucketize(got_p)[0]
+    torch.cuda.synchronize()
+    assert [port.compress_minmax_uint8.launches, port.decompress_minmax_uint8.launches] == [1, 3]
+    _plain_codec(monkeypatch, dec, ("compress_minmax_uint8", "decompress_minmax_uint8"))
+    want_p, want = impl.on_step_end(params, state, ctx)
+    assert bitwise(got_p, plan.bucketize(want_p)[0])
+    for key in ("weight", "left", "right"):
+        assert bitwise(got[key][0], want[key][0])
+
+
+@pytest.mark.cuda
+def test_qadam_compression_step_at_full_width_matches_plain_codec(cuda_device, monkeypatch):
+    """One QAdam compression step (``transform_gradients`` past warmup) on
+    VGG16's gradients over 4 ranks in 10 MiB buckets with the kernels, and
+    again with the plain codec on the card: the direction and the
+    exchanged momentum bit for bit; one compress, fused reduce and
+    decompress per bucket."""
+    from bagua_tpu_torch.algorithms import QAdamAlgorithm, QAdamOptimizer, bytegrad
+    from bagua_tpu_torch.algorithms.base import StepContext
+    from bagua_tpu_torch.utils import tree_leaves
+
+    group = BaguaProcessGroup([cuda_device] * 4, intra_size=1)
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    grads = _vgg16_stacked(gen, cuda_device, scale=1e-3)
+    impl = QAdamAlgorithm(QAdamOptimizer(warmup_steps=2)).reify(group)
+    impl.bind_plan(impl.tensors_to_buckets({m: {n: t[0] for n, t in v.items()} for m, v in grads.items()}))
+    plan = impl._bound_plan
+    state = {"exp_avg": _vgg16_stacked(gen, cuda_device, scale=1e-4),
+             "exp_avg_sq": _vgg16_stacked(gen, cuda_device, scale=1e-4)}
+    state["exp_avg_sq"] = {m: {n: t * t for n, t in v.items()} for m, v in state["exp_avg_sq"].items()}
+    ctx = StepContext(group, 2, plan)
+    got_d, _, got = impl.transform_gradients(grads, None, state, ctx)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in port.KERNELS] == [plan.num_buckets] * 3
+    _plain_codec(monkeypatch, bytegrad, ("compress_minmax_uint8", "decompress_minmax_uint8",
+                                         "decompress_reduce_requantize"))
+    want_d, _, want = impl.transform_gradients(grads, None, state, ctx)
+    for a, b in zip(tree_leaves(got_d) + tree_leaves(got["exp_avg"]), tree_leaves(want_d) + tree_leaves(want["exp_avg"])):
+        assert bitwise(a, b)

@@ -315,8 +315,14 @@ class _VariantSwitchingImpl(GradientAllReduceAlgorithmImpl):
     stable_step_variant = False
 
 
-class _WeightModeImpl(GradientAllReduceAlgorithmImpl):
+class _WeightModeImpl(AlgorithmImpl):
+    """Weight mode: every bucket's weights come back as zeros."""
+
+    supports_overlap = True
     overlap_mode = "weight"
+
+    def overlap_exchange(self, bucket_idx, grads, ctx, params_leaves=None):
+        return [torch.zeros_like(p) for p in params_leaves]
 
 
 def _algorithm(impl_cls):
@@ -358,19 +364,24 @@ def test_overlap_knob_guards(group, tgroup):
     assert trainer.ddp.overlap_enabled and trainer.ddp.bucket_size_bytes == BUCKET
     assert not Trainer(mlp.mse_loss, torch.optim.SGD, ByteGradAlgorithm(), tgroup, overlap=False).ddp.overlap_enabled
 
+    # weight mode: the exchanged weights are what the optimizer steps, with
+    # the gradients taken at the weights before the exchange
     weight = port_engine(tgroup, _algorithm(_WeightModeImpl), True)
     state = weight.init(mlp.init_mlp(torch.Generator().manual_seed(0), LAYERS, device="cpu"))
-    x, y = batches()[0]
-    with pytest.raises(NotImplementedError, match="overlap mode 'weight'"):
-        weight.train_step(state, (torch.from_numpy(x), torch.from_numpy(y)))
+    batch = tuple(torch.from_numpy(t) for t in batches()[0])
+    _, grads = weight._rank_grads(state.params, batch)
+    state, _ = weight.train_step(state, batch)
+    assert weight.exchange_counts == [1] * weight.plan.num_buckets
+    for p, g in zip(tree_leaves(state.params), tree_leaves(grads)):
+        assert torch.equal(p, torch.zeros_like(g).add_(g, alpha=-LR))
 
 
 def test_build_algorithm_and_shard_batch(tgroup):
     assert isinstance(build_algorithm("bytegrad", hierarchical=False), ByteGradAlgorithm)
     gar = build_algorithm("gradient_allreduce", lr=0.5, wire_precision="int8")
     assert isinstance(gar, GradientAllReduceAlgorithm) and gar.wire_precision == "int8"
-    with pytest.raises(KeyError, match="unknown algorithm 'qadam'"):
-        build_algorithm("qadam")
+    with pytest.raises(KeyError, match="unknown algorithm 'async'"):
+        build_algorithm("async")
     batch = (torch.zeros(8, 3), torch.ones(8))
     assert port_engine(tgroup, gar, "auto").shard_batch(batch) is batch
 

@@ -124,7 +124,7 @@ def test_registry_and_unported_options(tgroup):
     gar = Algorithm.init("gradient_allreduce", hierarchical=True)
     assert isinstance(gar, GradientAllReduceAlgorithm) and gar.reify(tgroup).hierarchical
     with pytest.raises(KeyError, match="unknown algorithm"):
-        Algorithm.init("qadam")
+        Algorithm.init("async")
     impl = Algorithm.init("gradient_allreduce", wire_precision="int8").reify(tgroup)
     assert impl.wire_precision == "int8" and not impl.holds_bucketized_state
     with pytest.raises(ValueError, match="wire_precision must be one of"):
@@ -339,7 +339,8 @@ def test_trainer_fit_matches_jax_ddp(group, tgroup, algo):
 def test_port_imports_no_jax():
     """Importing every module of the port, and the chip smoke script, loads
     neither JAX nor the JAX package; the walk reaches the tensor-parallel
-    slice's modules, the synthetic benchmark's twin and ZeRO's modules."""
+    slice's modules, the synthetic benchmark's twin, ZeRO's modules, the
+    decentralized pair, QAdam and the MNIST twin."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -349,7 +350,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "need = ['bagua_tpu_torch.kernels.collective_matmul', 'bagua_tpu_torch.parallel.tensor_parallel',\n"
         "        'bagua_tpu_torch.examples.synthetic_benchmark', 'bagua_tpu_torch.sharded.updater',\n"
-        "        'bagua_tpu_torch.models._rank_ops']\n"
+        "        'bagua_tpu_torch.models._rank_ops', 'bagua_tpu_torch.algorithms.decentralized',\n"
+        "        'bagua_tpu_torch.algorithms.q_adam', 'bagua_tpu_torch.examples.mnist']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )
