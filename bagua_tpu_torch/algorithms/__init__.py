@@ -1,5 +1,9 @@
 """Algorithm registry (the port of ``bagua_tpu/algorithms/__init__.py``)."""
 
+from bagua_tpu_torch.algorithms.async_model_average import (  # noqa: F401
+    AsyncModelAverageAlgorithm,
+    AsyncModelAverageAlgorithmImpl,
+)
 from bagua_tpu_torch.algorithms.base import (  # noqa: F401
     Algorithm,
     AlgorithmImpl,
@@ -24,6 +28,10 @@ from bagua_tpu_torch.algorithms.q_adam import (  # noqa: F401
     QAdamAlgorithm,
     QAdamAlgorithmImpl,
     QAdamOptimizer,
+)
+from bagua_tpu_torch.algorithms.stale import (  # noqa: F401
+    StaleSyncAlgorithm,
+    StaleSyncAlgorithmImpl,
 )
 
 GlobalAlgorithmRegistry.register(
@@ -51,6 +59,16 @@ GlobalAlgorithmRegistry.register(
     "qadam",
     QAdamAlgorithm,
     "centralized synchronous quantized-momentum Adam",
+)
+GlobalAlgorithmRegistry.register(
+    "stale",
+    StaleSyncAlgorithm,
+    "centralized bounded-staleness gradient allreduce (stale replay, tau rounds)",
+)
+GlobalAlgorithmRegistry.register(
+    "async",
+    AsyncModelAverageAlgorithm,
+    "decentralized asynchronous model averaging (background averager thread)",
 )
 
 
@@ -84,6 +102,16 @@ GlobalAlgorithmRegistry.register(
     "ZeRO-sharded exchange: reduce-scatter grads, shard-only optimizer "
     "update, deferred all-gather into the next step",
 )
+
+
+from bagua_tpu_torch.algorithms.grad_accumulation import (  # noqa: F401,E402
+    GradientAccumulation,
+    GradientAccumulationImpl,
+)
+
+#: algorithms whose schedule follows the wall clock (not bitwise
+#: deterministic from run to run by design)
+WALL_CLOCK_ALGORITHMS = frozenset({"async"})
 
 
 def build_algorithm(name: str, lr: float = 1e-3, qadam_warmup_steps: int = 10, **kwargs) -> Algorithm:

@@ -86,13 +86,22 @@ class AlgorithmImpl:
         self.process_group = process_group
         self.hierarchical = hierarchical
 
-    def tensors_to_buckets(self, tree, bucket_size_bytes: Optional[int] = None) -> BucketPlan:
+    #: the engine skips the optimizer update on a step where
+    #: :meth:`is_update_step` is False (gradient accumulation)
+    skips_optimizer_update = False
+
+    #: a lock the engine holds around the whole step when not None, shared
+    #: with a background thread of the algorithm (async model average)
+    host_dispatch_lock = None
+
+    def tensors_to_buckets(self, tree, bucket_size_bytes: Optional[int] = None, filter_fn=None) -> BucketPlan:
         """Default: dtype-grouped greedy buckets, aligned to the exchange
-        size so every rank's scatter chunk is equal-sized."""
+        size so every rank's scatter chunk is equal-sized.  ``filter_fn(name)``
+        excludes leaves from communication (the engine's ``dp_filter``)."""
         if bucket_size_bytes is None:
             bucket_size_bytes = get_default_bucket_size()
         return BucketPlan.from_tree(
-            tree, bucket_size_bytes, align_elems=self.process_group.exchange_size
+            tree, bucket_size_bytes, align_elems=self.process_group.exchange_size, filter_fn=filter_fn
         )
 
     def bind_plan(self, plan: BucketPlan) -> None:
@@ -176,6 +185,31 @@ class AlgorithmImpl:
     def step_variant(self, step: int) -> str:
         """Which variant of the step runs at this step."""
         return "default"
+
+    def is_update_step(self, step: int) -> bool:
+        """Does the optimizer update at this step?  Read only where
+        :attr:`skips_optimizer_update` is set."""
+        return True
+
+    # -- host hooks (around the step, outside its stages) --------------------
+
+    def host_pre_dispatch(self, state):
+        """Before the step, outside :attr:`host_dispatch_lock`: may return
+        another train state (async model average folds its delta here)."""
+        return state
+
+    def host_post_dispatch(self, state, step: int) -> None:
+        """After the step, inside :attr:`host_dispatch_lock`, with the new
+        state and the step count it has reached."""
+
+    def host_shutdown(self) -> None:
+        """Stop any background machinery for good (end of training)."""
+
+    def abort(self) -> None:
+        """Pause background behaviour."""
+
+    def resume(self) -> None:
+        """Undo :meth:`abort`."""
 
 
 class Algorithm:

@@ -94,7 +94,7 @@ class ByteGradAlgorithmImpl(AlgorithmImpl):
     def transform_gradients(self, grads, params, state, ctx: StepContext):
         flats = ctx.plan.bucketize(grads)
         out = [self._exchange_flat(flat, spec) for flat, spec in zip(flats, ctx.plan.specs)]
-        return ctx.plan.debucketize(out), params, state
+        return ctx.plan.debucketize(out, grads), params, state
 
     def overlap_exchange(self, bucket_idx: int, grads, ctx: StepContext, params_leaves=None):
         """One bucket's compressed pipeline from inside the backward pass,

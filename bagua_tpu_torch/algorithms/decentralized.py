@@ -27,7 +27,18 @@ is one compress and three decompresses per bucket, of ``(size, numel)``.
 
 ``hierarchical=True`` (the default) averages over the ``intra`` axis first
 and runs the exchange over the ``inter`` axis, so the peers are nodes.
-Gossip (``staleness_tau``) is not ported.
+
+**Gossip** (``staleness_tau=τ``, the bounded-staleness relaxation of this
+weight exchange): every rank still enters the exchange every round, the
+same collectives as without τ, but a rank under the degradation directive
+ships its *published* weights (the last it adopted) and keeps its own in
+place of the average, for at most τ consecutive rounds; then its gate
+closes and it rejoins.  ``published`` (one flat per bucket),
+``staleness`` and ``directive`` ride the algorithm state, rank-stacked;
+participation is gated elementwise with ``torch.where``, as the JAX
+package gates it with ``jnp.where``.  With an all-False gate ``where`` is a
+copy, so τ=0 gives the bits of τ=None.  Gossip needs ``hierarchical=False``
+and ``communication_interval=1``.
 """
 
 from typing import List, Optional, Tuple
@@ -100,13 +111,13 @@ class _PeerExchange(AlgorithmImpl):
             return INTER_AXIS
         return None
 
-    def tensors_to_buckets(self, tree, bucket_size_bytes=None):
+    def tensors_to_buckets(self, tree, bucket_size_bytes=None, filter_fn=None):
         """One bucket for the whole model (the reference's layout: one
         exchange, and for low precision one min/max a rank); under overlap
         the default plan, so that each bucket goes on its own."""
         if self.overlap_hint:
-            return super().tensors_to_buckets(tree, bucket_size_bytes)
-        return super().tensors_to_buckets(tree, WHOLE_MODEL_BUCKET)
+            return super().tensors_to_buckets(tree, bucket_size_bytes, filter_fn)
+        return super().tensors_to_buckets(tree, WHOLE_MODEL_BUCKET, filter_fn)
 
 
 class DecentralizedAlgorithmImpl(_PeerExchange):
@@ -118,11 +129,6 @@ class DecentralizedAlgorithmImpl(_PeerExchange):
     def __init__(self, process_group, hierarchical: bool = True, peer_selection_mode: str = "all",
                  communication_interval: int = 1, staleness_tau: Optional[int] = None):
         super().__init__(process_group, hierarchical=hierarchical)
-        if staleness_tau is not None:
-            raise NotImplementedError(
-                "gossip staleness (staleness_tau) is not ported yet; it comes with the engine's "
-                "staleness knobs (ROADMAP Queue 1 item 4); pass staleness_tau=None"
-            )
         self.peer_selection_mode = peer_selection_mode
         self.communication_interval = communication_interval
         if peer_selection_mode == "shift_one":
@@ -137,6 +143,79 @@ class DecentralizedAlgorithmImpl(_PeerExchange):
                     "peer_selection_mode='all' — see reference "
                     "decentralized_full_precision_synchronous.rs:71-79"
                 )
+        if staleness_tau is not None:
+            staleness_tau = int(staleness_tau)
+            if staleness_tau < 0:
+                raise ValueError(f"staleness_tau must be >= 0, got {staleness_tau}")
+            if hierarchical:
+                raise ValueError(
+                    "gossip staleness (staleness_tau=...) requires "
+                    "hierarchical=False: the per-rank staleness gate is "
+                    "defined on the full exchange, not the intra/inter split"
+                )
+            if communication_interval != 1:
+                raise ValueError(
+                    "gossip staleness (staleness_tau=...) requires "
+                    "communication_interval=1: skipped rounds are what the "
+                    "staleness counter accounts for"
+                )
+            # the published replicas are laid out on the bound plan; an
+            # instance attribute, so plain decentralized keeps its rebucket
+            self.holds_bucketized_state = True
+        self.staleness_tau = staleness_tau
+
+    def set_staleness_tau(self, tau) -> None:
+        """The engine's ``apply_staleness``: only on an instance built with
+        a τ, whose gossip state was allocated at init."""
+        if self.staleness_tau is None:
+            raise ValueError(
+                "this DecentralizedAlgorithmImpl was not constructed with "
+                "staleness_tau; gossip state must be allocated at init "
+                "(pass staleness_tau=0 to construct the knob disabled)"
+            )
+        tau = int(tau)
+        if tau < 0:
+            raise ValueError(f"staleness_tau must be >= 0, got {tau}")
+        self.staleness_tau = tau
+
+    def overlap_capability(self) -> OverlapCapability:
+        """Gossip holds per-bucket state, which would refuse overlap, but it
+        is laid out on the bound plan and the gate is elementwise: the
+        split changes no bit, as for the plain weight exchange."""
+        if self.staleness_tau is None:
+            return super().overlap_capability()
+        return OverlapCapability(True, mode="weight", auto=True)
+
+    def init_state(self, params):
+        """Gossip only: ``published`` starts as the weights every rank
+        starts from, one ``(size, numel)`` flat per bucket; ``staleness``
+        and ``directive`` ``(size,)`` int32 zeros."""
+        if self.staleness_tau is None:
+            return super().init_state(params)
+        group = self.process_group
+        n, device = group.size, group.device
+        return {
+            "published": tuple(flat.to(device).unsqueeze(0).repeat(n, 1)
+                               for flat in self._bound_plan.bucketize(params)),
+            "staleness": torch.zeros((n,), dtype=torch.int32, device=device),
+            "directive": torch.zeros((n,), dtype=torch.int32, device=device),
+        }
+
+    def _gossip_gate(self, state) -> torch.Tensor:
+        """``(size,)`` bool: the ranks that replay their published weights
+        this round."""
+        return (state["directive"] > 0) & (state["staleness"] < self.staleness_tau)
+
+    def _gossip_flat(self, flat, published, use_stale, comm_round):
+        """One bucket's gossip round: ``(new weights, new published)``."""
+        gate = use_stale[:, None]
+        payload = torch.where(gate, published, flat)
+        new = torch.where(gate, flat, self._exchange_flat(payload, comm_round))
+        return new, torch.where(gate, published, new)
+
+    @staticmethod
+    def _count(state, use_stale):
+        return torch.where(use_stale, state["staleness"] + 1, torch.zeros_like(state["staleness"]))
 
     def _exchange_flat(self, flat: torch.Tensor, comm_round: int) -> torch.Tensor:
         group = self.process_group
@@ -151,10 +230,16 @@ class DecentralizedAlgorithmImpl(_PeerExchange):
         """The averaged peer weights replace the parameters; the gradients
         pass as they are.  ``comm_round`` counts the exchanges, so the
         ``shift_one`` schedule meets every peer whatever the interval."""
+        if self.staleness_tau is not None:
+            use_stale = self._gossip_gate(state)
+            new = [self._gossip_flat(flat, pub, use_stale, ctx.step)
+                   for flat, pub in zip(ctx.plan.bucketize(params), state["published"])]
+            state = {**state, "published": tuple(p for _, p in new), "staleness": self._count(state, use_stale)}
+            return grads, ctx.plan.debucketize([w for w, _ in new], params), state
         if self._exchanges(ctx.step):
             comm_round = ctx.step // self.communication_interval
             params = ctx.plan.debucketize(
-                [self._exchange_flat(flat, comm_round) for flat in ctx.plan.bucketize(params)])
+                [self._exchange_flat(flat, comm_round) for flat in ctx.plan.bucketize(params)], params)
         return grads, params, state
 
     def overlap_exchange(self, bucket_idx: int, grads, ctx: StepContext, params_leaves=None):
@@ -165,7 +250,32 @@ class DecentralizedAlgorithmImpl(_PeerExchange):
             return list(params_leaves)
         spec = ctx.plan.specs[bucket_idx]
         flat = flatten_bucket_leaves(params_leaves, spec)
+        if self.staleness_tau is not None:
+            # gossip: the bucket's new published flat cannot return through
+            # this hook (it hands back the bucket's parameters alone); it
+            # waits in ctx.extras for finalize_overlap.  On the card this
+            # runs on autograd's thread, the side stream current
+            state = ctx.extras["algo_state"]
+            new, published = self._gossip_flat(flat, state["published"][bucket_idx],
+                                               self._gossip_gate(state), ctx.step)
+            ctx.extras.setdefault("gossip_published", {})[bucket_idx] = published
+            return split_bucket_flat(new, spec)
         return split_bucket_flat(self._exchange_flat(flat, ctx.step // self.communication_interval), spec)
+
+    def finalize_overlap(self, grads, params, state, ctx: StepContext):
+        """Gossip: fold the buckets' published flats the hooks stashed into
+        the state and count the round.  The stash came from the side
+        stream; the main one, which the engine made wait for it, now holds
+        it too (``record_stream``)."""
+        stashed = ctx.extras.pop("gossip_published", None)
+        if self.staleness_tau is None or stashed is None:
+            return grads, params, state
+        for t in stashed.values():
+            if t.is_cuda:
+                t.record_stream(torch.cuda.current_stream(t.device))
+        published = tuple(stashed.get(i, p) for i, p in enumerate(state["published"]))
+        return grads, params, {**state, "published": published,
+                               "staleness": self._count(state, self._gossip_gate(state))}
 
 
 class DecentralizedAlgorithm(Algorithm):
@@ -246,7 +356,7 @@ class LowPrecisionDecentralizedAlgorithmImpl(_PeerExchange):
             flats = [allreduce(f, ReduceOp.AVG, self.process_group, INTRA_AXIS) for f in flats]
         new = [self._ring_step(*bucket) for bucket in zip(flats, state["weight"], state["left"], state["right"])]
         weight, left, right = (list(x) for x in zip(*new))
-        return ctx.plan.debucketize(weight), {"weight": weight, "left": left, "right": right}
+        return ctx.plan.debucketize(weight, params), {"weight": weight, "left": left, "right": right}
 
 
 class LowPrecisionDecentralizedAlgorithm(Algorithm):

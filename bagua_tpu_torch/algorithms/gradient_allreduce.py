@@ -137,7 +137,7 @@ class GradientAllReduceAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
             out.append(dict(zip((s.name for s in spec.slots), red)))
         if resid is not None:
             state = {**state, "qr_residual": tuple(resid)}
-        return ctx.plan.ungroup_leaves(out), params, state
+        return ctx.plan.ungroup_leaves(out, grads), params, state
 
     def overlap_exchange(self, bucket_idx: int, grads, ctx: StepContext, params_leaves=None):
         """One bucket's exchange from inside the backward pass: the same

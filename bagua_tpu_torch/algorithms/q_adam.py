@@ -26,9 +26,9 @@ import torch
 
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContext
 from bagua_tpu_torch.algorithms.bytegrad import compressed_allreduce
-from bagua_tpu_torch.bucket import flatten_bucket_leaves, split_bucket_flat
+from bagua_tpu_torch.bucket import flatten_bucket_leaves, split_bucket_flat, tree_leaf_names
 from bagua_tpu_torch.communication import INTER_AXIS, INTRA_AXIS, ReduceOp, allreduce
-from bagua_tpu_torch.utils import tree_map
+from bagua_tpu_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -87,8 +87,10 @@ class QAdamAlgorithmImpl(AlgorithmImpl):
         return compressed_allreduce(flat, group, None, average=True)
 
     def _allreduce_tree(self, tree, ctx: StepContext, compressed: bool):
+        """Each bucket of ``tree`` exchanged; a leaf outside every bucket
+        (``dp_filter``) keeps its local value."""
         return ctx.plan.debucketize(
-            [self._exchange_flat(flat, compressed) for flat in ctx.plan.bucketize(tree)])
+            [self._exchange_flat(flat, compressed) for flat in ctx.plan.bucketize(tree)], tree)
 
     def _momentum(self, m, g):
         b1 = self.optimizer.betas[0]
@@ -143,14 +145,19 @@ class QAdamAlgorithmImpl(AlgorithmImpl):
 
     def finalize_overlap(self, grads, params, state, ctx: StepContext):
         """``grads`` holds the exchanges' outputs: the averaged gradients in
-        warmup, the exchanged momentum in compression.  Every leaf is in a
-        bucket: leaves outside every bucket come with ``dp_filter``, which
-        is not ported (ROADMAP Queue 1 item 4)."""
+        warmup, the exchanged momentum in compression.  A leaf outside
+        every bucket (``dp_filter``) carries its local gradient, as the
+        monolithic path leaves it; in compression its momentum is updated
+        from it here, as the monolithic path does before its exchange."""
         m, v = state["exp_avg"], state["exp_avg_sq"]
         if ctx.step < self.warmup_steps:
             m, v = self._warmup_moments(grads, params, m, v, ctx)
         else:
-            m = grads
+            covered = ctx.plan.covered()
+            names = tree_leaf_names(grads)
+            m = tree_unflatten(grads, [
+                e if name in covered else self._momentum(mm, e)
+                for name, e, mm in zip(names, tree_leaves(grads), tree_leaves(m))])
         return self._direction(m, v, ctx), params, {"exp_avg": m, "exp_avg_sq": v}
 
 

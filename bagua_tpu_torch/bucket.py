@@ -68,14 +68,18 @@ class BucketPlan:
         self._structure = tree_map(lambda leaf: None, tree)  # the tree's shape, no tensors
 
     @classmethod
-    def from_tree(cls, tree, bucket_size_bytes: int, align_elems: int = 1) -> "BucketPlan":
-        """Greedy dtype-grouped split by byte size."""
+    def from_tree(cls, tree, bucket_size_bytes: int, align_elems: int = 1, filter_fn=None) -> "BucketPlan":
+        """Greedy dtype-grouped split by byte size.  ``filter_fn(name) ->
+        bool`` restricts which leaves are communicated: a leaf it excludes
+        is in no bucket, and :meth:`debucketize` and :meth:`ungroup_leaves`
+        take it from their ``fallback`` tree."""
         named = tree_flatten_with_names(tree)
         decls = [
             TensorDeclaration(
                 name=n, num_elements=leaf.numel(), dtype=to_bagua_datatype(leaf.dtype)
             )
             for n, leaf in named
+            if filter_fn is None or filter_fn(n)
         ]
         shapes = {n: tuple(leaf.shape) for n, leaf in named}
         return cls(split_declarations(decls, shapes, bucket_size_bytes, align_elems), tree)
@@ -110,14 +114,23 @@ class BucketPlan:
         by_name = dict(tree_flatten_with_names(tree))
         return [{s.name: by_name[s.name] for s in spec.slots} for spec in self.specs]
 
-    def ungroup_leaves(self, groups: Sequence[Dict[str, torch.Tensor]]):
-        """Rebuild the tree from :meth:`group_leaves` groups."""
-        leaves: Dict[str, torch.Tensor] = {}
+    def ungroup_leaves(self, groups: Sequence[Dict[str, torch.Tensor]], fallback=None):
+        """Rebuild the tree from :meth:`group_leaves` groups; a leaf no
+        bucket covers is taken from the tree ``fallback`` (KeyError
+        without one)."""
+        leaves: Dict[str, torch.Tensor] = dict(tree_flatten_with_names(fallback)) if fallback is not None else {}
         for group in groups:
             leaves.update(group)
-        return tree_unflatten(
-            self._structure, [leaves[name] for name in tree_leaf_names(self._structure)]
-        )
+        ordered = []
+        for name in tree_leaf_names(self._structure):
+            if name not in leaves:
+                raise KeyError(f"leaf {name} is not in any bucket and no fallback was given")
+            ordered.append(leaves[name])
+        return tree_unflatten(self._structure, ordered)
+
+    def covered(self) -> set:
+        """The names of the leaves some bucket holds."""
+        return {s.name for spec in self.specs for s in spec.slots}
 
     def backward_order(self) -> List[int]:
         """Bucket indices in expected gradient-readiness order: by each
@@ -143,12 +156,14 @@ class BucketPlan:
             for spec in self.specs
         ]
 
-    def debucketize(self, flats: Sequence[torch.Tensor]):
-        """Rebuild the tree from fused tensors (views into them)."""
+    def debucketize(self, flats: Sequence[torch.Tensor], fallback=None):
+        """Rebuild the tree from fused tensors (views into them); a leaf no
+        bucket covers is taken from ``fallback``, normally the tree that
+        was bucketized."""
         return self.ungroup_leaves([
             dict(zip((s.name for s in spec.slots), split_bucket_flat(flat, spec)))
             for spec, flat in zip(self.specs, flats)
-        ])
+        ], fallback)
 
     @property
     def num_buckets(self) -> int:

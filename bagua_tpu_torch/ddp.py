@@ -52,9 +52,23 @@ of the stacked parameters, steps it in place of the optimizer, and hands the
 updated shards to the algorithm, which gathers them into the parameters at
 the next step's start (:meth:`DistributedDataParallel.finalize_pending_updates`
 does it at once).
+
+Around the step (:meth:`DistributedDataParallel.train_step`) the
+algorithm's host hooks run: ``host_pre_dispatch`` (async model average
+folds a landed average there), then the step and ``host_post_dispatch``
+under the algorithm's ``host_dispatch_lock``, which its background thread
+takes too.  An accumulating algorithm (``skips_optimizer_update``) has
+no optimizer call off its boundary steps.  The knobs of a live run:
+``apply_staleness``, ``apply_degradation_directive`` and
+``reset_staleness_state`` (bounded staleness), ``switch_algorithm``
+(between ``gradient_allreduce``, ``zero`` and ``bytegrad``) and
+``shutdown`` / ``abort`` / ``resume`` (the algorithm's background
+machinery).
 """
 
+import contextlib
 import dataclasses
+import logging
 import time
 from typing import Any, Callable, List, Optional, Union
 
@@ -67,7 +81,9 @@ from bagua_tpu_torch.defs import TensorDeclaration
 from bagua_tpu_torch.env import get_default_bucket_size
 from bagua_tpu_torch.sharded.layout import ShardLayout
 from bagua_tpu_torch.sharded.updater import ShardedOptimizerUpdater, ShardedOptState
-from bagua_tpu_torch.utils import SpeedMeter, tree_leaves, tree_map, tree_unflatten
+from bagua_tpu_torch.utils import SpeedMeter, tree_flatten_with_names, tree_leaves, tree_map, tree_unflatten
+
+logger = logging.getLogger(__name__)
 
 #: who asked for a configuration switch (``rebucket``, ``apply_precision_plan``):
 #: ``planner`` and ``manual`` bare, ``health:<kind>`` and ``autopilot:<incident>``
@@ -114,9 +130,16 @@ class DistributedDataParallel:
         optimizer: ``optimizer(list_of_tensors) -> torch.optim.Optimizer``,
             or None for an algorithm that bundles its own (QAdam); any
             other algorithm raises ValueError then.
-        algorithm: an :class:`~bagua_tpu_torch.algorithms.base.Algorithm`.
+        algorithm: an :class:`~bagua_tpu_torch.algorithms.base.Algorithm`,
+            or an :class:`~bagua_tpu_torch.algorithms.base.AlgorithmImpl`
+            already bound to the group.
         process_group: defaults to the global group.
         bucket_size_bytes: communication bucket size.
+        dp_filter: ``filter(leaf_name) -> bool``; a leaf for which it
+            returns False is in no bucket and never communicated: it keeps
+            its local gradient (monolithic, overlap, and under ZeRO a
+            replicated optimizer of its own).  The JAX package's MoE
+            integration passes ``lambda name: "experts" not in name``.
         overlap: ``True``, ``False`` or ``"auto"``: exchange each bucket from
             inside the backward pass.  ``"auto"`` turns it on where the
             algorithm's :meth:`~bagua_tpu_torch.algorithms.base.AlgorithmImpl.overlap_capability`
@@ -131,11 +154,12 @@ class DistributedDataParallel:
         algorithm: Algorithm,
         process_group: Optional[BaguaProcessGroup] = None,
         bucket_size_bytes: Optional[int] = None,
+        dp_filter: Optional[Callable[[str], bool]] = None,
         overlap="auto",
     ):
         self.loss_fn = loss_fn
         self.group = process_group or get_default_group()
-        self.impl: AlgorithmImpl = algorithm.reify(self.group)
+        self.impl: AlgorithmImpl = algorithm.reify(self.group) if isinstance(algorithm, Algorithm) else algorithm
         if optimizer is None:
             bundled = getattr(self.impl, "optimizer", None)
             if bundled is None or not hasattr(bundled, "to_torch"):
@@ -146,6 +170,7 @@ class DistributedDataParallel:
             optimizer = bundled.to_torch()
         self.optimizer = optimizer
         self.bucket_size_bytes = bucket_size_bytes or get_default_bucket_size()
+        self.dp_filter = dp_filter
         if overlap not in (True, False, "auto"):
             raise ValueError(f"overlap must be True, False or 'auto', got {overlap!r}")
         if overlap is True:
@@ -184,23 +209,46 @@ class DistributedDataParallel:
             return cap.supported and cap.auto
         return bool(self.overlap)
 
-    def init(self, params) -> TrainState:
-        """Replicate one copy of ``params`` to every rank (the reference
-        broadcasting from rank 0) and build the optimizer over the stacks
-        (under a sharded-update algorithm, over each rank's shards)."""
+    def init(self, params=None, stacked_params=None) -> TrainState:
+        """Build the rank-stacked train state and the optimizer over the
+        stacks (under a sharded-update algorithm, over each rank's shards).
+
+        Pass ``params`` (one copy, replicated to every rank: the reference
+        broadcasting from rank 0) OR ``stacked_params``, a tree whose leaves
+        have a leading ``group.size`` axis, taken as it is, when the ranks
+        must start from different values.  The algorithm's state is then
+        built from each rank's own slice (one ``init_state`` call a rank)."""
         n, device = self.group.size, self.group.device
-        self._tree_template = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
+        if stacked_params is not None and params is not None:
+            raise ValueError("pass either params or stacked_params, not both")
+        if stacked_params is not None:
+            for name, leaf in tree_flatten_with_names(stacked_params):
+                if leaf.dim() == 0 or leaf.shape[0] != n:
+                    raise ValueError(f"stacked_params leaf {name} has shape {tuple(leaf.shape)}; "
+                                     f"its leading axis must be the group size {n}")
+            template = tree_map(lambda p: p[0], stacked_params)
+        elif params is None:
+            raise ValueError("pass params or stacked_params")
+        else:
+            template = params
+        self._tree_template = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), template)
         self.impl.overlap_hint = self.overlap_enabled
-        self._adopt_plan(self.impl.tensors_to_buckets(params, self.bucket_size_bytes))
+        self._adopt_plan(self.impl.tensors_to_buckets(template, self.bucket_size_bytes, filter_fn=self.dp_filter))
         self._pending_reshard = None
-        stacked = tree_map(
-            lambda p: p.detach().to(device).unsqueeze(0).repeat(n, *([1] * p.dim())), params
-        )
+        if stacked_params is not None:
+            stacked = tree_map(lambda p: p.detach().to(device, copy=True), stacked_params)
+            per_rank = [self.impl.init_state(tree_map(lambda p: p[r], stacked)) for r in range(n)]
+            algo_state = tree_map(lambda *rows: torch.stack([t[r] for r, t in enumerate(rows)]), *per_rank)
+        else:
+            stacked = tree_map(
+                lambda p: p.detach().to(device).unsqueeze(0).repeat(n, *([1] * p.dim())), params
+            )
+            algo_state = self.impl.init_state(params)
         updater = self._sharded_updater
         return TrainState(
             params=stacked,
             optimizer=updater.init(stacked) if updater else self.optimizer(tree_leaves(stacked)),
-            algo_state=self.impl.init_state(params),
+            algo_state=algo_state,
             step=0,
         )
 
@@ -262,10 +310,12 @@ class DistributedDataParallel:
 
     def _overlapped(self, params, batch, ctx: StepContext, weight: bool = False):
         """One backward with each bucket's exchange issued from inside it.
-        Returns ``(losses, grads, params)``: gradient mode, the exchanged
-        gradients tree (under a sharded update, the buckets' shards) and
-        ``params`` as given; weight mode, the local gradients and the
-        exchanged parameters.  On the card the exchange runs on the side
+        Returns ``(losses, grads, params, local)``: gradient mode, the
+        exchanged gradients tree (under a sharded update, the buckets'
+        shards) and ``params`` as given; weight mode, the local gradients
+        and the exchanged parameters; ``local`` the local gradients tree
+        either way (a leaf outside every bucket keeps its local gradient,
+        and its weights in weight mode).  On the card the exchange runs on the side
         stream, which reads the weights beside the backward; the main
         stream waits for it before anything writes them.  A gradient
         exchange waits for the backward queued so far; a weight exchange
@@ -320,14 +370,14 @@ class DistributedDataParallel:
             issue(bi)
         if side is not None:
             torch.cuda.current_stream(device).wait_stream(side)
+        local = tree_unflatten(params, [self._grad(leaf) for leaf in leaves])
         if self._sharded_updater is not None:
             # a sharded update's exchange is each bucket's shard alone
-            return losses.detach(), [out[0] for out in exchanged], params
-        groups = plan.ungroup_leaves(
-            [dict(zip((s.name for s in spec.slots), out)) for spec, out in zip(plan.specs, exchanged)])
+            return losses.detach(), [out[0] for out in exchanged], params, local
+        groups = [dict(zip((s.name for s in spec.slots), out)) for spec, out in zip(plan.specs, exchanged)]
         if weight:
-            return losses.detach(), tree_unflatten(params, [self._grad(leaf) for leaf in leaves]), groups
-        return losses.detach(), groups, params
+            return losses.detach(), local, plan.ungroup_leaves(groups, params), local
+        return losses.detach(), plan.ungroup_leaves(groups, local), params, local
 
     @staticmethod
     @torch.no_grad()
@@ -344,7 +394,12 @@ class DistributedDataParallel:
         """One training step.  ``batch`` leaves have a leading global-batch
         dim divisible by ``group.size``; rank r takes the r-th slice.
         Returns ``(state, losses)``, ``losses`` the per-rank local loss of
-        shape ``(size,)``."""
+        shape ``(size,)``.
+
+        Around the step the algorithm's host hooks run: ``host_pre_dispatch``
+        first (async model average folds a landed delta there), then the
+        whole step and ``host_post_dispatch`` under ``host_dispatch_lock``
+        where the algorithm has one (its background thread takes it too)."""
         for t in tree_leaves(batch):
             if t.shape[0] % self.group.size:
                 raise ValueError(
@@ -354,6 +409,15 @@ class DistributedDataParallel:
         if self._pending_reshard is not None:
             state = self._apply_pending_reshard(state)
         impl = self.impl
+        state = impl.host_pre_dispatch(state)
+        lock = impl.host_dispatch_lock
+        with lock if lock is not None else contextlib.nullcontext():
+            new_state, losses = self._step(state, batch)
+            impl.host_post_dispatch(new_state, new_state.step)
+        return new_state, losses
+
+    def _step(self, state: TrainState, batch):
+        impl = self.impl
         ctx = StepContext(group=self.group, step=state.step, plan=self.plan)
         params, algo_state = impl.on_step_start(state.params, state.algo_state, ctx)
         mode = impl.overlap_capability().mode if self.overlap_enabled else None
@@ -361,21 +425,26 @@ class DistributedDataParallel:
             # the per-bucket exchanges that read the algorithm's state
             # (QAdam's momentum) find it here
             ctx.extras["algo_state"] = algo_state
-            losses, grads, params = self._overlapped(params, batch, ctx, weight=mode == "weight")
+            losses, grads, params, local = self._overlapped(params, batch, ctx, weight=mode == "weight")
         else:
-            losses, grads = self._rank_grads(params, batch)
-            grads, params, algo_state = impl.transform_gradients(grads, params, algo_state, ctx)
+            losses, local = self._rank_grads(params, batch)
+            grads, params, algo_state = impl.transform_gradients(local, params, algo_state, ctx)
         if mode is not None:
             grads, params, algo_state = impl.finalize_overlap(grads, params, algo_state, ctx)
         self._write_params(state.params, params)
         if self._sharded_updater is not None:
-            pending, _, params = self._sharded_updater.update_shards(grads, state.params, state.optimizer)
+            covered = self.plan.covered()
+            local_grads = {n: g for n, g in tree_flatten_with_names(local) if n not in covered}
+            pending, _, params = self._sharded_updater.update_shards(
+                grads, state.params, state.optimizer, local_grads)
             algo_state = impl.stash_updates(algo_state, pending)
-        else:
+        elif not impl.skips_optimizer_update or impl.is_update_step(state.step):
             for p, g in zip(tree_leaves(state.params), tree_leaves(grads)):
                 p.grad = g
             state.optimizer.step()
             state.optimizer.zero_grad(set_to_none=True)
+        # else: an accumulating algorithm's step off its boundary: no
+        # optimizer call at all, so Adam's count and moments stay as they are
         params, algo_state = impl.on_step_end(state.params, algo_state, ctx)
         self._write_params(state.params, params)
         return TrainState(state.params, state.optimizer, algo_state, state.step + 1), losses
@@ -503,6 +572,188 @@ class DistributedDataParallel:
         self._plan_source = reason.partition(":")[0]
         return new != old
 
+    # -- bounded staleness ---------------------------------------------------------
+    #
+    # The JAX engine re-traces the step, re-verifies it statically and emits
+    # a telemetry event on each of these switches; the port runs its stages
+    # eagerly (nothing to re-trace) and has neither a static verifier nor
+    # telemetry yet.
+
+    def _staleness_impl(self, what: str) -> AlgorithmImpl:
+        """The algorithm, if it has the staleness knob; ``what`` names the
+        caller's subject in the AttributeError otherwise."""
+        impl = self.impl
+        if not hasattr(impl, "set_staleness_tau"):
+            raise AttributeError(
+                f"{type(impl).__name__} has no staleness knob; {what} to the "
+                "stale and gossip-decentralized algorithms"
+            )
+        return impl
+
+    def apply_staleness(self, tau: int, reason: str = "planner") -> bool:
+        """Re-bound the staleness knob of a bounded-staleness algorithm
+        (``stale``, or ``decentralized`` built with ``staleness_tau``); the
+        next step uses it.  Returns True when τ changed.  An algorithm
+        without the knob raises AttributeError; an instance whose staleness
+        state was never allocated (``staleness_tau=None``) raises
+        ValueError from the algorithm.  ``reason`` speaks the switch
+        vocabulary and is recorded as the plan's source."""
+        validate_switch_reason(reason)
+        impl = self._staleness_impl("bounded staleness applies")
+        tau = int(tau)
+        if tau < 0:
+            raise ValueError(f"staleness tau must be >= 0, got {tau}")
+        old_tau = int(getattr(impl, "staleness_tau", None) or 0)
+        impl.set_staleness_tau(tau)
+        if old_tau == tau:
+            return False
+        self._plan_source = reason.partition(":")[0]
+        return True
+
+    def apply_degradation_directive(self, state: TrainState, ranks) -> TrainState:
+        """Flip the per-rank degradation directive of a bounded-staleness
+        algorithm: ``ranks`` are the ranks allowed to run stale (empty:
+        every rank bulk-synchronous).  The directive is a rank-stacked
+        ``(size,)`` int32 tensor of the algorithm state; the flip swaps
+        that tensor and nothing else, and returns the new train state."""
+        self._staleness_impl("degradation directives apply")
+        algo_state = state.algo_state
+        if not (isinstance(algo_state, dict) and "directive" in algo_state):
+            raise ValueError(
+                "algorithm state carries no 'directive' leaf — was the "
+                "engine initialized with the staleness state allocated?"
+            )
+        n = self.group.size
+        flags = torch.zeros((n,), dtype=torch.int32)
+        for r in ranks:
+            r = int(r)
+            if not 0 <= r < n:
+                raise ValueError(f"rank {r} out of range for world size {n}")
+            flags[r] = 1
+        directive = flags.to(algo_state["directive"].device)
+        return dataclasses.replace(state, algo_state={**algo_state, "directive": directive})
+
+    def reset_staleness_state(self, state: TrainState) -> TrainState:
+        """Re-prime the replay state after :meth:`apply_staleness` raises τ
+        from 0: every rank's staleness counter is set to the current τ, so
+        a rank under a directive makes a fresh contribution on its next
+        round (which rewrites the replay payload before anything can replay
+        it), and the error-feedback ``residual`` restarts at zero."""
+        impl = self._staleness_impl("staleness state applies")
+        algo_state = state.algo_state
+        if not (isinstance(algo_state, dict) and "staleness" in algo_state):
+            raise ValueError(
+                "algorithm state carries no 'staleness' leaf — was the "
+                "engine initialized with the staleness state allocated?"
+            )
+        tau = int(getattr(impl, "staleness_tau", None) or 0)
+        new_state = {**algo_state, "staleness": torch.full_like(algo_state["staleness"], tau)}
+        if "residual" in algo_state:
+            new_state["residual"] = tree_map(torch.zeros_like, algo_state["residual"])
+        return dataclasses.replace(state, algo_state=new_state)
+
+    # -- switching the algorithm of a live run --------------------------------------
+
+    #: algorithms a live run can move between: their state is the
+    #: optimizer's over the parameters plus zero-initialized scratch
+    #: (residuals, pending shards), so a switch is a re-layout.  The
+    #: decentralized family holds per-rank weights and would need a
+    #: consensus step.
+    SWITCHABLE_ALGORITHMS = ("gradient_allreduce", "zero", "bytegrad")
+
+    def switch_algorithm(self, state: TrainState, algorithm, reason: str = "manual", **algo_kwargs) -> TrainState:
+        """Move the live run to another algorithm of
+        :data:`SWITCHABLE_ALGORITHMS` (a registry name, built with
+        ``algo_kwargs``; or an :class:`Algorithm` or a reified impl).
+
+        Re-buckets under the new algorithm's plan, then maps the optimizer
+        state value for value: into ZeRO the full state is scattered into
+        the updater's rows (``scatter_full_state``) and both the rows and
+        the pending shards are seeded from the live parameters, so the next
+        step's all-gather gives them back bit for bit; out of ZeRO the
+        pending update is gathered into the parameters first
+        (:meth:`finalize_pending_updates`), then the state is gathered
+        whole (``gather_full_state``).  The optimizer is rebuilt over the
+        same stacked parameter tensors.  Residuals restart at zero.  On any
+        exception the engine rolls back its algorithm, plan, updater,
+        overlap knob and plan version, and the caller keeps ``state``.  A
+        switch to the running algorithm returns ``state`` itself.  The JAX
+        engine also re-verifies the new step statically and emits a
+        telemetry event, which the port does not have yet."""
+        from bagua_tpu_torch.algorithms import build_algorithm
+
+        validate_switch_reason(reason)
+        if self.plan is None:
+            raise ValueError("call init() before switch_algorithm()")
+        if isinstance(algorithm, str):
+            if algorithm not in self.SWITCHABLE_ALGORITHMS:
+                raise ValueError(
+                    f"cannot switch a live gang to {algorithm!r}: supported "
+                    f"targets are {self.SWITCHABLE_ALGORITHMS} (the "
+                    "decentralized family holds per-rank weights and needs a "
+                    "consensus step, not a state remap)"
+                )
+            new_impl = build_algorithm(algorithm, **algo_kwargs).reify(self.group)
+        elif isinstance(algorithm, Algorithm):
+            new_impl = algorithm.reify(self.group)
+        else:
+            new_impl = algorithm
+        cur_name = self.impl.algo_name or type(self.impl).__name__
+        new_name = new_impl.algo_name or type(new_impl).__name__
+        if cur_name not in self.SWITCHABLE_ALGORITHMS:
+            raise ValueError(
+                f"cannot switch a live gang OFF {cur_name!r}: its state is "
+                "not a pure re-layout of the switchable family's"
+            )
+        if new_name == cur_name:
+            return state
+        sharded_src = self._sharded_updater is not None
+        sharded_dst = bool(getattr(new_impl, "sharded_update", False))
+
+        pending_before = self._pending_reshard
+        if self._pending_reshard is not None:
+            state = self._apply_pending_reshard(state)
+        if sharded_src:
+            state = self.finalize_pending_updates(state)
+            full_opt = self._sharded_updater.gather_full_state(state.optimizer, state.params)
+        else:
+            full_opt = state.optimizer.state_dict()
+
+        prev = (self.impl, self.plan, self._sharded_updater, self.overlap, self.exchange_counts,
+                self.plan_version)
+        try:
+            self.impl = new_impl
+            if self.overlap is True:
+                cap = new_impl.overlap_capability()
+                if not cap.supported:
+                    logger.warning("switch_algorithm(%s): overlap=True unsupported (%s); "
+                                   "demoting to overlap='auto'", new_name, cap.reason)
+                    self.overlap = "auto"
+            new_impl.overlap_hint = self.overlap_enabled
+            self._sharded_updater = None
+            self._adopt_plan(new_impl.tensors_to_buckets(
+                self._tree_template, self.bucket_size_bytes, filter_fn=self.dp_filter))
+            self._pending_reshard = None
+            self.plan_version += 1
+            algo_state = new_impl.init_state(tree_map(lambda p: p[0], state.params))
+            if sharded_dst:
+                # the rows are seeded from the parameters, and the pending
+                # shards are views of them: the next step's gather is a no-op
+                optimizer = self._sharded_updater.scatter_full_state(full_opt, state.params)
+                algo_state = new_impl.stash_updates(algo_state, self._sharded_updater.pending(optimizer))
+            else:
+                optimizer = self.optimizer(tree_leaves(state.params))
+                optimizer.load_state_dict(full_opt)
+        except Exception:
+            self.impl, self.plan, self._sharded_updater, self.overlap, self.exchange_counts, version = prev
+            self.impl.overlap_hint = self.overlap_enabled
+            self.impl.bind_plan(self.plan)
+            self._pending_reshard = pending_before
+            self.plan_version = version + 1  # a version names one configuration: never reuse one
+            raise
+        self._plan_source = reason.partition(":")[0]
+        return TrainState(state.params, optimizer, algo_state, state.step)
+
     # -- the sharded update --------------------------------------------------------
 
     def clear_pending_reshard(self) -> None:
@@ -550,6 +801,22 @@ class DistributedDataParallel:
         total = sum(v.numel() * v.element_size() for o in opts if o is not None
                     for st in o.state.values() for v in st.values() if torch.is_tensor(v))
         return total // self.group.size
+
+    # -- the algorithm's background machinery --------------------------------------
+
+    def shutdown(self) -> None:
+        """Stop the algorithm's background machinery (async model average's
+        averager thread) for good; safe to call more than once."""
+        self.impl.host_shutdown()
+
+    def abort(self) -> None:
+        """Pause the algorithm's background behaviour (async model average:
+        drain the in-flight average and discard it)."""
+        self.impl.abort()
+
+    def resume(self) -> None:
+        """Undo :meth:`abort`."""
+        self.impl.resume()
 
     # -- convenience --------------------------------------------------------------
 

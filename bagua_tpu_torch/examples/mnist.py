@@ -132,26 +132,29 @@ def main(argv=None):
     algo = build_algorithm(args.algorithm, lr=args.lr, qadam_warmup_steps=20)
     opt = None if args.algorithm == "qadam" else (lambda ps: torch.optim.Adam(ps, lr=args.lr))
     ddp = DistributedDataParallel(net_loss_fn(model), opt, algo, process_group=group)
-    state = ddp.init(module_params(model))
+    try:
+        state = ddp.init(module_params(model))
 
-    xs, ys = real_mnist(args.data_dir) if args.data_dir else synthetic_mnist()
-    print(f"{len(xs)} samples ({'real' if args.data_dir else 'synthetic'})", flush=True)
-    n_batches = len(xs) // args.batch_size
-    if n_batches == 0:
-        raise SystemExit(f"dataset ({len(xs)} samples) smaller than --batch-size "
-                         f"{args.batch_size}; lower the batch size")
-    losses = None
-    done = lambda: args.steps is not None and state.step >= args.steps  # noqa: E731
-    for epoch in range(args.epochs):
-        perm = np.random.RandomState(epoch).permutation(len(xs))
-        for b in range(n_batches):
+        xs, ys = real_mnist(args.data_dir) if args.data_dir else synthetic_mnist()
+        print(f"{len(xs)} samples ({'real' if args.data_dir else 'synthetic'})", flush=True)
+        n_batches = len(xs) // args.batch_size
+        if n_batches == 0:
+            raise SystemExit(f"dataset ({len(xs)} samples) smaller than --batch-size "
+                             f"{args.batch_size}; lower the batch size")
+        losses = None
+        done = lambda: args.steps is not None and state.step >= args.steps  # noqa: E731
+        for epoch in range(args.epochs):
+            perm = np.random.RandomState(epoch).permutation(len(xs))
+            for b in range(n_batches):
+                if done():
+                    break
+                idx = perm[b * args.batch_size:(b + 1) * args.batch_size]
+                state, losses = ddp.train_step(state, (torch.from_numpy(xs[idx]), torch.from_numpy(ys[idx])))
+            print(f"epoch {epoch}: loss {float(losses.mean()):.4f}", flush=True)
             if done():
                 break
-            idx = perm[b * args.batch_size:(b + 1) * args.batch_size]
-            state, losses = ddp.train_step(state, (torch.from_numpy(xs[idx]), torch.from_numpy(ys[idx])))
-        print(f"epoch {epoch}: loss {float(losses.mean()):.4f}", flush=True)
-        if done():
-            break
+    finally:
+        ddp.shutdown()  # no averager thread outlives the run
 
     state = ddp.finalize_pending_updates(state)
     params = ddp.params_unstacked(state)

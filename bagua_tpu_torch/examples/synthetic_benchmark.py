@@ -19,13 +19,18 @@ one-card group measures no compressor.
     python3 -m bagua_tpu_torch.examples.synthetic_benchmark --ranks 4 --intra-size 1 --algorithm bytegrad
 
 ``--algorithm`` takes any registered algorithm: ``zero`` runs ZeRO on the
-f32 wire, its parameters one step behind their update (as the reference's).
+f32 wire, its parameters one step behind their update (as the reference's);
+``async`` averages the model on a background thread every 500 ms (the
+reference's CI takes ``--algorithm async``), ``stale`` is the
+bounded-staleness allreduce (τ 0 by default: bulk synchronous).  The run
+ends with ``ddp.shutdown()``, also when it raises, so no averager thread
+outlives it.
 """
 
 import argparse
 import dataclasses
 import time
-from typing import Any
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -63,32 +68,48 @@ def _wait(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(model: VGG, params, group, algorithm: str = "gradient_allreduce", algorithm_kwargs=None,
-        batch_size: int = 32, num_iters: int = 30, num_warmup: int = 3, overlap="auto") -> BenchmarkResult:
+def run(model: VGG, params, group, algorithm="gradient_allreduce", algorithm_kwargs=None,
+        batch_size: int = 32, num_iters: int = 30, num_warmup: int = 3, overlap="auto",
+        on_step: Optional[Callable] = None) -> BenchmarkResult:
     """Train ``model`` (a VGG, parameters ``params``) on one synthetic batch
     of ``batch_size`` per rank over ``group`` with the algorithm registered
-    as ``algorithm`` (built with ``algorithm_kwargs``); prints and returns
-    the reference's result line."""
+    as ``algorithm`` (built with ``algorithm_kwargs``), or an
+    :class:`~bagua_tpu_torch.algorithms.base.Algorithm` given as it is;
+    prints and returns the reference's result line.  ``on_step(i, state,
+    ddp)`` runs before step i (warm-up steps counted, from 0) and returns
+    the state the step takes: a directive flip or an algorithm switch.
+    The engine is shut down when the run ends, also when it raises."""
     device = group.device
-    algo = build_algorithm(algorithm, lr=1e-3, qadam_warmup_steps=10, **(algorithm_kwargs or {}))
+    if isinstance(algorithm, str):
+        algo = build_algorithm(algorithm, lr=1e-3, qadam_warmup_steps=10, **(algorithm_kwargs or {}))
+    else:
+        algo, algorithm = algorithm, type(algorithm).__name__
     optimizer = None if algorithm == "qadam" else lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9)
     ddp = DistributedDataParallel(vgg_loss_fn(model), optimizer, algo, process_group=group, overlap=overlap)
-    state = ddp.init(params)
-    rng = np.random.RandomState(0)
-    n, side = batch_size * group.size, model.image_size
-    batch = (torch.from_numpy(rng.rand(n, side, side, 3).astype(np.float32)).to(device),
-             torch.from_numpy(rng.randint(0, model.num_classes, (n,)).astype(np.int32)).to(device))
+    try:
+        state = ddp.init(params)
+        rng = np.random.RandomState(0)
+        n, side = batch_size * group.size, model.image_size
+        batch = (torch.from_numpy(rng.rand(n, side, side, 3).astype(np.float32)).to(device),
+                 torch.from_numpy(rng.randint(0, model.num_classes, (n,)).astype(np.int32)).to(device))
 
-    losses: Any = None
-    t0 = time.perf_counter()
-    for _ in range(num_warmup):
-        state, losses = ddp.train_step(state, batch)
-    _wait(device)
-    t1 = time.perf_counter()
-    for _ in range(num_iters):
-        state, losses = ddp.train_step(state, batch)
-    _wait(device)
-    dt = time.perf_counter() - t1
+        def step(i, state):
+            if on_step is not None:
+                state = on_step(i, state, ddp)
+            return ddp.train_step(state, batch)
+
+        losses: Any = None
+        t0 = time.perf_counter()
+        for i in range(num_warmup):
+            state, losses = step(i, state)
+        _wait(device)
+        t1 = time.perf_counter()
+        for i in range(num_warmup, num_warmup + num_iters):
+            state, losses = step(i, state)
+        _wait(device)
+        dt = time.perf_counter() - t1
+    finally:
+        ddp.shutdown()
 
     sps = batch_size * group.size * num_iters / dt / group.size
     line = (f"model=vgg16 algorithm={algorithm} batch={batch_size}/chip chips={group.size}: "

@@ -73,7 +73,7 @@ class ShardedOptimizerUpdater:
         self.plan = plan
         self.group = group
         self.layout = ShardLayout.from_plan(plan, group.exchange_size)
-        self._covered = {s.name for spec in plan.specs for s in spec.slots}
+        self._covered = plan.covered()
 
     # -- helpers -------------------------------------------------------------
 
@@ -150,10 +150,9 @@ class ShardedOptimizerUpdater:
     # re-laid out: moment rows are flat slices of the full moments, counts
     # are shape-free.  The two methods below map between this state and the
     # unsharded engine's ``optimizer.state_dict()`` (its optimizer is over
-    # ``tree_leaves`` of the rank-stacked parameters) without a collective.
-    # The engine does not call them yet: ``rebucket`` migrates through
-    # :meth:`reshard_state`; ``switch_algorithm`` into and out of ZeRO
-    # (ROADMAP Queue 1 item 4) is their user.
+    # ``tree_leaves`` of the rank-stacked parameters) without a collective:
+    # the engine's ``switch_algorithm`` into and out of ZeRO calls them
+    # (``rebucket`` migrates through :meth:`reshard_state`).
 
     def gather_full_state(self, opt_state: ShardedOptState, params) -> dict:
         """The sharded state as the unsharded engine's ``state_dict()``

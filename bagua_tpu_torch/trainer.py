@@ -28,6 +28,13 @@ class Trainer:
         )
         self.losses = None
 
+    def close(self) -> None:
+        """Release the algorithm's background machinery (the async
+        averager's thread); idempotent.  The JAX ``Trainer`` also stops its
+        profiler, snapshotter, watchdog and telemetry here, which the port
+        does not have yet."""
+        self.ddp.shutdown()
+
     def init_state(self, params) -> TrainState:
         return self.ddp.init(params)
 

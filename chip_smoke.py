@@ -49,7 +49,11 @@ and no result line:
    unsharded f32 and ByteGrad runs; then decentralized SGD (``all``,
    ``shift_one``), low-precision decentralized and QAdam on the small VGG,
    card against CPU, each also with overlap on the card (bitwise equal to
-   monolithic; low precision within ``LP_OVERLAP_TOL``).
+   monolithic; low precision within ``LP_OVERLAP_TOL``); then stale-sync
+   (τ 2) and gossip decentralized (``all``, ``shift_one``; τ 1) with rank
+   2 under the degradation directive, card against CPU, the counters, and
+   on the card overlap and τ=0 bitwise; the switch ``gradient_allreduce``
+   -> ``zero`` bitwise equal on the card to a run that stayed unsharded.
 5. slice   -- trains full-width VGG16 (224x224, 1000 classes, bf16
    compute, f32 parameters, batch 32 per rank) over 4 ranks on this one
    card through ``Trainer.fit`` with the monolithic step (``overlap=False``),
@@ -68,7 +72,11 @@ and no result line:
    optimizer state per rank; then the decentralized pair and QAdam through
    the twin, 6 steps each (``DP_PATHS``: launches per step and bucket, the
    census, the algorithm state per rank); then the MNIST twin
-   (``gradient_allreduce`` + Adam and ``"none"``); then Llama at ``llama_7b_config``'s
+   (``gradient_allreduce`` + Adam and ``"none"``); then the relaxations
+   through the twin (``RELAX_PATHS``: stale and gossip with the directive,
+   GradientAccumulation(ByteGrad, every=4), ``"none"`` and async, the
+   switch ``gradient_allreduce`` -> ``zero`` -> ``bytegrad``; counters,
+   exact launches, folds, no thread left, optimizer bytes); then Llama at ``llama_7b_config``'s
    width (2 layers, one sequence of 4096 tokens, f32) over 4 ranks, 5 AdamW
    steps of ``examples.llama_pretrain.train_step``, once as 4 zigzag ring
    ranks (sp 4) and once at tp 2 x sp 2 (path (b)); then path (a): the
@@ -96,6 +104,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -103,8 +112,8 @@ import torch.nn.functional as F
 
 from bagua_tpu_torch import BaguaProcessGroup, init_process_group
 from bagua_tpu_torch.algorithms import (
-    ByteGradAlgorithm, DecentralizedAlgorithm, GradientAllReduceAlgorithm, LowPrecisionDecentralizedAlgorithm,
-    QAdamAlgorithm, QAdamOptimizer,
+    ByteGradAlgorithm, DecentralizedAlgorithm, GradientAccumulation, GradientAllReduceAlgorithm,
+    LowPrecisionDecentralizedAlgorithm, QAdamAlgorithm, QAdamOptimizer, StaleSyncAlgorithm,
 )
 from bagua_tpu_torch.ddp import DistributedDataParallel
 from bagua_tpu_torch.examples import llama_pretrain as lp
@@ -1574,6 +1583,324 @@ def phase_mnist(device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The sync <-> async relaxations: stale-sync, gossip decentralized,
+# gradient accumulation, async model average, and switching the algorithm
+# of a live run
+# ---------------------------------------------------------------------------
+
+#: the rank under the degradation directive on the stale and gossip paths
+STALE_RANK = 2
+STALE_TAU, GOSSIP_TAU = 2, 1
+RELAX_STEPS = 6
+
+
+def _small_run(device, algorithm, params, batch, steps, overlap=False, before=None, lr=REF_LR):
+    """``steps`` SGD steps of the small f32 VGG over RANKS ranks
+    (``intra_size=1``, REF_DP_BUCKET buckets) with ``algorithm``;
+    ``before(i, state, ddp)`` runs before step i and returns the state it
+    takes.  Returns every step's per-rank losses, the final stacked
+    parameters (on the CPU, the pending ZeRO update gathered), the
+    algorithm state's staleness counters after each step (None without
+    them) and the engine."""
+    group = BaguaProcessGroup([device] * RANKS, intra_size=1)
+    ddp = DistributedDataParallel(vgg_loss_fn(VGG(device=device, **REF_VGG)),
+                                  lambda ps: torch.optim.SGD(ps, lr=lr), algorithm, group,
+                                  bucket_size_bytes=REF_DP_BUCKET, overlap=overlap)
+    state = ddp.init(tree_map(lambda t: t.to(device), params))
+    batch = tuple(t.to(device) for t in batch)
+    losses, counters = [], []
+    for i in range(steps):
+        if before is not None:
+            state = before(i, state, ddp)
+        state, step_losses = ddp.train_step(state, batch)
+        losses.append(step_losses.cpu())
+        if isinstance(state.algo_state, dict) and "staleness" in state.algo_state:
+            counters.append(state.algo_state["staleness"].tolist())
+    state = ddp.finalize_pending_updates(state)
+    return losses, [t.cpu() for t in tree_leaves(state.params)], counters or None, ddp
+
+
+def _counter(i: int, tau: int) -> int:
+    """The staleness counter, after step i, of a rank under the directive
+    from step 0: it replays tau rounds, then makes a fresh one."""
+    return (i % (tau + 1)) + 1 if i % (tau + 1) < tau else 0
+
+
+def _flag(ranks):
+    """``before``: the degradation directive on ``ranks`` before step 0."""
+    return lambda i, state, ddp: ddp.apply_degradation_directive(state, ranks) if i == 0 else state
+
+
+def _switching(plan):
+    """``before``: ``ddp.switch_algorithm`` to ``plan[i]`` before step i."""
+    return lambda i, state, ddp: ddp.switch_algorithm(state, plan[i], reason="manual") if i in plan else state
+
+
+def _runs_equal(a, b) -> bool:
+    return all(same(x, y) for x, y in zip(a[0], b[0])) and all(same(x, y) for x, y in zip(a[1], b[1]))
+
+
+def phase_reference_relax(device) -> None:
+    """The relaxations on the small f32 VGG, on the card against the CPU
+    (plain versions) from the same weights and data, cuDNN deterministic,
+    TF32 off; RELAX_STEPS steps, rank STALE_RANK under the directive:
+
+    - stale-sync (τ STALE_TAU) and gossip decentralized (``all`` and
+      ``shift_one``, τ GOSSIP_TAU): parameters within the f32 wire's bound
+      of the CPU run's (RELAX_STEPS x REF_LR x F32_GROWTH x noise, all but
+      FLIPPED_SHARE within RELAX_STEPS x REF_LR x noise), the staleness
+      counters equal; on the card the overlap run (stale: post-step; gossip:
+      the weight mode, several buckets) bitwise equal to the monolithic
+      one, and τ=0 bitwise equal to ``gradient_allreduce`` (stale) and to
+      τ=None (gossip);
+    - the switch ``gradient_allreduce`` -> ``zero`` after 3 steps: bitwise
+      equal on the card to a run that stayed on ``gradient_allreduce``, and
+      within the f32 bound of the same switch on the CPU."""
+    gen = torch.Generator().manual_seed(2)
+    params = module_params(VGG(device="cpu", generator=gen, **REF_VGG))
+    side = REF_VGG["image_size"]
+    batch = (torch.rand((RANKS * 8, side, side, 3), generator=gen),
+             torch.randint(0, REF_VGG["num_classes"], (RANKS * 8,), generator=gen))
+    cpu = torch.device("cpu")
+    with _no_tf32():
+        noise = _gradient_noise(device, params, batch)
+    loose, tight = RELAX_STEPS * REF_LR * F32_GROWTH * noise, RELAX_STEPS * REF_LR * noise
+    cases = {
+        "stale": (lambda tau=STALE_TAU: StaleSyncAlgorithm(staleness_tau=tau), GradientAllReduceAlgorithm),
+        "gossip all": (lambda tau=GOSSIP_TAU: DecentralizedAlgorithm(hierarchical=False, staleness_tau=tau),
+                       lambda: DecentralizedAlgorithm(hierarchical=False)),
+        "gossip shift_one": (lambda tau=GOSSIP_TAU: DecentralizedAlgorithm(
+            hierarchical=False, peer_selection_mode="shift_one", staleness_tau=tau),
+            lambda: DecentralizedAlgorithm(hierarchical=False, peer_selection_mode="shift_one")),
+    }
+    with _deterministic(), _no_tf32():
+        for name, (algo, off) in cases.items():
+            flag = _flag((STALE_RANK,))
+            got = _small_run(device, algo(), params, batch, RELAX_STEPS, before=flag)
+            ov = _small_run(device, algo(), params, batch, RELAX_STEPS, overlap=True, before=flag)
+            want = _small_run(cpu, algo(), params, batch, RELAX_STEPS, before=flag)
+            if not ov[3].overlap_enabled or (name != "stale" and ov[3].plan.num_buckets < 2):
+                raise AssertionError(f"{name}: the overlap run has {ov[3].plan.num_buckets} buckets")
+            if not _runs_equal(got, ov) or got[2] != ov[2]:
+                raise AssertionError(f"{name}: overlap and monolithic runs on the card differ")
+            tau = STALE_TAU if name == "stale" else GOSSIP_TAU
+            if got[2] != want[2] or got[2] != [[_counter(i, tau) if r == STALE_RANK else 0 for r in range(RANKS)]
+                                               for i in range(RELAX_STEPS)]:
+                raise AssertionError(f"{name}: staleness counters {got[2]} on the card, {want[2]} on the CPU")
+            zero_tau = _small_run(device, algo(0), params, batch, RELAX_STEPS, before=flag)
+            plain = _small_run(device, off(), params, batch, RELAX_STEPS)
+            if not _runs_equal(zero_tau, plain):
+                raise AssertionError(f"{name}: τ=0 differs on the card from the run without staleness")
+            err, beyond = _within(name, "parameters", got[1], want[1], tight, loose)
+            log(f"[reference] small VGG, {RELAX_STEPS} {name} steps, rank {STALE_RANK} under the directive, "
+                f"card vs CPU: losses {got[0][0].mean():.6f} -> {got[0][-1].mean():.6f} vs "
+                f"{want[0][0].mean():.6f} -> {want[0][-1].mean():.6f}; parameters within {err:.3e} "
+                f"(tolerance {loose:.3e}), {beyond}; rank {STALE_RANK}'s counters "
+                f"{[c[STALE_RANK] for c in got[2]]}; overlap "
+                f"({ov[3].plan.num_buckets} buckets) and τ=0 bitwise equal on the card")
+        switch = _switching({3: "zero"})
+        got = _small_run(device, GradientAllReduceAlgorithm(), params, batch, RELAX_STEPS, overlap="auto",
+                         before=switch)
+        stay = _small_run(device, GradientAllReduceAlgorithm(), params, batch, RELAX_STEPS, overlap="auto")
+        want = _small_run(cpu, GradientAllReduceAlgorithm(), params, batch, RELAX_STEPS, overlap="auto",
+                          before=switch)
+        if got[3].impl.algo_name != "zero" or not _runs_equal(got, stay):
+            raise AssertionError("switch to zero: the continuation differs on the card from the unsharded run")
+        err, beyond = _within("switch", "parameters", got[1], want[1], tight, loose)
+        log(f"[reference] small VGG, {RELAX_STEPS} steps, gradient_allreduce -> zero after 3: bitwise equal "
+            f"on the card to the run that stayed unsharded; card vs CPU within {err:.3e} (tolerance "
+            f"{loose:.3e}), {beyond}")
+
+
+#: the relaxations at full width, through the synthetic benchmark's twin:
+#: name -> (algorithm (a registry name, or a factory of an Algorithm), its
+#: arguments, overlap, steps, launches per bucket on the steps that
+#: exchange).  Stale and gossip run with rank STALE_RANK under the directive
+#: from step 0
+RELAX_PATHS = {
+    "stale τ=2": ("stale", {"staleness_tau": STALE_TAU}, False, RELAX_STEPS, {}),
+    "stale τ=2 (overlap)": ("stale", {"staleness_tau": STALE_TAU}, True, RELAX_STEPS, {}),
+    "gossip all τ=1": ("decentralized", {"hierarchical": False, "staleness_tau": GOSSIP_TAU}, False,
+                       RELAX_STEPS, {}),
+    "gossip all τ=1 (overlap)": ("decentralized", {"hierarchical": False, "staleness_tau": GOSSIP_TAU}, True,
+                                 RELAX_STEPS, {}),
+    "gossip shift_one τ=1": ("decentralized", {"hierarchical": False, "peer_selection_mode": "shift_one",
+                                               "staleness_tau": GOSSIP_TAU}, False, RELAX_STEPS, {}),
+    "gossip shift_one τ=1 (overlap)": ("decentralized", {"hierarchical": False, "peer_selection_mode": "shift_one",
+                                                         "staleness_tau": GOSSIP_TAU}, True, RELAX_STEPS, {}),
+    "GradientAccumulation(ByteGrad, every=4)": (
+        lambda: GradientAccumulation(ByteGradAlgorithm(), every=4), {}, False, 8, SLICE_PATHS["ByteGrad"][1]),
+    "async": ("async", {"sync_interval_ms": 50, "warmup_steps": 2}, False, 12, {}),
+    "none": ("none", {}, False, 12, {}),
+    "switch gradient_allreduce -> zero -> bytegrad": ("gradient_allreduce", {}, "auto", 9,
+                                                      SLICE_PATHS["ByteGrad"][1]),
+}
+#: GradientAccumulation's boundary steps among its 8, and the switch path's
+#: targets by step
+ACCUMULATION_BOUNDARIES = (3, 7)
+SWITCHES = {3: "zero", 6: "bytegrad"}
+
+
+def _rank_spread(params) -> float:
+    """The largest difference between two ranks' copies of a parameter."""
+    return max(float((t.amax(0) - t.amin(0)).abs().max()) for t in tree_leaves(params))
+
+
+def phase_relax(device, profile: bool, name: str, spread_of_none=None) -> dict:
+    """Full-width VGG16 (bf16, batch BATCH_PER_RANK a rank, seed-0 weights)
+    over RANKS ranks through the twin with the path ``name`` of
+    RELAX_PATHS: the first step a warm-up, the rest timed; the device time
+    of every step from CUDA events recorded between the steps (no host
+    wait inside the run).  Checks finite losses and the launch counts, and:
+
+    - stale and gossip: rank STALE_RANK's staleness counter after each step
+      cycles as τ bounds it (stale τ 2: 1, 2, 0, ...; gossip τ 1: 1, 0,
+      ...), every other rank's stays 0; stale's ranks bitwise equal
+      (everyone adds the same average); overlap's census (gossip: each
+      bucket once a step in ``backward_order()``; stale's post-step mode
+      none);
+    - GradientAccumulation(ByteGrad, every=4): exactly 2 boundary steps'
+      worth of ByteGrad's launches (12 buckets x its per-bucket counts x
+      2); the parameters bitwise unchanged and SGD's momentum not even
+      created over the first 3 steps; the ranks bitwise equal after;
+    - async (``sync_interval_ms`` 50, warmup 2): at least one fold, none
+      failed; after ``abort()`` and ``shutdown()`` no averager thread
+      alive; the ranks' parameter spread below that of the ``"none"`` run
+      from the same weights and data (``spread_of_none``);
+    - the switch: ``gradient_allreduce`` (3 steps), ``zero`` (3),
+      ``bytegrad`` (3), overlap ``"auto"``: optimizer state per rank
+      553,430,176 -> 138,357,544 -> 553,430,176 B (4 bytes a parameter,
+      then a shard), the codec launched in
+      the ByteGrad leg only, the ranks bitwise equal at each switch and at
+      the end.
+
+    Prints ms/step, img/s per rank, the peak memory and the algorithm state
+    per rank; returns the launch counts and, for ``"none"``, its spread."""
+    algorithm, kwargs, overlap, steps, per_bucket = RELAX_PATHS[name]
+    if callable(algorithm):
+        algorithm = algorithm()
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = sb.build("vgg16", torch.bfloat16, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, seen = [], {}
+    stale_path = name.startswith(("stale", "gossip"))
+
+    def on_step(i, state, ddp):
+        marks.append(torch.cuda.current_stream(device).record_event(torch.cuda.Event(enable_timing=True)))
+        if i > 0 and stale_path:
+            seen.setdefault("counters", []).append(state.algo_state["staleness"].clone())
+        if stale_path and i == 0:
+            return ddp.apply_degradation_directive(state, (STALE_RANK,))
+        if name.startswith("GradientAccumulation") and i in (0, ACCUMULATION_BOUNDARIES[0]):
+            seen[i] = ([t.clone() for t in tree_leaves(state.params)], len(state.optimizer.state))
+        if name.startswith("switch") and i in SWITCHES:
+            seen.setdefault("launches", []).append(read_launches())
+            synced = ddp.finalize_pending_updates(state)
+            seen.setdefault("synced", []).append(all(
+                torch.equal(t[0], t[r]) for t in tree_leaves(synced.params) for r in range(1, RANKS)))
+            seen.setdefault("bytes", []).append(ddp.optimizer_state_bytes(synced))
+            state = ddp.switch_algorithm(synced, SWITCHES[i], reason="manual")
+            seen["bytes"].append(ddp.optimizer_state_bytes(state))
+            if SWITCHES[i] == "zero":  # SGD momentum over each rank's shards of the padded buckets
+                seen["sharded"] = 4 * sum(spec.numel for spec in ddp.plan.specs) // RANKS
+        return state
+
+    reset_launches()
+    result = sb.run(model, params, group, algorithm, kwargs, batch_size=BATCH_PER_RANK,
+                    num_iters=steps - 1, num_warmup=1, overlap=overlap, on_step=on_step)
+    marks.append(torch.cuda.current_stream(device).record_event(torch.cuda.Event(enable_timing=True)))
+    launches = read_launches()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    ddp = result.ddp
+    state = ddp.finalize_pending_updates(result.state)
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    if not torch.isfinite(result.losses).all():
+        raise AssertionError(f"{name}: non-finite loss {result.losses.tolist()}")
+    if ddp.overlap_enabled is not bool(overlap):
+        raise AssertionError(f"{name}: the engine resolved overlap={ddp.overlap_enabled}")
+    buckets = ddp.plan.num_buckets
+    exchanging = {"GradientAccumulation(ByteGrad, every=4)": len(ACCUMULATION_BOUNDARIES),
+                  "switch gradient_allreduce -> zero -> bytegrad": steps - max(SWITCHES)}.get(name, steps)
+    want = {kernel: exchanging * buckets * per_bucket.get(kernel, 0) for kernel in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches}, want {want}")
+    ranks_equal = all(torch.equal(t[0], t[r]) for t in tree_leaves(state.params) for r in range(1, RANKS))
+    extra = ""
+    if stale_path:
+        counters = [c.tolist() for c in seen["counters"]] + [state.algo_state["staleness"].tolist()]
+        cycle = [_counter(i, kwargs["staleness_tau"]) for i in range(steps)]
+        if [c[STALE_RANK] for c in counters] != cycle or any(
+                c[r] for c in counters for r in range(RANKS) if r != STALE_RANK):
+            raise AssertionError(f"{name}: staleness counters {counters}, want {cycle} on rank {STALE_RANK}")
+        hooked = overlap and name.startswith("gossip")
+        census = ([steps if hooked else 0] * buckets, ddp.plan.backward_order() if hooked else [])
+        if (ddp.exchange_counts, ddp.exchange_order) != census:
+            raise AssertionError(f"{name}: exchanges per bucket {ddp.exchange_counts} in order "
+                                 f"{ddp.exchange_order}, want {census}")
+        if name.startswith("stale") and not ranks_equal:
+            raise AssertionError(f"{name}: ranks' parameters differ")
+        extra = f"; rank {STALE_RANK}'s staleness after each step {[c[STALE_RANK] for c in counters]}"
+    elif name.startswith("GradientAccumulation"):
+        (p0, n0), (p3, n3) = seen[0], seen[ACCUMULATION_BOUNDARIES[0]]
+        if not all(torch.equal(a, b) for a, b in zip(p0, p3)) or n0 or n3:
+            raise AssertionError(f"{name}: the first 3 steps moved the parameters or made momentum ({n0}, {n3})")
+        if not ranks_equal:
+            raise AssertionError(f"{name}: ranks' parameters differ after the boundary steps")
+        del p0, p3
+        bound = [step_ms[i] for i in ACCUMULATION_BOUNDARIES]
+        held = [ms for i, ms in enumerate(step_ms) if i and i not in ACCUMULATION_BOUNDARIES]
+        extra = (f"; boundary steps {statistics.mean(bound):.1f} ms, the others "
+                 f"{statistics.mean(held):.1f} ms (device time between steps)")
+    elif name in ("async", "none"):
+        impl = ddp.impl
+        spread = _rank_spread(state.params)
+        if name == "async":
+            ddp.abort()
+            ddp.shutdown()
+            alive = [t for t in threading.enumerate() if t.name == "bagua-async-averager"]
+            if impl.folds_applied < 1 or impl.folds_failed or alive:
+                raise AssertionError(f"{name}: {impl.folds_applied} folds, {impl.folds_failed} failed, "
+                                     f"{len(alive)} averager threads alive after shutdown")
+            if not spread < spread_of_none:
+                raise AssertionError(f"{name}: ranks' spread {spread:.3e}, not below none's {spread_of_none:.3e}")
+            extra = (f"; {impl.folds_applied} folds, {impl.folds_failed} failed, no averager thread alive "
+                     f"after abort() and shutdown(); ranks' spread {spread:.3e} against none's "
+                     f"{spread_of_none:.3e}")
+        else:
+            extra = f"; ranks' spread {spread:.3e}"
+    elif name.startswith("switch"):
+        # SGD momentum: 4 bytes a parameter a rank, unsharded (553,430,176 B
+        # for VGG16); ZeRO's shards of the padded buckets (138,357,544 B)
+        full = 4 * sum(t[0].numel() for t in tree_leaves(state.params))
+        want_bytes = [full, seen["sharded"], seen["sharded"], full]
+        if seen["bytes"] != want_bytes or not all(seen["synced"]) or not ranks_equal:
+            raise AssertionError(f"{name}: optimizer state per rank {seen['bytes']} B, want {want_bytes}; "
+                                 f"ranks equal at the switches {seen['synced']}, at the end {ranks_equal}")
+        if any(any(counts.values()) for counts in seen["launches"]):
+            raise AssertionError(f"{name}: kernels launched before the ByteGrad leg: {seen['launches']}")
+        extra = (f"; optimizer state per rank {seen['bytes'][0]} -> {seen['bytes'][1]} -> {seen['bytes'][-1]} B; "
+                 "no codec launch before the ByteGrad leg; ranks bitwise equal at both switches and at the end")
+    timed = step_ms[1:]
+    ms = statistics.mean(timed)
+    log(f"[relax] VGG16 bf16, {RANKS} ranks x batch {BATCH_PER_RANK}, {name}, {buckets} bucket(s): warm-up "
+        f"step {result.warmup_seconds:.3f} s, then {result.step_seconds * 1e3:.1f} ms/step host clock "
+        f"({ms:.1f} device) = {BATCH_PER_RANK / result.step_seconds:.1f} img/s per rank; per step "
+        f"{[round(t, 1) for t in timed]} ms; loss {result.losses.tolist()}; peak memory {peak:.1f} GiB; "
+        f"algorithm state {algo_state_bytes(state)} B per rank, optimizer state "
+        f"{ddp.optimizer_state_bytes(state)} B per rank; launches {launches}{extra}")
+    if profile:
+        profile_step(name, lambda: ddp.train_step(state, result.batch),
+                     ddp.side_stream if overlap and name.startswith("gossip") else None)
+    # the spread before the traced step, which moves the parameters again
+    return (launches, spread) if name == "none" else launches
+
+
 REF_LLAMA = LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
                         intermediate_size=512, max_position_embeddings=256, sp_axis="intra",
                         sp_layout="zigzag")
@@ -1934,6 +2261,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_reference(device)
     phase_reference_dp(device)
+    phase_reference_relax(device)
     phase_llama_reference(device)
     phase_tp_reference(device)
     per_path = {}
@@ -1948,6 +2276,11 @@ def main(argv) -> int:
         per_path[name] = phase_dp(device, profile, name)
     torch.cuda.empty_cache()
     per_path["MNIST"] = phase_mnist(device)
+    per_path["none"], spread_of_none = phase_relax(device, profile, "none")
+    for name in RELAX_PATHS:
+        if name != "none":
+            per_path[name] = phase_relax(device, profile, name, spread_of_none)
+    torch.cuda.empty_cache()
     per_path["Llama"] = phase_llama_slice(device, profile)
     torch.cuda.empty_cache()
     per_path["Llama tp"] = phase_llama_slice(device, profile, (1, 2, 2))

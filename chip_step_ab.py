@@ -17,7 +17,9 @@ without it has no other step) and, where the tree has it, the overlap
 step.  Each path: 2 warm-up steps,
 then ``--steps`` steps ending in ``torch.cuda.synchronize()``; its ms/step,
 its peak memory (``torch.cuda.max_memory_allocated``) and, where the engine
-reports it, its optimizer state per rank.  Prints each turn's numbers and a
+reports it, its optimizer state per rank, and its algorithm state per rank.  ``async``'s numbers follow the
+wall clock (its averager folds when its thread gets the engine's lock),
+so they vary from run to run more than the others'.  Prints each turn's numbers and a
 JSON line with the faster of each tree's two turns per path.  Exits
 non-zero without a card.
 """
@@ -51,7 +53,22 @@ WIRES = {
     # chip_smoke.QADAM_FULL (at larger lr a warmup this short runs away)
     "QAdam": ("bagua_tpu_torch.algorithms.q_adam", "QAdamAlgorithm",
               {"lr": 1e-5, "warmup_steps": 2, "eps": 1e-3}),
+    # no exchange at all: the step the relaxations are held against
+    "none": ("bagua_tpu_torch.algorithms", "NoCommAlgorithm", {}),
+    # no rank under the directive: the gate's work is the same either way
+    "stale τ=2": ("bagua_tpu_torch.algorithms.stale", "StaleSyncAlgorithm", {"staleness_tau": 2}),
+    "gossip all τ=1": ("bagua_tpu_torch.algorithms.decentralized", "DecentralizedAlgorithm",
+                       {"hierarchical": False, "staleness_tau": 1}),
+    # ByteGrad's exchange and the update on every fourth step
+    "GradientAccumulation ByteGrad every=4": ("bagua_tpu_torch.algorithms.grad_accumulation",
+                                              "GradientAccumulation", {"every": 4}),
+    # wall-clock driven: the averager folds when its thread gets the lock,
+    # so its steps differ from run to run
+    "async": ("bagua_tpu_torch.algorithms.async_model_average", "AsyncModelAverageAlgorithm",
+              {"sync_interval_ms": 50, "warmup_steps": 2}),
 }
+#: wires whose algorithm has no overlap mode
+MONOLITHIC_ONLY = {"none", "GradientAccumulation ByteGrad every=4", "async"}
 
 
 def _algorithm(module: str, cls: str, kwargs: dict):
@@ -60,6 +77,10 @@ def _algorithm(module: str, cls: str, kwargs: dict):
     mod = importlib.import_module(module)
     if cls == "QAdamAlgorithm":
         return mod.QAdamAlgorithm(mod.QAdamOptimizer(**kwargs))
+    if cls == "GradientAccumulation":
+        from bagua_tpu_torch.algorithms import ByteGradAlgorithm
+
+        return mod.GradientAccumulation(ByteGradAlgorithm(), **kwargs)
     return getattr(mod, cls)(**kwargs)
 
 
@@ -71,6 +92,7 @@ def worker(root: str, steps: int, names) -> dict:
     from bagua_tpu_torch import init_process_group
     from bagua_tpu_torch.models.vgg import init_vgg16, vgg_loss_fn
     from bagua_tpu_torch.trainer import Trainer
+    from bagua_tpu_torch.utils import tree_leaves
 
     assert os.path.abspath(sys.modules["bagua_tpu_torch"].__file__).startswith(os.path.abspath(root))
     device = torch.device("cuda", 0)
@@ -84,6 +106,8 @@ def worker(root: str, steps: int, names) -> dict:
         if "overlap" in inspect.signature(Trainer).parameters else {"monolithic": {}}
     out = {}
     for (wire, algorithm), (mode, kwargs) in itertools.product(wires.items(), modes.items()):
+        if mode == "overlap" and wire in MONOLITHIC_ONLY:
+            continue
         gc.collect()
         torch.cuda.empty_cache()
         gen = torch.Generator(device=device).manual_seed(0)
@@ -91,7 +115,11 @@ def worker(root: str, steps: int, names) -> dict:
                                    device=device)
         algo = algorithm()
         optimizer = None if hasattr(algo, "optimizer") else lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9)
-        trainer = Trainer(vgg_loss_fn(model), optimizer, algo, group, **kwargs)
+        try:
+            trainer = Trainer(vgg_loss_fn(model), optimizer, algo, group, **kwargs)
+        except NotImplementedError as e:  # a tree that has the module but not this option
+            print(f"[ab] {root}: {wire} {mode} skipped: {e}", file=sys.stderr, flush=True)
+            continue
         state = trainer.init_state(params)
         del params
         batch = (torch.rand((128, 224, 224, 3), generator=gen, device=device),
@@ -109,6 +137,12 @@ def worker(root: str, steps: int, names) -> dict:
         out[f"{wire} {mode}"] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         if hasattr(trainer.ddp, "optimizer_state_bytes"):
             out[f"{wire} {mode}"]["optimizer_bytes_per_rank"] = trainer.ddp.optimizer_state_bytes(state)
+        # the algorithm's state: its distinct tensors over the ranks
+        algo = {t.data_ptr(): t.numel() * t.element_size() for t in tree_leaves(state.algo_state)
+                if torch.is_tensor(t)}
+        out[f"{wire} {mode}"]["algorithm_bytes_per_rank"] = sum(algo.values()) // 4
+        if hasattr(trainer, "close"):
+            trainer.close()
         del state, trainer, model, batch
     return out
 
@@ -148,6 +182,7 @@ def main(argv) -> int:
         for path, row in turn.items():
             opt = f", optimizer state {row['optimizer_bytes_per_rank']} B per rank" \
                 if "optimizer_bytes_per_rank" in row else ""
+            opt += f", algorithm state {row['algorithm_bytes_per_rank']} B per rank"
             print(f"[ab] {tree} {path}: {row['ms']:.2f} ms/step, peak {row['peak_gib']:.2f} GiB{opt}", flush=True)
             prev = best.setdefault(tree, {}).get(path)
             if prev is None or row["ms"] < prev["ms"]:

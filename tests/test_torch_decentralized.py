@@ -45,7 +45,7 @@ from bagua_tpu_torch.communication import BaguaProcessGroup, broadcast_inplace, 
 from bagua_tpu_torch.convert import params_from_jax
 from bagua_tpu_torch.ddp import DistributedDataParallel
 from bagua_tpu_torch.models import mlp
-from bagua_tpu_torch.utils import tree_leaves
+from bagua_tpu_torch.utils import tree_leaves, tree_map
 
 N = 8
 LAYERS = [12, 16, 16, 4]
@@ -350,7 +350,9 @@ def test_low_precision_overlap_close_not_bitwise(tgroup):
 
 def test_fences_match_jax(group):
     """An odd number of ``shift_one`` peers raises at construction with the
-    reference's message; gossip (``staleness_tau``) is not ported."""
+    reference's message; gossip (``staleness_tau``) raises as the JAX
+    package does for a hierarchical exchange, an interval and a negative
+    τ, and its knob only on an instance built with a τ."""
     for devices, intra, hier in ((6, 2, True), (3, 1, False), (5, 5, False)):
         tg = BaguaProcessGroup([torch.device("cpu")] * devices, intra_size=intra)
         peers = devices // intra if hier else devices
@@ -359,8 +361,18 @@ def test_fences_match_jax(group):
             DecentralizedAlgorithm(hierarchical=hier, peer_selection_mode="shift_one").reify(tg)
     tg = BaguaProcessGroup([torch.device("cpu")] * 6, intra_size=6)
     DecentralizedAlgorithm(hierarchical=True, peer_selection_mode="shift_one").reify(tg)  # one node: no peers
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        DecentralizedAlgorithm(staleness_tau=0).reify(tg)
+    for kw in (dict(hierarchical=True, staleness_tau=2), dict(hierarchical=False, staleness_tau=-1),
+               dict(hierarchical=False, communication_interval=2, staleness_tau=2)):
+        with pytest.raises(ValueError) as got:
+            DecentralizedAlgorithm(**kw).reify(tg)
+        with pytest.raises(ValueError) as want:
+            JaxDecentralized(**kw).reify(group)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError) as got:
+        DecentralizedAlgorithm(hierarchical=False).reify(tg).set_staleness_tau(2)
+    with pytest.raises(ValueError) as want:
+        JaxDecentralized(hierarchical=False).reify(group).set_staleness_tau(2)
+    assert str(got.value) == str(want.value) and "staleness_tau" in str(got.value)
     with pytest.raises(ValueError, match="unknown peer_selection_mode"):
         dec._exchange(torch.zeros(6, 2), 0, "ring", tg, None)
 
@@ -404,3 +416,195 @@ def test_low_precision_state_is_rank_stacked(tgroup):
     for key in ("weight", "left", "right"):
         (rep,) = state[key]
         assert rep.shape == (N, flat.numel()) and torch.equal(rep, flat.expand(N, -1))
+
+
+# ---------------------------------------------------------------------------
+# Gossip: decentralized SGD with bounded staleness (staleness_tau)
+# ---------------------------------------------------------------------------
+
+G_STEPS, G_IN, G_OUT = 6, 10, 3
+#: buckets of 128 bytes: the MLP's four leaves in four buckets under overlap
+G_BUCKET = 1 << 7
+
+
+def gossip_problem(seed):
+    """The JAX package's fixture (``tests/test_decentralized.py``): the MLP
+    [10, 8, 3] and 32 samples a step from ``RandomState(seed)``."""
+    params = jax.tree.map(np.asarray, jax_mlp.init_mlp(jax.random.PRNGKey(seed), [G_IN, 8, G_OUT]))
+    rng = np.random.RandomState(seed)
+    xs = rng.randn(G_STEPS, N * 4, G_IN).astype(np.float32)
+    ys = rng.randn(G_STEPS, N * 4, G_OUT).astype(np.float32)
+    return params, xs, ys
+
+
+def gossip_engines(group, tgroup, params, tau, mode="all", overlap=False, bucket=None, directive=()):
+    """The JAX and the port engine with gossip decentralized SGD, their
+    initial states, the directive applied to both when given."""
+    kw = dict(hierarchical=False, peer_selection_mode=mode, staleness_tau=tau)
+    jddp = JaxDDP(jax_mlp.mse_loss, optax.sgd(LR), JaxDecentralized(**kw), process_group=group,
+                  bucket_size_bytes=bucket, overlap=overlap)
+    ddp = DistributedDataParallel(mlp.mse_loss, lambda ps: torch.optim.SGD(ps, lr=LR),
+                                  DecentralizedAlgorithm(**kw), tgroup, bucket_size_bytes=bucket, overlap=overlap)
+    jstate, state = jddp.init(params), ddp.init(params_from_jax(params))
+    if tau is not None and directive:
+        jstate = jddp.apply_degradation_directive(jstate, directive)
+        state = ddp.apply_degradation_directive(state, directive)
+    return jddp, jstate, ddp, state
+
+
+def run_both(jddp, jstate, ddp, state, xs, ys, steps):
+    for i in range(steps):
+        jstate, _ = jddp.train_step(jstate, (jnp.asarray(xs[i % G_STEPS]), jnp.asarray(ys[i % G_STEPS])))
+        state, _ = ddp.train_step(state, (torch.from_numpy(xs[i % G_STEPS]), torch.from_numpy(ys[i % G_STEPS])))
+    return jstate, state
+
+
+def test_gossip_tau0_bitwise_matches_plain_decentralized(group, tgroup):
+    """τ=0 allocates the gossip state and gates nothing.  The JAX package's
+    own comparison of τ=0 with τ=None (its test of this name) is
+    reproduced first: on XLA:CPU the two differ by rounding (the
+    ``jnp.where`` around the exchange fuses into other arithmetic), within
+    F32_TOL.  The port's ``torch.where`` with an all-False gate is a copy,
+    so its τ=0 run equals its τ=None run bit for bit, and each is within
+    F32_TOL of the JAX engine's."""
+    params, xs, ys = gossip_problem(6)
+    jgot, got = run_both(*gossip_engines(group, tgroup, params, 0), xs, ys, 4)
+    jref, ref = run_both(*gossip_engines(group, tgroup, params, None), xs, ys, 4)
+    for a, b in zip(jax.tree.leaves(jgot.params), jax.tree.leaves(jref.params)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), **F32_TOL)
+    for a, b, c in zip(tree_leaves(got.params), tree_leaves(ref.params), jax.tree.leaves(jref.params)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), **F32_TOL)
+
+
+@pytest.mark.parametrize("mode", ["all", "shift_one"])
+def test_gossip_stage_matches_jax_bitwise(group, tgroup, mode):
+    """The monolithic gossip stage on the same per-rank weights and state
+    (ranks replaying, fresh, at and past the bound, three rounds of the
+    ``shift_one`` schedule): the weights, ``published`` and the counters,
+    bit for bit."""
+    params, _, _ = gossip_problem(4)
+    rng = np.random.RandomState(8)
+    stacked = jax.tree.map(lambda a: (a[None] + 0.1 * rng.randn(N, *a.shape)).astype(np.float32), params)
+    kw = dict(hierarchical=False, peer_selection_mode=mode, staleness_tau=2)
+    jimpl = JaxDecentralized(**kw).reify(group)
+    jplan = jimpl.tensors_to_buckets(params)
+    jimpl.bind_plan(jplan)
+    impl = DecentralizedAlgorithm(**kw).reify(tgroup)
+    plan = impl.tensors_to_buckets(params_from_jax(params))
+    impl.bind_plan(plan)
+    published = rng.randn(N, plan.specs[0].numel).astype(np.float32)
+    staleness = np.array([0, 1, 2, 0, 3, 1, 0, 2], np.int32)
+    directive = np.array([1, 1, 1, 0, 1, 0, 0, 1], np.int32)
+    leaves, treedef = jax.tree.flatten(stacked)
+    for step in range(3):
+        def body(*a, step=step):
+            st = {"published": (a[-3],), "staleness": a[-2], "directive": a[-1]}
+            ctx = JaxStepContext(group=group, step=jnp.int32(step), plan=jplan)
+            _, p2, st2 = jimpl.transform_gradients(None, jax.tree.unflatten(treedef, a[:-3]), st, ctx)
+            return p2, st2["published"][0], st2["staleness"]
+
+        jout = per_rank_jax(group, body, *leaves, published, staleness, directive)
+        state = {"published": (torch.from_numpy(published),), "staleness": torch.from_numpy(staleness),
+                 "directive": torch.from_numpy(directive)}
+        _, p2, st2 = impl.transform_gradients(None, params_from_jax(stacked), state, StepContext(tgroup, step, plan))
+        for got, want in zip(tree_leaves(p2), jax.tree.leaves(jout[0])):
+            np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(st2["published"][0].numpy(), jout[1])
+        np.testing.assert_array_equal(st2["staleness"].numpy(), jout[2])
+    np.testing.assert_array_equal(st2["staleness"].numpy(), [1, 2, 0, 0, 0, 0, 0, 0])
+
+
+@pytest.mark.parametrize("overlap", [False, True], ids=["mono", "overlap"])
+def test_gossip_staleness_bound_forces_exchange(group, tgroup, overlap):
+    """Rank 2 under a directive at τ 2: its counter cycles 1, 2, 0, 1, 2,
+    0, 1 on both engines (monolithic and weight-mode overlap), the other
+    ranks' stay 0, and the parameters stay within F32_TOL of the JAX
+    engine's."""
+    params, xs, ys = gossip_problem(7)
+    jddp, jstate, ddp, state = gossip_engines(group, tgroup, params, 2, overlap=overlap,
+                                              bucket=G_BUCKET if overlap else None, directive=(2,))
+    seen, jseen = [], []
+    for step in range(7):
+        jstate, state = run_both(jddp, jstate, ddp, state, xs[step % G_STEPS:][:1], ys[step % G_STEPS:][:1], 1)
+        c = state.algo_state["staleness"].numpy()
+        seen.append(int(c[2]))
+        jseen.append(int(np.asarray(jstate.algo_state["staleness"])[2]))
+        assert c[2] <= 2 and (np.delete(c, 2) == 0).all(), c
+    assert seen == jseen == [1, 2, 0, 1, 2, 0, 1]
+    assert ddp.overlap_enabled is overlap and (ddp.plan.num_buckets > 1) is overlap
+    for got, want in zip(tree_leaves(state.params), jax.tree.leaves(jstate.params)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    for got, want in zip(state.algo_state["published"], jstate.algo_state["published"]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+def _flat_grad(plan, flat, x, y):
+    """The MLP's gradient at the flat weights ``flat`` on one rank's batch,
+    as a flat of ``plan``'s one bucket."""
+    p = tree_map(lambda t: t.detach().requires_grad_(True), plan.debucketize([torch.from_numpy(flat)]))
+    mlp.mse_loss(p, (torch.from_numpy(x), torch.from_numpy(y))).backward()
+    return plan.bucketize(tree_map(lambda t: t.grad, p))[0].numpy()
+
+
+def test_gossip_stale_rank_keeps_local_weights(group, tgroup):
+    """τ 1, rank 2 under the directive.  Step 0 is a replay round for rank
+    2: it ships its published (initial) weights and keeps its own, plain
+    local SGD; the healthy ranks average with that replica.  Step 1 the
+    bound brings rank 2 back (counter 0).  Against the algebra within the
+    reference's rtol 2e-4, atol 1e-5, against the JAX engine within
+    F32_TOL."""
+    params, xs, ys = gossip_problem(8)
+    jddp, jstate, ddp, state = gossip_engines(group, tgroup, params, 1, directive=(2,))
+    jstate, state = run_both(jddp, jstate, ddp, state, xs, ys, 1)
+    plan = ddp.plan
+    w0 = plan.bucketize(params_from_jax(params))[0].numpy()
+    x, y = xs[0].reshape(N, -1, G_IN), ys[0].reshape(N, -1, G_OUT)
+    oracle = dict(rtol=2e-4, atol=1e-5)
+    got2 = plan.bucketize(ddp.params_unstacked(state, 2))[0].numpy()
+    np.testing.assert_allclose(got2, w0 - LR * _flat_grad(plan, w0, x[2], y[2]), **oracle)
+    got0 = plan.bucketize(ddp.params_unstacked(state, 0))[0].numpy()
+    np.testing.assert_allclose(got0, w0 - LR * _flat_grad(plan, w0, x[0], y[0]), **oracle)
+    for got, want in zip(tree_leaves(state.params), jax.tree.leaves(jstate.params)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    jstate, state = run_both(jddp, jstate, ddp, state, xs[1:], ys[1:], 1)
+    assert int(state.algo_state["staleness"][2]) == int(np.asarray(jstate.algo_state["staleness"])[2]) == 0
+
+
+@pytest.mark.parametrize("mode", ["all", "shift_one"])
+def test_gossip_overlap_equals_monolithic_bitwise(tgroup, mode):
+    """Weight mode: each bucket's gossip round from inside the backward,
+    its new published flat stashed for ``finalize_overlap``, gives the
+    monolithic run's parameters, published replicas and counters bit for
+    bit (rank 2 under the directive, τ 1); ``auto`` takes the overlap, and
+    ``rebucket`` refuses the replicas' layout, where plain decentralized
+    takes it."""
+    params, xs, ys = gossip_problem(9)
+
+    def run(overlap):
+        ddp = DistributedDataParallel(
+            mlp.mse_loss, lambda ps: torch.optim.SGD(ps, lr=LR),
+            DecentralizedAlgorithm(hierarchical=False, peer_selection_mode=mode, staleness_tau=1), tgroup,
+            bucket_size_bytes=G_BUCKET, overlap=overlap)
+        state = ddp.apply_degradation_directive(ddp.init(params_from_jax(params)), (2,))
+        for i in range(G_STEPS):
+            state, _ = ddp.train_step(state, (torch.from_numpy(xs[i]), torch.from_numpy(ys[i])))
+        return ddp, state
+
+    mono, mstate = run(False)
+    ov, ostate = run("auto")
+    assert mono.plan.num_buckets == 1 and ov.plan.num_buckets > 1 and ov.overlap_enabled
+    assert ov.impl.overlap_capability().mode == "weight"
+    assert ov.exchange_counts == [G_STEPS] * ov.plan.num_buckets
+    for a, b in zip(tree_leaves(mstate.params), tree_leaves(ostate.params)):
+        assert torch.equal(a, b)
+    published = [plan.debucketize(list(st.algo_state["published"]), st.params)
+                 for plan, st in ((mono.plan, mstate), (ov.plan, ostate))]
+    for a, b in zip(*map(tree_leaves, published)):
+        assert torch.equal(a, b)
+    assert torch.equal(mstate.algo_state["staleness"], ostate.algo_state["staleness"])
+    with pytest.raises(ValueError, match="keeps per-bucket state"):
+        ov.rebucket(ov.plan)
+    plain = port_engine(tgroup, DecentralizedAlgorithm(hierarchical=False))
+    plain.init(params_from_jax(params))
+    plain.rebucket(plain.plan)

@@ -706,3 +706,189 @@ def test_qadam_compression_step_at_full_width_matches_plain_codec(cuda_device, m
     want_d, _, want = impl.transform_gradients(grads, None, state, ctx)
     for a, b in zip(tree_leaves(got_d) + tree_leaves(got["exp_avg"]), tree_leaves(want_d) + tree_leaves(want["exp_avg"])):
         assert bitwise(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The relaxations on the card: async model average's streams, gossip's
+# overlap, accumulation's launches
+# ---------------------------------------------------------------------------
+
+
+def _mlp_engine(device, algorithm, lr=0.05, overlap=False, bucket=1 << 7, ranks=4):
+    from bagua_tpu_torch.ddp import DistributedDataParallel
+    from bagua_tpu_torch.models import mlp
+
+    group = BaguaProcessGroup([device] * ranks, intra_size=1)
+    return DistributedDataParallel(mlp.mse_loss, lambda ps: torch.optim.SGD(ps, lr=lr), algorithm, group,
+                                   bucket_size_bytes=bucket, overlap=overlap)
+
+
+def _spread_mlp(device, ranks=4, seed=0):
+    """Rank-stacked MLP [10, 16, 3] parameters, rank r's copy shifted by r."""
+    from bagua_tpu_torch.models import mlp
+    from bagua_tpu_torch.utils import tree_map
+
+    base = mlp.init_mlp(torch.Generator(device=device).manual_seed(seed), [10, 16, 3], device=device)
+    return tree_map(lambda t: torch.stack([t + r for r in range(ranks)]), base)
+
+
+def _mlp_batch(device, seed, rows=32):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((rows, 10), generator=gen, device=device),
+            torch.randn((rows, 3), generator=gen, device=device))
+
+
+@pytest.mark.cuda
+def test_async_delta_waits_for_the_step_and_the_optimizer_waits_for_it(cuda_device, monkeypatch):
+    """The delta runs on the averager's own stream, made slow here (the
+    stream spins first), while the next step is enqueued: the delta still
+    reads the parameters of the step before it (the training stream waits
+    for its ``done`` before the optimizer writes them), it is not marked
+    ready while in flight, and it is folded only once ``done`` has
+    completed."""
+    from bagua_tpu_torch.algorithms import AsyncModelAverageAlgorithm
+    from bagua_tpu_torch.utils import tree_leaves
+
+    ddp = _mlp_engine(cuda_device, AsyncModelAverageAlgorithm(sync_interval_ms=10 ** 9), lr=0.05)
+    impl = ddp.impl
+    state = ddp.init(stacked_params=_spread_mlp(cuda_device))
+    delta_of = impl._delta
+
+    def slow_delta(snapshot):
+        torch.cuda._sleep(200_000_000)  # about 0.1 s on the averager's stream
+        return delta_of(snapshot)
+
+    folded_after_done = []
+    fold = impl._fold
+
+    def checked_fold(params, delta, done):
+        folded_after_done.append(done.query())
+        return fold(params, delta, done)
+
+    monkeypatch.setattr(impl, "_delta", slow_delta)
+    monkeypatch.setattr(impl, "_fold", checked_fold)
+    try:
+        state, _ = ddp.train_step(state, _mlp_batch(cuda_device, 0))
+        torch.cuda.synchronize()
+        snapshot = [t.clone() for t in tree_leaves(state.params)]
+        impl._cycle(wait=False)
+        gen, delta, done = impl._pending
+        assert not impl._pending_ready and not done.query()
+        state, _ = ddp.train_step(state, _mlp_batch(cuda_device, 1))  # in flight: no fold
+        assert impl.folds_applied == 0 and impl._pending is not None
+        impl._watch_pending(impl._stop_event)
+        assert impl._pending_ready and done.query()
+        torch.cuda.synchronize()
+        want = delta_of(snapshot)
+        for got, w in zip(tree_leaves(delta), want):
+            assert bitwise(got, w)
+        state, _ = ddp.train_step(state, _mlp_batch(cuda_device, 2))
+        assert impl.folds_applied == 1 and folded_after_done == [True]
+    finally:
+        ddp.shutdown()
+
+
+@pytest.mark.cuda
+def test_async_training_thread_never_waits_for_the_card(cuda_device, monkeypatch):
+    """With the averager thread running (every 5 ms), the training thread's
+    steps call no synchronize and query no event: only the averager thread
+    does; the averages fold, and shutdown leaves no thread alive."""
+    import threading
+    import time
+
+    from bagua_tpu_torch.algorithms import AsyncModelAverageAlgorithm
+
+    ddp = _mlp_engine(cuda_device, AsyncModelAverageAlgorithm(sync_interval_ms=5), lr=0.0)
+    state = ddp.init(stacked_params=_spread_mlp(cuda_device, seed=1))
+    batch = _mlp_batch(cuda_device, 3)
+    calls = []
+    main = threading.current_thread()
+
+    def recording(cls, name):
+        orig = getattr(cls, name)
+
+        def fn(*args, **kwargs):
+            calls.append((threading.current_thread() is main, f"{cls.__name__}.{name}"))
+            return orig(*args, **kwargs)
+        monkeypatch.setattr(cls, name, fn)
+
+    for cls, name in ((torch.cuda.Event, "synchronize"), (torch.cuda.Event, "query"),
+                      (torch.cuda.Stream, "synchronize"), (torch.cuda.Stream, "query")):
+        recording(cls, name)
+    sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (calls.append((threading.current_thread() is main, "synchronize")),
+                                         sync(*a, **k))[1])
+    try:
+        deadline = time.monotonic() + 20.0
+        while ddp.impl.folds_applied < 3 and time.monotonic() < deadline:
+            state, _ = ddp.train_step(state, batch)
+        on_main = [c for is_main, c in calls if is_main]
+        assert ddp.impl.folds_applied >= 3 and ddp.impl.folds_failed == 0
+        assert not on_main, on_main
+        assert any(not is_main for is_main, _ in calls)
+    finally:
+        ddp.shutdown()
+    assert not [t for t in threading.enumerate() if t.name == "bagua-async-averager"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["all", "shift_one"])
+def test_gossip_overlap_equals_monolithic_on_card(cuda_device, mode):
+    """Gossip decentralized SGD (τ 1, rank 2 under the directive) on a
+    small VGG, cuDNN deterministic: the weight-mode overlap run (each
+    bucket's round on the side stream, its published flat stashed there)
+    equals the monolithic run bit for bit, parameters, published replicas
+    and counters."""
+    from bagua_tpu_torch.algorithms import DecentralizedAlgorithm
+    from bagua_tpu_torch.ddp import DistributedDataParallel
+    from bagua_tpu_torch.models.vgg import VGG, module_params, vgg_loss_fn
+    from bagua_tpu_torch.utils import tree_leaves
+
+    small = dict(num_classes=10, cfg=(16, "M", 32, "M"), classifier_width=64, image_size=32)
+    params = module_params(VGG(device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(2),
+                               **small))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    batch = (torch.rand((32, 32, 32, 3), generator=gen, device=cuda_device),
+             torch.randint(0, 10, (32,), generator=gen, device=cuda_device))
+    runs = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for overlap in (False, True):
+            ddp = DistributedDataParallel(
+                vgg_loss_fn(VGG(device=cuda_device, **small)), lambda ps: torch.optim.SGD(ps, lr=0.05),
+                DecentralizedAlgorithm(hierarchical=False, peer_selection_mode=mode, staleness_tau=1),
+                BaguaProcessGroup([cuda_device] * 4, intra_size=1), bucket_size_bytes=1 << 16, overlap=overlap)
+            state = ddp.apply_degradation_directive(ddp.init(params), (2,))
+            for _ in range(4):
+                state, _ = ddp.train_step(state, batch)
+            published = ddp.plan.debucketize(list(state.algo_state["published"]), state.params)
+            runs[overlap] = (ddp, tree_leaves(state.params) + tree_leaves(published), state.algo_state["staleness"])
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert runs[True][0].overlap_enabled and runs[True][0].plan.num_buckets > 1
+    assert all(bitwise(a, b) for a, b in zip(runs[False][1], runs[True][1]))
+    assert runs[False][2].tolist() == runs[True][2].tolist() == [0, 0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_accumulated_bytegrad_launches(cuda_device):
+    """GradientAccumulation(ByteGrad, every=2), 6 steps: ByteGrad's three
+    kernels launch once a bucket on the 3 boundary steps only, and the
+    ranks stay bitwise equal."""
+    from bagua_tpu_torch.algorithms import ByteGradAlgorithm, GradientAccumulation
+    from bagua_tpu_torch.models import mlp
+    from bagua_tpu_torch.utils import tree_leaves
+
+    ddp = _mlp_engine(cuda_device, GradientAccumulation(ByteGradAlgorithm(), every=2))
+    state = ddp.init(mlp.init_mlp(torch.Generator(device=cuda_device).manual_seed(4), [10, 16, 3],
+                                  device=cuda_device))
+    for i in range(6):
+        state, _ = ddp.train_step(state, _mlp_batch(cuda_device, 10 + i))
+        if i == 0:
+            assert [fn.launches for fn in port.KERNELS] == [0, 0, 0]
+    assert ddp.plan.num_buckets > 1
+    assert [fn.launches for fn in port.KERNELS] == [3 * ddp.plan.num_buckets] * 3
+    for leaf in tree_leaves(state.params):
+        assert all(torch.equal(leaf[0], leaf[r]) for r in range(1, 4))

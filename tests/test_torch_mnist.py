@@ -13,6 +13,7 @@ import gzip
 import importlib.util
 import os
 import struct
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -127,6 +128,7 @@ def test_every_registered_algorithm_runs_a_step(capsys, algorithm):
     out = capsys.readouterr().out
     assert np.isfinite(loss) and 0.0 <= acc <= 1.0
     assert "4096 samples (synthetic)" in out and "epoch 0: loss" in out and "final train-accuracy" in out
+    assert not [t for t in threading.enumerate() if t.name == "bagua-async-averager"]
 
 
 def test_data_dir_reads_idx_files(tmp_path, capsys):

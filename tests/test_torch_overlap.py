@@ -380,8 +380,8 @@ def test_build_algorithm_and_shard_batch(tgroup):
     assert isinstance(build_algorithm("bytegrad", hierarchical=False), ByteGradAlgorithm)
     gar = build_algorithm("gradient_allreduce", lr=0.5, wire_precision="int8")
     assert isinstance(gar, GradientAllReduceAlgorithm) and gar.wire_precision == "int8"
-    with pytest.raises(KeyError, match="unknown algorithm 'async'"):
-        build_algorithm("async")
+    with pytest.raises(KeyError, match="unknown algorithm 'nonexistent_algo'"):
+        build_algorithm("nonexistent_algo")
     batch = (torch.zeros(8, 3), torch.ones(8))
     assert port_engine(tgroup, gar, "auto").shard_batch(batch) is batch
 

@@ -54,3 +54,48 @@ def test_unported_model_and_no_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sb.main(["--num-iters", "1"])
     assert isinstance(sb.build_algorithm("gradient_allreduce"), GradientAllReduceAlgorithm)
+
+
+def _averagers():
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "bagua-async-averager"]
+
+
+def test_run_takes_async_and_stale_and_shuts_down(capsys):
+    """``async`` and ``stale`` by name, an ``on_step`` callback that flips
+    the directive before step 0 (the staleness counters then cycle), an
+    ``Algorithm`` object as it is; the engine is shut down when the run
+    ends, and also when it raises: no averager thread is left."""
+    from bagua_tpu_torch.algorithms import GradientAccumulation, build_algorithm
+
+    group = BaguaProcessGroup([torch.device("cpu")] * 4, intra_size=1)
+    model = VGG(device="cpu", generator=torch.Generator().manual_seed(0), **SMALL_VGG)
+    params = module_params(model)
+    result = sb.run(model, params, group, "async", {"sync_interval_ms": 1}, batch_size=2, num_iters=2,
+                    num_warmup=1)
+    assert LINE.match(result.line).group(1) == "async" and result.ddp.impl._thread is None and not _averagers()
+    seen = []
+
+    def flag(i, state, ddp):
+        seen.append(i)
+        return ddp.apply_degradation_directive(state, (2,)) if i == 0 else state
+
+    result = sb.run(model, params, group, "stale", {"staleness_tau": 2}, batch_size=2, num_iters=2,
+                    num_warmup=1, on_step=flag)
+    assert seen == [0, 1, 2] and result.state.algo_state["staleness"].tolist() == [0, 0, 0, 0]
+    result = sb.run(model, params, group, GradientAccumulation(build_algorithm("bytegrad"), every=3),
+                    batch_size=2, num_iters=2, num_warmup=1)
+    assert LINE.match(result.line).group(1) == "GradientAccumulation" and result.state.step == 3
+
+    def boom(i, state, ddp):
+        if i == 1:
+            assert ddp.impl._thread.is_alive()
+            raise RuntimeError("the run failed")
+        return state
+
+    with pytest.raises(RuntimeError, match="the run failed"):
+        sb.run(model, params, group, "async", {"sync_interval_ms": 10 ** 9}, batch_size=2, num_iters=2,
+               num_warmup=1, on_step=boom)
+    assert not _averagers()
+    capsys.readouterr()
