@@ -13,7 +13,18 @@ from bagua_tpu_torch.communication import (  # noqa: F401
     allgather,
     allreduce,
     alltoall,
+    alltoall_v_inplace,
+    barrier,
+    broadcast,
+    broadcast_object,
+    gather,
     get_default_group,
     init_process_group,
+    is_initialized,
+    local_ranks,
+    new_group,
+    reduce,
     reduce_scatter,
+    reducescatter,
+    scatter,
 )

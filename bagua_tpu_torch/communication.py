@@ -12,14 +12,18 @@ counterparts of the reference's in-step collectives
 (``communication.py:280-340``): each output slice is what that rank would
 hold after the collective.  ``axis`` picks the ranks that communicate:
 ``None`` (all of them), ``"inter"`` (ranks sharing an intra index) or
-``"intra"`` (ranks sharing an inter index).  Sums run over the peers left to
-right, so every rank of a collective gets the very same bits.
+``"intra"`` (ranks sharing an inter index).  Reductions fold the peers left
+to right, so every rank of a collective gets the very same bits.
+
+The reference's eager user API (``broadcast``, ``reduce``, ``scatter``,
+``gather``, ``reducescatter``, ``barrier``, ``broadcast_object``) closes the
+module, over every rank of a group, on the same stacked tensors.
 
 All ranks of a group live on one device.  Ranks on several cards need one
 process per card over NCCL, which this package does not have yet.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -104,10 +108,28 @@ def init_process_group(
     return _default_group
 
 
+def is_initialized() -> bool:
+    return _default_group is not None
+
+
 def get_default_group() -> BaguaProcessGroup:
     if _default_group is None:
         init_process_group()
     return _default_group  # type: ignore
+
+
+def new_group(ranks: Optional[Sequence[int]] = None, intra_size: Optional[int] = None) -> BaguaProcessGroup:
+    """A group of the default group's ranks ``ranks`` (all of them by
+    default), in that order (reference ``communication.py:217``)."""
+    base = get_default_group()
+    devices = base.devices if ranks is None else [base.devices[r] for r in ranks]
+    return BaguaProcessGroup(devices, intra_size=intra_size)
+
+
+def local_ranks(group: Optional[BaguaProcessGroup] = None) -> List[int]:
+    """The ranks whose slices this process passes to the collectives: every
+    rank, since one controller holds them all."""
+    return list(range((group or get_default_group()).size))
 
 
 # ---------------------------------------------------------------------------
@@ -211,21 +233,45 @@ def broadcast_inplace(
     return allreduce(masked, ReduceOp.SUM, group, axis)
 
 
+#: the elementwise folds of the reductions that gather the peers (the
+#: JAX package's PRODUCT and bitwise ops; MAX and MIN fold the same way)
+_FOLDS = {
+    ReduceOp.SUM: torch.add,
+    ReduceOp.AVG: torch.add,
+    ReduceOp.PRODUCT: torch.mul,
+    ReduceOp.MAX: torch.maximum,
+    ReduceOp.MIN: torch.minimum,
+    ReduceOp.BOR: torch.bitwise_or,
+    ReduceOp.BAND: torch.bitwise_and,
+    ReduceOp.BXOR: torch.bitwise_xor,
+}
+
+
+def _reduce_members(g: torch.Tensor, op: ReduceOp) -> torch.Tensor:
+    """The grouped ``(G, n, ...)`` stack reduced over its members, ``(G,
+    ...)``: folded left to right in member order, so every member of a
+    collective gets the same bits; AVG divides the sum by n once."""
+    fold = _FOLDS[op]
+    red = g[:, 0]
+    for i in range(1, g.shape[1]):
+        red = fold(red, g[:, i])
+    if op == ReduceOp.AVG:
+        red = red / torch.full_like(red, g.shape[1])
+    return red
+
+
 def allreduce(
     send: torch.Tensor, op: ReduceOp = ReduceOp.AVG,
     comm: Optional[BaguaProcessGroup] = None, axis=None,
 ) -> torch.Tensor:
-    """Allreduce of each rank's slice over ``axis`` (SUM or AVG)."""
+    """Allreduce of each rank's slice over ``axis``, with any
+    :class:`ReduceOp`: SUM and AVG (the JAX package's ``psum`` and
+    ``pmean``), MAX and MIN (``pmax``, ``pmin``), PRODUCT, and BOR, BAND
+    and BXOR on integer or bool tensors, each folded over the members left
+    to right (``communication.py:280-308``)."""
     group = comm or get_default_group()
-    op = ReduceOp(op)
-    if op not in (ReduceOp.SUM, ReduceOp.AVG):
-        raise NotImplementedError(f"allreduce supports SUM and AVG, not {op.name}")
     g = _grouped(send, group, axis)
-    red = g[:, 0]
-    for i in range(1, g.shape[1]):
-        red = red + g[:, i]
-    if op == ReduceOp.AVG:
-        red = red / torch.full_like(red, g.shape[1])
+    red = _reduce_members(g, ReduceOp(op))
     return _ungrouped(red.unsqueeze(1).expand_as(g), group, axis)
 
 
@@ -240,16 +286,13 @@ def reduce_scatter(
     group = comm or get_default_group()
     op = ReduceOp(op)
     if op not in (ReduceOp.SUM, ReduceOp.AVG):
+        # the JAX package's reduce_scatter refuses the rest too
         raise NotImplementedError(f"reduce_scatter supports SUM and AVG, not {op.name}")
     g = _grouped(send, group, axis)
     G, n, m = g.shape[:3]
     if m % n:
         raise ValueError(f"reduce_scatter: dim {m} does not divide into {n} chunks")
-    red = g[:, 0]
-    for i in range(1, n):
-        red = red + g[:, i]
-    if op == ReduceOp.AVG:
-        red = red / torch.full_like(red, n)
+    red = _reduce_members(g, op)
     return _ungrouped(red.reshape(G, n, m // n, *g.shape[3:]), group, axis)
 
 
@@ -258,13 +301,13 @@ def hierarchical_allreduce(
     comm: Optional[BaguaProcessGroup] = None,
 ) -> torch.Tensor:
     """Intra-axis reduce, then inter-axis reduce (the reference's
-    hierarchical communicator); AVG divides once, by the group size."""
+    hierarchical communicator).  AVG sums both phases and divides once, by
+    the group size; every other op composes across the phases."""
     group = comm or get_default_group()
     op = ReduceOp(op)
-    if op not in (ReduceOp.SUM, ReduceOp.AVG):
-        raise NotImplementedError(f"hierarchical_allreduce supports SUM and AVG, not {op.name}")
-    x = allreduce(send, ReduceOp.SUM, group, INTRA_AXIS)
-    x = allreduce(x, ReduceOp.SUM, group, INTER_AXIS)
+    phase = ReduceOp.SUM if op == ReduceOp.AVG else op
+    x = allreduce(send, phase, group, INTRA_AXIS)
+    x = allreduce(x, phase, group, INTER_AXIS)
     return x / torch.full_like(x, group.size) if op == ReduceOp.AVG else x
 
 
@@ -293,3 +336,100 @@ def allgather(
     G, n = g.shape[:2]
     full = g.reshape(G, 1, n * g.shape[2], *g.shape[3:])
     return _ungrouped(full.expand(G, n, *full.shape[2:]), group, axis)
+
+
+def alltoall_v_inplace(
+    x: torch.Tensor, send_counts: torch.Tensor, comm: Optional[BaguaProcessGroup] = None, axis=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Variable-count all-to-all in the static-shape idiom of the JAX
+    package (``communication.py:342-366``).  ``x (size, n, capacity, ...)``:
+    each rank's chunk j, padded to ``capacity`` rows, goes to member j of
+    its collective over ``axis``, and its first ``send_counts[r, j]`` rows
+    are the ones that count; ``send_counts (size, n)`` is data and may
+    differ by rank.  Returns ``(recv, recv_counts)``: ``recv[r, j]`` is the
+    padded chunk rank r received from member j, valid up to
+    ``recv_counts[r, j]`` rows."""
+    group = comm or get_default_group()
+    n = axis_size(group, axis)
+    if x.dim() < 3 or x.shape[1] != n:
+        raise ValueError(f"alltoall_v_inplace: x {tuple(x.shape)} needs (size, {n}, capacity, ...)")
+    if tuple(send_counts.shape) != (group.size, n):
+        raise ValueError(f"alltoall_v_inplace: send_counts {tuple(send_counts.shape)} "
+                         f"!= ({group.size}, {n})")
+    recv = alltoall(x.reshape(group.size, n * x.shape[2], *x.shape[3:]), group, axis)
+    return recv.reshape(x.shape), alltoall(send_counts, group, axis)
+
+
+# ---------------------------------------------------------------------------
+# The eager user API under the reference's names (``bagua_tpu/communication.py
+# :439-646``): collectives over every rank of a group, rank-stacked
+# ---------------------------------------------------------------------------
+
+
+def reducescatter(
+    send: torch.Tensor, op: ReduceOp = ReduceOp.SUM, comm: Optional[BaguaProcessGroup] = None
+) -> torch.Tensor:
+    """Rank r gets the r-th of ``size`` chunks of the reduced slices
+    (reference ``communication.py:1219``): :func:`reduce_scatter` over
+    every rank."""
+    return reduce_scatter(send, op, comm)
+
+
+def broadcast(send: torch.Tensor, src: int = 0, comm: Optional[BaguaProcessGroup] = None) -> torch.Tensor:
+    """Every rank gets rank ``src``'s slice (reference
+    ``communication.py:573``), as :func:`broadcast_inplace` computes it."""
+    return broadcast_inplace(send, src, comm)
+
+
+def _at_rank(group: BaguaProcessGroup, rank: int, ndim: int) -> torch.Tensor:
+    """``(size, 1, ...)`` bool: True on ``rank``'s slice."""
+    return (rank_id(group) == rank).reshape(group.size, *([1] * (ndim - 1)))
+
+
+def reduce(
+    send: torch.Tensor, dst: int = 0, op: ReduceOp = ReduceOp.AVG,
+    comm: Optional[BaguaProcessGroup] = None,
+) -> torch.Tensor:
+    """Rank ``dst`` gets the reduction of every slice; the other ranks keep
+    their own (reference ``communication.py:958``)."""
+    group = comm or get_default_group()
+    return torch.where(_at_rank(group, dst, send.dim()), allreduce(send, op, group), send)
+
+
+def scatter(send: torch.Tensor, src: int = 0, comm: Optional[BaguaProcessGroup] = None) -> torch.Tensor:
+    """Rank ``src``'s slice cut into ``size`` chunks along its first dim;
+    rank i gets chunk i (reference ``communication.py:1155``)."""
+    group = comm or get_default_group()
+    n, m = group.size, send.shape[1]
+    if m % n:
+        raise ValueError(f"scatter: dim {m} does not divide into {n} chunks")
+    full = broadcast_inplace(send, src, group)
+    chunks = full.reshape(n, n, m // n, *send.shape[2:])
+    return chunks[torch.arange(n, device=send.device), rank_id(group)]
+
+
+def gather(send: torch.Tensor, dst: int = 0, comm: Optional[BaguaProcessGroup] = None) -> torch.Tensor:
+    """Rank ``dst`` gets every slice, concatenated along the first dim; the
+    other ranks get zeros, as the JAX package gives them (reference
+    ``communication.py:1081`` leaves their buffers as they were)."""
+    group = comm or get_default_group()
+    full = allgather(send, group)
+    return torch.where(_at_rank(group, dst, full.dim()), full, torch.zeros_like(full))
+
+
+def barrier(comm: Optional[BaguaProcessGroup] = None) -> None:
+    """Returns once every collective issued on the group has finished: on
+    a card, a synchronize of the group's device (reference
+    ``communication.py:1377-1401``); on the CPU every call has already
+    run."""
+    group = comm or get_default_group()
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
+
+
+def broadcast_object(obj, src: int = 0):
+    """Rank ``src``'s object on every rank (reference
+    ``communication.py:668``).  One controller holds every rank, so each
+    rank's object is already this one, as the JAX package returns it in a
+    single process."""
+    return obj

@@ -10,9 +10,18 @@ import torch
 from bagua_tpu_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 
+def _tensor(a) -> torch.Tensor:
+    """A numpy (or JAX) array as a CPU tensor; bf16 (``ml_dtypes``, which
+    ``torch.from_numpy`` does not take) crosses as its 16-bit pattern."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(tree, device=None):
     """A tree of numpy (or JAX) arrays as the same tree of torch tensors."""
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+    return tree_map(lambda a: _tensor(a).to(device), tree)
 
 
 def stacked_params_from_jax(trees, device=None):
@@ -21,6 +30,5 @@ def stacked_params_from_jax(trees, device=None):
     port's layout for parameters that differ by rank (what the JAX package
     builds with ``jax.tree.map(jnp.stack, *per_rank)``)."""
     leaves = [tree_leaves(t) for t in trees]
-    stacked = [torch.from_numpy(np.stack([np.asarray(x) for x in per])).to(device)
-               for per in zip(*leaves)]
+    stacked = [_tensor(np.stack([np.asarray(x) for x in per])).to(device) for per in zip(*leaves)]
     return tree_unflatten(trees[0], stacked)

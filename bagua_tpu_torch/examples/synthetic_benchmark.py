@@ -7,9 +7,10 @@ random batch from ``numpy.random.RandomState(0)``, ``--num-warmup`` steps,
 then ``--num-iters`` timed steps ending when the card is idle; samples per
 second per rank.  SGD(0.01, momentum 0.9), as the reference's optax sgd;
 ``qadam`` brings its own optimizer (``lr=1e-3``, warmup 10 steps unless
-``algorithm_kwargs`` give a ``QAdamOptimizer``).
-Only ``--model vgg16`` runs (224x224, 1000 classes, bf16 compute unless
-``--fp32``); ``bert-large`` is not ported.
+``algorithm_kwargs`` give a ``QAdamOptimizer``).  ``--model vgg16``
+(224x224, 1000 classes) or ``bert-large`` (``BertForPreTraining``, 128
+positions, masked-LM batches of 128 tokens), bf16 compute unless
+``--fp32``.
 
 The group defaults to one rank per visible card.  ``--ranks N
 --intra-size M`` place N ranks on ``cuda:0`` instead: on one rank
@@ -38,7 +39,11 @@ import torch
 from bagua_tpu_torch.algorithms import build_algorithm
 from bagua_tpu_torch.communication import init_process_group
 from bagua_tpu_torch.ddp import DistributedDataParallel, TrainState
+from bagua_tpu_torch.models.bert import BertForPreTraining, bert_large_config, init_bert, mlm_loss_fn
 from bagua_tpu_torch.models.vgg import VGG, init_vgg16, vgg_loss_fn
+
+#: the BERT benchmark's sequence and position table (the reference's)
+BERT_SEQ = 128
 
 
 @dataclasses.dataclass
@@ -54,13 +59,31 @@ class BenchmarkResult:
 
 
 def build(model_name: str, dtype, device):
-    """The reference's model at its shape, weights from seed 0."""
+    """``(model, params)``: the reference's model at its shape, weights from
+    seed 0."""
+    gen = torch.Generator(device=device).manual_seed(0)
     if model_name == "vgg16":
-        return init_vgg16(torch.Generator(device=device).manual_seed(0), 224, 1000,
-                          compute_dtype=dtype, device=device)
+        return init_vgg16(gen, 224, 1000, compute_dtype=dtype, device=device)
     if model_name == "bert-large":
-        raise NotImplementedError("BERT is not ported yet (ROADMAP Queue 1 item 5)")
+        cfg = bert_large_config(compute_dtype=dtype, max_position_embeddings=BERT_SEQ)
+        return init_bert(cfg, gen, device)
     raise ValueError(model_name)
+
+
+def workload(model):
+    """``(name, loss_fn, batch_fn)`` of a benchmark model: ``batch_fn(rng,
+    n)`` draws ``n`` samples from the numpy ``rng`` as the reference does."""
+    if isinstance(model, VGG):
+        side, classes = model.image_size, model.num_classes
+        return "vgg16", vgg_loss_fn(model), lambda rng, n: (
+            torch.from_numpy(rng.rand(n, side, side, 3).astype(np.float32)),
+            torch.from_numpy(rng.randint(0, classes, (n,)).astype(np.int32)))
+    if isinstance(model, BertForPreTraining):
+        vocab, seq = model.cfg.vocab_size, model.cfg.max_position_embeddings
+        return "bert-large", mlm_loss_fn(model), lambda rng, n: (
+            torch.from_numpy(rng.randint(0, vocab, (n, seq)).astype(np.int32)),
+            torch.from_numpy(rng.randint(0, vocab, (n, seq)).astype(np.int32)))
+    raise ValueError(f"no benchmark workload for {type(model).__name__}")
 
 
 def _wait(device) -> None:
@@ -68,10 +91,11 @@ def _wait(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(model: VGG, params, group, algorithm="gradient_allreduce", algorithm_kwargs=None,
+def run(model, params, group, algorithm="gradient_allreduce", algorithm_kwargs=None,
         batch_size: int = 32, num_iters: int = 30, num_warmup: int = 3, overlap="auto",
         on_step: Optional[Callable] = None) -> BenchmarkResult:
-    """Train ``model`` (a VGG, parameters ``params``) on one synthetic batch
+    """Train ``model`` (a VGG or a ``BertForPreTraining``, parameters
+    ``params``; its loss and batches from :func:`workload`) on one synthetic batch
     of ``batch_size`` per rank over ``group`` with the algorithm registered
     as ``algorithm`` (built with ``algorithm_kwargs``), or an
     :class:`~bagua_tpu_torch.algorithms.base.Algorithm` given as it is;
@@ -85,13 +109,11 @@ def run(model: VGG, params, group, algorithm="gradient_allreduce", algorithm_kwa
     else:
         algo, algorithm = algorithm, type(algorithm).__name__
     optimizer = None if algorithm == "qadam" else lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9)
-    ddp = DistributedDataParallel(vgg_loss_fn(model), optimizer, algo, process_group=group, overlap=overlap)
+    name, loss_fn, batch_fn = workload(model)
+    ddp = DistributedDataParallel(loss_fn, optimizer, algo, process_group=group, overlap=overlap)
     try:
         state = ddp.init(params)
-        rng = np.random.RandomState(0)
-        n, side = batch_size * group.size, model.image_size
-        batch = (torch.from_numpy(rng.rand(n, side, side, 3).astype(np.float32)).to(device),
-                 torch.from_numpy(rng.randint(0, model.num_classes, (n,)).astype(np.int32)).to(device))
+        batch = tuple(t.to(device) for t in batch_fn(np.random.RandomState(0), batch_size * group.size))
 
         def step(i, state):
             if on_step is not None:
@@ -112,7 +134,7 @@ def run(model: VGG, params, group, algorithm="gradient_allreduce", algorithm_kwa
         ddp.shutdown()
 
     sps = batch_size * group.size * num_iters / dt / group.size
-    line = (f"model=vgg16 algorithm={algorithm} batch={batch_size}/chip chips={group.size}: "
+    line = (f"model={name} algorithm={algorithm} batch={batch_size}/chip chips={group.size}: "
             f"{sps:.1f} samples/sec/chip, final loss {float(losses.mean()):.6f}")
     print(line, flush=True)
     return BenchmarkResult(line, sps, dt / num_iters, t1 - t0, losses, state, ddp, batch)

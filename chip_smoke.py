@@ -90,8 +90,28 @@ and no result line:
    exchange's kernel time (its side stream, found by marker kernels
    launched on it before and after the step) and the part of it that ran
    while a kernel of the main stream ran.
-6. prints one JSON line naming each kernel with its launches and times,
-   then the result line ``{"ok": true, "device": {...}}``.
+6. collectives -- (after the rings) every collective of the user API and
+   every ``ReduceOp`` over 8 ranks of the card against the CPU, bitwise;
+   ``functional.all_reduce``'s gradient; ``barrier`` waits for the card;
+   the collectives twin on 4 ranks.
+7. bert -- (after the slices) ``[bert-squad]``: rows 1-3 bitwise at every
+   chunk shape of BERT-Large's SQuAD plan (timed per squad step), then
+   the SQuAD twin at BERT-Large width (bf16, 4 ranks x 8 x 128 tokens,
+   ``intra_size=1``, ByteGrad with overlap, Adam 3e-4), 2 warm-up and 5
+   timed steps: ms/step, samples/s, peak memory, optimizer bytes, the
+   plan, exactly one launch of each of rows 1-3 a bucket and step, the
+   ranks' parameters bitwise equal; ``[bert-bench]``: the synthetic
+   benchmark's ``bert-large`` line (32 a rank, SGD momentum) with
+   ``gradient_allreduce`` and ByteGrad, the latter after rows 1-3 bitwise
+   at every chunk shape of the MLM model's plan (timed per benchmark
+   step), on that plan; ``[bert-sp]``: rows 6-8 at the
+   sp blocks within ATTENTION_TOLS, then BERT-Large's encoder width (2
+   layers, bf16, 2 x 512 tokens over sp 4, padding that leaves a block
+   wholly padded), a forward and a backward through the kernels against
+   the same pass through the plain block functions, with exact launches.
+8. prints one JSON line naming each kernel with its launches and times
+   (``other_steps``: the sums per step of other paths, the BERT ones
+   included), then the result line ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -107,9 +127,11 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+import bagua_tpu_torch as bagua
 from bagua_tpu_torch import BaguaProcessGroup, init_process_group
 from bagua_tpu_torch.algorithms import (
     ByteGradAlgorithm, DecentralizedAlgorithm, GradientAccumulation, GradientAllReduceAlgorithm,
@@ -117,18 +139,21 @@ from bagua_tpu_torch.algorithms import (
 )
 from bagua_tpu_torch.ddp import DistributedDataParallel
 from bagua_tpu_torch.examples import llama_pretrain as lp
-from bagua_tpu_torch.examples import mnist
+from bagua_tpu_torch.examples import communication_primitives, mnist, squad
 from bagua_tpu_torch.examples import synthetic_benchmark as sb
-from bagua_tpu_torch.communication import allgather, allreduce
+from bagua_tpu_torch.communication import allgather, allreduce, hierarchical_allreduce, reduce_scatter
 from bagua_tpu_torch.defs import ReduceOp
 from bagua_tpu_torch.kernels import _build
 from bagua_tpu_torch.kernels import collective_matmul as cm
 from bagua_tpu_torch.kernels import flash_attention as fa
 from bagua_tpu_torch.kernels import minmax_uint8 as mm8
 from bagua_tpu_torch.kernels import quantized_ring as qr
+from bagua_tpu_torch.functional import all_reduce as functional_all_reduce
+from bagua_tpu_torch.models import bert as bert_model
+from bagua_tpu_torch.models.bert import BertModel, bert_large_config, init_bert
 from bagua_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_llama, llama_7b_config, llama_loss_fn
 from bagua_tpu_torch.models.vgg import VGG, init_vgg16, module_params, vgg16, vgg_loss_fn
-from bagua_tpu_torch.parallel.ring_attention import zigzag_order
+from bagua_tpu_torch.parallel.ring_attention import ring_attention, zigzag_order
 from bagua_tpu_torch.parallel.tensor_parallel import (
     ColumnParallelDense, ParallelMLP, RowParallelDense, gelu,
 )
@@ -315,7 +340,7 @@ class Ledger:
         same work."""
         wrapper, plain, _, _ = KERNELS[name]
         row = self.rows[name] if step is None else self.other_steps.setdefault(step, {}).setdefault(
-            name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0))
+            name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None))
         ms = median_ms(lambda: wrapper(*args, **kwargs))
         plain_ms = median_ms(lambda: plain(*args, **kwargs))
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
@@ -2239,6 +2264,488 @@ def phase_sp_mlp_slice(device, profile: bool) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# PR 13: the user-API collectives and BERT-Large
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_RANKS = 8  # the tests' group: 2 nodes of 4
+
+
+def _collective_inputs():
+    """Float and integer stacks ``(8, 24, 3)`` from a seed, on the CPU."""
+    gen = torch.Generator().manual_seed(9)
+    xf = torch.randn((COLLECTIVE_RANKS, 24, 3), generator=gen)
+    xi = torch.randint(-1000, 1000, (COLLECTIVE_RANKS, 24, 3), generator=gen, dtype=torch.int32)
+    return xf, xi
+
+
+def phase_collectives(device) -> None:
+    """Every collective of the user API and every ``ReduceOp`` on the card's
+    stacked tensors against the same call on the CPU, over 8 ranks (2 x 4):
+    bitwise for every op, floats included (each fold is the same
+    elementwise IEEE operations in the same order on both), exact for
+    integers; ``functional.all_reduce``'s gradient likewise; ``barrier``
+    returns only once the card is idle; then the collectives twin
+    (``examples/communication_primitives``) on 4 ranks of the card."""
+    card = init_process_group([device] * COLLECTIVE_RANKS, intra_size=4)
+    cpu = BaguaProcessGroup([torch.device("cpu")] * COLLECTIVE_RANKS, intra_size=4)
+    xf, xi = _collective_inputs()
+    checks = 0
+
+    def both(what, fn, *args, groups=(card, cpu)):
+        nonlocal checks
+        got = fn(groups[0], *[a.to(device) for a in args])
+        want = fn(groups[1], *args)
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            if not same(g.cpu(), w):
+                raise AssertionError(f"[collectives] {what}: the card differs from the CPU "
+                                     f"(max abs error {abs_err(g.cpu(), w):.3e})")
+        checks += 1
+
+    bitwise_ops = (ReduceOp.BOR, ReduceOp.BAND, ReduceOp.BXOR)
+    for op in ReduceOp:
+        for x in ((xi,) if op in bitwise_ops else (xf, xi)):
+            for axis in (None, "inter", "intra"):
+                both(f"allreduce {op.name} {x.dtype} over {axis}", lambda g, t: allreduce(t, op, g, axis), x)
+            both(f"hierarchical {op.name} {x.dtype}", lambda g, t: hierarchical_allreduce(t, op, g), x)
+            both(f"reduce {op.name} {x.dtype}", lambda g, t: bagua.reduce(t, 2, op, g), x)
+    for op in (ReduceOp.SUM, ReduceOp.AVG):
+        for axis in (None, "inter", "intra"):
+            both(f"reduce_scatter {op.name} over {axis}", lambda g, t: reduce_scatter(t, op, g, axis), xf)
+    both("reducescatter", lambda g, t: bagua.reducescatter(t, ReduceOp.SUM, g), xf)
+    for x in (xf, xi):
+        both(f"broadcast {x.dtype}", lambda g, t: bagua.broadcast(t, 3, g), x)
+        both(f"scatter {x.dtype}", lambda g, t: bagua.scatter(t, 1, g), x)
+        both(f"gather {x.dtype}", lambda g, t: bagua.gather(t, 5, g), x)
+        both(f"allgather {x.dtype}", lambda g, t: bagua.allgather(t, g), x)
+        both(f"alltoall {x.dtype}", lambda g, t: bagua.alltoall(t, g), x)
+    capacity = 3
+    data = torch.randn((COLLECTIVE_RANKS, COLLECTIVE_RANKS, capacity, 2), generator=torch.Generator().manual_seed(10))
+    counts = (torch.arange(COLLECTIVE_RANKS)[:, None] + torch.arange(COLLECTIVE_RANKS)) % (capacity + 1)
+    both("alltoall_v_inplace", lambda g, t, c: bagua.alltoall_v_inplace(t, c, g), data, counts)
+    for axis in ("inter", "intra"):
+        n = 2 if axis == "inter" else 4
+        both(f"alltoall_v_inplace over {axis}",
+             lambda g, t, c: bagua.alltoall_v_inplace(t, c, g, axis), data[:, :n], counts[:, :n])
+    sub = (bagua.new_group([4, 5, 6, 7], intra_size=2), BaguaProcessGroup([torch.device("cpu")] * 4, intra_size=2))
+    for axis in (None, "inter", "intra"):
+        both(f"new_group allreduce SUM over {axis}", lambda g, t: allreduce(t, ReduceOp.SUM, g, axis), xf[4:],
+             groups=sub)
+
+    def grad(g, t, op):
+        leaf = t.clone().requires_grad_()
+        (functional_all_reduce(leaf, op, g) ** 2).sum().backward()
+        return leaf.grad
+
+    for op in (ReduceOp.SUM, ReduceOp.AVG, ReduceOp.MAX):
+        both(f"functional.all_reduce {op.name} gradient", lambda g, t: grad(g, t, op), xf)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(BUSY_CYCLES)
+    done = torch.cuda.Event()
+    done.record()
+    bagua.barrier(card)
+    if not done.query():
+        raise AssertionError("[collectives] barrier returned while the card was busy")
+    if bagua.broadcast_object({"step": 3}, src=2) != {"step": 3}:
+        raise AssertionError("[collectives] broadcast_object changed the object")
+    log(f"[collectives] {checks} collectives and ReduceOps over {COLLECTIVE_RANKS} ranks (2 x 4) "
+        "bitwise equal on the card and on the CPU; barrier waited for the card")
+    communication_primitives.main(["--ranks", str(RANKS)])
+
+
+BERT_SEQ = sb.BERT_SEQ
+SQUAD_BATCH = 8  # a rank
+SQUAD_WARMUP, SQUAD_STEPS = 2, 5
+BENCH_BATCH = 32  # a rank, the reference's
+BENCH_ALGORITHMS = {"gradient_allreduce": {}, "bytegrad": SLICE_PATHS["ByteGrad"][1]}
+#: the BERT-Large encoder under sequence parallelism: 2 layers, SP_BATCH
+#: sequences of SP_SEQ tokens over RANKS ranks, key-padding lengths drawn
+#: from SP_PAD_SEED in [SP_SEQ / 2, SP_SEQ] (seed 4: 463 and 311, so one
+#: rank's block of the second sequence is wholly padded and another's in part)
+SP_LAYERS, SP_SEQ, SP_BATCH, SP_PAD_SEED = 2, 512, 2, 4
+#: the kernels JSON line's names of the three BERT steps (``other_steps``)
+SQUAD_STEP, BENCH_STEP, SP_STEP = ("BERT-Large SQuAD", "BERT-Large MLM benchmark (ByteGrad)",
+                                   "BERT-Large encoder sp 4")
+
+
+def bert_plan(cfg, model_cls=None):
+    """A BERT model's ByteGrad plan over RANKS ranks, from its shapes alone:
+    the QA model's differs from the MLM model's (its head and no MLM
+    transform or decoder)."""
+    _, params = init_bert(cfg, None, "meta", model_cls=model_cls)
+    group = BaguaProcessGroup([torch.device("cpu")] * RANKS, intra_size=1)
+    return ByteGradAlgorithm().reify(group).tensors_to_buckets(params)
+
+
+def same_plan(a, b) -> bool:
+    return [(spec.numel, spec.dtype) for spec in a.specs] == [(spec.numel, spec.dtype) for spec in b.specs]
+
+
+def bert_sp_inputs(device):
+    """``(ids, mask)`` of the sp phase, each rank's block ``(RANKS, SP_BATCH,
+    SP_SEQ / RANKS)``, and the key-padding lengths."""
+    gen = torch.Generator().manual_seed(SP_PAD_SEED)
+    lengths = torch.randint(SP_SEQ // 2, SP_SEQ + 1, (SP_BATCH,), generator=gen)
+    ids = torch.randint(0, bert_large_config().vocab_size, (SP_BATCH, SP_SEQ), generator=gen)
+    mask = torch.arange(SP_SEQ)[None] < lengths[:, None]
+    blocks = lambda x: x.reshape(SP_BATCH, RANKS, -1).transpose(0, 1).contiguous().to(device)  # noqa: E731
+    return blocks(ids), blocks(mask), lengths.tolist()
+
+
+def bert_sp_masks(mask):
+    """The ring's block masks in its order: at ring step i rank r holds the
+    keys of member (r - i) mod RANKS, ``(RANKS * SP_BATCH, tq, tk)`` each."""
+    t = mask.shape[-1]
+    return [torch.roll(mask, i, dims=0)[:, :, None, :].expand(RANKS, SP_BATCH, t, t).reshape(-1, t, t)
+            .contiguous() for i in range(RANKS)]
+
+
+def bert_codec_kernels(ledger: Ledger, plan, device, step: str, tag: str) -> None:
+    """Rows 1-3 at every chunk shape of ``plan`` (a BERT-Large ByteGrad
+    plan), bitwise, and timed per ``step`` with the buckets a step makes of
+    each shape; a bf16 bucket's gradients are bf16 values, which the
+    kernels read as f32."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    shapes = {}
+    for spec in plan.specs:
+        shapes[(spec.numel, spec.dtype)] = shapes.get((spec.numel, spec.dtype), 0) + 1
+    for (numel, dtype), per_step in sorted(shapes.items()):
+        chunk = numel // RANKS
+        x = torch.randn((RANKS, numel), generator=gen, device=device) * 1e-3
+        if dtype == "bf16":
+            x = x.to(torch.bfloat16).float()
+        flat, fused_in, dec_in = pipeline_inputs(x, RANKS)
+        rows, case = RANKS * RANKS, f"BERT-Large {dtype} bucket of {numel} elements"
+        ledger.compare("compress_minmax_uint8", case, flat)
+        ledger.compare("decompress_reduce_requantize", case, *fused_in)
+        ledger.compare("decompress_minmax_uint8", case, *dec_in)
+        t = [ledger.time("compress_minmax_uint8", *codec_cost(rows, chunk, 6), flat, per_step=per_step,
+                         step=step),
+             ledger.time("decompress_reduce_requantize", rows * chunk + rows * 8 + RANKS * (chunk + 8),
+                         rows * chunk * 3 + RANKS * chunk * 5, *fused_in, per_step=per_step, step=step),
+             ledger.time("decompress_minmax_uint8", *codec_cost(rows, chunk, 2), *dec_in, per_step=per_step,
+                         step=step)]
+        log(f"[{tag}] {case} (x{per_step} a step), chunk {chunk}, bitwise: " + "; ".join(
+            f"{n} {ms:.4f} ms, plain {p:.4f}, bound {b:.4f}"
+            for n, (ms, p, b) in zip(("compress", "fused reduce", "decompress"), t)))
+        del x, flat, fused_in, dec_in
+    _log_step_sums(ledger, step, f"{plan.num_buckets} buckets")
+
+
+def bert_sp_kernels(ledger: Ledger, mask, device) -> None:
+    """Rows 6-8 at the sp phase's blocks within ATTENTION_TOLS (f32 q
+    pre-scaled, bf16 K/V, head dim 64, each ring step's rotating padding
+    ``mask``), timed per sp step (SP_LAYERS layers), beside SDPA on the same
+    inputs with K/V cast to f32 beforehand, which it needs."""
+    cfg = bert_large_config()
+    h, d, t = cfg.num_heads, cfg.hidden_size // cfg.num_heads, mask.shape[-1]
+    gen = torch.Generator(device=device).manual_seed(8)
+    qf, k, v, dl, do = attention_inputs(gen, device, RANKS * SP_BATCH, t, t, h, h, d, torch.bfloat16)
+    k32, v32 = k.float(), v.float()
+    with _no_tf32():
+        for i, block_mask in enumerate(bert_sp_masks(mask)):
+            live = float(block_mask.float().mean())
+            check_attention(ledger, f"BERT sp ring step {i} (live share {live:.3f})", qf, k, v, block_mask, dl, do)
+            m = fa.block_attention_plain(qf, k, v, block_mask)[2]
+            lib_fwd, lib_bwd = sdpa_ms(qf, k32, v32, block_mask, do)
+            costs = attention_cost(qf, k, block_mask, d)
+            ledger.time("block_attention", *costs[0], qf, k, v, block_mask, per_step=SP_LAYERS,
+                        library=lambda: lib_fwd, step=SP_STEP)
+            for name, cost in zip(("flash_attention_bwd_dq", "flash_attention_bwd_dkv"), costs[1:]):
+                ledger.time(name, *cost, qf, k, v, block_mask, m, dl, do, per_step=SP_LAYERS,
+                            library=lambda: lib_bwd, step=SP_STEP)
+    _log_step_sums(ledger, SP_STEP, f"{SP_LAYERS} layers x {RANKS} ring steps")
+
+
+def _log_step_sums(ledger: Ledger, step: str, over: str) -> None:
+    for name, row in ledger.other_steps[step].items():
+        lib = "" if row["library_ms"] is None else f", SDPA {row['library_ms']:.4f} ms"
+        log(f"[kernels] {name} per {step} step over {over} {row['ms']:.4f} ms (plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms{lib})")
+
+
+def _bitwise_replicas(what: str, params) -> None:
+    for name, leaf in tree_flatten_with_names(params):
+        if not all(torch.equal(leaf[0], leaf[r]) for r in range(1, leaf.shape[0])):
+            raise AssertionError(f"{what}: ranks' parameter {name} differs after the steps")
+
+
+def phase_bert_squad(ledger: Ledger, device, profile: bool) -> dict:
+    """Rows 1-3 at every chunk shape of the SQuAD plan
+    (:func:`bert_codec_kernels`), then the SQuAD twin at full BERT-Large width (bf16 compute, 128 tokens,
+    batch SQUAD_BATCH a rank) over RANKS ranks on this card, ``intra_size=1``,
+    ByteGrad with overlap, Adam 3e-4, seed-0 weights, synthetic SQuAD:
+    SQUAD_WARMUP steps, then SQUAD_STEPS counted and timed.  Checks finite
+    losses, the ranks' parameters bitwise equal and exactly one launch of
+    each of rows 1-3 per bucket and step, on the plan whose shapes were
+    checked; returns the counted launches."""
+    plan = bert_plan(squad.squad_config(True, BERT_SEQ), squad.BertForQuestionAnswering)
+    bert_codec_kernels(ledger, plan, device, SQUAD_STEP, "bert-squad")
+    gc.collect()
+    torch.cuda.empty_cache()
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    model, params = init_bert(squad.squad_config(True, BERT_SEQ), torch.Generator(device=device).manual_seed(0),
+                              device, model_cls=squad.BertForQuestionAnswering)
+    marks = {}
+
+    def on_step(i, state, ddp):
+        if i == SQUAD_WARMUP:
+            torch.cuda.synchronize()
+            marks["t0"] = time.perf_counter()
+            reset_launches()
+        return state
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, state, ddp = squad.run(model, params, group, SQUAD_WARMUP + SQUAD_STEPS, SQUAD_BATCH, BERT_SEQ,
+                                   log_every=1, on_step=on_step)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - marks["t0"]) / SQUAD_STEPS
+    launches = read_launches()
+    del params
+    what = "[bert-squad] BERT-Large QA, ByteGrad"
+    losses = torch.stack(losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"{what}: non-finite loss {losses.tolist()}")
+    _bitwise_replicas(what, state.params)
+    buckets = ddp.plan.num_buckets
+    if not same_plan(ddp.plan, plan):
+        raise AssertionError(f"{what}: the run's bucket plan is not the plan whose shapes were checked")
+    want = {kernel: SQUAD_STEPS * buckets * SLICE_PATHS["ByteGrad"][1].get(kernel, 0) for kernel in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{what}: launch counts {launches}, want {want}")
+    n_params = sum(p[0].numel() for p in tree_leaves(state.params))
+    largest = max(ddp.plan.specs, key=lambda spec: spec.numel)
+    samples = SQUAD_BATCH * RANKS
+    log(f"{what}: {n_params} parameters a rank, bf16 compute, {RANKS} ranks x batch {SQUAD_BATCH} x "
+        f"{BERT_SEQ} tokens, overlap {ddp.overlap_enabled}; {dt * 1e3:.1f} ms/step over {SQUAD_STEPS} steps "
+        f"after {SQUAD_WARMUP} = {samples / dt:.1f} samples/s on the card ({samples / dt / RANKS:.1f} a rank); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; optimizer state "
+        f"{ddp.optimizer_state_bytes(state)} B a rank; plan {buckets} buckets, the largest {largest.numel} "
+        f"elements ({largest.slots[0].name}{f' and {len(largest.slots) - 1} more' if len(largest.slots) > 1 else ''}); "
+        f"launches a step "
+        f"{ {k: n // SQUAD_STEPS for k, n in launches.items() if n} }; losses {losses.mean(1).tolist()}")
+    if profile:
+        batch = tuple(torch.from_numpy(a).to(device) for a in squad.synthetic_squad(
+            np.random.RandomState(1), samples, BERT_SEQ, model.cfg.vocab_size))
+        profile_step("BERT-Large SQuAD (ByteGrad, overlap)", lambda: ddp.train_step(state, batch), ddp.side_stream)
+    del state, ddp, model
+    return launches
+
+
+def phase_bert_bench(ledger: Ledger, device, profile: bool, algorithm: str) -> dict:
+    """The synthetic benchmark's reference line for ``--model bert-large``
+    (bf16, SGD momentum 0.9, batch BENCH_BATCH a rank) over RANKS ranks on
+    this card, ``intra_size=1``: 1 warm-up step and STEPS - 1 timed.  For
+    ByteGrad, first rows 1-3 at every chunk shape of the MLM model's plan
+    (:func:`bert_codec_kernels`), and the run's plan must be that one.
+    Checks finite losses, the ranks' parameters bitwise equal and the
+    launch counts; returns them."""
+    what, plan = f"[bert-bench] {algorithm}", None
+    if algorithm == "bytegrad":
+        plan = bert_plan(bert_large_config(compute_dtype=torch.bfloat16, max_position_embeddings=BERT_SEQ))
+        bert_codec_kernels(ledger, plan, device, BENCH_STEP, "bert-bench")
+    gc.collect()
+    torch.cuda.empty_cache()
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    model, params = sb.build("bert-large", torch.bfloat16, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = sb.run(model, params, group, algorithm, batch_size=BENCH_BATCH, num_iters=STEPS - 1, num_warmup=1)
+    launches = read_launches()
+    del params
+    if not torch.isfinite(result.losses).all():
+        raise AssertionError(f"{what}: non-finite loss {result.losses.tolist()}")
+    _bitwise_replicas(what, result.state.params)
+    if plan is not None and not same_plan(result.ddp.plan, plan):
+        raise AssertionError(f"{what}: the run's bucket plan is not the plan whose shapes were checked")
+    buckets = result.ddp.plan.num_buckets
+    per_bucket = BENCH_ALGORITHMS[algorithm]
+    want = {kernel: STEPS * buckets * per_bucket.get(kernel, 0) for kernel in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{what}: launch counts {launches}, want {want}")
+    log(f"{what}: {result.line} | {RANKS} ranks on one card, batch {BENCH_BATCH} a rank, {buckets} buckets, "
+        f"{result.step_seconds * 1e3:.1f} ms/step, {BENCH_BATCH * RANKS / result.step_seconds:.1f} samples/s on the "
+        f"card, warm-up step {result.warmup_seconds:.3f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_step(f"BERT-Large MLM benchmark ({algorithm})",
+                     lambda: result.ddp.train_step(result.state, result.batch), result.ddp.side_stream)
+    del result, model
+    return launches
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The ring's block calls through the plain versions (on the card)."""
+    saved = fa.block_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv
+    fa.block_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = (
+        fa.block_attention_plain, fa.flash_attention_bwd_dq_plain, fa.flash_attention_bwd_dkv_plain)
+    try:
+        yield
+    finally:
+        fa.block_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = saved
+
+
+@contextlib.contextmanager
+def _recorded_attention(records):
+    """Each ring attention call of the model appends its inputs, output and
+    the gradients of q, k, v and of the output to ``records``."""
+    def recording(q, k, v, *args, **kwargs):
+        rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(), "mask": kwargs["kv_mask"]}
+        for name, t in (("dq", q), ("dk", k), ("dv", v)):
+            t.register_hook(lambda g, name=name: rec.__setitem__(name, g))
+        out = ring_attention(q, k, v, *args, **kwargs)
+        out.register_hook(lambda g: rec.__setitem__("dout", g))
+        rec["out"] = out.detach()
+        records.append(rec)
+        return out
+
+    bert_model.ring_attention = recording
+    try:
+        yield
+    finally:
+        bert_model.ring_attention = ring_attention
+
+
+def _share_of_bound(got: torch.Tensor, want: torch.Tensor, tol: float, ulps: float, scale=None) -> float:
+    """The largest share of its bound that an element of ``got - want``
+    uses: ``tol * max(1, |want|)`` (ATTENTION_TOLS) plus ``ulps`` bf16 ulps
+    (2^-7 of a value each) of the element's value or, for a bf16 sum whose
+    terms may cancel, of ``scale``, the sum of the terms' magnitudes."""
+    g, w = got.double(), want.double()
+    scale = w.abs() if scale is None else scale.double()
+    bound = tol * w.abs().clamp(min=1.0) + ulps * 2.0 ** -7 * scale
+    return float(((g - w).abs() / bound).max())
+
+
+def _abs_dkv(*args):
+    """The plain dk/dv kernel's magnitudes: run through the ring's backward,
+    each K/V block's gradient sums the magnitudes of its terms."""
+    dk, dv = fa.flash_attention_bwd_dkv_plain(*args)
+    return dk.abs(), dv.abs()
+
+
+def _bert_sp_pass(model, stacked, ids, mask, cot):
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), stacked)
+    out = model(leaves, ids, attention_mask=mask)
+    (out * cot).sum().backward()
+    return out.detach(), [leaf.grad for leaf in tree_leaves(leaves)]
+
+
+def phase_bert_sp(ledger: Ledger, device, profile: bool) -> dict:
+    """Rows 6-8 at this phase's blocks (:func:`bert_sp_kernels`), then the
+    BERT-Large encoder's width (hidden 1024, 16 heads of 64, FFN 4096,
+    bf16 compute) at tp 1 x sp 4 over SP_SEQ tokens, cut to SP_LAYERS
+    layers: a forward and a backward (a seeded cotangent on the f32 output)
+    through the CUDA kernels, and the same pass with the ring's block
+    calls through the plain versions (TF32 off).
+
+    - Each layer's ring attention, on the inputs it got in the kernel run:
+      its output and the gradients of q, k and v against the plain ring's
+      within ATTENTION_TOLS plus the bf16 roundings on the way.  The output
+      and dq: one ulp of the element's value (two roundings of nearly equal
+      values may land one ulp apart).  dk and dv: half an ulp (round to
+      nearest) for each of two roundings per ring step (each block's
+      gradient and each sum of them), of the sum of the terms' magnitudes
+      (the same backward through a plain dk/dv that returns magnitudes),
+      since the ring sums a rotating block's gradients in bf16 and the
+      terms cancel.
+    - The whole pass: the encoder's output and every parameter's gradient
+      within 2^-5 of its largest plain value (bf16 activations: a last-bit
+      difference in attention may flip a rounding, which the next layers
+      carry).
+    - Launches exact: each layer makes RANKS block calls (one per ring
+      step, the ranks folded into the batch), so SP_LAYERS x RANKS of each
+      of rows 6-8 in the counted pass.  Returns the counts."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = bert_large_config(num_layers=SP_LAYERS, max_position_embeddings=SP_SEQ, sp_axis="intra",
+                            compute_dtype=torch.bfloat16)
+    group = BaguaProcessGroup([device] * RANKS, intra_size=RANKS)
+    model, params = init_bert(cfg, torch.Generator(device=device).manual_seed(0), device, group, model_cls=BertModel)
+    stacked = lp.replicate(params, RANKS)
+    del params
+    ids, mask, lengths = bert_sp_inputs(device)
+    cot = torch.randn((RANKS, SP_BATCH, SP_SEQ // RANKS, cfg.hidden_size),
+                      generator=torch.Generator(device=device).manual_seed(11), device=device)
+    dead = [(r, s) for r in range(RANKS) for s in range(SP_BATCH) if not mask[r, s].any()]
+    if not dead:
+        raise AssertionError(f"[bert-sp] lengths {lengths} leave no block wholly padded")
+    bert_sp_kernels(ledger, mask, device)
+    with _no_tf32():
+        _bert_sp_pass(model, stacked, ids, mask, cot)  # warm-up
+        records = []
+        torch.cuda.synchronize()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with _recorded_attention(records):
+            out, grads = _bert_sp_pass(model, stacked, ids, mask, cot)
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        kernel_ms = start.elapsed_time(end)
+        with _plain_attention():
+            start.record()
+            out_p, grads_p = _bert_sp_pass(model, stacked, ids, mask, cot)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            worst, failed = {}, []
+            for layer, rec in enumerate(records):
+                q, k, v = (rec[n].clone().requires_grad_() for n in "qkv")
+                o = ring_attention(q, k, v, group, cfg.sp_axis, causal=False, kv_mask=rec["mask"])
+                o.backward(rec["dout"])
+                k_abs, v_abs = (rec[n].clone().requires_grad_() for n in "kv")
+                fa.flash_attention_bwd_dkv = _abs_dkv
+                ring_attention(rec["q"], k_abs, v_abs, group, cfg.sp_axis, causal=False,
+                               kv_mask=rec["mask"]).backward(rec["dout"])
+                fa.flash_attention_bwd_dkv = fa.flash_attention_bwd_dkv_plain
+                pairs = (("output", rec["out"], o.detach(), ATTENTION_TOLS["block_attention"][0], 1, None),
+                         ("dq", rec["dq"], q.grad, ATTENTION_TOLS["flash_attention_bwd_dq"][0], 1, None),
+                         ("dk", rec["dk"], k.grad, ATTENTION_TOLS["flash_attention_bwd_dkv"][0], 2 * RANKS / 2,
+                          k_abs.grad),
+                         ("dv", rec["dv"], v.grad, ATTENTION_TOLS["flash_attention_bwd_dkv"][1], 2 * RANKS / 2,
+                          v_abs.grad))
+                for name, got, want, tol, ulps, scale in pairs:
+                    share = _share_of_bound(got, want, tol, ulps, scale)
+                    worst[name] = max(worst.get(name, 0.0), share)
+                    if got.dtype != want.dtype or share > 1.0:
+                        failed.append(f"layer {layer} {name}: max abs error {abs_err(got, want):.3e}, "
+                                      f"{share:.3f} of the bound")
+    if failed:
+        raise AssertionError(f"[bert-sp] ring attention differs from the plain ring's beyond ATTENTION_TOLS "
+                             f"and the bf16 roundings: {failed}")
+    if len(records) != SP_LAYERS:
+        raise AssertionError(f"[bert-sp] {len(records)} ring attention calls, want {SP_LAYERS}")
+    rel = {}
+    for (name, _), g, w in zip([("output", None)] + tree_flatten_with_names(stacked), [out] + grads,
+                               [out_p] + grads_p):
+        rel[name] = abs_err(g, w) / max(float(w.abs().max()), 1e-30) if torch.isfinite(g).all() else math.inf
+    over = {name: r for name, r in rel.items() if r > 2.0 ** -5}
+    if over:
+        raise AssertionError(f"[bert-sp] kernels vs plain beyond 2^-5 of the largest value: {over}")
+    calls = SP_LAYERS * RANKS
+    want = {kernel: calls if kernel in ATTENTION_TOLS else 0 for kernel in KERNELS}
+    if launches != want:
+        raise AssertionError(f"[bert-sp] launch counts {launches}, want {want}")
+    worst_leaf = max(rel, key=rel.get)
+    log(f"[bert-sp] BERT-Large encoder width ({cfg.hidden_size} hidden, {cfg.num_heads} heads of "
+        f"{cfg.hidden_size // cfg.num_heads}, FFN {cfg.intermediate_size}), {SP_LAYERS} layers, bf16, "
+        f"{SP_BATCH} x {SP_SEQ} tokens over sp {RANKS}, padding lengths {lengths} (wholly padded blocks, "
+        f"(rank, sequence): {dead}): forward + backward {kernel_ms:.2f} ms through the kernels, {plain_ms:.2f} ms "
+        f"through the plain block functions; per layer within ATTENTION_TOLS and the bf16 roundings, "
+        f"worst shares of the bound { {k: round(e, 4) for k, e in worst.items()} }; whole pass worst relative error {rel[worst_leaf]:.3e} "
+        f"({worst_leaf}); launches {launches} ({SP_LAYERS} layers x {RANKS} ring steps)")
+    if profile:
+        profile_step("BERT-Large encoder sp 4 forward + backward",
+                     lambda: _bert_sp_pass(model, stacked, ids, mask, cot))
+    del model, stacked
+    return launches
+
+
 def vgg16_plan():
     """The bucket plan of VGG16 over RANKS ranks, from the model's shapes
     alone (built on the meta device); every algorithm here aligns its
@@ -2259,6 +2766,7 @@ def main(argv) -> int:
     phase_matmul_kernels(ledger, device)
     phase_rings(device)
     torch.cuda.empty_cache()
+    phase_collectives(device)
     phase_reference(device)
     phase_reference_dp(device)
     phase_reference_relax(device)
@@ -2286,6 +2794,10 @@ def main(argv) -> int:
     per_path["Llama tp"] = phase_llama_slice(device, profile, (1, 2, 2))
     torch.cuda.empty_cache()
     per_path["SP MLP"] = phase_sp_mlp_slice(device, profile)
+    per_path["BERT SQuAD"] = phase_bert_squad(ledger, device, profile)
+    for algorithm in BENCH_ALGORITHMS:
+        per_path[f"BERT bench {algorithm}"] = phase_bert_bench(ledger, device, profile, algorithm)
+    per_path["BERT sp"] = phase_bert_sp(ledger, device, profile)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]

@@ -341,7 +341,8 @@ def test_port_imports_no_jax():
     neither JAX nor the JAX package; the walk reaches the tensor-parallel
     slice's modules, the synthetic benchmark's twin, ZeRO's modules, the
     decentralized pair, QAdam, the MNIST twin, stale-sync, async model
-    average and gradient accumulation."""
+    average, gradient accumulation, BERT, the differentiable collectives,
+    the SQuAD twin and the collectives twin."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -354,7 +355,9 @@ def test_port_imports_no_jax():
         "        'bagua_tpu_torch.models._rank_ops', 'bagua_tpu_torch.algorithms.decentralized',\n"
         "        'bagua_tpu_torch.algorithms.q_adam', 'bagua_tpu_torch.examples.mnist',\n"
         "        'bagua_tpu_torch.algorithms.stale', 'bagua_tpu_torch.algorithms.async_model_average',\n"
-        "        'bagua_tpu_torch.algorithms.grad_accumulation']\n"
+        "        'bagua_tpu_torch.algorithms.grad_accumulation', 'bagua_tpu_torch.models.bert',\n"
+        "        'bagua_tpu_torch.functional', 'bagua_tpu_torch.examples.squad',\n"
+        "        'bagua_tpu_torch.examples.communication_primitives']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )

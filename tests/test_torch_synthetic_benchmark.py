@@ -47,13 +47,70 @@ def test_run_matches_trainer(capsys, algorithm, kwargs):
     assert torch.equal(result.losses, trainer.losses)
 
 
-def test_unported_model_and_no_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        sb.build("bert-large", torch.float32, torch.device("cpu"))
+SMALL_BERT = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64)
+
+
+def test_unported_model_and_no_card(monkeypatch, capsys):
+    """``build("bert-large")`` at a small config against the JAX benchmark's
+    ``build`` (each package's ``bert_large_config`` given the same small
+    widths): the same
+    parameter tree, and on the JAX weights the same loss on the same batch
+    within rtol 1e-6 (f32 sums in another order); ``run()`` takes it and
+    prints the reference's line; an unknown model raises; ``main`` without
+    a card raises."""
+    import importlib.util
+    import os
+
+    import jax
+    import jax.numpy as jnp
+
+    from bagua_tpu.models import bert as jax_bert
+
+    from bagua_tpu_torch.convert import params_from_jax
+    from bagua_tpu_torch.utils import tree_flatten_with_names
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_synthetic_benchmark", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                                "examples", "benchmark", "synthetic_benchmark.py"))
+    jsb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jsb)
+    for module in (jax_bert, sb):
+        full = module.bert_large_config
+        monkeypatch.setattr(module, "bert_large_config", lambda full=full, **kw: full(**{**kw, **SMALL_BERT}))
+    jloss, jparams, jbatch = jsb.build("bert-large", jnp.float32)
+
+    model, params = sb.build("bert-large", torch.float32, torch.device("cpu"))
+    assert model.cfg.max_position_embeddings == sb.BERT_SEQ == 128
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
+    assert [(n, t.shape, t.dtype) for n, t in tree_flatten_with_names(params)] == \
+        [(n, t.shape, t.dtype) for n, t in tree_flatten_with_names(tparams)]
+    want = float(jloss(jparams, jbatch(np.random.RandomState(0), 2)))
+    _, loss_fn, batch_fn = sb.workload(model)
+    ids, labels = batch_fn(np.random.RandomState(0), 2)
+    assert np.array_equal(ids.numpy(), np.asarray(jbatch(np.random.RandomState(0), 2)[0]))
+    got = float(torch.func.vmap(loss_fn)(tree_map_stack(tparams), (ids[None], labels[None]))[0])
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+    group = BaguaProcessGroup([torch.device("cpu")] * 2, intra_size=1)
+    result = sb.run(model, params, group, "bytegrad", batch_size=1, num_iters=1, num_warmup=1)
+    assert re.match(r"^model=bert-large algorithm=bytegrad batch=1/chip chips=2: [0-9.]+ samples/sec/chip, "
+                    r"final loss [0-9.]+$", result.line)
+    assert capsys.readouterr().out.strip() == result.line and torch.isfinite(result.losses).all()
+    with pytest.raises(ValueError):
+        sb.build("resnet50", torch.float32, torch.device("cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sb.main(["--num-iters", "1"])
     assert isinstance(sb.build_algorithm("gradient_allreduce"), GradientAllReduceAlgorithm)
+    # the full configuration: BERT-Large's widths, the benchmark's positions
+    cfg = full(compute_dtype=torch.bfloat16, max_position_embeddings=sb.BERT_SEQ)
+    assert (cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads) == (30522, 1024, 24, 16)
+
+
+def tree_map_stack(tree):
+    from bagua_tpu_torch.utils import tree_map
+
+    return tree_map(lambda t: t[None], tree)
 
 
 def _averagers():
