@@ -56,7 +56,7 @@ import torch
 
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContext
 from bagua_tpu_torch.communication import ReduceOp, allreduce
-from bagua_tpu_torch.utils import tree_leaves, tree_map
+from bagua_tpu_torch.utils import tree_flatten_with_names
 
 logger = logging.getLogger(__name__)
 
@@ -112,9 +112,16 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
 
     # -- the delta ---------------------------------------------------------------
 
+    def averaged_names(self):
+        """The leaves the averager averages: those of the engine's bucket
+        plan, so a leaf the engine's ``dp_filter`` keeps out of the
+        exchange (an MoE rank's own experts) stays the rank's own."""
+        return [slot.name for spec in self._bound_plan.specs for slot in spec.slots]
+
     def _delta(self, snapshot):
-        """``mean_over_ranks(snapshot) - snapshot`` into fresh tensors: the
-        mean summed over the ranks left to right and divided, as the AVG
+        """``mean_over_ranks(leaf) - leaf`` into fresh tensors, for each leaf
+        of :meth:`averaged_names`: ``{name: delta}``.  The mean is summed
+        over the ranks left to right and divided, as the AVG
         ``allreduce``, without materializing its broadcast."""
         n = self.process_group.size
 
@@ -125,8 +132,9 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
             red = red / torch.full_like(red, n)
             return red.unsqueeze(0) - x
 
+        leaves = dict(tree_flatten_with_names(snapshot))
         with torch.no_grad():
-            return tree_map(delta_of, snapshot)
+            return {name: delta_of(leaves[name]) for name in self.averaged_names()}
 
     def _dispatch_delta(self, latest, event):
         """Start the delta of ``latest``: ``(delta, done)``.  On the card it
@@ -265,17 +273,18 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
                        what, type(exc).__name__, exc, self.folds_failed)
 
     def _fold(self, params, delta, done):
-        """``params += delta`` in place, on the training stream (which waits
-        for ``done``: a no-op by now, and the ordering the stream needs)."""
-        leaves, deltas = tree_leaves(params), tree_leaves(delta)
-        if len(leaves) != len(deltas) or any(p.shape != d.shape for p, d in zip(leaves, deltas)):
+        """``params += delta`` in place for the averaged leaves, on the
+        training stream (which waits for ``done``: a no-op by now, and the
+        ordering the stream needs)."""
+        leaves = dict(tree_flatten_with_names(params))
+        if any(name not in leaves or leaves[name].shape != d.shape for name, d in delta.items()):
             raise ValueError("the delta does not match the parameters")
-        stream = torch.cuda.current_stream(leaves[0].device) if done is not None else None
+        stream = torch.cuda.current_stream(next(iter(leaves.values())).device) if done is not None else None
         if stream is not None:
             stream.wait_event(done)
         with torch.no_grad():
-            for p, d in zip(leaves, deltas):
-                p.add_(d)
+            for name, d in delta.items():
+                leaves[name].add_(d)
                 if stream is not None:
                     d.record_stream(stream)
         return stream.record_event() if stream is not None else None

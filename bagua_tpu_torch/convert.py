@@ -1,8 +1,13 @@
 """Parameters from the JAX package to the port.
 
-The port keeps the JAX package's parameter layout (HWIO conv kernels,
-``(in, out)`` Dense kernels, flax's names), so conversion is a copy of each
-leaf into a tensor on the chosen device."""
+The port keeps the JAX package's parameter layout (HWIO conv kernels in
+VGG, ``(in, out)`` Dense kernels, flax's names), so conversion is a copy of
+each leaf into a tensor on the chosen device.  That holds for the MoE trees
+(``gate/Dense_0``, ``experts/VmapDense_{0,1}`` with kernels ``(local
+experts, in, out)``), ``nn.SelfAttention`` (``query/key/value`` kernels
+``(M, heads, head_dim)``, ``out`` ``(heads, head_dim, M)``), ``nn.LayerNorm``
+and ``nn.Embed``.  ResNet alone lays its conv kernels out as OIHW:
+:func:`resnet_params_from_jax` transposes them."""
 
 import numpy as np
 import torch
@@ -32,3 +37,10 @@ def stacked_params_from_jax(trees, device=None):
     leaves = [tree_leaves(t) for t in trees]
     stacked = [_tensor(np.stack([np.asarray(x) for x in per])).to(device) for per in zip(*leaves)]
     return tree_unflatten(trees[0], stacked)
+
+
+def resnet_params_from_jax(variables, device=None):
+    """flax ResNet variables (``{"params", "batch_stats"}``) as the port's:
+    every conv ``kernel`` HWIO -> OIHW, the rest copied."""
+    tree = params_from_jax(variables, device)
+    return tree_map(lambda t: t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t, tree)

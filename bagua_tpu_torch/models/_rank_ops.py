@@ -11,10 +11,17 @@ and weight, stacked along a new leading dim.  Autograd then records plain
 per-rank convolutions in layer order, each rank's input keeps its own
 layout (an NHWC view stays one), and a stacked leaf still gets one
 gradient from one backward over every rank.
+
+:func:`rank_alltoall` is the expert-parallel exchange of the MoE layer:
+its ``vmap`` rule sees the rank-stacked tensor and runs the group's stacked
+:func:`~bagua_tpu_torch.communication.alltoall` on it, so autograd records
+the permutation and its transpose is the backward's exchange.
 """
 
 import torch
 import torch.nn.functional as F
+
+from bagua_tpu_torch.communication import alltoall, axis_size
 
 
 def _ranks(t: torch.Tensor, dim, n: int):
@@ -28,35 +35,74 @@ def _ranks(t: torch.Tensor, dim, n: int):
 
 
 class _RankConv2d(torch.autograd.Function):
-    """``F.conv2d(x, w, padding=padding)``, stride 1, no bias, one group."""
+    """``F.conv2d(x, w, stride=stride, padding=padding)``, no bias, one group."""
 
     @staticmethod
-    def forward(x, w, padding):
-        return F.conv2d(x, w, padding=padding)
+    def forward(x, w, padding, stride):
+        return F.conv2d(x, w, stride=stride, padding=padding)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, w, padding = inputs
+        x, w, padding, stride = inputs
         ctx.save_for_backward(x, w)
-        ctx.padding = padding
+        ctx.padding, ctx.stride = padding, stride
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         gx, gw, _ = torch.ops.aten.convolution_backward(
-            gy, x, w, None, [1, 1], [ctx.padding, ctx.padding], [1, 1], False, [0, 0], 1,
-            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False],
+            gy, x, w, None, [ctx.stride, ctx.stride], [ctx.padding, ctx.padding], [1, 1], False,
+            [0, 0], 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False],
         )
-        return gx, gw, None
+        return gx, gw, None, None
 
     @staticmethod
-    def vmap(info, in_dims, x, w, padding):
+    def vmap(info, in_dims, x, w, padding, stride):
         xs = _ranks(x, in_dims[0], info.batch_size)
         ws = _ranks(w, in_dims[1], info.batch_size)
-        return torch.stack([F.conv2d(xr, wr, padding=padding) for xr, wr in zip(xs, ws)]), 0
+        return torch.stack([F.conv2d(xr, wr, stride=stride, padding=padding)
+                            for xr, wr in zip(xs, ws)]), 0
 
 
-def rank_conv2d(x: torch.Tensor, w: torch.Tensor, padding: int) -> torch.Tensor:
-    """``F.conv2d(x, w, padding=padding)`` (NCHW input, OIHW weight); under
-    ``vmap``, one convolution per rank in place of a grouped one."""
-    return _RankConv2d.apply(x, w, padding)
+def rank_conv2d(x: torch.Tensor, w: torch.Tensor, padding: int, stride: int = 1) -> torch.Tensor:
+    """``F.conv2d(x, w, stride=stride, padding=padding)`` (NCHW input, OIHW
+    weight); under ``vmap``, one convolution per rank in place of a grouped
+    one."""
+    return _RankConv2d.apply(x, w, padding, stride)
+
+
+class _RankAllToAll(torch.autograd.Function):
+    """The tiled all-to-all of each rank's first dim over ``axis`` of
+    ``group``; it exists only under ``vmap`` over the group's ranks."""
+
+    @staticmethod
+    def forward(x, group, axis):
+        raise RuntimeError(
+            "rank_alltoall runs under torch.func.vmap over the group's ranks (the engine's "
+            "loss, or a vmap over a rank-stacked input); outside one there is no rank to "
+            "exchange with"
+        )
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, axis):
+        if info.batch_size != group.size:
+            raise ValueError(f"rank_alltoall under a vmap of {info.batch_size}, over a group of "
+                             f"{group.size} ranks")
+        # functorch calls this rule only for a batched x
+        return alltoall(x.movedim(in_dims[0], 0), group, axis), 0
+
+
+def rank_alltoall(x: torch.Tensor, group, axis) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0, tiled=True)``
+    inside the engine's ``vmap`` over ``group``'s ranks: each rank's ``x``
+    is cut along its first dim into one chunk per member of its collective
+    over ``axis``, chunk j goes to member j, and each rank gets the chunks
+    it received in member order.  Its gradient is the exchange back."""
+    n = axis_size(group, axis)
+    if x.shape[0] % n:
+        raise ValueError(f"rank_alltoall: dim {x.shape[0]} does not divide into {n} chunks")
+    return _RankAllToAll.apply(x, group, axis)

@@ -117,6 +117,19 @@ def tree_flatten_with_names(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
+def dotted_leaves(tree, prefix: str = "") -> dict:
+    """A nested dict of leaves as ``{"a.b.leaf": leaf}``, the names
+    ``torch.func.functional_call`` takes for the module whose
+    ``named_parameters`` the tree mirrors."""
+    out = {}
+    for key, child in tree.items():
+        if isinstance(child, dict):
+            out.update(dotted_leaves(child, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = child
+    return out
+
+
 def tree_leaves(tree) -> List[Any]:
     return [leaf for _, leaf in tree_flatten_with_names(tree)]
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``bagua_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--witness]
 
 Phases, in order; the first that fails ends the run with a non-zero exit
 and no result line:
@@ -109,12 +109,35 @@ and no result line:
    layers, bf16, 2 x 512 tokens over sp 4, padding that leaves a block
    wholly padded), a forward and a backward through the kernels against
    the same pass through the plain block functions, with exact launches.
-8. prints one JSON line naming each kernel with its launches and times
+8. moe and resnet -- (after the BERT phases; no kernel of rows 1-9 runs
+   here, and each phase checks that none is launched) ``[moe-ref]``: a
+   small MoE, top-1 and top-2 with capacity truncation and ``used_token``,
+   card against CPU (masks and ``tokens_per_expert`` equal, weights,
+   outputs and gradients within stated f32 tolerances), ``a2a_chunks`` 2
+   and 4 bitwise unchunked at ep 4 under ``vmap`` on the card, ep 4 against
+   ep 1 with the experts tiled; ``[moe-bench]``: the ``bench_moe`` twin at
+   full width (8 layers x 512, 8 experts top-2, vocab 8192, bf16, 4 ranks x
+   32 x 128 tokens, ``intra_size=1``; ms/step, the samples/s/chip line,
+   peak memory, every leaf bitwise equal across the ranks, a traced step
+   under ``--profile``) and its fused all-to-all row (ep 4, 512 tokens a
+   rank, chunks 1 and 4); ``[moe-example]``: the moe twin's ``main()`` at
+   its defaults (non-expert leaves bitwise equal, expert leaves apart);
+   ``[moe-async]`` (BASELINE config 5): that model with ``"async"`` at 50
+   ms and the experts' ``dp_filter`` (at least one fold, no expert leaf
+   averaged, finite losses, ms/step); ``[resnet]``: a small ResNet card
+   against CPU (f64 losses and gradients under ``vmap``, and 2 f32
+   decentralized engine steps against the CPU's engine and the f64
+   recurrence; ``--witness`` adds the readings at batch 8 and 16 with
+   cuDNN's default and deterministic algorithms), then ResNet-50 through the imagenet twin (BASELINE config
+   4: 224x224, bf16, 4 ranks x 32) with ``gradient_allreduce`` and
+   decentralized SGD, 2 + 5 steps each (img/s, ms/step, peak memory).
+9. prints one JSON line naming each kernel with its launches and times
    (``other_steps``: the sums per step of other paths, the BERT ones
    included), then the result line ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -134,12 +157,12 @@ import torch.nn.functional as F
 import bagua_tpu_torch as bagua
 from bagua_tpu_torch import BaguaProcessGroup, init_process_group
 from bagua_tpu_torch.algorithms import (
-    ByteGradAlgorithm, DecentralizedAlgorithm, GradientAccumulation, GradientAllReduceAlgorithm,
+    ByteGradAlgorithm, DecentralizedAlgorithm, GradientAccumulation, GradientAllReduceAlgorithm, build_algorithm,
     LowPrecisionDecentralizedAlgorithm, QAdamAlgorithm, QAdamOptimizer, StaleSyncAlgorithm,
 )
 from bagua_tpu_torch.ddp import DistributedDataParallel
 from bagua_tpu_torch.examples import llama_pretrain as lp
-from bagua_tpu_torch.examples import communication_primitives, mnist, squad
+from bagua_tpu_torch.examples import bench_moe, communication_primitives, imagenet, mnist, moe, squad
 from bagua_tpu_torch.examples import synthetic_benchmark as sb
 from bagua_tpu_torch.communication import allgather, allreduce, hierarchical_allreduce, reduce_scatter
 from bagua_tpu_torch.defs import ReduceOp
@@ -151,8 +174,10 @@ from bagua_tpu_torch.kernels import quantized_ring as qr
 from bagua_tpu_torch.functional import all_reduce as functional_all_reduce
 from bagua_tpu_torch.models import bert as bert_model
 from bagua_tpu_torch.models.bert import BertModel, bert_large_config, init_bert
+from bagua_tpu_torch.models.resnet import ResNet, init_resnet, resnet_loss_fn
 from bagua_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_llama, llama_7b_config, llama_loss_fn
 from bagua_tpu_torch.models.vgg import VGG, init_vgg16, module_params, vgg16, vgg_loss_fn
+from bagua_tpu_torch.parallel.moe import MoE
 from bagua_tpu_torch.parallel.ring_attention import ring_attention, zigzag_order
 from bagua_tpu_torch.parallel.tensor_parallel import (
     ColumnParallelDense, ParallelMLP, RowParallelDense, gelu,
@@ -2746,6 +2771,409 @@ def phase_bert_sp(ledger: Ledger, device, profile: bool) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The MoE slice (BASELINE config 5) and ResNet-50 (config 4): no kernel of
+# rows 1-9 runs here (routing, dispatch/combine, the experts, BatchNorm and
+# the convolutions are plain torch, as the JAX package computes them outside
+# any Pallas kernel); each phase checks that none is launched
+# ---------------------------------------------------------------------------
+
+REF_MOE = dict(model_dim=16, hidden_size=32, num_experts=8)
+REF_MOE_TOKENS = 64  # a rank
+MOE_ASYNC = {"sync_interval_ms": 50, "warmup_steps": 2}
+MOE_EXAMPLE_STEPS = 50
+FUSED_TOKENS = 512  # a rank, as the JAX bench's fused all-to-all row
+RESNET_STEPS, RESNET_WARMUP = 7, 2
+RESNET_ALGORITHMS = ("gradient_allreduce", "decentralized")
+
+
+def _no_launches(what: str) -> dict:
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"{what}: launch counts {launches}, want none")
+    return launches
+
+
+def _moe_pass(moe, x, cot, used=None):
+    """One forward and backward of ``moe`` (a rank's tokens, no vmap):
+    output, routing, balance loss, input and parameter gradients."""
+    xx = x.detach().clone().requires_grad_(True)
+    with torch.no_grad():
+        routing = moe.moe_layer.gate(xx.reshape(-1, x.shape[-1]), used_token=None if used is None else used.reshape(-1))
+    out, l_aux = moe(xx, used_token=used)
+    ((out * cot).sum() + 0.3 * l_aux).backward()
+    return out.detach().cpu(), routing, l_aux.detach().cpu(), xx.grad.cpu(), {
+        n: p.grad.cpu() for n, p in moe.named_parameters()}
+
+
+def phase_moe_reference(device) -> None:
+    """``[moe-ref]``: a small MoE (16 wide, 8 experts) on the card against the
+    same on the CPU (f32, TF32 off), top-1 and top-2 at a capacity factor
+    that truncates (0.5) and with ``used_token`` masking a third of the
+    tokens: dispatch masks and ``tokens_per_expert`` equal, combine weights
+    within 1e-6 of 1, outputs and gradients within 1e-5 of their scale (the
+    card's GEMMs sum in another order); then at ep RANKS under ``vmap`` on
+    the card: ``a2a_chunks`` 2 and 4 bitwise equal to unchunked, and ep
+    RANKS equal to ep 1 with the experts tiled within rtol 2e-4, atol 1e-5
+    (the JAX package's own bound for that case)."""
+    reset_launches()
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(4, REF_MOE_TOKENS // 4, REF_MOE["model_dim"], generator=gen)
+    cot = torch.randn(x.shape, generator=gen)
+    used = (torch.rand(x.shape[:2], generator=gen) > 1 / 3).float()
+    with _no_tf32():
+        for k in (1, 2):
+            for mask in (None, used):
+                what = f"[moe-ref] top-{k}{' used_token' if mask is not None else ''}"
+                cpu_moe = MoE(REF_MOE["model_dim"], REF_MOE["hidden_size"], REF_MOE["num_experts"], k=k,
+                              capacity_factor=0.5, min_capacity=1, device="cpu",
+                              generator=torch.Generator().manual_seed(k))
+                card_moe = copy.deepcopy(cpu_moe).to(device)
+                want = _moe_pass(cpu_moe, x, cot, mask)
+                got = _moe_pass(card_moe, x.to(device), cot.to(device), None if mask is None else mask.to(device))
+                rw, rg = want[1], got[1]
+                if not (torch.equal(rg.dispatch_mask.cpu(), rw.dispatch_mask)
+                        and torch.equal(rg.tokens_per_expert.cpu(), rw.tokens_per_expert)):
+                    raise AssertionError(f"{what}: routing masks or tokens_per_expert differ card vs CPU")
+                if not close(rg.combine_weights.cpu(), rw.combine_weights, 1e-6) or \
+                        not close(got[2], want[2], 1e-6):
+                    raise AssertionError(f"{what}: combine weights or l_aux beyond 1e-6")
+                scale = lambda t: max(float(t.abs().max()), 1e-30)  # noqa: E731
+                errs = [abs_err(got[0], want[0]) / scale(want[0]), abs_err(got[3], want[3]) / scale(want[3])]
+                errs += [abs_err(got[4][n], want[4][n]) / scale(want[4][n]) for n in want[4]]
+                if max(errs) > 1e-5:
+                    raise AssertionError(f"{what}: output/gradients {max(errs):.3e} of their scale, over 1e-5")
+                kept = int(rw.dispatch_mask.sum())
+                log(f"{what}: masks equal ({kept} token slots kept of {REF_MOE_TOKENS * k} choices), "
+                    f"outputs and gradients within {max(errs):.2e} of their scale")
+
+        group = BaguaProcessGroup([device] * RANKS, intra_size=1)
+        xs = torch.randn(RANKS, REF_MOE_TOKENS, REF_MOE["model_dim"], generator=gen).to(device)
+
+
+        ep1 = MoE(REF_MOE["model_dim"], REF_MOE["hidden_size"], REF_MOE["num_experts"], k=2, capacity_factor=2.0,
+                  device=device, generator=torch.Generator(device=device).manual_seed(3))
+        local = {n: p.detach() for n, p in ep1.named_parameters()}
+        per_rank = REF_MOE["num_experts"] // RANKS
+        # the local model's experts r*per_rank.. go to rank r; the gate is everyone's
+        stacked = {n: (p.reshape(RANKS, per_rank, *p.shape[1:]) if "experts" in n else p.expand(RANKS, *p.shape))
+                   for n, p in local.items()}
+        outs = {}
+        with torch.no_grad():
+            for chunks in (1, 2, 4):
+                moe_c = MoE(REF_MOE["model_dim"], REF_MOE["hidden_size"], REF_MOE["num_experts"], k=2,
+                            capacity_factor=2.0, ep_size=RANKS, a2a_chunks=chunks, group=group, device=device)
+                outs[chunks] = torch.func.vmap(
+                    lambda p, xx: torch.func.functional_call(moe_c, p, (xx,))[0])(stacked, xs)
+            want = torch.stack([ep1(xs[r])[0] for r in range(RANKS)])
+        for c in (2, 4):
+            if not same(outs[c], outs[1]):
+                raise AssertionError(f"[moe-ref] a2a_chunks {c} not bitwise equal to unchunked on the card")
+        err = (outs[1] - want).abs() - (2e-4 * want.abs() + 1e-5)
+        if float(err.max()) > 0:
+            raise AssertionError(f"[moe-ref] ep {RANKS} vs ep 1 with tiled experts beyond rtol 2e-4, atol 1e-5")
+        log(f"[moe-ref] ep {RANKS} under vmap: a2a_chunks 2 and 4 bitwise equal to unchunked; ep {RANKS} within "
+            f"{abs_err(outs[1], want):.2e} of ep 1 with the experts tiled")
+    _no_launches("[moe-ref]")
+
+
+def phase_moe_bench(device, profile: bool) -> dict:
+    """``[moe-bench]``: the ``bench_moe`` twin at full width (8 layers x 512,
+    8 experts top-2, capacity 1.25, vocab 8192, bf16) over RANKS ranks x 32
+    sequences of 128 on this card, ``intra_size=1``, ``gradient_allreduce``
+    + Adam: 2 warm-ups, 12 timed steps.  Checks finite losses, every leaf
+    bitwise equal across the ranks (ep 1: no leaf outside the exchange), no
+    kernel launched; prints ms/step, the samples/s/chip line and peak
+    memory, a traced step under ``--profile``; then the fused all-to-all row
+    (the MoE forward at ep RANKS, FUSED_TOKENS tokens a rank, chunks 1 and
+    4)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    group = BaguaProcessGroup([device] * RANKS, intra_size=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = bench_moe.run(group)
+    launches = _no_launches("[moe-bench]")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not torch.isfinite(result.losses).all():
+        raise AssertionError(f"[moe-bench]: non-finite loss {result.losses.tolist()}")
+    _bitwise_replicas("[moe-bench]", result.state.params)
+    n_params = sum(t[0].numel() for t in tree_leaves(result.state.params))
+    line = {"metric": "moe_samples_per_sec_per_chip", "value": round(result.value, 2), "unit": "samples/s/chip",
+            "config": f"hidden{bench_moe.HIDDEN} L{bench_moe.LAYERS} seq{bench_moe.SEQ} {bench_moe.EXPERTS}experts "
+                      f"top{bench_moe.TOP_K}", "vs_baseline": None}
+    log(f"[moe-bench] {n_params:,} parameters a rank, {RANKS} ranks x 32 x {bench_moe.SEQ} tokens, "
+        f"{result.steps} timed steps: {result.step_seconds * 1e3:.1f} ms/step, "
+        f"{32 * RANKS / result.step_seconds:.1f} samples/s on the card, peak memory {peak:.2f} GiB; "
+        f"line {json.dumps(line)}")
+    if profile:
+        profile_step("MoE transformer (bench_moe twin)", lambda: result.ddp.train_step(result.state, result.batch))
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = bench_moe.fused_a2a_row(group, tokens=FUSED_TOKENS)
+    log(f"[moe-bench] fused all-to-all row {json.dumps(row)}")
+    _no_launches("[moe-bench] fused row")
+    return launches
+
+
+def phase_moe_example(device) -> dict:
+    """``[moe-example]``: the moe twin's ``main()`` at its defaults (50 steps,
+    one expert a rank) over RANKS ranks on this card: a finite loss, the
+    non-expert leaves bitwise equal across the ranks and every expert leaf
+    differing, no kernel launched."""
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, params = moe.main(["--ranks", str(RANKS)])
+    seconds = time.perf_counter() - t0
+    launches = _no_launches("[moe-example]")
+    if not math.isfinite(loss):
+        raise AssertionError(f"[moe-example]: non-finite loss {loss}")
+    for name, leaf in tree_flatten_with_names(params):
+        equal = [torch.equal(leaf[0], leaf[r]) for r in range(1, RANKS)]
+        if ("experts" in name and all(equal)) or ("experts" not in name and not all(equal)):
+            raise AssertionError(f"[moe-example]: {name} is {'' if all(equal) else 'not '}equal across the ranks")
+    log(f"[moe-example] {RANKS} ranks, ep {RANKS}, {MOE_EXAMPLE_STEPS} steps: final loss {loss:.4f}; "
+        f"non-expert leaves bitwise equal, expert leaves apart; {seconds:.1f} s with the set-up")
+    return launches
+
+
+def phase_moe_async(device) -> dict:
+    """``[moe-async]`` (BASELINE config 5): the moe example's model and
+    initial parameters with ``"async"`` (MOE_ASYNC: the relaxation phase's 50 ms interval)
+    and the experts' ``dp_filter``, MOE_EXAMPLE_STEPS steps of the example's
+    batches.  Fails unless at least one average is folded and none failed,
+    if any expert leaf is among the leaves the averager averages, if a loss
+    is not finite or an averager thread outlives ``shutdown()``; prints
+    ms/step."""
+    reset_launches()
+    group = BaguaProcessGroup([device] * RANKS)
+    ddp = DistributedDataParallel(moe.loss_fn(moe.build_model(group)), lambda ps: torch.optim.Adam(ps, lr=moe.LR),
+                                  build_algorithm("async", **MOE_ASYNC), process_group=group,
+                                  dp_filter=lambda name: "experts" not in name)
+    try:
+        state = ddp.init(stacked_params=moe.stacked_params(group))
+        averaged = ddp.impl.averaged_names()
+        if not averaged or any("experts" in n for n in averaged):
+            raise AssertionError(f"[moe-async]: the averager's leaves {averaged} hold an expert leaf or none")
+        rng = np.random.RandomState(0)
+        protos = rng.rand(moe.CLASSES, moe.IN_FEATURES).astype(np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MOE_EXAMPLE_STEPS):
+            y = rng.randint(0, moe.CLASSES, size=64 * RANKS)
+            x = protos[y] + 0.2 * rng.randn(64 * RANKS, moe.IN_FEATURES).astype(np.float32)
+            state, losses = ddp.train_step(state, (torch.from_numpy(x.astype(np.float32)),
+                                                   torch.from_numpy(y.astype(np.int32))))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / MOE_EXAMPLE_STEPS * 1e3
+    finally:
+        ddp.shutdown()
+    impl = ddp.impl
+    alive = [t for t in threading.enumerate() if t.name == "bagua-async-averager"]
+    if impl.folds_applied < 1 or impl.folds_failed or alive or not torch.isfinite(losses).all():
+        raise AssertionError(f"[moe-async]: {impl.folds_applied} folds, {impl.folds_failed} failed, "
+                             f"{len(alive)} averager threads alive, losses {losses.tolist()}")
+    experts_apart = all(not all(torch.equal(leaf[0], leaf[r]) for r in range(1, RANKS))
+                        for name, leaf in tree_flatten_with_names(state.params) if "experts" in name)
+    if not experts_apart:
+        raise AssertionError("[moe-async]: an expert leaf is equal across the ranks")
+    log(f"[moe-async] {RANKS} ranks, {MOE_EXAMPLE_STEPS} steps, async every {MOE_ASYNC['sync_interval_ms']} ms "
+        f"(warmup {MOE_ASYNC['warmup_steps']}): {ms:.2f} ms/step (host clock, the whole loop), "
+        f"{impl.folds_applied} folds, none failed; {len(averaged)} leaves averaged, no expert leaf among them; "
+        f"final loss {float(losses.mean()):.4f}")
+    return _no_launches("[moe-async]")
+
+
+SMALL_RESNET_STAGES, SMALL_RESNET_CLASSES, SMALL_RESNET_IMAGE = [1, 1, 1, 1], 10, 32
+SMALL_RESNET_STEPS, SMALL_RESNET_LR = 2, 0.005
+# The card's f32 engine steps against the CPU's and against the f64
+# recurrence: each leaf within this share of its move over the steps (the
+# Frobenius norms), the losses within this rtol.  At batch 16 a rank, the
+# CPU tests' size, an f32 CPU run sits 0.002-0.012 of a leaf's move (by
+# host) and rtol 2e-4 from the f64 one: BatchNorm over few values a
+# channel amplifies f32 rounding 1e4-1e5-fold.  The share is the CPU
+# tests' f32 bound
+SMALL_RESNET_BATCH, SMALL_RESNET_SHARE, SMALL_RESNET_LOSS_RTOL = 16, 0.1, 2e-3
+
+
+def _small_resnet_data(batch: int):
+    variables = init_resnet(ResNet(SMALL_RESNET_STAGES, SMALL_RESNET_CLASSES, device="cpu",
+                                   generator=torch.Generator().manual_seed(0)))
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(RANKS, batch, SMALL_RESNET_IMAGE, SMALL_RESNET_IMAGE, 3))
+    y = torch.from_numpy(rng.randint(0, SMALL_RESNET_CLASSES, (RANKS, batch)).astype(np.int32))
+    return variables, x, y
+
+
+def small_resnet_grads(device, batch: int = 8):
+    """The losses and gradients (``batch_stats`` left out) of the small
+    ResNet in f64 under ``vmap`` over RANKS ranks of ``batch`` images (the
+    engine's forward), on ``device``."""
+    variables, x, y = _small_resnet_data(batch)
+    stacked = tree_map(lambda t: t.to(device, torch.float64).expand(RANKS, *t.shape).clone().requires_grad_(True),
+                       variables)
+    model = ResNet(SMALL_RESNET_STAGES, SMALL_RESNET_CLASSES, torch.float64, device=device)
+    losses = torch.func.vmap(resnet_loss_fn(model))(stacked, (x.to(device), y.to(device)))
+    losses.sum().backward()
+    return losses.detach().cpu(), [leaf.grad.cpu() for name, leaf in tree_flatten_with_names(stacked)
+                                   if "batch_stats" not in name]
+
+
+def small_resnet_steps(device, dtype=torch.float32, batch: int = SMALL_RESNET_BATCH):
+    """SMALL_RESNET_STEPS steps of the engine with decentralized SGD (SGD
+    0.005 momentum 0.9, ``dp_filter`` on ``batch_stats``: BASELINE config
+    4's step) over RANKS ranks of the small ResNet on ``device`` in
+    ``dtype``, ``batch`` images a rank: the last losses, and the starting
+    and final parameters as CPU f64 leaves."""
+    variables, x, y = _small_resnet_data(batch)
+    model = ResNet(SMALL_RESNET_STAGES, SMALL_RESNET_CLASSES, dtype, device=device)
+    ddp = DistributedDataParallel(
+        resnet_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=SMALL_RESNET_LR, momentum=0.9),
+        DecentralizedAlgorithm(), BaguaProcessGroup([device] * RANKS, intra_size=1),
+        dp_filter=lambda name: "batch_stats" not in name)
+    state = ddp.init(tree_map(lambda t: t.to(device, dtype), variables))
+    start = [leaf.detach().double().cpu() for leaf in tree_leaves(state.params)]
+    batch_xy = (x.reshape(-1, *x.shape[2:]).to(device, dtype), y.reshape(-1).to(device))
+    for _ in range(SMALL_RESNET_STEPS):
+        state, losses = ddp.train_step(state, batch_xy)
+    return losses.detach().double().cpu(), start, [leaf.detach().double().cpu() for leaf in tree_leaves(state.params)]
+
+
+def small_resnet_f64_steps(batch: int):
+    """The engine's decentralized recurrence of :func:`small_resnet_steps`
+    in f64 on the CPU (the engine takes no f64): each rank's gradient at
+    its own weights, the weights averaged over the ranks, SGD with momentum
+    0.9 from the average; ``batch_stats`` stay.  The starting and final
+    parameters."""
+    variables, x, y = _small_resnet_data(batch)
+    names = [name for name, _ in tree_flatten_with_names(variables)]
+    weights = [t.double().expand(RANKS, *t.shape).clone() for t in tree_leaves(variables)]
+    momentum = [torch.zeros_like(w) for w in weights]
+    start = [w.clone() for w in weights]
+    loss = torch.func.vmap(resnet_loss_fn(ResNet(SMALL_RESNET_STAGES, SMALL_RESNET_CLASSES, torch.float64,
+                                                 device="cpu")))
+    for _ in range(SMALL_RESNET_STEPS):
+        leaves = [w.clone().requires_grad_(True) for w in weights]
+        loss(tree_unflatten(variables, leaves), (x, y)).sum().backward()
+        for i, name in enumerate(names):
+            if "batch_stats" not in name:
+                momentum[i] = 0.9 * momentum[i] + leaves[i].grad
+                weights[i] = weights[i].mean(0, keepdim=True) - SMALL_RESNET_LR * momentum[i]
+    return start, weights
+
+
+def share_of_move(got, want, start) -> float:
+    """The largest, over the leaves that moved, of ``|got - want|`` over
+    ``|want - start|`` (Frobenius norms)."""
+    shares = [float((g - w).norm() / (w - s).norm()) for g, w, s in zip(got, want, start)
+              if float((w - s).norm()) > 0]
+    return max(shares)
+
+
+def check_small_resnet_on_card(device) -> dict:
+    """The small ResNet on the card against the CPU: its f64 losses and
+    gradients under ``vmap`` (rtol 1e-12, 1e-9 of each leaf's largest
+    value), and SMALL_RESNET_STEPS f32 decentralized engine steps at batch
+    SMALL_RESNET_BATCH a rank, TF32 off and cuDNN deterministic (its
+    default algorithms vary from one run to the next), against the CPU's
+    engine and the f64 recurrence (the losses within
+    SMALL_RESNET_LOSS_RTOL, each leaf within SMALL_RESNET_SHARE of its
+    move).  Raises on a miss; returns the readings."""
+    card_losses, card = small_resnet_grads(device)
+    cpu_losses, cpu = small_resnet_grads(torch.device("cpu"))
+    grad_err = max(abs_err(a, b) / max(float(b.abs().max()), 1e-300) for a, b in zip(card, cpu))
+    if not torch.allclose(card_losses, cpu_losses, rtol=1e-12, atol=0) or grad_err > 1e-9:
+        raise AssertionError(f"small ResNet card vs CPU (f64): losses {card_losses.tolist()} vs "
+                             f"{cpu_losses.tolist()}, gradients {grad_err:.3e} of their scale")
+    with _deterministic(), _no_tf32():
+        card_losses, card_start, card = small_resnet_steps(device)
+    cpu_losses, cpu_start, cpu = small_resnet_steps(torch.device("cpu"))
+    start, truth = small_resnet_f64_steps(SMALL_RESNET_BATCH)
+    readings = {"grad_err": grad_err, "vs_cpu": share_of_move(card, cpu, cpu_start),
+                "vs_f64": share_of_move(card, truth, start), "cpu_vs_f64": share_of_move(cpu, truth, start),
+                "loss_rtol": float(((card_losses - cpu_losses).abs() / cpu_losses.abs()).max())}
+    if (any(not torch.equal(a, b) for a, b in zip(card_start, cpu_start))
+            or readings["loss_rtol"] > SMALL_RESNET_LOSS_RTOL
+            or max(readings["vs_cpu"], readings["vs_f64"]) > SMALL_RESNET_SHARE):
+        raise AssertionError(f"small ResNet f32 engine steps, card vs CPU: losses {card_losses.tolist()} vs "
+                             f"{cpu_losses.tolist()}, readings {readings}")
+    return readings
+
+
+def small_resnet_witness(device) -> None:
+    """Why the card's engine check is at batch 16 and not 8 (``--witness``):
+    prints each f32 run's share of the f64 recurrence's move (and of the
+    CPU f32 run's) at batch 8 and 16 a rank: the CPU, then the card twice
+    with cuDNN's default algorithms and twice deterministic, TF32 off."""
+    for batch in (8, SMALL_RESNET_BATCH):
+        start, truth = small_resnet_f64_steps(batch)
+        _, _, cpu = small_resnet_steps(torch.device("cpu"), torch.float32, batch)
+        readings = {"cpu": share_of_move(cpu, truth, start)}
+        for mode in ("default", "deterministic"):
+            for run in (1, 2):
+                with _no_tf32(), (_deterministic() if mode == "deterministic" else contextlib.nullcontext()):
+                    _, _, card = small_resnet_steps(device, torch.float32, batch)
+                readings[f"card {mode} {run}"] = share_of_move(card, truth, start)
+                readings[f"card {mode} {run} vs cpu f32"] = share_of_move(card, cpu, start)
+        log(f"[resnet] witness, small ResNet f32, {RANKS} ranks x {batch}, {SMALL_RESNET_STEPS} decentralized "
+            f"steps, share of the f64 recurrence's move: " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items()))
+
+
+def phase_resnet(device, profile: bool, witness: bool = False) -> dict:
+    """``[resnet]``: the small ResNet (stage sizes [1, 1, 1, 1], 32x32, 10
+    classes) on the card against the CPU (:func:`check_small_resnet_on_card`;
+    with ``--witness`` also :func:`small_resnet_witness`).  Then the imagenet twin at
+    full width (BASELINE config 4): ResNet-50, 224x224, 100 classes, bf16,
+    RANKS ranks x 32, ``intra_size=1``, SGD 0.005 momentum 0.9, with
+    ``gradient_allreduce`` and ``decentralized``, RESNET_WARMUP + 5 steps
+    each: img/s and ms/step over the timed steps, peak memory; no kernel.
+    ``--profile`` then traces one decentralized step on random images."""
+    reset_launches()
+    r = check_small_resnet_on_card(device)
+    log(f"[resnet] small ResNet [1,1,1,1]: f64 losses and gradients under vmap, {RANKS} ranks x 8, card within "
+        f"{r['grad_err']:.2e} of the CPU (of each leaf's scale); {SMALL_RESNET_STEPS} f32 decentralized engine "
+        f"steps, {RANKS} ranks x {SMALL_RESNET_BATCH}: card within {r['vs_cpu']:.3e} of the CPU's and "
+        f"{r['vs_f64']:.3e} of the f64 recurrence's move (CPU f32 {r['cpu_vs_f64']:.3e}; bound "
+        f"{SMALL_RESNET_SHARE}), losses within rtol {r['loss_rtol']:.2e} of the CPU's")
+    if witness:
+        small_resnet_witness(device)
+    for algorithm in RESNET_ALGORITHMS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, seconds = imagenet.main(["--arch", "resnet50", "--algorithm", algorithm, "--ranks", str(RANKS),
+                                       "--intra-size", "1", "--image-size", str(IMAGE_SIZE), "--batch-size",
+                                       str(BATCH_PER_RANK), "--steps", str(RESNET_STEPS)])
+        if not math.isfinite(loss):
+            raise AssertionError(f"[resnet] {algorithm}: non-finite loss {loss}")
+        timed = seconds[RESNET_WARMUP:]
+        step_ms = statistics.mean(timed) * 1e3
+        log(f"[resnet] ResNet-50 {IMAGE_SIZE}x{IMAGE_SIZE} bf16, {RANKS} ranks x {BATCH_PER_RANK}, {algorithm}: "
+            f"{step_ms:.1f} ms/step over {len(timed)} steps (each {[round(t * 1e3, 1) for t in timed]}), "
+            f"{BATCH_PER_RANK * RANKS / statistics.mean(timed):.1f} img/s on the card, warm-up steps "
+            f"{[round(t, 3) for t in seconds[:RESNET_WARMUP]]} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; final loss {loss:.4f}")
+    if profile:
+        gc.collect()
+        torch.cuda.empty_cache()
+        params, loss_fn, dp_filter = imagenet.build("resnet50", IMAGE_SIZE, imagenet.CLASSES, device)
+        ddp = DistributedDataParallel(loss_fn, lambda ps: torch.optim.SGD(ps, lr=0.005, momentum=0.9),
+                                      DecentralizedAlgorithm(), BaguaProcessGroup([device] * RANKS, intra_size=1),
+                                      dp_filter=dp_filter)
+        state = ddp.init(params)
+        gen = torch.Generator(device=device).manual_seed(0)
+        n = RANKS * BATCH_PER_RANK
+        batch = (torch.rand(n, IMAGE_SIZE, IMAGE_SIZE, 3, device=device, generator=gen),
+                 torch.randint(0, imagenet.CLASSES, (n,), device=device, generator=gen, dtype=torch.int32))
+        state, _ = ddp.train_step(state, batch)  # warm-up
+        profile_step("ResNet-50 decentralized", lambda: ddp.train_step(state, batch))
+        del ddp, state, params
+    return _no_launches("[resnet]")
+
+
 def vgg16_plan():
     """The bucket plan of VGG16 over RANKS ranks, from the model's shapes
     alone (built on the meta device); every algorithm here aligns its
@@ -2798,6 +3226,12 @@ def main(argv) -> int:
     for algorithm in BENCH_ALGORITHMS:
         per_path[f"BERT bench {algorithm}"] = phase_bert_bench(ledger, device, profile, algorithm)
     per_path["BERT sp"] = phase_bert_sp(ledger, device, profile)
+    phase_moe_reference(device)
+    per_path["MoE bench"] = phase_moe_bench(device, profile)
+    per_path["MoE example"] = phase_moe_example(device)
+    per_path["MoE async"] = phase_moe_async(device)
+    torch.cuda.empty_cache()
+    per_path["ResNet"] = phase_resnet(device, profile, "--witness" in argv)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]

@@ -34,7 +34,7 @@ from bagua_tpu_torch.convert import params_from_jax, stacked_params_from_jax
 from bagua_tpu_torch.ddp import DistributedDataParallel
 from bagua_tpu_torch.models import mlp
 from bagua_tpu_torch.trainer import Trainer
-from bagua_tpu_torch.utils import tree_leaves, tree_map
+from bagua_tpu_torch.utils import tree_flatten_with_names, tree_leaves, tree_map
 
 N = 8
 DIM_IN, DIM_OUT = 10, 3
@@ -111,6 +111,39 @@ def test_one_cycle_converges_ranks_to_mean(group, tgroup):
     finally:
         ddp.shutdown()
         jddp.shutdown()
+
+
+def test_dp_filter_keeps_filtered_leaves_out_of_the_average(tgroup):
+    """With a ``dp_filter`` the averager averages the bucket plan's leaves
+    only: ``averaged_names()`` is the plan's covered names, and after one
+    manual cycle and its fold at lr 0 each averaged leaf equals the numpy
+    mean over the ranks while each filtered leaf keeps every rank's own
+    values, bit for bit."""
+    base = base_params(0)
+    xs, ys = make_data(2, seed=1)
+    local = {"['layer0']['w']", "['layer1']['b']"}
+    ddp = DistributedDataParallel(
+        mlp.mse_loss, lambda ps: torch.optim.SGD(ps, lr=0.0), AsyncModelAverageAlgorithm(sync_interval_ms=PARKED),
+        tgroup, dp_filter=lambda name: name not in local)
+    ranks = spread(base)
+    state = ddp.init(stacked_params=stacked_params_from_jax(ranks))
+    try:
+        state, _ = ddp.train_step(state, tb(xs, ys, 0))
+        assert sorted(ddp.impl.averaged_names()) == sorted(ddp.plan.covered())
+        assert set(ddp.impl.averaged_names()) == {"['layer0']['b']", "['layer1']['w']"}
+        ddp.impl._cycle()
+        state, _ = ddp.train_step(state, tb(xs, ys, 1))
+        assert ddp.impl.folds_applied == 1
+        want = [np.stack([np.asarray(leaf) for leaf in leaves])
+                for leaves in zip(*[jax.tree.leaves(p) for p in ranks])]
+        for (name, got), stacked in zip(tree_flatten_with_names(state.params), want):
+            if name in local:
+                np.testing.assert_array_equal(got.numpy(), stacked)
+            else:
+                np.testing.assert_allclose(got.numpy(), np.broadcast_to(stacked.mean(0), stacked.shape),
+                                           rtol=1e-6, atol=1e-6)
+    finally:
+        ddp.shutdown()
 
 
 def test_background_thread_folds_while_training(tgroup):

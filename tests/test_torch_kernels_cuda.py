@@ -747,7 +747,7 @@ def test_async_delta_waits_for_the_step_and_the_optimizer_waits_for_it(cuda_devi
     ready while in flight, and it is folded only once ``done`` has
     completed."""
     from bagua_tpu_torch.algorithms import AsyncModelAverageAlgorithm
-    from bagua_tpu_torch.utils import tree_leaves
+    from bagua_tpu_torch.utils import tree_leaves, tree_map
 
     ddp = _mlp_engine(cuda_device, AsyncModelAverageAlgorithm(sync_interval_ms=10 ** 9), lr=0.05)
     impl = ddp.impl
@@ -770,7 +770,7 @@ def test_async_delta_waits_for_the_step_and_the_optimizer_waits_for_it(cuda_devi
     try:
         state, _ = ddp.train_step(state, _mlp_batch(cuda_device, 0))
         torch.cuda.synchronize()
-        snapshot = [t.clone() for t in tree_leaves(state.params)]
+        snapshot = tree_map(torch.clone, state.params)
         impl._cycle(wait=False)
         gen, delta, done = impl._pending
         assert not impl._pending_ready and not done.query()
@@ -780,7 +780,7 @@ def test_async_delta_waits_for_the_step_and_the_optimizer_waits_for_it(cuda_devi
         assert impl._pending_ready and done.query()
         torch.cuda.synchronize()
         want = delta_of(snapshot)
-        for got, w in zip(tree_leaves(delta), want):
+        for got, w in zip(tree_leaves(delta), tree_leaves(want)):
             assert bitwise(got, w)
         state, _ = ddp.train_step(state, _mlp_batch(cuda_device, 2))
         assert impl.folds_applied == 1 and folded_after_done == [True]

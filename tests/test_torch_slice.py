@@ -342,7 +342,8 @@ def test_port_imports_no_jax():
     slice's modules, the synthetic benchmark's twin, ZeRO's modules, the
     decentralized pair, QAdam, the MNIST twin, stale-sync, async model
     average, gradient accumulation, BERT, the differentiable collectives,
-    the SQuAD twin and the collectives twin."""
+    the SQuAD twin, the collectives twin, the MoE layer and its twins,
+    ResNet, the contrib data tier and the imagenet twin."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -357,7 +358,12 @@ def test_port_imports_no_jax():
         "        'bagua_tpu_torch.algorithms.stale', 'bagua_tpu_torch.algorithms.async_model_average',\n"
         "        'bagua_tpu_torch.algorithms.grad_accumulation', 'bagua_tpu_torch.models.bert',\n"
         "        'bagua_tpu_torch.functional', 'bagua_tpu_torch.examples.squad',\n"
-        "        'bagua_tpu_torch.examples.communication_primitives']\n"
+        "        'bagua_tpu_torch.examples.communication_primitives', 'bagua_tpu_torch.parallel.moe.routing',\n"
+        "        'bagua_tpu_torch.parallel.moe.layer', 'bagua_tpu_torch.parallel.moe.utils',\n"
+        "        'bagua_tpu_torch.models.resnet', 'bagua_tpu_torch.contrib.store',\n"
+        "        'bagua_tpu_torch.contrib.cache_loader', 'bagua_tpu_torch.contrib.cached_dataset',\n"
+        "        'bagua_tpu_torch.contrib.load_balancing_data_loader', 'bagua_tpu_torch.examples.moe',\n"
+        "        'bagua_tpu_torch.examples.bench_moe', 'bagua_tpu_torch.examples.imagenet']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )
