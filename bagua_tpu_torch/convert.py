@@ -7,7 +7,9 @@ each leaf into a tensor on the chosen device.  That holds for the MoE trees
 experts, in, out)``), ``nn.SelfAttention`` (``query/key/value`` kernels
 ``(M, heads, head_dim)``, ``out`` ``(heads, head_dim, M)``), ``nn.LayerNorm``
 and ``nn.Embed``.  ResNet alone lays its conv kernels out as OIHW:
-:func:`resnet_params_from_jax` transposes them."""
+:func:`resnet_params_from_jax` transposes them; the ``gpt_pretrain``
+twin's trees take rank rows by pipeline coordinate
+(:func:`gpt_params_from_jax`)."""
 
 import numpy as np
 import torch
@@ -44,3 +46,18 @@ def resnet_params_from_jax(variables, device=None):
     every conv ``kernel`` HWIO -> OIHW, the rest copied."""
     tree = params_from_jax(variables, device)
     return tree_map(lambda t: t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t, tree)
+
+
+def gpt_params_from_jax(params, stage_rows, device=None):
+    """The ``gpt_pretrain`` example's parameters, ``{"embed", "stage",
+    "head"}`` with the stages stacked over ``pp`` (``(pp, ...)`` leaves), as
+    the port's twin holds them rank-stacked: embed and head copied to every
+    rank, and rank r's stage row ``stage_rows[r]`` (its pp coordinate), so
+    the stages are replicated over the other live axis."""
+    rows = torch.as_tensor(np.asarray(stage_rows), dtype=torch.long)
+    n = len(rows)
+    out = params_from_jax(params, device)
+    out["embed"] = tree_map(lambda t: t[None].repeat(n, *([1] * t.dim())), out["embed"])
+    out["head"] = tree_map(lambda t: t[None].repeat(n, *([1] * t.dim())), out["head"])
+    out["stage"] = tree_map(lambda t: t[rows.to(t.device)].contiguous(), out["stage"])
+    return out

@@ -44,10 +44,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bagua_tpu_torch.communication import axis_size, rank_id
-from bagua_tpu_torch.models.llama import Embed, module_params
+from bagua_tpu_torch.models._layers import Embed, LayerNorm, module_params  # noqa: F401  (re-exported)
 from bagua_tpu_torch.parallel.ring_attention import _block_attention_local, ring_attention
 from bagua_tpu_torch.parallel.tensor_parallel import (
-    ColumnParallelDense, ParallelMLP, RowParallelDense, _per_rank, gelu,
+    ColumnParallelDense, ParallelMLP, RowParallelDense, gelu,
 )
 from bagua_tpu_torch.utils import resolve_device, tree_map
 
@@ -85,27 +85,6 @@ def bert_large_config(**overrides) -> BertConfig:
 def bert_base_config(**overrides) -> BertConfig:
     return BertConfig(hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072,
                       **overrides)
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` as BERT uses it (``dtype=None``, f32 scale and
-    bias), operation for operation: statistics in f32 from ``E[x]`` and
-    ``E[x^2]`` (the fast variance, clipped at zero), ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias``, returned in the promotion of the
-    input's type with f32, so a bf16 input comes back f32."""
-
-    def __init__(self, features: int, eps: float = 1e-6, device=None):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(features, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
-
-    def forward(self, params, x):
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * _per_rank(params["scale"], x.dim())
-        return (xf - mean) * mul + _per_rank(params["bias"], x.dim())
 
 
 def _f32_dense(in_features: int, features: int, device, generator) -> ColumnParallelDense:

@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bagua_tpu_torch.communication import axis_size
+from bagua_tpu_torch.models._layers import Embed, module_params  # noqa: F401  (re-exported)
 from bagua_tpu_torch.models.gpt import _sp_positions, lm_loss_fn  # noqa: F401  (re-exported)
 from bagua_tpu_torch.parallel.ring_attention import _block_attention_local, ring_attention
 from bagua_tpu_torch.parallel.tensor_parallel import (
@@ -209,24 +210,6 @@ class LlamaBlock(nn.Module):
         return x + self.mlp(params["mlp"], self.mlp_norm(params["mlp_norm"], x))
 
 
-class Embed(nn.Module):
-    """flax ``nn.Embed``: ``embedding (num, features)``, initialized N(0,
-    1/features) (flax's ``variance_scaling(1, fan_in, normal)`` of an
-    embedding table)."""
-
-    def __init__(self, num_embeddings: int, features: int, device=None, generator=None):
-        super().__init__()
-        table = torch.empty((num_embeddings, features), device=device)
-        self.embedding = nn.Parameter(nn.init.normal_(table, 0.0, features ** -0.5, generator=generator))
-
-    def forward(self, params, ids):
-        """Each rank's ids ``(R, ...)`` looked up in its own table."""
-        table = params["embedding"]
-        R, n = table.shape[:2]
-        offsets = torch.arange(R, device=ids.device).reshape(R, *([1] * (ids.dim() - 1))) * n
-        return F.embedding(ids.long() + offsets, table.reshape(R * n, table.shape[-1]))
-
-
 class LlamaModel(nn.Module):
     """Causal LM: embed -> pre-norm blocks -> RMSNorm -> untied f32 LM head.
     ``group`` holds ``cfg.sp_axis``; parameters are built on ``device``, by
@@ -261,18 +244,6 @@ class LlamaModel(nn.Module):
             x = getattr(self, f"block_{i}")(params[f"block_{i}"], x)
         x = self.final_norm(params["final_norm"], x.to(torch.float32))
         return stacked_matmul(x, params["lm_head"]["kernel"].to(torch.float32))
-
-
-def module_params(model: nn.Module):
-    """The model's parameters as flax's nested dict (no copies)."""
-    tree = {}
-    for name, p in model.named_parameters():
-        *path, leaf = name.split(".")
-        node = tree
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = p.detach()
-    return tree
 
 
 def init_llama(cfg: LlamaConfig, generator=None, device=None, group=None):

@@ -131,9 +131,25 @@ and no result line:
    cuDNN's default and deterministic algorithms), then ResNet-50 through the imagenet twin (BASELINE config
    4: 224x224, bf16, 4 ranks x 32) with ``gradient_allreduce`` and
    decentralized SGD, 2 + 5 steps each (img/s, ms/step, peak memory).
-9. prints one JSON line naming each kernel with its launches and times
-   (``other_steps``: the sums per step of other paths, the BERT ones
-   included), then the result line ``{"ok": true, "device": {...}}``.
+9. gpt -- (after ResNet) ``[gpt-ref]``: a small GPT (2 layers, hidden
+   128, 2 heads of 64, 256 tokens) at sp 2 contiguous, sp 2 zigzag and
+   tp 2, card against CPU and against the plain ring on the card (logits
+   and every gradient, rows 6-8's launches exact), the three pipeline
+   schedules on a small stage against the sequential program on the card,
+   one FSDP step card against CPU; ``[gpt-pp]``: the gpt_pretrain twin at
+   GPT-2 small's widths (2 stages of 6 blocks, pp 2 x sp 2 on the
+   contiguous causal ring, 8 x 1024 tokens, 4 microbatches, f32, Adam
+   1e-3), 2 warm-up and 5 timed steps with 1F1B and with GPipe (ms/step,
+   tokens/s, peak memory, replicas bitwise, exact launches), rows 6-8
+   within ATTENTION_TOLS at the twin's blocks and timed per step, and one
+   traced 1F1B step (the card's idle share); ``[pp-mem]``: one step's peak
+   memory at pp 4 (3 blocks a stage, 8 microbatches), 1F1B below GPipe or
+   the run fails; ``[fsdp]``: ``GPTModel`` at GPT-2 small under ``FSDP``
+   (bf16, 4 ranks x 4 x 1024 tokens, Adam), 2 + 5 steps, each rank's
+   at-rest bytes against the total / 4, no sharded leaf held whole.
+10. prints one JSON line naming each kernel with its launches and times
+   (``other_steps``: the sums per step of other paths, the BERT and GPT
+   ones included), then the result line ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -161,6 +177,7 @@ from bagua_tpu_torch.algorithms import (
     LowPrecisionDecentralizedAlgorithm, QAdamAlgorithm, QAdamOptimizer, StaleSyncAlgorithm,
 )
 from bagua_tpu_torch.ddp import DistributedDataParallel
+from bagua_tpu_torch.examples import gpt_pretrain as gp
 from bagua_tpu_torch.examples import llama_pretrain as lp
 from bagua_tpu_torch.examples import bench_moe, communication_primitives, imagenet, mnist, moe, squad
 from bagua_tpu_torch.examples import synthetic_benchmark as sb
@@ -174,9 +191,12 @@ from bagua_tpu_torch.kernels import quantized_ring as qr
 from bagua_tpu_torch.functional import all_reduce as functional_all_reduce
 from bagua_tpu_torch.models import bert as bert_model
 from bagua_tpu_torch.models.bert import BertModel, bert_large_config, init_bert
+from bagua_tpu_torch.models.gpt import GPTConfig, GPTModel, init_gpt, lm_loss_fn as gpt_lm_loss_fn
 from bagua_tpu_torch.models.resnet import ResNet, init_resnet, resnet_loss_fn
 from bagua_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_llama, llama_7b_config, llama_loss_fn
 from bagua_tpu_torch.models.vgg import VGG, init_vgg16, module_params, vgg16, vgg_loss_fn
+from bagua_tpu_torch.parallel import pipeline as pl
+from bagua_tpu_torch.parallel.fsdp import FSDP, fsdp_shardings
 from bagua_tpu_torch.parallel.moe import MoE
 from bagua_tpu_torch.parallel.ring_attention import ring_attention, zigzag_order
 from bagua_tpu_torch.parallel.tensor_parallel import (
@@ -3174,6 +3194,446 @@ def phase_resnet(device, profile: bool, witness: bool = False) -> dict:
     return _no_launches("[resnet]")
 
 
+# ---------------------------------------------------------------------------
+# GPT: pipeline parallelism, FSDP and the gpt_pretrain twin.  Rows 6-8 run on
+# the pp x sp path, through the contiguous causal ring at head dim 64; the
+# pipeline and FSDP add no kernel
+# ---------------------------------------------------------------------------
+
+#: the reference phase's small GPT over 2 ranks: 2 layers, hidden 128, 2
+#: heads of 64, 256 tokens
+REF_GPT = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+                    max_position_embeddings=256)
+REF_GPT_BATCH = 2
+#: layout -> (sp_axis, sp_layout, tp_size): each over a group of 2 ranks
+REF_GPT_LAYOUTS = {
+    "sp 2 contiguous": ("intra", "contiguous", 1),
+    "sp 2 zigzag": ("intra", "zigzag", 1),
+    "tp 2": (None, "contiguous", 2),
+}
+#: the small GPT card against CPU (f32, TF32 off): logits within 1e-4 of
+#: their largest CPU value, each gradient within 1e-4 of its leaf's largest
+#: (the kernels' and cuBLAS's sums against the CPU's, through 2 layers)
+REF_GPT_TOL = 1e-4
+#: the gpt_pretrain twin at GPT-2 small's widths (GPTConfig's defaults):
+#: 12 blocks as 2 stages of 6, pp 2 x sp 2, 8 x 1024 tokens, 4 microbatches
+GPT2_ARGS = ["--pp", "2", "--sp", "2", "--vocab", "50257", "--hidden", "768", "--heads", "12",
+             "--blocks-per-stage", "6", "--seq", "1024", "--batch", "8", "--microbatches", "4"]
+GPT_WARMUP, GPT_STEPS = 2, 5
+#: the pipeline's memory at pp 4: sp 1, 3 blocks a stage, 8 microbatches
+PP_MEM_ARGS = ["--pp", "4", "--sp", "1", "--vocab", "50257", "--hidden", "768", "--heads", "12",
+               "--blocks-per-stage", "3", "--seq", "1024", "--batch", "8", "--microbatches", "8"]
+#: FSDP: GPTModel at GPT-2 small (bf16 compute), 4 ranks x 4 sequences of
+#: 1024 tokens, Adam
+FSDP_CFG = GPTConfig(compute_dtype=torch.bfloat16)
+FSDP_BATCH, FSDP_SEQ, FSDP_LR = 4, 1024, 1e-3
+
+
+def _gpt_pass(model, stacked, ids, cot):
+    """Logits and every leaf's gradient of ``sum(logits * cot)``."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), stacked)
+    logits = model(leaves, ids)
+    (logits * cot).sum().backward()
+    return logits.detach(), [leaf.grad for leaf in tree_leaves(leaves)]
+
+
+def _small_gpt_run(device, layout, params, ids, cot, plain=False):
+    """The small GPT over 2 ranks in ``layout`` on ``device``: ids ``(B, T)``
+    global (already in the layout's order) sharded over sp, or whole on
+    both tp ranks; returns the logits and the gradients on the CPU."""
+    sp_axis, sp_layout, tp = REF_GPT_LAYOUTS[layout]
+    cfg = dataclasses.replace(REF_GPT, sp_axis=sp_axis, sp_layout=sp_layout, tp_size=tp)
+    group = BaguaProcessGroup([device] * 2, intra_size=2)
+    model = GPTModel(cfg, group, device=device)
+    stacked = lp.replicate(tree_map(lambda t: t.to(device), params), 2)
+    B, T = ids.shape
+    shards = ids.reshape(B, 2, T // 2).transpose(0, 1) if sp_axis else ids[None].expand(2, B, T)
+    with _plain_attention() if plain else contextlib.nullcontext():
+        out, grads = _gpt_pass(model, stacked, shards.to(device), cot.to(device))
+    return out.cpu(), [g.cpu() for g in grads]
+
+
+def check_small_gpt_on_card(device, layout) -> dict:
+    """The small GPT (REF_GPT) in ``layout`` (REF_GPT_LAYOUTS) on the card
+    against the same pass on the CPU and against the card's ring through the
+    plain block functions, within REF_GPT_TOL; rows 6-8 launched exactly
+    once per block call of the ring (sp layouts) or not at all (tp 2, plain
+    attention).  Returns the launches and the worst relative errors."""
+    sp_axis, sp_layout, tp = REF_GPT_LAYOUTS[layout]
+    gen = torch.Generator().manual_seed(7)
+    cfg = dataclasses.replace(REF_GPT, tp_size=tp)
+    _, params = init_gpt(cfg, gen, device="cpu")
+    T = REF_GPT.max_position_embeddings
+    ids = torch.randint(0, REF_GPT.vocab_size, (REF_GPT_BATCH, T), generator=gen)
+    if sp_layout == "zigzag":
+        ids = ids[:, zigzag_order(T, 2)]
+    t_local = T // 2 if sp_axis else T
+    cot = torch.randn((2, REF_GPT_BATCH, t_local, REF_GPT.vocab_size), generator=gen)
+    with _no_tf32():
+        reset_launches()
+        got = _small_gpt_run(device, layout, params, ids, cot)
+        launches = read_launches()
+        plain = _small_gpt_run(device, layout, params, ids, cot, plain=True)
+    want = _small_gpt_run(torch.device("cpu"), layout, params, ids, cot)
+    what = f"[gpt-ref] small GPT ({layout})"
+    worst = {}
+    names = ["logits"] + [n for n, _ in tree_flatten_with_names(params)]
+    for against, ref in (("CPU", want), ("plain ring on the card", plain)):
+        for name, g, w in zip(names, [got[0]] + got[1], [ref[0]] + ref[1]):
+            rel = abs_err(g, w) / max(float(w.abs().max()), 1e-30)
+            worst[against] = max(worst.get(against, 0.0), rel)
+            if not torch.isfinite(g).all() or rel > REF_GPT_TOL:
+                raise AssertionError(f"{what}: {name} differs from the {against} by {rel:.3e} of its "
+                                     f"largest value (tolerance {REF_GPT_TOL})")
+    per_layer = 0 if sp_axis is None else (2 if sp_layout == "contiguous" else 2 * 4)
+    calls = REF_GPT.num_layers * per_layer
+    want_launches = {k: calls if k in ATTENTION_TOLS else 0 for k in KERNELS}
+    if launches != want_launches:
+        raise AssertionError(f"{what}: launch counts {launches}, want {want_launches}")
+    return dict(launches=launches, worst=worst)
+
+
+def check_pipelines_on_card(device) -> str:
+    """``pipeline_apply`` (with its gradients), ``pipeline_loss_interleaved``
+    (V = 2) and ``pipeline_train_1f1b`` on a small tanh stage over 4 ranks
+    on the card, against the sequential program on the card (TF32 off):
+    losses within rtol 2e-4, outputs within 2e-4, gradients within rtol 2e-3
+    and atol 1e-4 (the CPU tests' bounds)."""
+    S, M, MB, D = 4, 8, 3, 64
+    gen = torch.Generator().manual_seed(9)
+    group = BaguaProcessGroup([device] * S, intra_size=S)
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"][:, None, :])
+
+    def mse(y, t):
+        return ((y - t) ** 2).mean(dim=(1, 2))
+
+    def draw(n):
+        return [{"w": torch.randn((D, D), generator=gen) * 0.5 / D ** 0.5, "b": torch.randn(D, generator=gen) * 0.1}
+                for _ in range(n)]
+
+    micro = torch.randn((M, MB, D), generator=gen).to(device)
+    target = torch.randn((M, MB, D), generator=gen).to(device)
+    every = lambda x: x[None].expand(S, *x.shape).contiguous()  # noqa: E731
+
+    def oracle(stages):
+        leaves = [tree_map(lambda t: t.detach().to(device, copy=True).requires_grad_(), s) for s in stages]
+        outs = []
+        for m in range(M):
+            x = micro[m][None]
+            for p in leaves:
+                x = stage(tree_map(lambda t: t[None], p), x)
+            outs.append(x[0])
+        out = torch.stack(outs)
+        loss = ((out - target) ** 2).mean(dim=(1, 2)).mean()
+        loss.backward()
+        return out.detach(), float(loss.detach()), [tree_map(lambda t: t.grad, p) for p in leaves]
+
+    def close_grads(what, got, want, rows):
+        for r in range(S):
+            for key in ("w", "b"):
+                if not torch.allclose(got[key][r], want[rows[r]][key], rtol=2e-3, atol=1e-4):
+                    raise AssertionError(f"[gpt-ref] {what}: rank {r} {key} gradient differs from the "
+                                         f"sequential program's by {abs_err(got[key][r], want[rows[r]][key]):.3e}")
+
+    with _no_tf32():
+        stages = draw(S)
+        out, loss, grads = oracle(stages)
+        params = {k: torch.stack([s[k] for s in stages]).to(device).requires_grad_() for k in ("w", "b")}
+        y = pl.pipeline_apply(stage, params, every(micro), group, "intra")
+        if not torch.allclose(y, every(out), rtol=2e-4, atol=2e-4):
+            raise AssertionError(f"[gpt-ref] pipeline_apply differs from the sequential program by {abs_err(y, every(out)):.3e}")
+        ((y - every(target)) ** 2).mean(dim=(1, 2, 3)).sum().backward()
+        close_grads("pipeline_apply", {k: v.grad for k, v in params.items()}, grads, list(range(S)))
+
+        f1b_loss, f1b = pl.pipeline_train_1f1b(stage, tree_map(lambda t: t.detach(), params), every(micro),
+                                               every(target), mse, group, "intra")
+        if not torch.allclose(f1b_loss.cpu(), torch.full((S,), loss), rtol=2e-4):
+            raise AssertionError(f"[gpt-ref] pipeline_train_1f1b loss {f1b_loss.tolist()} vs {loss}")
+        close_grads("pipeline_train_1f1b", f1b, grads, list(range(S)))
+
+        chunks = draw(2 * S)
+        _, i_loss_want, i_grads = oracle(chunks)
+        stacked = {k: torch.stack([torch.stack([chunks[v * S + r][k] for v in range(2)]) for r in range(S)])
+                   .to(device).requires_grad_() for k in ("w", "b")}
+        i_loss = pl.pipeline_loss_interleaved(stage, stacked, every(micro), every(target), mse, group, "intra")
+        if not torch.allclose(i_loss.detach().cpu(), torch.full((S,), i_loss_want), rtol=2e-4):
+            raise AssertionError(f"[gpt-ref] pipeline_loss_interleaved loss {i_loss.tolist()} vs {i_loss_want}")
+        i_loss.sum().backward()
+        for v in range(2):
+            close_grads(f"pipeline_loss_interleaved chunk {v}", {k: t.grad[:, v] for k, t in stacked.items()},
+                        i_grads[v * S:(v + 1) * S], list(range(S)))
+    return (f"pipeline_apply, pipeline_train_1f1b (loss {float(f1b_loss[0]):.6f} vs {loss:.6f}) and "
+            f"pipeline_loss_interleaved V 2 (loss {float(i_loss[0].detach()):.6f} vs {i_loss_want:.6f}) over {S} ranks, "
+            f"{M} microbatches, match the sequential program")
+
+
+def _fsdp_small_step(device, params, ids):
+    group = BaguaProcessGroup([device] * RANKS, intra_size=RANKS)
+    model = GPTModel(REF_GPT, device=device)
+    fsdp = FSDP(gpt_lm_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.5), group)
+    p, o = fsdp.init(tree_map(lambda t: t.to(device), params))
+    (p, o), loss = fsdp.train_step(p, o, ids.to(device))
+    return float(loss), [t.cpu() for t in tree_leaves(fsdp.full_params(p))]
+
+
+def check_fsdp_on_card(device) -> str:
+    """One FSDP SGD step of the small GPT (REF_GPT, f32, 8 sequences of a
+    quarter of its positions over RANKS ranks) on the card against the CPU's (TF32 off): the
+    loss within rtol 1e-5, every parameter within 1e-5 + 1e-4 |value|."""
+    gen = torch.Generator().manual_seed(11)
+    _, params = init_gpt(REF_GPT, gen, device="cpu")
+    ids = torch.randint(0, REF_GPT.vocab_size, (2 * RANKS, REF_GPT.max_position_embeddings // 4), generator=gen)
+    with _no_tf32():
+        got_loss, got = _fsdp_small_step(device, params, ids)
+    want_loss, want = _fsdp_small_step(torch.device("cpu"), params, ids)
+    if not math.isclose(got_loss, want_loss, rel_tol=1e-5):
+        raise AssertionError(f"[gpt-ref] FSDP step loss {got_loss} vs CPU {want_loss}")
+    for (name, _), g, w in zip(tree_flatten_with_names(params), got, want):
+        if not torch.allclose(g, w, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"[gpt-ref] FSDP step: {name} differs from the CPU's by {abs_err(g, w):.3e}")
+    moved = max(float((w - p).abs().max()) for w, p in zip(want, tree_leaves(params)))
+    return f"one FSDP SGD step over {RANKS} ranks, card vs CPU: loss {got_loss:.6f} vs {want_loss:.6f}, parameters moved up to {moved:.3e}"
+
+
+def phase_gpt_reference(device) -> None:
+    """``[gpt-ref]``: the small GPT at sp 2 contiguous, sp 2 zigzag and tp 2
+    card against CPU (:func:`check_small_gpt_on_card`), the three pipeline
+    schedules against the sequential program on the card
+    (:func:`check_pipelines_on_card`) and one FSDP step card against CPU
+    (:func:`check_fsdp_on_card`)."""
+    for layout in REF_GPT_LAYOUTS:
+        res = check_small_gpt_on_card(device, layout)
+        log(f"[gpt-ref] small GPT ({REF_GPT.num_layers} layers, hidden {REF_GPT.hidden_size}, "
+            f"{REF_GPT.num_heads} heads of {REF_GPT.hidden_size // REF_GPT.num_heads}, {REF_GPT_BATCH} x "
+            f"{REF_GPT.max_position_embeddings} tokens) at {layout}: logits and every gradient within "
+            f"{ {k: float(f'{v:.3e}') for k, v in res['worst'].items()} } of their largest value; "
+            f"launches {res['launches']}")
+    log(f"[gpt-ref] {check_pipelines_on_card(device)}")
+    log(f"[gpt-ref] {check_fsdp_on_card(device)}")
+
+
+def contiguous_ring_masks(sp: int, t: int, n_ranks: int, rows: int, device):
+    """The causal masks of the contiguous ring's block calls, one a ring
+    step, each ``(n_ranks * rows, t, t)`` for the ranks of a pp x sp group
+    (sp the inner axis; ``rows`` sequences a rank): member s holds the K/V
+    of member (s - i) mod sp at step i."""
+    ranks = torch.arange(n_ranks, device=device) % sp
+    pos = torch.arange(t, device=device)
+    masks = []
+    for i in range(sp):
+        src = (ranks - i) % sp
+        q_pos, k_pos = ranks[:, None] * t + pos, src[:, None] * t + pos
+        masks.append((q_pos[:, :, None] >= k_pos[:, None, :]).repeat_interleave(rows, 0).contiguous())
+    return masks
+
+
+def gpt_pp_calls(args) -> dict:
+    """Rows 6-8's launches in one step of the twin: every block's ring
+    makes sp block calls a pass; 1F1B runs the stage forward twice a tick
+    (the step's forward and the recompute) and one backward, over ``M + 2S
+    - 2`` ticks; GPipe one forward and one backward over ``S + M - 1``."""
+    S, M, sp, L = args.pp, args.microbatches, args.sp, args.blocks_per_stage
+    if sp == 1:
+        return {k: 0 for k in KERNELS}
+    if args.schedule == "1f1b":
+        ticks = M + 2 * S - 2
+        fwd, bwd = 2 * ticks * L * sp, ticks * L * sp
+    else:
+        fwd = bwd = (S + M - 1) * L * sp
+    counts = {k: 0 for k in KERNELS}
+    counts.update(block_attention=fwd, flash_attention_bwd_dq=bwd, flash_attention_bwd_dkv=bwd)
+    return counts
+
+
+def gpt_pp_kernels(ledger: Ledger, args, device) -> str:
+    """Rows 6-8 at the twin's blocks (f32 q pre-scaled, f32 K/V, head dim
+    64; the ranks of pp x sp folded into the batch, ``batch / M`` sequences
+    a rank) within ATTENTION_TOLS, at each ring step's mask (step 1 leaves
+    sp rank 0's block wholly masked), timed per step of ``args.schedule``."""
+    R = args.pp * args.sp
+    rows, t = args.batch // args.microbatches, args.seq // args.sp
+    h, d = args.heads, args.hidden // args.heads
+    step = f"GPT-2 small pp {args.pp} x sp {args.sp} {args.schedule}"
+    calls = gpt_pp_calls(args)
+    gen = torch.Generator(device=device).manual_seed(12)
+    qf, k, v, dl, do = attention_inputs(gen, device, R * rows, t, t, h, h, d)
+    masks = contiguous_ring_masks(args.sp, t, R, rows, device)
+    with _no_tf32():
+        for i, mask in enumerate(masks):
+            live = float(mask.float().mean())
+            check_attention(ledger, f"{step}, ring step {i} (live share {live:.3f})", qf, k, v, mask, dl, do)
+            m = fa.block_attention_plain(qf, k, v, mask)[2]
+            lib_fwd, lib_bwd = sdpa_ms(qf, k, v, mask, do)
+            costs = attention_cost(qf, k, mask, d)
+            per_mask = {name: calls[name] // len(masks) for name in ATTENTION_TOLS}
+            ledger.time("block_attention", *costs[0], qf, k, v, mask, per_step=per_mask["block_attention"],
+                        library=lambda: lib_fwd, step=step)
+            for name, cost in zip(("flash_attention_bwd_dq", "flash_attention_bwd_dkv"), costs[1:]):
+                ledger.time(name, *cost, qf, k, v, mask, m, dl, do, per_step=per_mask[name],
+                            library=lambda: lib_bwd, step=step)
+    _log_step_sums(ledger, step, f"{args.blocks_per_stage} blocks x {args.sp} ring steps x the ticks")
+    return step
+
+
+def _replicas(what: str, twin) -> None:
+    """Embedding and head equal on every rank, each stage equal on the
+    ranks of its pp coordinate, bit for bit."""
+    rows = twin.pp_coord()
+    for part in ("embed", "head", "stage"):
+        for name, leaf in tree_flatten_with_names(twin.params[part]):
+            for r in range(1, leaf.shape[0]):
+                first = 0 if part != "stage" else int((rows == rows[r]).nonzero()[0])
+                if not torch.equal(leaf[first], leaf[r]):
+                    raise AssertionError(f"{what}: {part}{name} differs between ranks {first} and {r}")
+
+
+def phase_gpt_pp(ledger: Ledger, device, profile: bool, schedule: str) -> dict:
+    """``[gpt-pp]``: the gpt_pretrain twin at GPT-2 small's widths
+    (GPT2_ARGS: 162,249,216 parameters: the embedding and the untied head
+    38,597,376 each, 2 stages of 6 blocks, 42,527,232 each), pp 2 x sp 2 (pp
+    = inter, sp = intra), f32, Adam 1e-3, with ``schedule``: GPT_WARMUP
+    warm-up steps, then GPT_STEPS timed (ms/step, tokens/s, peak memory),
+    every loss finite, the replicas bitwise equal and rows 6-8's launches
+    exact (:func:`gpt_pp_calls`); rows 6-8 at the twin's blocks
+    (:func:`gpt_pp_kernels`).  Traces one step (the card's idle share) for
+    1F1B, and for GPipe under ``--profile``.  Returns the timed steps'
+    launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = gp.parse_args(GPT2_ARGS + ["--steps", str(GPT_WARMUP + GPT_STEPS), "--schedule", schedule])
+    twin = gp.Twin(args, device)
+    data = [(twin.shard(i), twin.shard(l)) for i, l in gp.batches(args)]
+    n_params = sum(leaf[0].numel() for part in ("embed", "head") for leaf in tree_leaves(twin.params[part]))
+    n_params += args.pp * sum(leaf[0].numel() for leaf in tree_leaves(twin.params["stage"]))
+    losses = [twin.step(*batch) for batch in data[:GPT_WARMUP]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for batch in data[GPT_WARMUP:]:
+        losses.append(twin.step(*batch))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / GPT_STEPS
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    what = f"[gpt-pp] GPT-2 small pp {args.pp} x sp {args.sp} {schedule}"
+    losses = torch.stack(losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"{what}: non-finite loss {losses[:, 0].tolist()}")
+    _replicas(what, twin)
+    want = {k: GPT_STEPS * n for k, n in gpt_pp_calls(args).items()}
+    if launches != want:
+        raise AssertionError(f"{what}: launch counts {launches}, want {want}")
+    tokens = args.batch * args.seq
+    log(f"{what}: {n_params} parameters, {args.batch} x {args.seq} tokens, {args.microbatches} microbatches, "
+        f"f32, Adam {gp.LR}: {step_s * 1e3:.1f} ms/step over {GPT_STEPS} steps = {tokens / step_s:.1f} "
+        f"tokens/s on the card; peak memory {peak:.2f} GiB; losses {[round(x, 4) for x in losses[:, 0].tolist()]}; "
+        f"launches {launches} (per step {gpt_pp_calls(args)})")
+    gpt_pp_kernels(ledger, args, device)
+    if schedule == "1f1b" or profile:
+        profile_step(what, lambda: twin.step(*data[-1]))
+    del twin, data
+    return launches
+
+
+def phase_pp_mem(device) -> dict:
+    """``[pp-mem]``: one step's peak memory of the twin at pp 4 (PP_MEM_ARGS:
+    sp 1, 3 blocks a stage, 8 microbatches of one sequence), 1F1B and GPipe,
+    each after a warm-up step (so both hold their Adam state); fails unless
+    1F1B's peak is below GPipe's (the claim of ``pipeline.py``'s
+    docstring).  sp 1 runs the plain attention: no launch."""
+    peaks = {}
+    reset_launches()
+    for schedule in ("1f1b", "gpipe"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = gp.parse_args(PP_MEM_ARGS + ["--steps", "2", "--schedule", schedule])
+        twin = gp.Twin(args, device)
+        data = [(twin.shard(i), twin.shard(l)) for i, l in gp.batches(args)]
+        twin.step(*data[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = twin.step(*data[1])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peaks[schedule] = torch.cuda.max_memory_allocated() / 2**30
+        if not torch.isfinite(loss).all():
+            raise AssertionError(f"[pp-mem] {schedule}: non-finite loss {loss.tolist()}")
+        log(f"[pp-mem] GPT-2 small widths, pp {args.pp} x {args.blocks_per_stage} blocks, {args.microbatches} "
+            f"microbatches of {args.batch // args.microbatches} x {args.seq} tokens, {schedule}: peak memory "
+            f"{peaks[schedule]:.2f} GiB in a step ({ms:.1f} ms), loss {float(loss[0]):.4f}")
+        del twin, data
+    if not peaks["1f1b"] < peaks["gpipe"]:
+        raise AssertionError(f"[pp-mem] 1F1B's peak {peaks['1f1b']:.2f} GiB is not below GPipe's "
+                             f"{peaks['gpipe']:.2f} GiB")
+    log(f"[pp-mem] 1F1B's peak is {peaks['gpipe'] - peaks['1f1b']:.2f} GiB below GPipe's "
+        f"({peaks['1f1b'] / peaks['gpipe']:.3f} of it)")
+    return _no_launches("[pp-mem]")
+
+
+def phase_fsdp(device, profile: bool) -> dict:
+    """``[fsdp]``: ``GPTModel`` at GPT-2 small (FSDP_CFG, bf16 compute) under
+    ``FSDP`` over RANKS ranks, FSDP_BATCH sequences of FSDP_SEQ tokens a
+    rank, ``lm_loss_fn``, Adam: GPT_WARMUP warm-up and GPT_STEPS timed
+    steps (ms/step, peak memory), each rank's at-rest bytes (its parameter
+    rows and their Adam state) against the total / RANKS; fails if a leaf
+    the rule shards is held whole.  No sp: the plain attention, no
+    launch."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    group = BaguaProcessGroup([device] * RANKS, intra_size=RANKS)
+    model, params = init_gpt(FSDP_CFG, torch.Generator(device=device).manual_seed(0), device)
+    model.requires_grad_(False)
+    fsdp = FSDP(gpt_lm_loss_fn(model), lambda ps: torch.optim.Adam(ps, lr=FSDP_LR, fused=True), group,
+                compute_dtype=torch.bfloat16)
+    p, o = fsdp.init(params)
+    dims = tree_leaves(fsdp_shardings(params, group))
+    whole = [name for (name, shard), d, full in zip(tree_flatten_with_names(p), dims, tree_leaves(params))
+             if d is not None and shard.shape[1 + d] * RANKS != full.shape[d]]
+    if whole:
+        raise AssertionError(f"[fsdp] leaves the rule shards are held whole: {whole}")
+    replicated = sum(t.numel() * t.element_size() for t, d in zip(tree_leaves(params), dims) if d is None)
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+    gen = torch.Generator(device=device).manual_seed(1)
+    data = [torch.randint(0, FSDP_CFG.vocab_size, (RANKS * FSDP_BATCH, FSDP_SEQ), generator=gen, device=device)
+            for _ in range(GPT_WARMUP + GPT_STEPS)]
+    reset_launches()
+    losses = []
+    for ids in data[:GPT_WARMUP]:
+        (p, o), loss = fsdp.train_step(p, o, ids)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for ids in data[GPT_WARMUP:]:
+        (p, o), loss = fsdp.train_step(p, o, ids)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / GPT_STEPS
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[fsdp] non-finite loss {losses}")
+    at_rest = fsdp.at_rest_bytes(p, o)
+    total = 3 * param_bytes  # parameters and Adam's two moments, unsharded
+    log(f"[fsdp] GPTModel at GPT-2 small ({n_params} parameters, bf16 compute), {RANKS} ranks x {FSDP_BATCH} x "
+        f"{FSDP_SEQ} tokens, Adam {FSDP_LR}: {step_s * 1e3:.1f} ms/step over {GPT_STEPS} steps = "
+        f"{RANKS * FSDP_BATCH * FSDP_SEQ / step_s:.1f} tokens/s on the card; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; at rest a rank holds {at_rest} B against "
+        f"total / {RANKS} = {total / RANKS:.0f} B (replicated leaves {replicated} B); losses "
+        f"{[round(x, 4) for x in losses]}")
+    if at_rest > total / RANKS + 3 * replicated + 4 * len(tree_leaves(p)):
+        raise AssertionError(f"[fsdp] a rank holds {at_rest} B at rest, more than its share")
+    if profile:
+        profile_step("[fsdp] GPT-2 small FSDP", lambda: fsdp.train_step(p, o, data[-1]))
+    del fsdp, p, o, model
+    return _no_launches("[fsdp]")
+
+
 def vgg16_plan():
     """The bucket plan of VGG16 over RANKS ranks, from the model's shapes
     alone (built on the meta device); every algorithm here aligns its
@@ -3232,6 +3692,12 @@ def main(argv) -> int:
     per_path["MoE async"] = phase_moe_async(device)
     torch.cuda.empty_cache()
     per_path["ResNet"] = phase_resnet(device, profile, "--witness" in argv)
+    torch.cuda.empty_cache()
+    phase_gpt_reference(device)
+    for schedule in ("1f1b", "gpipe"):
+        per_path[f"GPT pp {schedule}"] = phase_gpt_pp(ledger, device, profile, schedule)
+    per_path["pp-mem"] = phase_pp_mem(device)
+    per_path["FSDP"] = phase_fsdp(device, profile)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]

@@ -343,7 +343,8 @@ def test_port_imports_no_jax():
     decentralized pair, QAdam, the MNIST twin, stale-sync, async model
     average, gradient accumulation, BERT, the differentiable collectives,
     the SQuAD twin, the collectives twin, the MoE layer and its twins,
-    ResNet, the contrib data tier and the imagenet twin."""
+    ResNet, the contrib data tier, the imagenet twin, the pipeline
+    schedules, FSDP, GPT and the gpt_pretrain twin."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -363,7 +364,10 @@ def test_port_imports_no_jax():
         "        'bagua_tpu_torch.models.resnet', 'bagua_tpu_torch.contrib.store',\n"
         "        'bagua_tpu_torch.contrib.cache_loader', 'bagua_tpu_torch.contrib.cached_dataset',\n"
         "        'bagua_tpu_torch.contrib.load_balancing_data_loader', 'bagua_tpu_torch.examples.moe',\n"
-        "        'bagua_tpu_torch.examples.bench_moe', 'bagua_tpu_torch.examples.imagenet']\n"
+        "        'bagua_tpu_torch.examples.bench_moe', 'bagua_tpu_torch.examples.imagenet',\n"
+        "        'bagua_tpu_torch.parallel.pipeline', 'bagua_tpu_torch.parallel.fsdp',\n"
+        "        'bagua_tpu_torch.models.gpt', 'bagua_tpu_torch.models._layers',\n"
+        "        'bagua_tpu_torch.examples.gpt_pretrain']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )
