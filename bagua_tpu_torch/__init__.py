@@ -8,6 +8,7 @@ by hand in CUDA for Hopper (``kernels/csrc``).  It imports neither JAX nor
 
 from bagua_tpu_torch.version import __version__  # noqa: F401
 from bagua_tpu_torch.defs import ReduceOp  # noqa: F401
+from bagua_tpu_torch.mesh import MeshSpec  # noqa: F401
 from bagua_tpu_torch.communication import (  # noqa: F401
     BaguaProcessGroup,
     allgather,
@@ -17,6 +18,7 @@ from bagua_tpu_torch.communication import (  # noqa: F401
     barrier,
     broadcast,
     broadcast_object,
+    default_axes,
     gather,
     get_default_group,
     init_process_group,

@@ -55,7 +55,7 @@ import time
 import torch
 
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContext
-from bagua_tpu_torch.communication import ReduceOp, allreduce
+from bagua_tpu_torch.communication import ReduceOp, _grouped, _ungrouped, allreduce
 from bagua_tpu_torch.utils import tree_flatten_with_names
 
 logger = logging.getLogger(__name__)
@@ -121,16 +121,20 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
     def _delta(self, snapshot):
         """``mean_over_ranks(leaf) - leaf`` into fresh tensors, for each leaf
         of :meth:`averaged_names`: ``{name: delta}``.  The mean is summed
-        over the ranks left to right and divided, as the AVG
-        ``allreduce``, without materializing its broadcast."""
-        n = self.process_group.size
+        over the ranks of each collective over the data axes left to right
+        and divided, as the AVG ``allreduce``, without materializing its
+        broadcast.  It runs off the engine's step, so it names the data
+        axes itself."""
+        group = self.process_group
+        axes = group.data_axes
 
         def delta_of(x):
-            red = x[0]
-            for r in range(1, n):
-                red = red + x[r]
-            red = red / torch.full_like(red, n)
-            return red.unsqueeze(0) - x
+            g = _grouped(x, group, axes)
+            red = g[:, 0]
+            for r in range(1, g.shape[1]):
+                red = red + g[:, r]
+            red = red / torch.full_like(red, g.shape[1])
+            return _ungrouped(red.unsqueeze(1) - g, group, axes)
 
         leaves = dict(tree_flatten_with_names(snapshot))
         with torch.no_grad():

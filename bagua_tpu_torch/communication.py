@@ -1,19 +1,26 @@
 """Process groups and collectives over rank-stacked tensors.
 
 The port of ``bagua_tpu/communication.py``, keeping its single-controller
-model: a :class:`BaguaProcessGroup` is a list of devices, one per rank, laid
-out as an ``(inter, intra)`` grid with rank ``r = inter * intra_size +
-intra``.  Every per-rank value is held *stacked*: one tensor whose leading
-axis has one slice per rank.  A device may repeat, so ``[cuda:0] * 4`` is
-four ranks on one card, as ``[cpu] * 8`` is the tests' eight.
+model: a :class:`BaguaProcessGroup` is a list of devices, one per rank,
+laid out on a mesh of named axes.  The legacy group is the two-axis mesh
+``("inter", "intra")`` with rank ``r = inter * intra_size + intra``; a
+:class:`~bagua_tpu_torch.mesh.MeshSpec` names the axes and their roles
+instead (``{"dp": 4, "tp": 2}``), ranks row-major over them.  Every
+per-rank value is held *stacked*: one tensor whose leading axis has one
+slice per rank.  A device may repeat, so ``[cuda:0] * 4`` is four ranks on
+one card, as ``[cpu] * 8`` is the tests' eight.
 
 The collectives are tensor operations on that leading axis, the stacked
 counterparts of the reference's in-step collectives
 (``communication.py:280-340``): each output slice is what that rank would
-hold after the collective.  ``axis`` picks the ranks that communicate:
-``None`` (all of them), ``"inter"`` (ranks sharing an intra index) or
-``"intra"`` (ranks sharing an inter index).  Reductions fold the peers left
-to right, so every rank of a collective gets the very same bits.
+hold after the collective.  ``axis`` picks the ranks that communicate: one
+axis name or several (member index row-major over them, in the order
+given, as the JAX package's ``rank_id``), or None.  None resolves to the
+ambient axes of :func:`default_axes` where one is entered (the engine
+enters the group's data axes around each step it runs, as the JAX engine
+does inside its ``shard_map``), else to every axis of the group.
+Reductions fold the peers left to right, so every rank of a collective
+gets the very same bits.
 
 The reference's eager user API (``broadcast``, ``reduce``, ``scatter``,
 ``gather``, ``reducescatter``, ``barrier``, ``broadcast_object``) closes the
@@ -23,11 +30,14 @@ All ranks of a group live on one device.  Ranks on several cards need one
 process per card over NCCL, which this package does not have yet.
 """
 
+import contextlib
+import contextvars
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from bagua_tpu_torch.defs import ReduceOp
+from bagua_tpu_torch.mesh import MeshSpec
 
 INTER_AXIS = "inter"
 INTRA_AXIS = "intra"
@@ -44,13 +54,22 @@ def _normalize(device) -> torch.device:
 
 
 class BaguaProcessGroup:
-    """A group of ranks arranged on an ``(inter, intra)`` grid.
+    """A group of ranks arranged on a named mesh.
 
+    Without a ``mesh_spec`` this is the legacy 2-D ``(inter, intra)`` mesh:
     ``intra_size`` ranks form the fast inner axis (one host);
-    ``inter_size = size // intra_size`` forms the slower outer axis.  By
-    default every rank is on the inner axis."""
+    ``inter_size = size // intra_size`` forms the slower outer axis, every
+    rank on the inner axis by default, and every axis carries the
+    data-parallel exchange.
 
-    def __init__(self, devices: Sequence, intra_size: Optional[int] = None):
+    With a :class:`~bagua_tpu_torch.mesh.MeshSpec` the mesh axes are the
+    spec's named axes (e.g. ``dp x tp``): the engine's bucketed exchange
+    rides the spec's *data* axes only, while *model* axes (tp/sp/ep/pp) are
+    left to the model's own collectives.  ``intra_size`` is then the group
+    size and ``inter_size`` 1, as the JAX package sets them."""
+
+    def __init__(self, devices: Sequence, intra_size: Optional[int] = None,
+                 mesh_spec: Optional[MeshSpec] = None):
         devices = [_normalize(d) for d in devices]
         if not devices:
             raise ValueError("a process group needs at least one device")
@@ -61,11 +80,21 @@ class BaguaProcessGroup:
                 "rank the same device"
             )
         n = len(devices)
+        self.devices = devices
+        self.mesh_spec = mesh_spec
+        if mesh_spec is not None:
+            if intra_size is not None:
+                raise ValueError(
+                    "pass either intra_size (legacy inter/intra mesh) or "
+                    "mesh_spec (named mesh), not both"
+                )
+            mesh_spec.device_array(devices)  # raises unless n == spec.size
+            self.intra_size, self.inter_size = n, 1
+            return
         if intra_size is None:
             intra_size = n
         if n % intra_size != 0:
             raise ValueError(f"group size {n} not divisible by intra_size {intra_size}")
-        self.devices = devices
         self.intra_size = intra_size
         self.inter_size = n // intra_size
 
@@ -79,11 +108,34 @@ class BaguaProcessGroup:
         return len(self.devices)
 
     @property
+    def all_axes(self) -> Tuple[str, ...]:
+        """Every mesh axis name, in mesh order."""
+        return self.mesh_spec.names if self.mesh_spec is not None else ALL_AXES
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """The axes the batch shards over and the gradient exchange rides."""
+        return self.mesh_spec.data_axes if self.mesh_spec is not None else ALL_AXES
+
+    @property
+    def model_axes(self) -> Tuple[str, ...]:
+        return self.mesh_spec.model_axes if self.mesh_spec is not None else ()
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The mesh's axis sizes, in :attr:`all_axes` order."""
+        return self.mesh_spec.shape if self.mesh_spec is not None else (self.inter_size, self.intra_size)
+
+    @property
     def exchange_size(self) -> int:
-        """Ranks in the gradient-exchange ring."""
-        return self.size
+        """Ranks in the gradient-exchange ring: the product of the data
+        axes (``size`` unless model axes are present; then the exchange
+        communicates only among ranks sharing a model-axis coordinate)."""
+        return self.mesh_spec.exchange_size if self.mesh_spec is not None else self.size
 
     def __repr__(self) -> str:
+        if self.mesh_spec is not None:
+            return f"BaguaProcessGroup(size={self.size}, mesh={self.mesh_spec!r}, device={self.device})"
         return (
             f"BaguaProcessGroup(size={self.size}, inter={self.inter_size}, "
             f"intra={self.intra_size}, device={self.device})"
@@ -91,11 +143,17 @@ class BaguaProcessGroup:
 
 
 def init_process_group(
-    devices: Optional[Sequence] = None, intra_size: Optional[int] = None
+    devices: Optional[Sequence] = None, intra_size: Optional[int] = None,
+    mesh_spec: Optional[MeshSpec] = None,
 ) -> BaguaProcessGroup:
     """Initialize the default process group.  Without ``devices`` it takes
     the visible CUDA devices and raises where there are none; pass
-    ``[torch.device("cpu")] * n`` to run n ranks on the CPU."""
+    ``[torch.device("cpu")] * n`` to run n ranks on the CPU.
+
+    With a ``mesh_spec`` and no ``devices`` the group is ``spec.size`` ranks
+    on the current CUDA device (the JAX package takes the first
+    ``spec.size`` devices; the port keeps every rank of a group on one
+    device)."""
     global _default_group
     if devices is None:
         if not torch.cuda.is_available():
@@ -103,8 +161,11 @@ def init_process_group(
                 "init_process_group: no CUDA device is visible; pass "
                 "devices=[torch.device('cpu')] * n to run on the CPU"
             )
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    _default_group = BaguaProcessGroup(devices, intra_size=intra_size)
+        if mesh_spec is not None:
+            devices = [torch.device("cuda", torch.cuda.current_device())] * mesh_spec.size
+        else:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    _default_group = BaguaProcessGroup(devices, intra_size=intra_size, mesh_spec=mesh_spec)
     return _default_group
 
 
@@ -118,12 +179,14 @@ def get_default_group() -> BaguaProcessGroup:
     return _default_group  # type: ignore
 
 
-def new_group(ranks: Optional[Sequence[int]] = None, intra_size: Optional[int] = None) -> BaguaProcessGroup:
+def new_group(ranks: Optional[Sequence[int]] = None, intra_size: Optional[int] = None,
+              mesh_spec: Optional[MeshSpec] = None) -> BaguaProcessGroup:
     """A group of the default group's ranks ``ranks`` (all of them by
-    default), in that order (reference ``communication.py:217``)."""
+    default), in that order (reference ``communication.py:217``), on the
+    legacy mesh or on ``mesh_spec``."""
     base = get_default_group()
     devices = base.devices if ranks is None else [base.devices[r] for r in ranks]
-    return BaguaProcessGroup(devices, intra_size=intra_size)
+    return BaguaProcessGroup(devices, intra_size=intra_size, mesh_spec=mesh_spec)
 
 
 def local_ranks(group: Optional[BaguaProcessGroup] = None) -> List[int]:
@@ -136,45 +199,90 @@ def local_ranks(group: Optional[BaguaProcessGroup] = None) -> List[int]:
 # Stacked collectives
 # ---------------------------------------------------------------------------
 
+#: the axes an ``axis=None`` collective resolves to where set
+_DEFAULT_AXES: contextvars.ContextVar = contextvars.ContextVar("bagua_default_axes", default=None)
 
-def _axes(axis) -> Tuple[str, ...]:
+
+@contextlib.contextmanager
+def default_axes(axes: Sequence[str]):
+    """Make ``axes`` the resolution of ``axis=None`` collectives within (on
+    this thread: a hook that autograd runs on its own thread enters it
+    again)."""
+    token = _DEFAULT_AXES.set(tuple(axes))
+    try:
+        yield
+    finally:
+        _DEFAULT_AXES.reset(token)
+
+
+def _axes(axis, group: Optional[BaguaProcessGroup] = None) -> Tuple[str, ...]:
+    """``axis`` as a tuple of axis names: None is the ambient
+    :func:`default_axes`, else every axis of ``group`` (the legacy pair
+    without one)."""
     if axis is None:
-        return ALL_AXES
+        ambient = _DEFAULT_AXES.get()
+        if ambient is not None:
+            return ambient
+        return group.all_axes if group is not None else ALL_AXES
     if isinstance(axis, str):
         return (axis,)
     return tuple(axis)
 
 
+def _resolve(group: BaguaProcessGroup, axis) -> Tuple[str, ...]:
+    """``axis`` resolved on ``group``; an axis the group does not declare
+    raises ValueError naming the declared ones."""
+    axes = _axes(axis, group)
+    declared = group.all_axes
+    unknown = [a for a in axes if a not in declared]
+    if unknown or len(set(axes)) != len(axes):
+        raise ValueError(f"collective axes {axes} are not distinct axes of the group: "
+                         f"its declared mesh axes are {declared}")
+    return axes
+
+
 def axis_size(group: BaguaProcessGroup, axis=None) -> int:
-    sizes = {INTER_AXIS: group.inter_size, INTRA_AXIS: group.intra_size}
+    sizes = dict(zip(group.all_axes, group.shape))
     n = 1
-    for a in _axes(axis):
+    for a in _resolve(group, axis):
         n *= sizes[a]
     return n
 
 
+def _layout(group: BaguaProcessGroup, axis):
+    """How :func:`_grouped` views the mesh for ``axis``: the permutation of
+    the mesh's dims that puts the collective's axes last (in the order
+    ``axis`` names them) and the other axes first (in mesh order), and the
+    permuted shape."""
+    axes = _resolve(group, axis)
+    names = group.all_axes
+    order = [i for i, a in enumerate(names) if a not in axes] + [names.index(a) for a in axes]
+    return order, [group.shape[i] for i in order]
+
+
 def _grouped(x: torch.Tensor, group: BaguaProcessGroup, axis) -> torch.Tensor:
     """View the stacked ``(size, ...)`` tensor as ``(G, n, ...)``: G
-    independent collectives of n members each, members in rank order."""
-    axes = _axes(axis)
-    rest = x.shape[1:]
+    independent collectives of n members each, member index row-major over
+    the collective's axes in the order given."""
     if x.shape[0] != group.size:
         raise ValueError(f"leading dim {x.shape[0]} != group size {group.size}")
-    grid = x.reshape(group.inter_size, group.intra_size, *rest)
-    if axes == ALL_AXES:
-        return x.reshape(1, group.size, *rest)
-    if axes == (INTER_AXIS,):
-        return grid.transpose(0, 1)
-    if axes == (INTRA_AXIS,):
-        return grid
-    raise ValueError(f"unsupported collective axes {axes}")
+    order, _ = _layout(group, axis)
+    rest = x.shape[1:]
+    n = axis_size(group, axis)
+    if order == sorted(order):  # the collective's axes are already innermost
+        return x.reshape(group.size // n, n, *rest)
+    grid = x.reshape(*group.shape, *rest).permute(*order, *range(len(order), len(order) + len(rest)))
+    return grid.reshape(group.size // n, n, *rest)
 
 
 def _ungrouped(y: torch.Tensor, group: BaguaProcessGroup, axis) -> torch.Tensor:
     """Inverse of :func:`_grouped` (the result is contiguous)."""
-    if _axes(axis) == (INTER_AXIS,):
-        y = y.transpose(0, 1)
-    return y.reshape(group.size, *y.shape[2:]).contiguous()
+    order, shape = _layout(group, axis)
+    rest = y.shape[2:]
+    if order != sorted(order):
+        inverse = [order.index(i) for i in range(len(order))]
+        y = y.reshape(*shape, *rest).permute(*inverse, *range(len(order), len(order) + len(rest)))
+    return y.reshape(group.size, *rest).contiguous()
 
 
 def rank_id(group: BaguaProcessGroup, axis=None) -> torch.Tensor:
@@ -372,18 +480,20 @@ def reducescatter(
     """Rank r gets the r-th of ``size`` chunks of the reduced slices
     (reference ``communication.py:1219``): :func:`reduce_scatter` over
     every rank."""
-    return reduce_scatter(send, op, comm)
+    group = comm or get_default_group()
+    return reduce_scatter(send, op, group, group.all_axes)
 
 
 def broadcast(send: torch.Tensor, src: int = 0, comm: Optional[BaguaProcessGroup] = None) -> torch.Tensor:
     """Every rank gets rank ``src``'s slice (reference
     ``communication.py:573``), as :func:`broadcast_inplace` computes it."""
-    return broadcast_inplace(send, src, comm)
+    group = comm or get_default_group()
+    return broadcast_inplace(send, src, group, group.all_axes)
 
 
 def _at_rank(group: BaguaProcessGroup, rank: int, ndim: int) -> torch.Tensor:
     """``(size, 1, ...)`` bool: True on ``rank``'s slice."""
-    return (rank_id(group) == rank).reshape(group.size, *([1] * (ndim - 1)))
+    return (rank_id(group, group.all_axes) == rank).reshape(group.size, *([1] * (ndim - 1)))
 
 
 def reduce(
@@ -393,7 +503,7 @@ def reduce(
     """Rank ``dst`` gets the reduction of every slice; the other ranks keep
     their own (reference ``communication.py:958``)."""
     group = comm or get_default_group()
-    return torch.where(_at_rank(group, dst, send.dim()), allreduce(send, op, group), send)
+    return torch.where(_at_rank(group, dst, send.dim()), allreduce(send, op, group, group.all_axes), send)
 
 
 def scatter(send: torch.Tensor, src: int = 0, comm: Optional[BaguaProcessGroup] = None) -> torch.Tensor:
@@ -403,9 +513,9 @@ def scatter(send: torch.Tensor, src: int = 0, comm: Optional[BaguaProcessGroup] 
     n, m = group.size, send.shape[1]
     if m % n:
         raise ValueError(f"scatter: dim {m} does not divide into {n} chunks")
-    full = broadcast_inplace(send, src, group)
+    full = broadcast_inplace(send, src, group, group.all_axes)
     chunks = full.reshape(n, n, m // n, *send.shape[2:])
-    return chunks[torch.arange(n, device=send.device), rank_id(group)]
+    return chunks[torch.arange(n, device=send.device), rank_id(group, group.all_axes)]
 
 
 def gather(send: torch.Tensor, dst: int = 0, comm: Optional[BaguaProcessGroup] = None) -> torch.Tensor:
@@ -413,7 +523,7 @@ def gather(send: torch.Tensor, dst: int = 0, comm: Optional[BaguaProcessGroup] =
     other ranks get zeros, as the JAX package gives them (reference
     ``communication.py:1081`` leaves their buffers as they were)."""
     group = comm or get_default_group()
-    full = allgather(send, group)
+    full = allgather(send, group, group.all_axes)
     return torch.where(_at_rank(group, dst, full.dim()), full, torch.zeros_like(full))
 
 

@@ -31,6 +31,16 @@ every bucket before it in that order are ready.  On the card the exchange
 runs on a side CUDA stream, so its kernels can run while the backward's
 do; the optimizer's stream waits for it.
 
+On a named mesh (a group built with a :class:`~bagua_tpu_torch.mesh.MeshSpec`)
+the global batch shards over the group's data axes only and is replicated
+over its model axes (JAX's ``P(data_axes)``): rank r takes the block of its
+index within the data axes, and its tp peers take the same rows.  Every
+stage of the algorithm runs under
+:func:`~bagua_tpu_torch.communication.default_axes` of the data axes, so
+its ``axis=None`` collectives ride them only (the JAX engine's
+``default_axes`` inside its ``shard_map``); the overlap hooks, which
+autograd runs on its own thread on the card, enter it again.
+
 The optimizer is a factory, ``lambda params: torch.optim.SGD(params, ...)``,
 called once on the stacked parameter tensors; an elementwise optimizer
 updates each rank's slice on its own, as ``vmap`` of the optax update does.
@@ -68,6 +78,7 @@ machinery).
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import time
 from typing import Any, Callable, List, Optional, Union
@@ -76,9 +87,10 @@ import torch
 
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContext
 from bagua_tpu_torch.bucket import BucketPlan, tree_leaf_names
-from bagua_tpu_torch.communication import BaguaProcessGroup, get_default_group
+from bagua_tpu_torch.communication import BaguaProcessGroup, default_axes, get_default_group, rank_id
 from bagua_tpu_torch.defs import TensorDeclaration
 from bagua_tpu_torch.env import get_default_bucket_size
+from bagua_tpu_torch.mesh import _none_of_declared
 from bagua_tpu_torch.sharded.layout import ShardLayout
 from bagua_tpu_torch.sharded.updater import ShardedOptimizerUpdater, ShardedOptState
 from bagua_tpu_torch.utils import SpeedMeter, tree_flatten_with_names, tree_leaves, tree_map, tree_unflatten
@@ -108,6 +120,21 @@ def validate_switch_reason(reason: str) -> str:
     if family in ("planner", "manual") and sep:
         raise ValueError(f"switch reason {reason!r} must be bare ({family!r} takes no detail suffix)")
     return reason
+
+
+def _on_data_axes(method):
+    """Run an engine method with ``axis=None`` collectives resolving to the
+    group's data axes."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with default_axes(self.group.data_axes):
+            return method(self, *args, **kwargs)
+    return wrapped
+
+
+def _hierarchical_on_named_mesh(group, impl, remedy: str) -> None:
+    if group.mesh_spec is not None and getattr(impl, "hierarchical", False):
+        raise ValueError(f"hierarchical algorithms assume the legacy (inter, intra) mesh; {remedy}")
 
 
 @dataclasses.dataclass
@@ -145,6 +172,11 @@ class DistributedDataParallel:
             algorithm's :meth:`~bagua_tpu_torch.algorithms.base.AlgorithmImpl.overlap_capability`
             says ``supported`` and ``auto``; ``True`` on an algorithm that
             cannot overlap raises ValueError with its reason.
+        dp_axis, fsdp_axis, tp_axis: assert the roles of the group's mesh
+            axes: each must name declared axes of that role (data for
+            ``dp_axis`` and ``fsdp_axis``, model for ``tp_axis``), else
+            ValueError.  They assert, they do not assign: roles are the
+            :class:`~bagua_tpu_torch.mesh.MeshSpec`'s.
     """
 
     def __init__(
@@ -156,10 +188,16 @@ class DistributedDataParallel:
         bucket_size_bytes: Optional[int] = None,
         dp_filter: Optional[Callable[[str], bool]] = None,
         overlap="auto",
+        dp_axis=None,
+        fsdp_axis=None,
+        tp_axis=None,
     ):
         self.loss_fn = loss_fn
         self.group = process_group or get_default_group()
+        self._validate_mesh_axes(dp_axis=dp_axis, fsdp_axis=fsdp_axis, tp_axis=tp_axis)
         self.impl: AlgorithmImpl = algorithm.reify(self.group) if isinstance(algorithm, Algorithm) else algorithm
+        _hierarchical_on_named_mesh(self.group, self.impl, "construct the group without a MeshSpec "
+                                    "(intra_size=...) to use them")
         if optimizer is None:
             bundled = getattr(self.impl, "optimizer", None)
             if bundled is None or not hasattr(bundled, "to_torch"):
@@ -200,6 +238,35 @@ class DistributedDataParallel:
         #: overlap step on the card
         self.side_stream = None
         self.speed_meter = SpeedMeter()
+        #: each rank's index within the data axes: the batch block it takes
+        self._data_rank = rank_id(self.group, self.group.data_axes)
+
+    def _validate_mesh_axes(self, **axis_kwargs):
+        """Check the ``dp_axis``/``fsdp_axis``/``tp_axis`` keywords against the
+        group's declared mesh axes (mirrors ``_check_ep_axes`` in
+        parallel/moe/layer.py): a typo'd name raises here, not deep in a step.
+        The keywords assert roles, they don't reassign them -- declare roles
+        on the :class:`~bagua_tpu_torch.mesh.MeshSpec` itself."""
+        spec = self.group.mesh_spec
+        declared = self.group.all_axes
+        roles = {"dp_axis": "data", "fsdp_axis": "data", "tp_axis": "model"}
+        for kw, value in axis_kwargs.items():
+            if value is None:
+                continue
+            tup = (value,) if isinstance(value, str) else tuple(value)
+            for a in tup:
+                if a not in declared:
+                    raise _none_of_declared(kw, a, declared)
+                if spec is not None:
+                    want = spec.data_axes if roles[kw] == "data" else spec.model_axes
+                    if a not in want:
+                        raise ValueError(
+                            f"mesh axis {a!r} is declared but carries the "
+                            f"{'model' if roles[kw] == 'data' else 'data'} role on "
+                            f"{spec!r} — {kw} must name one of its "
+                            f"{roles[kw]} axes; assign roles on the MeshSpec "
+                            f"(dp_axis/fsdp_axis/tp_axis at spec construction)"
+                        )
 
     @property
     def overlap_enabled(self) -> bool:
@@ -209,6 +276,7 @@ class DistributedDataParallel:
             return cap.supported and cap.auto
         return bool(self.overlap)
 
+    @_on_data_axes
     def init(self, params=None, stacked_params=None) -> TrainState:
         """Build the rank-stacked train state and the optimizer over the
         stacks (under a sharded-update algorithm, over each rank's shards).
@@ -274,9 +342,15 @@ class DistributedDataParallel:
 
     def _forward(self, params, leaves, batch) -> torch.Tensor:
         """Every rank's loss on its slice of the global batch, ``(size,)``,
-        in one ``vmap`` over the ranks."""
-        n = self.group.size
-        local = tree_map(lambda t: t.reshape(n, t.shape[0] // n, *t.shape[1:]), batch)
+        in one ``vmap`` over the ranks: the batch in ``exchange_size``
+        blocks, rank r taking the block of its index within the data axes."""
+        n, e = self.group.size, self.group.exchange_size
+
+        def shard(t):
+            blocks = t.reshape(e, t.shape[0] // e, *t.shape[1:])
+            return blocks if e == n else blocks[self._data_rank.to(t.device)]
+
+        local = tree_map(shard, batch)
         with torch.enable_grad():
             return torch.func.vmap(self.loss_fn)(tree_unflatten(params, leaves), local)
 
@@ -333,6 +407,12 @@ class DistributedDataParallel:
         start = torch.cuda.current_stream(device).record_event() if side is not None else None
 
         def issue(bi):
+            with default_axes(self.group.data_axes):
+                exchange(bi)
+            self.exchange_order.append(bi)
+            self.exchange_counts[bi] += 1
+
+        def exchange(bi):
             grads = [self._grad(leaves[i]) for i in slots[bi]]
             kwargs = {"params_leaves": [weights[i] for i in slots[bi]]} if weight else {}
             if side is None:
@@ -352,8 +432,6 @@ class DistributedDataParallel:
                 for t in out:
                     t.record_stream(main)
                 exchanged[bi] = out
-            self.exchange_order.append(bi)
-            self.exchange_counts[bi] += 1
 
         def on_ready(bi):
             ready[bi] = True
@@ -390,9 +468,11 @@ class DistributedDataParallel:
 
     # -- the step -----------------------------------------------------------------
 
+    @_on_data_axes
     def train_step(self, state: TrainState, batch):
         """One training step.  ``batch`` leaves have a leading global-batch
-        dim divisible by ``group.size``; rank r takes the r-th slice.
+        dim divisible by ``group.exchange_size``; rank r takes the slice of
+        its index within the data axes (the r-th on the legacy mesh).
         Returns ``(state, losses)``, ``losses`` the per-rank local loss of
         shape ``(size,)``.
 
@@ -401,9 +481,10 @@ class DistributedDataParallel:
         whole step and ``host_post_dispatch`` under ``host_dispatch_lock``
         where the algorithm has one (its background thread takes it too)."""
         for t in tree_leaves(batch):
-            if t.shape[0] % self.group.size:
+            if t.shape[0] % self.group.exchange_size:
                 raise ValueError(
-                    f"global batch {t.shape[0]} not divisible by group size {self.group.size}"
+                    f"global batch {t.shape[0]} not divisible by the exchange size "
+                    f"{self.group.exchange_size}"
                 )
         batch = tree_map(lambda t: t.to(self.group.device, non_blocking=True), batch)
         if self._pending_reshard is not None:
@@ -661,6 +742,7 @@ class DistributedDataParallel:
     #: consensus step.
     SWITCHABLE_ALGORITHMS = ("gradient_allreduce", "zero", "bytegrad")
 
+    @_on_data_axes
     def switch_algorithm(self, state: TrainState, algorithm, reason: str = "manual", **algo_kwargs) -> TrainState:
         """Move the live run to another algorithm of
         :data:`SWITCHABLE_ALGORITHMS` (a registry name, built with
@@ -707,8 +789,15 @@ class DistributedDataParallel:
             )
         if new_name == cur_name:
             return state
+        _hierarchical_on_named_mesh(self.group, new_impl, "pass hierarchical=False to switch under a MeshSpec")
         sharded_src = self._sharded_updater is not None
         sharded_dst = bool(getattr(new_impl, "sharded_update", False))
+        if (sharded_src or sharded_dst) and self.group.exchange_size != self.group.size:
+            raise ValueError(
+                "switching into/out of a sharded-update algorithm is "
+                "undefined when model axes are present (shard rows are per "
+                "exchange-ring rank, state rows per mesh rank)"
+            )
 
         pending_before = self._pending_reshard
         if self._pending_reshard is not None:
@@ -768,6 +857,12 @@ class DistributedDataParallel:
         to the current plan's (queued by :meth:`rebucket`): the optimizer's
         rows and state and the pending shards, value for value by tensor
         name, on the host.  One host round trip per plan swap."""
+        if self.group.exchange_size != self.group.size:
+            raise ValueError(
+                "host-side shard migration is undefined when model axes are "
+                "present (shard rows are per exchange-ring rank, state rows "
+                "per mesh rank); run rebucket before init or drop the tp axis"
+            )
         old, self._pending_reshard = self._pending_reshard, None
         new = self._sharded_updater.layout
         return TrainState(
@@ -777,6 +872,7 @@ class DistributedDataParallel:
             step=state.step,
         )
 
+    @_on_data_axes
     def finalize_pending_updates(self, state: TrainState) -> TrainState:
         """Gather the last step's updated parameter shards into the
         parameters now instead of at the next step's start.  Call it before

@@ -23,14 +23,23 @@ device's gradient of its own loss is under ``check_vma=False``).  Three
 Adam optimizers with optax's defaults at the example's rate (``LR``); the
 stage's state is pp-local.
 
-The port's group has two axes, so two live axes of the mesh's ``(dp, pp,
-tp, sp)`` map onto ``(inter, intra)`` in that order (one live axis is
-intra), and three or four raise.  The example's default (dp 1, pp 2, tp 2,
-sp 2) has three, so ``--tp`` defaults to 1 here: the twin's one departure
-from it.  The engine mode (``--engine``) is not ported.
+The group is the JAX mesh itself: a :class:`~bagua_tpu_torch.mesh.MeshSpec`
+``{"dp", "pp", "tp", "sp"}`` in that order, axes of size 1 included
+(:func:`mesh_spec`), ranks row-major over it as the JAX devices are; the
+example's default is pp 2 x tp 2 x sp 2.
 
-    python -m bagua_tpu_torch.examples.gpt_pretrain --device cpu --pp 2 --sp 2 --steps 5
-    python -m bagua_tpu_torch.examples.gpt_pretrain --device cpu --pp 2 --tp 2 --schedule gpipe
+``--engine`` is the example's ``run_engine``: embed + stage + head as one
+tree trained through the DDP engine on the named mesh ``{"dp"[, "fsdp"][,
+"tp"]}`` (pp 1, sp 1), the bucketed exchange (``gradient_allreduce`` with
+overlap, or ZeRO under ``--algo zero``) riding dp and fsdp only while the
+blocks' tp collectives keep their axis; buckets of ``1 << 14`` bytes, Adam
+1e-3.
+
+    python -m bagua_tpu_torch.examples.gpt_pretrain --device cpu --steps 5      # pp 2 x tp 2 x sp 2
+    python -m bagua_tpu_torch.examples.gpt_pretrain --device cpu --tp 1 --schedule gpipe
+    python -m bagua_tpu_torch.examples.gpt_pretrain --device cpu --engine --dp 4 --tp 2 --pp 1 --sp 1
+    python -m bagua_tpu_torch.examples.gpt_pretrain --device cpu --engine --dp 4 --fsdp 2 --tp 1 \\
+        --pp 1 --sp 1 --algo zero
     python -m bagua_tpu_torch.examples.gpt_pretrain --pp 2 --sp 2 --vocab 50257 --hidden 768 \\
         --heads 12 --blocks-per-stage 6 --seq 1024 --microbatches 4    # GPT-2 small, on the card
 """
@@ -42,11 +51,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bagua_tpu_torch.communication import (
-    ALL_AXES, BaguaProcessGroup, ReduceOp, allreduce, rank_id,
-)
-from bagua_tpu_torch.examples.llama_pretrain import shard_ids
+from bagua_tpu_torch.communication import BaguaProcessGroup, ReduceOp, allreduce, init_process_group, rank_id
+from bagua_tpu_torch.examples.llama_pretrain import engine_axes, make_engine, shard_ids
+from bagua_tpu_torch.mesh import MeshSpec
 from bagua_tpu_torch.models._layers import Embed, module_params
+from bagua_tpu_torch.models.bert import one_rank
 from bagua_tpu_torch.models.gpt import GPTBlock, GPTConfig
 from bagua_tpu_torch.parallel.pipeline import pipeline_apply, pipeline_train_1f1b
 from bagua_tpu_torch.parallel.tensor_parallel import stacked_matmul
@@ -58,27 +67,10 @@ MESH = ("dp", "pp", "tp", "sp")
 LR = 1e-3
 
 
-def mesh_axes(dp: int, pp: int, tp: int, sp: int) -> dict:
-    """Where the mesh's axes lie on the port's ``(inter, intra)`` group:
-    ``intra_size`` and ``{dp,pp,tp,sp}_axis`` (``"inter"``, ``"intra"`` or
-    None for an axis of size 1)."""
-    live = [(name, size) for name, size in zip(MESH, (dp, pp, tp, sp)) if size > 1]
-    if len(live) > 2:
-        raise NotImplementedError(
-            f"dp {dp} x pp {pp} x tp {tp} x sp {sp} needs a group of more than two axes "
-            "(MeshSpec), which is not ported yet: keep all but two of --dp, --pp, --tp, --sp at 1"
-        )
-    axes = {f"{name}_axis": None for name in MESH}
-    for (name, _), axis in zip(live, ("inter", "intra") if len(live) == 2 else ("intra",)):
-        axes[f"{name}_axis"] = axis
-    return dict(intra_size=live[-1][1] if live else 1, **axes)
-
-
-def _axes_of(axes: dict, names) -> tuple:
-    """The group axes of the mesh axes ``names`` that are live, in the
-    group's order."""
-    live = {axes[f"{n}_axis"] for n in names} - {None}
-    return tuple(a for a in ALL_AXES if a in live)
+def mesh_spec(dp: int, pp: int, tp: int, sp: int) -> MeshSpec:
+    """The JAX example's mesh, ``("dp", "pp", "tp", "sp")``, size-1 axes
+    kept."""
+    return MeshSpec(dict(zip(MESH, (dp, pp, tp, sp))))
 
 
 class GPTStage(nn.Module):
@@ -115,9 +107,14 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--pp", type=int, default=2)
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=2)
     p.add_argument("--sp", type=int, default=2)
-    p.add_argument("--engine", action="store_true", help="not ported (the MeshSpec engine mode)")
+    p.add_argument("--fsdp", type=int, default=1, help="engine mode only: fsdp axis size")
+    p.add_argument("--engine", action="store_true",
+                   help="drive the step through the DDP engine over a named MeshSpec mesh "
+                   "(dp x tp / dp x fsdp) instead of the hand-scheduled step")
+    p.add_argument("--algo", choices=("gradient_allreduce", "zero"), default="gradient_allreduce",
+                   help="engine mode: exchange algorithm")
     p.add_argument("--vocab", type=int, default=128)
     p.add_argument("--hidden", type=int, default=32)
     p.add_argument("--heads", type=int, default=4)
@@ -129,31 +126,21 @@ def parse_args(argv=None):
     p.add_argument("--schedule", choices=["1f1b", "gpipe"], default="1f1b",
                    help="pipeline schedule: 1F1B (bounded memory, remat) or GPipe")
     p.add_argument("--device", default=None, help="the current CUDA device unless given")
-    args = p.parse_args(argv)
-    if args.engine:
-        raise NotImplementedError("--engine drives the step through the DDP engine over a MeshSpec "
-                                  "mesh, which is not ported yet")
-    return args
+    return p.parse_args(argv)
 
 
 class Twin:
     """The example's model, parameters (rank-stacked, taking gradients) and
-    optimizers on the group its axes make; :meth:`step` is its
-    ``local_step``.  ``params``: ``{"embed", "stage", "head"}`` rank-stacked
+    optimizers on its named mesh; :meth:`step` is its ``local_step``.  ``params``: ``{"embed", "stage", "head"}`` rank-stacked
     (:func:`bagua_tpu_torch.convert.gpt_params_from_jax`), or None to draw
     them as the example does (seeds 0, 100 + s and 1)."""
 
     def __init__(self, args, device=None, params=None):
         self.args = args
         device = resolve_device(args.device if device is None else device)
-        self.axes = axes = mesh_axes(args.dp, args.pp, args.tp, args.sp)
-        n = args.dp * args.pp * args.tp * args.sp
-        self.group = BaguaProcessGroup([device] * n, intra_size=axes["intra_size"])
-        self.cfg = GPTConfig(
-            vocab_size=args.vocab, hidden_size=args.hidden, num_layers=args.blocks_per_stage,
-            num_heads=args.heads, max_position_embeddings=args.seq, tp_size=args.tp,
-            tp_axis=axes["tp_axis"] or "intra", sp_axis=axes["sp_axis"],
-        )
+        spec = mesh_spec(args.dp, args.pp, args.tp, args.sp)
+        self.group = BaguaProcessGroup([device] * spec.size, mesh_spec=spec)
+        self.cfg = gpt_config(args)
         self.stage = GPTStage(self.cfg, args.blocks_per_stage, self.group, device)
         self.embed = Embed(args.vocab, args.hidden, device)
         if params is None:
@@ -165,9 +152,7 @@ class Twin:
                            for k in ("embed", "stage", "head")]
 
     def pp_coord(self) -> torch.Tensor:
-        pp = self.axes["pp_axis"]
-        return torch.zeros(self.group.size, dtype=torch.long) if pp is None else \
-            rank_id(self.group, pp).cpu()
+        return rank_id(self.group, "pp").cpu()
 
     def init_params(self, device):
         """Each pp stage drawn with its own seed, embed and head with theirs,
@@ -192,15 +177,13 @@ class Twin:
     def shard(self, ids) -> torch.Tensor:
         """Global ``(batch, seq)`` as the rank-stacked ``P("dp", "sp")``
         shards."""
-        return shard_ids(ids, self.group, self.group.device, self.axes["dp_axis"], self.axes["sp_axis"])
+        return shard_ids(ids, self.group, self.group.device, "dp", "sp")
 
     def _avg(self, x, names):
-        axes = _axes_of(self.axes, names)
-        return x if not axes else allreduce(x, ReduceOp.AVG, self.group, axes if len(axes) > 1 else axes[0])
+        return allreduce(x, ReduceOp.AVG, self.group, names)
 
     def _sum(self, x, name):
-        axis = self.axes[f"{name}_axis"]
-        return x if axis is None else allreduce(x, ReduceOp.SUM, self.group, axis)
+        return allreduce(x, ReduceOp.SUM, self.group, name)
 
     def step(self, ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """One training step on rank-stacked ``ids`` and ``labels`` ``(R,
@@ -209,8 +192,7 @@ class Twin:
         args, p = self.args, self.params
         R, b, t = ids.shape
         M, H = args.microbatches, args.hidden
-        pp = self.axes["pp_axis"]
-        pp_group = None if pp is None else self.group
+        pp, pp_group = "pp", (None if args.pp == 1 else self.group)
         x = self.embed(p["embed"], ids)
         if args.schedule == "1f1b":
             micro = x.detach().reshape(R, M, b // M, t, H)
@@ -239,6 +221,16 @@ class Twin:
         return self._avg(loss.detach(), ("dp", "sp"))
 
 
+def gpt_config(args, sp: bool = True) -> GPTConfig:
+    """The example's ``GPTConfig``: tp over ``"tp"``, the ring over ``"sp"``
+    where ``sp`` and the mesh has one."""
+    return GPTConfig(
+        vocab_size=args.vocab, hidden_size=args.hidden, num_layers=args.blocks_per_stage,
+        num_heads=args.heads, max_position_embeddings=args.seq, tp_size=args.tp, tp_axis="tp",
+        sp_axis="sp" if sp and args.sp > 1 else None,
+    )
+
+
 def batches(args):
     """The example's data: ``(ids, labels)`` a step, numpy, from seed 0."""
     data = np.random.RandomState(0).randint(0, args.vocab, size=(args.steps, args.batch, args.seq + 1))
@@ -256,8 +248,76 @@ def run(args, device=None, params=None):
     return losses, twin
 
 
+class EngineModel:
+    """The engine mode's model: embed, one stage of ``--blocks-per-stage``
+    blocks and the head, as one tree ``{"embed", "stage", "head"}`` (drawn
+    with seeds 0, 100 and 1, as the example's ``run_engine``), and
+    :meth:`loss`, one rank's loss as the engine's ``vmap`` calls it."""
+
+    def __init__(self, args, group, device):
+        def gen(seed):
+            return torch.Generator(device=device).manual_seed(seed)
+
+        cfg = gpt_config(args, sp=False)
+        self.embed = Embed(args.vocab, args.hidden, device, gen(0))
+        self.stage = GPTStage(cfg, args.blocks_per_stage, group, device, gen(100))
+        self.head = Head(args.hidden, args.vocab, device, gen(1))
+        for m in (self.embed, self.stage, self.head):
+            m.requires_grad_(False)
+
+    def params(self):
+        return {"embed": module_params(self.embed), "stage": module_params(self.stage),
+                "head": module_params(self.head)}
+
+    def loss(self, params, batch):
+        ids, labels = batch
+        p = one_rank(params)
+        x = self.stage(p["stage"], self.embed(p["embed"], ids[None]))
+        return head_loss(p["head"], x, labels[None])[0]
+
+
+def engine(args, device=None, params=None):
+    """The engine mode's ``(ddp, state)`` on a named group of ``args``'
+    mesh (set as the default group).  ``params``: an unstacked ``{"embed",
+    "stage", "head"}`` tree (``params_from_jax`` of the example's), or None
+    to draw it."""
+    if args.pp != 1 or args.sp != 1:
+        raise ValueError("--engine covers dp x tp / dp x fsdp; use the default mode for pp/sp")
+    device = resolve_device(args.device if device is None else device)
+    spec = MeshSpec(engine_axes(args))
+    group = init_process_group(devices=[device] * spec.size, mesh_spec=spec)
+    model = EngineModel(args, group, device)
+    ddp = make_engine(args, model.loss, lambda ps: torch.optim.Adam(ps, lr=LR, fused=device.type == "cuda"),
+                      group)
+    state = ddp.init(params=model.params() if params is None else tree_map(lambda t: t.to(device), params))
+    return ddp, state
+
+
+def run_engine(args, device=None, params=None):
+    """The example's engine mode: ``(losses, state, ddp)``, rank 0's loss a
+    step, the final state (pending ZeRO updates gathered) and the engine
+    (shut down)."""
+    ddp, state = engine(args, device, params)
+    device = ddp.group.device
+    losses = []
+    try:
+        for i, (ids, labels) in enumerate(batches(args)):
+            batch = (torch.as_tensor(ids, device=device), torch.as_tensor(labels, device=device))
+            state, step_losses = ddp.train_step(state, batch)
+            losses.append(float(step_losses[0]))
+            print(f"step {i}: loss {losses[-1]:.4f}", flush=True)
+        state = ddp.finalize_pending_updates(state)
+    finally:
+        ddp.shutdown()
+    print(f"final: engine mesh={engine_axes(args)} algo={args.algo}", flush=True)
+    return losses, state, ddp
+
+
 def main(argv=None):
-    losses, _ = run(parse_args(argv))
+    args = parse_args(argv)
+    if args.engine:
+        return run_engine(args)[0]
+    losses, _ = run(args)
     return losses
 
 

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Llama-style character-LM pretraining over a ``(dp, tp, sp)`` layout with
-zigzag ring attention: the twin of the hand-scheduled mode of
-``examples/llama_pretrain/main.py``.
+"""Llama-style character-LM pretraining over a ``(dp, tp, sp)`` mesh with
+zigzag ring attention: the twin of ``examples/llama_pretrain/main.py``.
 
 * **dp** -- the batch is sharded over it.
 * **tp** -- Megatron column/row sharding of the heads and the SwiGLU MLP;
@@ -9,24 +8,30 @@ zigzag ring attention: the twin of the hand-scheduled mode of
 * **sp** -- each rank holds two globally non-adjacent half-blocks of every
   sequence (zigzag), and attention is the causal ring.
 
-The port's group has two axes, so two of the three map onto ``(inter,
-intra)`` in the JAX mesh's order (dp outer, then tp, then sp inner):
-``--dp D --sp S`` (dp = inter, sp = intra), ``--dp 1 --tp T --sp S`` (tp =
-inter, sp = intra) and ``--dp D --tp T --sp 1`` (dp = inter, tp = intra).
-All three above 1 needs a three-axis group, which is not ported.
+The group is the JAX mesh itself: a :class:`~bagua_tpu_torch.mesh.MeshSpec`
+``{"dp": dp, "tp": tp, "sp": sp}`` in that order, axes of size 1 included
+(:func:`mesh_spec`), ranks row-major over it as the JAX devices are.
 
-The step is the example's ``local_step``: every rank's loss, the gradient
-of their sum with respect to each rank's copy of the parameters (in JAX
-each device differentiates its own loss and the transposed ring shifts and
-``psum``s bring the other ranks' cotangents back, which is the same), the
-average over dp and sp (JAX's ``pmean`` over ``("dp", "sp")``; never over
-tp), then AdamW with optax's defaults.  As in JAX, the model is built at
-the local (``1 / tp``) shapes and every rank starts from that one tree, so
-the tp ranks are replicas of one shard.  The engine mode is not ported.
+The hand-scheduled step is the example's ``local_step``: every rank's
+loss, the gradient of their sum with respect to each rank's copy of the
+parameters (in JAX each device differentiates its own loss and the
+transposed ring shifts and ``psum``s bring the other ranks' cotangents
+back, which is the same), the average over dp and sp (JAX's ``pmean``
+over ``("dp", "sp")``; never over tp), then AdamW with optax's defaults.
+As in JAX, the model is built at the local (``1 / tp``) shapes and every
+rank starts from that one tree, so the tp ranks are replicas of one shard.
 
-    python -m bagua_tpu_torch.examples.llama_pretrain --device cpu --dp 2 --sp 2 --steps 5
-    python -m bagua_tpu_torch.examples.llama_pretrain --device cpu --dp 1 --tp 2 --sp 2 --steps 5
-    python -m bagua_tpu_torch.examples.llama_pretrain --dp 1 --sp 4 --steps 10   # on the card
+``--engine`` is the example's ``run_engine``: the DDP engine owns the step
+on the named mesh ``{"dp"[, "fsdp"][, "tp"]}`` (sp 1), its bucketed
+exchange (``gradient_allreduce`` with overlap, or ZeRO under ``--algo
+zero``) riding the data axes dp and fsdp only while the model's tp
+collectives keep their axis; buckets of ``1 << 14`` bytes, AdamW.
+
+    python -m bagua_tpu_torch.examples.llama_pretrain --device cpu --steps 5     # dp 2 x tp 2 x sp 2
+    python -m bagua_tpu_torch.examples.llama_pretrain --device cpu --engine --dp 4 --tp 2 --sp 1
+    python -m bagua_tpu_torch.examples.llama_pretrain --device cpu --engine --dp 4 --fsdp 2 --tp 1 \
+        --sp 1 --algo zero
+    python -m bagua_tpu_torch.examples.llama_pretrain --dp 1 --tp 1 --sp 4 --steps 10   # on the card
 """
 
 import argparse
@@ -35,10 +40,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bagua_tpu_torch.communication import BaguaProcessGroup, ReduceOp, allreduce, axis_size
+from bagua_tpu_torch.communication import (
+    BaguaProcessGroup, ReduceOp, allreduce, axis_size, init_process_group, rank_id,
+)
+from bagua_tpu_torch.mesh import MeshSpec
+from bagua_tpu_torch.models.bert import one_rank
 from bagua_tpu_torch.models.llama import LlamaConfig, init_llama, llama_loss_fn
 from bagua_tpu_torch.parallel.ring_attention import zigzag_order
 from bagua_tpu_torch.utils import resolve_device, tree_leaves, tree_map
+
+#: the engine mode's bucket size, the JAX example's
+ENGINE_BUCKET_BYTES = 1 << 14
 
 #: optax.adamw's default weight decay (torch.optim.AdamW's is 1e-2)
 WEIGHT_DECAY = 1e-4
@@ -66,16 +78,23 @@ def batches(toks, rng, batch, seq, steps):
         yield np.stack([toks[i : i + seq] for i in idx])
 
 
+def mesh_spec(dp: int, tp: int, sp: int) -> MeshSpec:
+    """The JAX example's mesh, ``("dp", "tp", "sp")``, size-1 axes kept."""
+    return MeshSpec({"dp": dp, "tp": tp, "sp": sp})
+
+
 def mesh_axes(dp: int, tp: int, sp: int) -> dict:
-    """Where the JAX mesh's ``("dp", "tp", "sp")`` axes lie on the port's
-    ``(inter, intra)`` group: ``intra_size`` and each of ``dp_axis``,
-    ``tp_axis`` and ``sp_axis`` (``"inter"``, ``"intra"`` or None for an
-    axis of size 1), and ``avg_axis``, what the gradients and losses are
-    averaged over (dp and sp, never tp)."""
+    """Where two live axes of ``(dp, tp, sp)`` lie on a legacy ``(inter,
+    intra)`` group, in the mesh's order (one live axis is intra):
+    ``intra_size``, each of ``dp_axis``, ``tp_axis`` and ``sp_axis``
+    (``"inter"``, ``"intra"`` or None for an axis of size 1), and
+    ``avg_axis``, what the gradients and losses are averaged over (dp and
+    sp, never tp).  Three live axes need the named mesh of
+    :func:`mesh_spec`."""
     if dp > 1 and tp > 1 and sp > 1:
-        raise NotImplementedError(
-            f"dp {dp} x tp {tp} x sp {sp} needs a three-axis group (MeshSpec), which is not "
-            "ported yet: keep one of --dp, --tp, --sp at 1"
+        raise ValueError(
+            f"dp {dp} x tp {tp} x sp {sp} has three live axes, more than a legacy (inter, intra) "
+            "group holds: build the group on mesh_spec(dp, tp, sp)"
         )
     live = [(name, size) for name, size in (("dp", dp), ("tp", tp), ("sp", sp)) if size > 1]
     names = {"dp_axis": None, "tp_axis": None, "sp_axis": None}
@@ -96,14 +115,12 @@ def shard_ids(ids, group: BaguaProcessGroup, device=None, dp_axis="inter",
     sequence block of its ``sp_axis`` index (either axis None: the whole
     dim), replicated over any other axis."""
     ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64)
-    coord = {"inter": torch.arange(group.size) // group.intra_size,
-             "intra": torch.arange(group.size) % group.intra_size}
     zero = torch.zeros(group.size, dtype=torch.int64)
     dp, sp = (axis_size(group, a) if a else 1 for a in (dp_axis, sp_axis))
     B, T = ids.shape
     blocks = ids.reshape(dp, B // dp, sp, T // sp).permute(0, 2, 1, 3)
-    d = coord[dp_axis] if dp_axis else zero
-    s = coord[sp_axis] if sp_axis else zero
+    d = rank_id(group, dp_axis).cpu() if dp_axis else zero
+    s = rank_id(group, sp_axis).cpu() if sp_axis else zero
     return blocks[d, s].to(device)
 
 
@@ -151,27 +168,117 @@ def _average(x: torch.Tensor, group, axis):
 
 
 def build(args, vocab: int, device):
-    """The group, axes, config, model and stacked parameters of ``args``."""
-    axes = mesh_axes(args.dp, args.tp, args.sp)
-    group = BaguaProcessGroup([device] * (args.dp * args.tp * args.sp), intra_size=axes["intra_size"])
+    """The named group, config, model and stacked parameters of ``args``."""
+    group = BaguaProcessGroup([device] * (args.dp * args.tp * args.sp),
+                              mesh_spec=mesh_spec(args.dp, args.tp, args.sp))
     heads = max(2, 2 * args.tp)
     cfg = LlamaConfig(
         vocab_size=vocab, hidden_size=args.hidden, num_layers=args.layers,
         num_heads=heads, num_kv_heads=heads // 2, intermediate_size=2 * args.hidden,
-        max_position_embeddings=args.seq, tp_size=args.tp, tp_axis=axes["tp_axis"] or "intra",
-        sp_axis=axes["sp_axis"],
+        max_position_embeddings=args.seq, tp_size=args.tp, tp_axis="tp",
+        sp_axis="sp" if args.sp > 1 else None,
         sp_layout="zigzag" if args.sp > 1 else "contiguous",
     )
     model, params = init_llama(cfg, torch.Generator(device=device).manual_seed(0), device, group)
-    return group, axes, cfg, model, replicate(params, group.size)
+    return group, cfg, model, replicate(params, group.size)
 
 
-def main(argv=None):
+def engine_loss_fn(model):
+    """One rank's loss as the engine's ``vmap`` calls it: ``loss(params,
+    ids (b, t))`` through the rank-stacked model with a rank axis of one."""
+    stacked_loss = llama_loss_fn(model)
+
+    def loss_fn(params, ids):
+        return stacked_loss(one_rank(params), ids[None])[0]
+
+    return loss_fn
+
+
+def engine_axes(args) -> dict:
+    """The engine mode's mesh ``{"dp"[, "fsdp"][, "tp"]}``, as the JAX
+    example's ``run_engine`` builds it."""
+    axes = {"dp": args.dp}
+    if args.fsdp > 1:
+        axes["fsdp"] = args.fsdp
+    if args.tp > 1:
+        axes["tp"] = args.tp
+    return axes
+
+
+def make_engine(args, loss_fn, optimizer, group):
+    """The example's ``DistributedDataParallel``: ZeRO under ``--algo
+    zero``, else ``gradient_allreduce``; overlap on, ``1 << 14``-byte
+    buckets, each role keyword naming its axis where the mesh has it."""
+    from bagua_tpu_torch.algorithms.gradient_allreduce import GradientAllReduceAlgorithm
+    from bagua_tpu_torch.ddp import DistributedDataParallel
+    from bagua_tpu_torch.sharded.algorithm import ZeroAlgorithm
+
+    algo = ZeroAlgorithm() if args.algo == "zero" else GradientAllReduceAlgorithm()
+    return DistributedDataParallel(
+        loss_fn, optimizer, algo, process_group=group,
+        bucket_size_bytes=ENGINE_BUCKET_BYTES, overlap=True,
+        dp_axis="dp", fsdp_axis="fsdp" if args.fsdp > 1 else None,
+        tp_axis="tp" if args.tp > 1 else None,
+    )
+
+
+def engine(args, device, params=None):
+    """The engine mode's ``(ddp, state, vocab)`` on a named group of
+    ``args``' mesh (set as the default group).  ``params``: an unstacked
+    tree (``params_from_jax`` of the example's init), or None to draw it
+    with seed 0."""
+    if args.sp != 1:
+        raise ValueError("--engine covers dp x tp / dp x fsdp; drop --sp")
+    spec = MeshSpec(engine_axes(args))
+    group = init_process_group(devices=[device] * spec.size, mesh_spec=spec)
+    vocab = load_corpus(args.data, np.random.RandomState(0))[1]
+    heads = max(2, 2 * args.tp)
+    cfg = LlamaConfig(
+        vocab_size=vocab, hidden_size=args.hidden, num_layers=args.layers,
+        num_heads=heads, num_kv_heads=heads // 2, intermediate_size=2 * args.hidden,
+        max_position_embeddings=args.seq, tp_size=args.tp, tp_axis="tp",
+    )
+    model, drawn = init_llama(cfg, torch.Generator(device=device).manual_seed(0), device, group)
+    model.requires_grad_(False)
+    ddp = make_engine(args, engine_loss_fn(model), lambda ps: make_optimizer(ps, args.lr), group)
+    state = ddp.init(params=drawn if params is None else tree_map(lambda t: t.to(device), params))
+    return ddp, state, vocab
+
+
+def run_engine(args, device, params=None):
+    """The example's engine mode: ``(losses, state, ddp)``, rank 0's loss a
+    step, the final state (pending ZeRO updates gathered) and the engine
+    (shut down)."""
+    ddp, state, vocab = engine(args, device, params)
+    rng = np.random.RandomState(0)
+    toks, _ = load_corpus(args.data, rng)
+    losses = []
+    try:
+        for i, ids in enumerate(batches(toks, rng, args.batch, args.seq, args.steps)):
+            state, step_losses = ddp.train_step(state, torch.as_tensor(ids, dtype=torch.int64, device=device))
+            losses.append(float(step_losses[0]))
+            print(f"step {i}: loss {losses[-1]:.4f}", flush=True)
+        state = ddp.finalize_pending_updates(state)
+    finally:
+        ddp.shutdown()
+    print(f"final: engine mesh={engine_axes(args)} algo={args.algo} vocab={vocab} loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}", flush=True)
+    assert np.isfinite(losses[-1])
+    return losses, state, ddp
+
+
+def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--data", default=None, help="UTF-8 text file (char LM); synthetic if unset")
     p.add_argument("--dp", type=int, default=2)
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=2)
     p.add_argument("--sp", type=int, default=2)
+    p.add_argument("--fsdp", type=int, default=1, help="engine mode only: fsdp axis size")
+    p.add_argument("--engine", action="store_true",
+                   help="drive the step through the DDP engine over a named MeshSpec mesh "
+                   "(dp x tp / dp x fsdp) instead of the hand-scheduled step")
+    p.add_argument("--algo", choices=("gradient_allreduce", "zero"), default="gradient_allreduce",
+                   help="engine mode: exchange algorithm")
     p.add_argument("--seq", type=int, default=64, help="global sequence length")
     p.add_argument("--batch", type=int, default=8, help="global batch size")
     p.add_argument("--steps", type=int, default=10)
@@ -179,27 +286,41 @@ def main(argv=None):
     p.add_argument("--layers", type=int, default=2)
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--device", default=None, help="the current CUDA device unless given")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
-    device = resolve_device(args.device)
+
+def run(args, device, params=None):
+    """The hand-scheduled mode: ``(losses, params)``, each step's loss
+    (averaged over dp and sp) and the final rank-stacked parameters.
+    ``params``: an unstacked tree (``params_from_jax`` of the example's
+    init), or None to draw it with seed 0."""
     rng = np.random.RandomState(0)
     toks, vocab = load_corpus(args.data, rng)
-    group, axes, cfg, model, params = build(args, vocab, device)
-    optimizer = make_optimizer(params, args.lr)
+    group, cfg, model, stacked = build(args, vocab, device)
+    if params is not None:
+        stacked = replicate(tree_map(lambda t: t.to(device), params), group.size)
+    optimizer = make_optimizer(stacked, args.lr)
     loss_fn = llama_loss_fn(model)
     zz = zigzag_order(args.seq, args.sp) if args.sp > 1 else None
-    first = last = None
+    losses = []
     for i, ids in enumerate(batches(toks, rng, args.batch, args.seq, args.steps)):
         if zz is not None:
             ids = ids[:, zz]  # physical zigzag layout; the model assigns
             # matching global RoPE positions per rank
-        shards = shard_ids(ids, group, device, axes["dp_axis"], axes["sp_axis"])
-        losses = train_step(params, optimizer, shards, loss_fn, group, axes["avg_axis"])
-        last = float(losses[0])
-        first = first if first is not None else last
-        print(f"step {i}: loss {last:.4f}", flush=True)
-    print(f"final: vocab={vocab} loss {first:.4f} -> {last:.4f}", flush=True)
-    assert np.isfinite(last)
+        shards = shard_ids(ids, group, device, "dp", "sp")
+        losses.append(float(train_step(stacked, optimizer, shards, loss_fn, group, ("dp", "sp"))[0]))
+        print(f"step {i}: loss {losses[-1]:.4f}", flush=True)
+    print(f"final: vocab={vocab} loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    assert np.isfinite(losses[-1])
+    return losses, stacked
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    if args.engine:
+        return run_engine(args, device)[0]
+    return run(args, device)[0]
 
 
 if __name__ == "__main__":

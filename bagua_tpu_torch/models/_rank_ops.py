@@ -16,6 +16,14 @@ gradient from one backward over every rank.
 its ``vmap`` rule sees the rank-stacked tensor and runs the group's stacked
 :func:`~bagua_tpu_torch.communication.alltoall` on it, so autograd records
 the permutation and its transpose is the backward's exchange.
+
+:func:`rank_collective` does the same for the rank-stacked models'
+collectives (the tensor-parallel layers' ``psum``, gathers and rings):
+outside a ``vmap`` it runs the collective on the stack it is given; under
+the engine's ``vmap``, where each rank's model sees a rank axis of one
+(``models.bert.one_rank``), its rule runs the collective on the whole
+stack, so a rank's tp peers are there and the backward is the one the
+hand-scheduled step takes through the same collective.
 """
 
 import torch
@@ -106,3 +114,44 @@ def rank_alltoall(x: torch.Tensor, group, axis) -> torch.Tensor:
     if x.shape[0] % n:
         raise ValueError(f"rank_alltoall: dim {x.shape[0]} does not divide into {n} chunks")
     return _RankAllToAll.apply(x, group, axis)
+
+
+class _RankCollective(torch.autograd.Function):
+    """``fn(*stacked)`` on the group's whole rank stack; it exists only
+    under ``vmap`` over the group's ranks."""
+
+    @staticmethod
+    def forward(fn, group, *tensors):
+        raise RuntimeError(
+            f"a collective over a group of {group.size} ranks was given a stack of "
+            f"{tensors[0].shape[0]}: outside torch.func.vmap over the group's ranks the "
+            "stacked models take every rank's slice at once"
+        )
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, fn, group, *tensors):
+        if info.batch_size != group.size:
+            raise ValueError(f"a collective under a vmap of {info.batch_size}, over a group of "
+                             f"{group.size} ranks")
+        stacked = []
+        for t, dim in zip(tensors, in_dims[2:]):
+            t = t.expand(group.size, *t.shape) if dim is None else t.movedim(dim, 0)
+            if t.shape[1] != 1:
+                raise ValueError(f"under the engine's vmap a rank's stack has one rank, got "
+                                 f"{t.shape[1]}")
+            stacked.append(t.select(1, 0))
+        return fn(*stacked).unsqueeze(1), 0
+
+
+def rank_collective(fn, group, *tensors: torch.Tensor) -> torch.Tensor:
+    """``fn(*tensors)``, a collective over ``group`` on rank-stacked
+    ``(size, ...)`` tensors, returning one; inside a ``vmap`` over the
+    group's ranks, where each rank holds ``(1, ...)``, ``fn`` runs on the
+    ``(size, ...)`` stack of them and each rank gets its own slice back."""
+    if tensors[0].shape[0] == group.size:
+        return fn(*tensors)
+    return _RankCollective.apply(fn, group, *tensors)

@@ -63,8 +63,9 @@ class BertConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     tp_size: int = 1
-    #: the group axis the heads and the MLP are sharded over ("inter" or
-    #: "intra"); read only at tp_size > 1
+    #: the group axis the heads and the MLP are sharded over ("tp" of a
+    #: named mesh, "inter" or "intra" of the legacy one); read only at
+    #: tp_size > 1
     tp_axis: Union[str, Tuple[str, ...]] = "intra"
     #: the group axis the sequence is sharded over (ring attention when set)
     sp_axis: Union[str, Tuple[str, ...], None] = None

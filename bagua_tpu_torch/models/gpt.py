@@ -58,10 +58,12 @@ class GPTConfig:
     num_heads: int = 12
     max_position_embeddings: int = 2048
     tp_size: int = 1
-    #: the group axis the heads and the MLP are sharded over ("inter" or
-    #: "intra"); read only at tp_size > 1
+    #: the group axis the heads and the MLP are sharded over ("tp" of a
+    #: named mesh, "inter" or "intra" of the legacy one); read only at
+    #: tp_size > 1
     tp_axis: Union[str, Tuple[str, ...]] = "intra"
-    #: the group axis the sequence is sharded over ("intra" or "inter")
+    #: the group axis the sequence is sharded over ("sp" of a named mesh,
+    #: "inter" or "intra" of the legacy one)
     sp_axis: Union[str, Tuple[str, ...], None] = None
     #: "contiguous" or "zigzag" (the balanced causal ring layout; feed ids
     #: permuted with ``ring_attention.zigzag_order``)

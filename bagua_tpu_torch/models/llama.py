@@ -14,7 +14,7 @@ batched over the rank axis.  With ``R = 1`` and ``sp_axis=None`` it is the
 single-device model.
 
 Under sequence parallelism (``cfg.sp_axis``, an axis of the model's
-group, e.g. ``"intra"``) attention is :func:`~bagua_tpu_torch.parallel.ring_attention.ring_attention`,
+group, e.g. ``"sp"``) attention is :func:`~bagua_tpu_torch.parallel.ring_attention.ring_attention`,
 causal, with the layout ``cfg.sp_layout``; RoPE rotates each rank's tokens
 by their *global* positions before the ring exchange, so the K/V blocks
 carry their rotation around the ring.
@@ -57,10 +57,12 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tp_size: int = 1
-    #: the group axis the heads and the MLP are sharded over ("inter" or
-    #: "intra"); read only at tp_size > 1
+    #: the group axis the heads and the MLP are sharded over ("tp" of a
+    #: named mesh, "inter" or "intra" of the legacy one); read only at
+    #: tp_size > 1
     tp_axis: Union[str, Tuple[str, ...]] = "intra"
-    #: the group axis the sequence is sharded over ("intra" or "inter")
+    #: the group axis the sequence is sharded over ("sp" of a named mesh,
+    #: "inter" or "intra" of the legacy one)
     sp_axis: Union[str, Tuple[str, ...], None] = None
     #: "contiguous" or "zigzag" (the balanced causal ring layout)
     sp_layout: str = "contiguous"

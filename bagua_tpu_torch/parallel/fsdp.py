@@ -6,8 +6,10 @@ collectives.  Here they are explicit, over every rank of a
 :class:`~bagua_tpu_torch.BaguaProcessGroup`:
 
 * at rest each rank holds its ``1 / n`` rows of every sharded leaf (and the
-  optimizer's state of those rows); a leaf no dim of which divides is
-  replicated (:func:`shard_leaf_spec`, the JAX package's rule);
+  optimizer's state of those rows, but for a state of one value per leaf,
+  such as Adam's step counter: :meth:`FSDP.at_rest_bytes`); a leaf no dim
+  of which divides is replicated (:func:`shard_leaf_spec`, the JAX
+  package's rule);
 * :meth:`FSDP.train_step` gathers each sharded leaf (``allgather``), casts
   it to ``compute_dtype``, takes the loss on each rank's batch shard (the
   reported loss is the mean over the global batch), lands every gradient in
@@ -167,7 +169,10 @@ class FSDP:
     def at_rest_bytes(self, params, opt_state) -> int:
         """The bytes one rank holds between steps: its parameter rows and
         the optimizer state of them (a state tensor of one value per rank
-        counts once)."""
+        counts once).  Not all of it is sharded: ``torch.optim.Adam`` keeps
+        one f32 ``step`` counter per leaf, whole on every rank, so GPTModel
+        at GPT-2 small (148 leaves) over 4 ranks holds 248,152,912 B a rank
+        against total / 4 = 248,152,320 B, the 592 B of its counters."""
         n = self.group.size
         total = sum(s[0].numel() * s.element_size() for s in tree_leaves(params))
         for state in opt_state.state.values():

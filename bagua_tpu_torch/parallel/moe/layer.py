@@ -35,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bagua_tpu_torch.communication import ALL_AXES, INTER_AXIS, INTRA_AXIS, _axes, axis_size
+from bagua_tpu_torch.communication import ALL_AXES, _axes, axis_size
 from bagua_tpu_torch.models._rank_ops import rank_alltoall
 from bagua_tpu_torch.parallel.moe.routing import Routing, route_top1, route_top2
 from bagua_tpu_torch.utils import lecun_normal, resolve_device
@@ -49,11 +49,11 @@ def _check_ep_axes(ep_size: int, ep_axis, group) -> None:
     on its local experts only)."""
     if group is None:
         raise ValueError(f"ep_size={ep_size} needs the process group that holds its ep_axis")
-    axes = _axes(ep_axis)
-    if not axes or any(a not in (INTER_AXIS, INTRA_AXIS) for a in axes):
+    axes = _axes(ep_axis, group)
+    if not axes or any(a not in group.all_axes for a in axes):
         raise ValueError(
             f"none of the declared expert-parallel axes {axes} are axes of the group "
-            f"({INTER_AXIS!r}, {INTRA_AXIS!r}) — check the ep_axis spelling"
+            f"{group.all_axes} — check the ep_axis spelling"
         )
     bound = axis_size(group, ep_axis)
     if bound != ep_size:

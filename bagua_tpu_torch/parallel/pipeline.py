@@ -5,8 +5,8 @@ Every rank holds ONE stage's parameters (stages share a structure, e.g.
 uniform transformer blocks), and activations hop to the next stage with
 one neighbour :func:`~bagua_tpu_torch.communication.ppermute_shift` a tick.
 The pipeline axis is ``(group, axis)``: an axis of a
-:class:`~bagua_tpu_torch.BaguaProcessGroup` (``"inter"``, ``"intra"`` or
-None for every rank).
+:class:`~bagua_tpu_torch.BaguaProcessGroup` (``"pp"`` of a named mesh,
+``"inter"`` or ``"intra"`` of the legacy one, or None for every rank).
 
 Everything is rank-stacked, as in the rest of the port: ``stage_fn(params,
 x)`` takes the stacked stage parameters (every leaf ``(R, ...)``, rank r's

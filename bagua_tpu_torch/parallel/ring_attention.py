@@ -71,7 +71,8 @@ def ring_attention(
             ``axis`` collective in member order (``layout="contiguous"``) or
             in zigzag order.  With ``kv_groups > 1`` K/V carry ``heads //
             kv_groups`` heads.
-        group, axis: the sequence-parallel axis of the group.  With
+        group, axis: the sequence-parallel axis of the group (``"sp"`` of
+            a named mesh, ``"inter"`` or ``"intra"`` of the legacy one).  With
             ``group=None`` every rank stands alone (``sp == 1``).
         causal: a causal mask over *global* positions.
         kv_mask: optional key-padding mask of the local block, ``(R, b,

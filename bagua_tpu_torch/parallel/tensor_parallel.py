@@ -21,9 +21,12 @@ the ``psum`` path otherwise; ``True`` makes an impossible ring an error.
 A layer holds flax's ``kernel`` ``(in, out // tp_size)`` or ``(in, out)``
 and ``bias``, created in ``dtype`` as the JAX layers create them, and
 applies a rank-stacked parameter tree to rank-stacked inputs: ``x (R, ...,
-in)`` with ``R`` the group size.  ``tp_axis`` names an axis of the
-layer's group (``"inter"`` or ``"intra"``); its size must be ``tp_size``
-when ``tp_size > 1``.  At ``tp_size == 1`` no collective runs and ``fused``
+in)`` with ``R`` the group size, or ``R = 1`` inside the engine's ``vmap``
+over the group's ranks, where the collectives run on the whole stack
+(:func:`~bagua_tpu_torch.models._rank_ops.rank_collective`).  ``tp_axis``
+names an axis of the layer's group (``"tp"`` of a named mesh, ``"inter"``
+or ``"intra"`` of the legacy one); its size must be ``tp_size`` when
+``tp_size > 1``.  At ``tp_size == 1`` no collective runs and ``fused``
 has no effect.  Parameters are built on ``device``, by default the current
 CUDA device (raises without one).
 """
@@ -35,10 +38,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bagua_tpu_torch.communication import (
-    ALL_AXES, _axes, allgather, allreduce, axis_size, get_default_group, rank_id,
+    _axes, allgather, allreduce, axis_size, get_default_group, rank_id,
 )
 from bagua_tpu_torch.defs import ReduceOp
 from bagua_tpu_torch.kernels.collective_matmul import ag_matmul, matmul_rs
+from bagua_tpu_torch.models._rank_ops import rank_collective
 from bagua_tpu_torch.utils import lecun_normal, resolve_device
 
 #: ``ParallelMLP``'s activation: ``jax.nn.gelu``, the tanh approximation by
@@ -56,10 +60,10 @@ def stacked_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _check_axis(tp_size: int, group, axis_name) -> None:
     if tp_size == 1:
         return
-    axes = _axes(axis_name)
-    unknown = [a for a in axes if a not in ALL_AXES]
+    axes = _axes(axis_name, group)
+    unknown = [a for a in axes if a not in group.all_axes]
     if unknown:
-        raise ValueError(f"tp axis {unknown} is not an axis of the group: use one of {ALL_AXES}")
+        raise ValueError(f"tp axis {unknown} is not an axis of the group: use one of {group.all_axes}")
     n = axis_size(group, axes)
     if n != tp_size:
         raise ValueError(f"tp_size={tp_size} but bound axes {axes} have size {n}")
@@ -135,9 +139,9 @@ class ColumnParallelDense(_ParallelDense):
             axis = _single_axis(self.tp_axis)
             x2 = x.to(self.dtype).reshape(x.shape[0], -1, x.shape[-1])
             if _resolve_fused(self.fused, self.tp_size):
-                y = ag_matmul(x2, w, group, axis)
+                y = rank_collective(lambda a, b: ag_matmul(a, b, group, axis), group, x2, w)
             else:
-                y = stacked_matmul(allgather(x2, group, axis), w)
+                y = stacked_matmul(rank_collective(lambda a: allgather(a, group, axis), group, x2), w)
         else:
             y = stacked_matmul(x.to(self.dtype), w)
         return self._add_bias(params, y)
@@ -182,13 +186,15 @@ class RowParallelDense(_ParallelDense):
         if use_fused:
             axis = _single_axis(self.tp_axis)
             x2 = x.to(self.dtype).reshape(R, tokens, x.shape[-1])
-            y = matmul_rs(x2, w, group, axis)  # this rank's row block
+            # this rank's row block
+            y = rank_collective(lambda a, b: matmul_rs(a, b, group, axis), group, x2, w)
             if not self.scatter_output:
-                y = allgather(y, group, axis).reshape(R, *lead, self.features)
+                y = rank_collective(lambda a: allgather(a, group, axis), group, y)
+                y = y.reshape(R, *lead, self.features)
         else:
             y = stacked_matmul(x.to(self.dtype), w)
             if self.tp_size > 1:
-                y = allreduce(y, ReduceOp.SUM, group, self.tp_axis)
+                y = rank_collective(lambda a: allreduce(a, ReduceOp.SUM, group, self.tp_axis), group, y)
                 if self.scatter_output:
                     if tokens % self.tp_size != 0:
                         raise ValueError(
@@ -196,9 +202,13 @@ class RowParallelDense(_ParallelDense):
                             f"divide by tp_size ({self.tp_size})"
                         )
                     axis = _single_axis(self.tp_axis)
-                    blocks = y.reshape(R, self.tp_size, tokens // self.tp_size, self.features)
-                    idx = rank_id(group, axis).to(y.device)
-                    y = blocks[torch.arange(R, device=y.device), idx]
+
+                    def own_block(a):
+                        blocks = a.reshape(a.shape[0], self.tp_size, tokens // self.tp_size, self.features)
+                        idx = rank_id(group, axis).to(a.device)
+                        return blocks[torch.arange(a.shape[0], device=a.device), idx]
+
+                    y = rank_collective(own_block, group, y)
         return self._add_bias(params, y)
 
 

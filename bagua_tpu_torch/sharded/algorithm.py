@@ -52,7 +52,7 @@ from bagua_tpu_torch.algorithms._precision import FLOAT_DTYPES, PRECISION_BITS, 
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContext
 from bagua_tpu_torch.algorithms.bytegrad import compressed_reduce_scatter
 from bagua_tpu_torch.bucket import flatten_bucket_leaves, split_bucket_flat
-from bagua_tpu_torch.communication import ReduceOp, allgather, reduce_scatter
+from bagua_tpu_torch.communication import ReduceOp, allgather, rank_id, reduce_scatter
 from bagua_tpu_torch.kernels.minmax_uint8 import decompress_minmax_uint8
 from bagua_tpu_torch.kernels.quantized_ring import quantized_ring_reduce_scatter
 from bagua_tpu_torch.sharded.layout import ShardLayout, reshard_bucket_rows, to_device, to_host
@@ -86,19 +86,19 @@ class ZeroAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
     # -- state ---------------------------------------------------------------
 
     def init_state(self, params) -> Dict[str, Any]:
-        """Per-bucket pending parameter shards, ``(n, numel / n)`` in the
-        bucket's dtype: at init, the shards of ``params`` (one rank's
-        tree), which every rank starts from.  With int4 error feedback, an
-        f32 ``(n, numel)`` residual per bucket."""
+        """Per-bucket pending parameter shards, ``(size, numel / n)`` in the
+        bucket's dtype, n the exchange size: at init, the shards of
+        ``params`` (one rank's tree), which every rank starts from, each
+        rank holding the shard of its index within the data axes.  With
+        int4 error feedback, an f32 ``(size, numel)`` residual per bucket."""
         group = self.process_group
         n = group.exchange_size
         plan = self._bound_plan
         groups = plan.group_leaves(params)
-        state = {"pending": tuple(
-            flatten_bucket_leaves([groups[bi][s.name] for s in spec.slots], spec)
-            .to(group.device).reshape(n, spec.numel // n)
-            for bi, spec in enumerate(plan.specs)
-        )}
+        mine = None if n == group.size else rank_id(group, group.data_axes)
+        rows = [flatten_bucket_leaves([groups[bi][s.name] for s in spec.slots], spec)
+                .to(group.device).reshape(n, spec.numel // n) for bi, spec in enumerate(plan.specs)]
+        state = {"pending": tuple(r if mine is None else r[mine] for r in rows)}
         if self._ef_enabled():
             state["qr_residual"] = tuple(
                 torch.zeros((group.size, spec.numel), dtype=torch.float32, device=group.device)

@@ -85,7 +85,7 @@ class ShardedOptimizerUpdater:
         ``tree``, plan order: ``(n, shard_numel)``, row r rank r's."""
         groups = self.plan.group_leaves(tree)
         ranks = torch.arange(self.group.size, device=self.group.device)
-        me = rank_id(self.group)
+        me = rank_id(self.group, self.group.data_axes)  # the shard index: within the data axes
         shards = []
         for bi, spec in enumerate(self.plan.specs):
             flat = flatten_bucket_leaves([groups[bi][s.name] for s in spec.slots], spec)

@@ -17,14 +17,17 @@ class Trainer:
     ``loss_fn``, ``optimizer``, ``algorithm``, ``process_group``,
     ``bucket_size_bytes`` and ``overlap`` are as for the engine (overlap
     ``"auto"`` by default, as the JAX ``Trainer``; ``overlap=False`` pins the
-    monolithic step).  After :meth:`fit`, ``self.losses`` holds the last
+    monolithic step), and so are ``dp_axis``, ``fsdp_axis`` and ``tp_axis``,
+    checked against the group's mesh axes.  After :meth:`fit`, ``self.losses`` holds the last
     step's per-rank losses."""
 
     def __init__(self, loss_fn: Callable, optimizer: Callable, algorithm: Algorithm, process_group=None,
-                 bucket_size_bytes: Optional[int] = None, overlap="auto"):
+                 bucket_size_bytes: Optional[int] = None, overlap="auto", dp_axis=None, fsdp_axis=None,
+                 tp_axis=None):
         self.ddp = DistributedDataParallel(
             loss_fn, optimizer, algorithm, process_group=process_group,
             bucket_size_bytes=bucket_size_bytes, overlap=overlap,
+            dp_axis=dp_axis, fsdp_axis=fsdp_axis, tp_axis=tp_axis,
         )
         self.losses = None
 

@@ -147,9 +147,31 @@ and no result line:
    the run fails; ``[fsdp]``: ``GPTModel`` at GPT-2 small under ``FSDP``
    (bf16, 4 ranks x 4 x 1024 tokens, Adam), 2 + 5 steps, each rank's
    at-rest bytes against the total / 4, no sharded leaf held whole.
-10. prints one JSON line naming each kernel with its launches and times
-   (``other_steps``: the sums per step of other paths, the BERT and GPT
-   ones included), then the result line ``{"ok": true, "device": {...}}``.
+10. mesh -- (after FSDP) named meshes (``MeshSpec``): ``[mesh-ref]``: a
+   small VGG on ``MeshSpec({"dp": 4})`` bitwise the legacy 4-rank group,
+   and the two tp columns of ``dp 4 x tp 2`` bitwise that run (f32, the
+   int8 ring, flat ByteGrad; monolithic and overlap; the codecs launched
+   on two collectives of 4), then both twins' engine mode at the JAX
+   tests' sizes on ``dp 4 x tp 2`` (overlap) and ``dp 4 x fsdp 2`` (ZeRO)
+   card against CPU, with every exchange collective's axes read (``dp``
+   only, some issued from autograd's thread); ``[mesh-llama]``: the Llama
+   twin at its default dp 2 x tp 2 x sp 2, 7B width, 2 layers, 2 x 4096
+   tokens, 5 AdamW steps (ms/step, tokens/s, peak memory, replicas
+   bitwise, exact launches of rows 6-8, rows 6-8 at its blocks timed);
+   ``[mesh-gpt]``: the gpt_pretrain twin at its default pp 2 x tp 2 x sp 2
+   at GPT-2 small, 1F1B and GPipe, 2 + 5 steps (as ``[gpt-pp]``; the two
+   schedules' losses agree); ``[mesh-engine]``: the twin's ``--engine``
+   at GPT-2 small (12 blocks, 8 x 1024 tokens) on dp 4 x tp 2 with
+   ``gradient_allreduce`` (overlap) and with ZeRO and on dp 4 x fsdp 2
+   with ZeRO, 2 + 5 steps each (ms/step, tokens/s, peak memory, replicas
+   bitwise, ZeRO's optimizer bytes a rank the plan's Adam state over the
+   exchange size), then one flat-ByteGrad and one int8-ring step on dp 4
+   x tp 2 with exact launches of rows 1-4, each held bitwise against its
+   plain version on the inputs the step gave it and timed per step.
+11. prints one JSON line naming each kernel with its launches and times
+   (``other_steps``: the sums per step of other paths, the BERT, GPT and
+   mesh ones included), then the result line ``{"ok": true, "device":
+   {...}}``.
 """
 
 import contextlib
@@ -176,6 +198,7 @@ from bagua_tpu_torch.algorithms import (
     ByteGradAlgorithm, DecentralizedAlgorithm, GradientAccumulation, GradientAllReduceAlgorithm, build_algorithm,
     LowPrecisionDecentralizedAlgorithm, QAdamAlgorithm, QAdamOptimizer, StaleSyncAlgorithm,
 )
+from bagua_tpu_torch.algorithms.base import StepContext
 from bagua_tpu_torch.ddp import DistributedDataParallel
 from bagua_tpu_torch.examples import gpt_pretrain as gp
 from bagua_tpu_torch.examples import llama_pretrain as lp
@@ -3217,11 +3240,11 @@ REF_GPT_LAYOUTS = {
 REF_GPT_TOL = 1e-4
 #: the gpt_pretrain twin at GPT-2 small's widths (GPTConfig's defaults):
 #: 12 blocks as 2 stages of 6, pp 2 x sp 2, 8 x 1024 tokens, 4 microbatches
-GPT2_ARGS = ["--pp", "2", "--sp", "2", "--vocab", "50257", "--hidden", "768", "--heads", "12",
+GPT2_ARGS = ["--pp", "2", "--tp", "1", "--sp", "2", "--vocab", "50257", "--hidden", "768", "--heads", "12",
              "--blocks-per-stage", "6", "--seq", "1024", "--batch", "8", "--microbatches", "4"]
 GPT_WARMUP, GPT_STEPS = 2, 5
 #: the pipeline's memory at pp 4: sp 1, 3 blocks a stage, 8 microbatches
-PP_MEM_ARGS = ["--pp", "4", "--sp", "1", "--vocab", "50257", "--hidden", "768", "--heads", "12",
+PP_MEM_ARGS = ["--pp", "4", "--tp", "1", "--sp", "1", "--vocab", "50257", "--hidden", "768", "--heads", "12",
                "--blocks-per-stage", "3", "--seq", "1024", "--batch", "8", "--microbatches", "8"]
 #: FSDP: GPTModel at GPT-2 small (bf16 compute), 4 ranks x 4 sequences of
 #: 1024 tokens, Adam
@@ -3449,13 +3472,14 @@ def gpt_pp_calls(args) -> dict:
 
 def gpt_pp_kernels(ledger: Ledger, args, device) -> str:
     """Rows 6-8 at the twin's blocks (f32 q pre-scaled, f32 K/V, head dim
-    64; the ranks of pp x sp folded into the batch, ``batch / M`` sequences
-    a rank) within ATTENTION_TOLS, at each ring step's mask (step 1 leaves
+    64, ``heads / tp`` heads; every rank of the mesh folded into the batch,
+    ``batch / dp / M`` sequences a rank) within ATTENTION_TOLS, at each ring step's mask (step 1 leaves
     sp rank 0's block wholly masked), timed per step of ``args.schedule``."""
-    R = args.pp * args.sp
-    rows, t = args.batch // args.microbatches, args.seq // args.sp
-    h, d = args.heads, args.hidden // args.heads
-    step = f"GPT-2 small pp {args.pp} x sp {args.sp} {args.schedule}"
+    R = args.dp * args.pp * args.tp * args.sp
+    rows, t = args.batch // args.dp // args.microbatches, args.seq // args.sp
+    h, d = args.heads // args.tp, args.hidden // args.heads
+    tp = f" x tp {args.tp}" if args.tp > 1 else ""
+    step = f"GPT-2 small pp {args.pp}{tp} x sp {args.sp} {args.schedule}"
     calls = gpt_pp_calls(args)
     gen = torch.Generator(device=device).manual_seed(12)
     qf, k, v, dl, do = attention_inputs(gen, device, R * rows, t, t, h, h, d)
@@ -3634,6 +3658,552 @@ def phase_fsdp(device, profile: bool) -> dict:
     return _no_launches("[fsdp]")
 
 
+# ---------------------------------------------------------------------------
+# Named meshes (MeshSpec): the group, the collectives and the engine on a
+# named mesh.  Rows 1-4 ride the data axis of dp 4 x tp 2 (two collectives
+# of 4 ranks each); rows 6-8 run through the three-axis twins' rings
+# ---------------------------------------------------------------------------
+
+#: [mesh-ref]'s algorithms on the small VGG: legacy dp 4 against
+#: MeshSpec({"dp": 4}), and the columns of dp 4 x tp 2
+MESH_REF_ALGORITHMS = {
+    "f32": GradientAllReduceAlgorithm,
+    "int8 ring": functools.partial(GradientAllReduceAlgorithm, wire_precision="int8"),
+    "flat ByteGrad": functools.partial(ByteGradAlgorithm, hierarchical=False),
+}
+#: the twins' engine mode at the JAX tests' sizes (their small defaults)
+MESH_ENGINE_REF = {
+    "dp 4 x tp 2": ["--engine", "--dp", "4", "--tp", "2", "--sp", "1", "--steps", "3"],
+    "dp 4 x fsdp 2 ZeRO": ["--engine", "--dp", "4", "--fsdp", "2", "--tp", "1", "--sp", "1", "--algo", "zero",
+                           "--steps", "3"],
+}
+#: twin -> (example module, its learning rate, its engine mode's other arguments)
+MESH_TWINS = {"Llama": (lp, 3e-3, []), "GPT": (gp, gp.LR, ["--pp", "1"])}
+#: [mesh-llama]: the Llama twin's hand-scheduled mode at its default dp 2 x
+#: tp 2 x sp 2, llama_7b_config's width, 2 sequences of LLAMA_SEQ tokens
+MESH_LLAMA = (2, 2, 2)
+MESH_LLAMA_BATCH = 2
+#: [mesh-gpt]: the gpt_pretrain twin at its default pp 2 x tp 2 x sp 2 and
+#: GPT-2 small's widths, none cut
+MESH_GPT_ARGS = ["--pp", "2", "--tp", "2", "--sp", "2", "--vocab", "50257", "--hidden", "768", "--heads", "12",
+                 "--blocks-per-stage", "6", "--seq", "1024", "--batch", "8", "--microbatches", "4"]
+#: [mesh-engine]: the twin's engine mode at GPT-2 small, none cut
+MESH_ENGINE_ARGS = ["--engine", "--pp", "1", "--sp", "1", "--vocab", "50257", "--hidden", "768", "--heads", "12",
+                    "--blocks-per-stage", "12", "--seq", "1024", "--batch", "8"]
+MESH_ENGINE_PATHS = {
+    "dp 4 x tp 2 gradient_allreduce (overlap)": ["--dp", "4", "--tp", "2"],
+    "dp 4 x tp 2 ZeRO": ["--dp", "4", "--tp", "2", "--algo", "zero"],
+    "dp 4 x fsdp 2 ZeRO": ["--dp", "4", "--fsdp", "2", "--tp", "1", "--algo", "zero"],
+}
+#: the codec steps on the dp 4 x tp 2 engine: algorithm, then each kernel's
+#: launches per bucket and step (the int8 ring over 4: two compresses and
+#: two decompresses, 2 hops)
+MESH_CODEC_STEPS = {
+    "flat ByteGrad": (functools.partial(ByteGradAlgorithm, hierarchical=False),
+                      {"compress_minmax_uint8": 1, "decompress_reduce_requantize": 1,
+                       "decompress_minmax_uint8": 1}),
+    "int8 ring": (functools.partial(GradientAllReduceAlgorithm, wire_precision="int8"),
+                  {"compress_minmax_uint8": 2, "decompress_minmax_uint8": 2, "hop_dequant_add_requant_int8": 2}),
+}
+
+
+@contextlib.contextmanager
+def axis_census(records):
+    """Every collective's resolved axes and the thread that issued it
+    appended to ``records`` as ``(axes, on_main_thread)``."""
+    from bagua_tpu_torch import communication as comm
+
+    resolve = comm._resolve
+
+    def recording(group, axis):
+        axes = resolve(group, axis)
+        records.append((axes, threading.current_thread() is threading.main_thread()))
+        return axes
+
+    comm._resolve = recording
+    try:
+        yield
+    finally:
+        comm._resolve = resolve
+
+
+def _mesh_vgg(device, group, name, params, overlap):
+    """The small VGG's engine on ``group`` with MESH_REF_ALGORITHMS[name],
+    and its initial state."""
+    ddp = DistributedDataParallel(vgg_loss_fn(VGG(device=device, **REF_VGG)),
+                                  lambda ps: torch.optim.SGD(ps, lr=REF_LR), MESH_REF_ALGORITHMS[name](), group,
+                                  overlap=overlap)
+    return ddp, ddp.init(tree_map(lambda t: t.to(device), params))
+
+
+def _mesh_vgg_run(device, group, name, params, batch, overlap):
+    """REF_STEPS SGD steps of the small VGG on ``group``; returns the
+    stacked parameters on the CPU."""
+    ddp, state = _mesh_vgg(device, group, name, params, overlap)
+    batch = tuple(t.to(device) for t in batch)
+    for _ in range(REF_STEPS):
+        state, _ = ddp.train_step(state, batch)
+    return [leaf.cpu() for leaf in tree_leaves(state.params)]
+
+
+def _mesh_exchange(device, group, name, params, grads):
+    """The algorithm's exchange of the stacked ``grads`` on ``group``, as
+    the engine runs it (under the data axes): the monolithic
+    ``transform_gradients`` and each bucket's ``overlap_exchange``; the
+    exchanged leaves of both, on the CPU."""
+    ddp, state = _mesh_vgg(device, group, name, params, False)
+    ctx = StepContext(group=group, step=0, plan=ddp.plan)
+    with bagua.default_axes(group.data_axes):
+        mono = tree_leaves(ddp.impl.transform_gradients(grads, state.params, state.algo_state, ctx)[0])
+        groups = ddp.plan.group_leaves(grads)
+        per_bucket = [t for bi, spec in enumerate(ddp.plan.specs)
+                      for t in ddp.impl.overlap_exchange(bi, [groups[bi][sl.name] for sl in spec.slots], ctx)]
+    return [t.cpu() for t in mono + per_bucket]
+
+
+def check_mesh_replicas_on_card(device) -> dict:
+    """The small VGG (REF_VGG, f32, TF32 off, cuDNN deterministic) on the
+    card with each of MESH_REF_ALGORITHMS, monolithic and with overlap:
+
+    - REF_STEPS steps on ``MeshSpec({"dp": 4})`` bitwise the legacy 4-rank
+      group (``intra_size=1``);
+    - REF_STEPS steps on ``MeshSpec({"dp": 4, "tp": 2})`` (the batch over
+      dp, replicated over tp): the two tp columns bitwise equal, the codec
+      kernels launched on the grouped layout (two collectives of 4);
+    - the exchange alone (the monolithic stage and each bucket's overlap
+      exchange) of the legacy run's first-step gradients, each rank's
+      given to both its tp peers: on dp 4 x tp 2 each column bitwise the
+      legacy group's.  The whole runs' columns are not held bitwise to the
+      legacy run: the forward batches its GEMMs over 8 ranks there against
+      4, which may sum in another order on the card; their largest
+      difference is printed.
+
+    Returns the dp 4 x tp 2 runs' launches."""
+    gen = torch.Generator().manual_seed(2)
+    params = module_params(VGG(device="cpu", generator=gen, **REF_VGG))
+    side = REF_VGG["image_size"]
+    batch = (torch.rand((RANKS * 8, side, side, 3), generator=gen),
+             torch.randint(0, REF_VGG["num_classes"], (RANKS * 8,), generator=gen))
+    legacy = BaguaProcessGroup([device] * RANKS, intra_size=1)
+    dp = BaguaProcessGroup([device] * RANKS, mesh_spec=bagua.MeshSpec({"dp": RANKS}))
+    dp_tp = BaguaProcessGroup([device] * 2 * RANKS, mesh_spec=bagua.MeshSpec({"dp": RANKS, "tp": 2}))
+    launches = {}
+    with _no_tf32(), _deterministic():
+        ddp, state = _mesh_vgg(device, legacy, "f32", params, False)
+        grads = ddp._rank_grads(state.params, tuple(t.to(device) for t in batch))[1]
+        paired = tree_map(lambda g: g.repeat_interleave(2, dim=0), grads)
+        for name in MESH_REF_ALGORITHMS:
+            want_x = _mesh_exchange(device, legacy, name, params, grads)
+            got_x = _mesh_exchange(device, dp_tp, name, params, paired)
+            for g, w in zip(got_x, want_x):
+                if not all(same(g[2 * d + t], w[d]) for d in range(RANKS) for t in range(2)):
+                    raise AssertionError(f"[mesh-ref] {name}: the exchange on dp {RANKS} x tp 2 differs from "
+                                         "the legacy group's")
+            for overlap in (False, True):
+                what = f"[mesh-ref] small VGG, {name}{' (overlap)' if overlap else ''}"
+                want = _mesh_vgg_run(device, legacy, name, params, batch, overlap)
+                got = _mesh_vgg_run(device, dp, name, params, batch, overlap)
+                if not all(same(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"{what}: MeshSpec dp {RANKS} differs from the legacy group")
+                reset_launches()
+                cols = _mesh_vgg_run(device, dp_tp, name, params, batch, overlap)
+                launches[(name, overlap)] = read_launches()
+                pairs = [g.reshape(RANKS, 2, *g.shape[1:]) for g in cols]
+                if not all(same(p[:, 0], p[:, 1]) for p in pairs):
+                    raise AssertionError(f"{what}: the tp columns of dp {RANKS} x tp 2 differ")
+                apart = max(abs_err(p[:, 0], w) for p, w in zip(pairs, want))
+                used = {k for k, n in launches[(name, overlap)].items() if n}
+                want_used = set(MESH_CODEC_STEPS[name][1]) if name in MESH_CODEC_STEPS else set()
+                if used != want_used:
+                    raise AssertionError(f"{what}: kernels launched on dp {RANKS} x tp 2: "
+                                         f"{launches[(name, overlap)]}, want {sorted(want_used)}")
+                log(f"{what}, {REF_STEPS} steps: MeshSpec dp {RANKS} bitwise the legacy group; dp {RANKS} x "
+                    f"tp 2's two columns bitwise equal, {apart:.3e} from the legacy run at most; the exchange "
+                    f"alone bitwise the legacy group's; launches on dp x tp "
+                    f"{ {k: n for k, n in launches[(name, overlap)].items() if n} }")
+    return launches
+
+
+def _engine_run(module, argv, device, params=None):
+    """A twin's engine mode under ``argv`` on ``device``: losses, the final
+    stacked parameters on the CPU by name, and the engine."""
+    args = module.parse_args(argv + ["--device", str(device)])
+    losses, state, ddp = module.run_engine(args, device, params=params)
+    return losses, [(n, t.detach().cpu()) for n, t in tree_flatten_with_names(state.params)], ddp
+
+
+def check_mesh_engine_on_card(device, twin: str, config: str) -> dict:
+    """A twin's engine mode (MESH_TWINS ``twin``, MESH_ENGINE_REF
+    ``config``) on the card (TF32 off) against the same run on the CPU from
+    the same parameters: losses within rtol 1e-5, every element of every
+    rank's parameters within 3 lr and all but 1% within 1e-5 + 1e-5 |value|
+    (the CPU tests' bounds against JAX; GPT's key third of each ``qkv``
+    bias, whose gradient is zero in exact arithmetic, to the first bound
+    only), every rank bitwise equal to rank 0; and, on dp 4 x tp 2, every exchange collective of the overlapped
+    step rode ``("dp",)`` only, some from autograd's own thread (the
+    hooks' thread on the card), the model's rode ``("tp",)``."""
+    module, lr, extra = MESH_TWINS[twin]
+    argv = MESH_ENGINE_REF[config] + extra
+    want_losses, want, cpu_ddp = _engine_run(module, argv, torch.device("cpu"))
+    initial = module.engine(module.parse_args(argv + ["--device", "cpu"]), torch.device("cpu"))[1].params
+    initial = tree_map(lambda t: t[0].clone(), initial)
+    census = []
+    with _no_tf32(), axis_census(census):
+        got_losses, got, ddp = _engine_run(module, argv, device, params=initial)
+    what = f"[mesh-ref] {twin} engine mode {config}"
+    if not torch.allclose(torch.tensor(got_losses), torch.tensor(want_losses), rtol=1e-5, atol=0.0):
+        raise AssertionError(f"{what}: losses {got_losses} vs CPU {want_losses}")
+    worst = 0.0
+    for (name, g), (_, w) in zip(got, want):
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()))
+        tight = d > 1e-5 + 1e-5 * w.abs()
+        if name.endswith("['qkv']['bias']"):
+            third = g.shape[-1] // 3
+            tight = torch.cat([tight[..., :third], tight[..., 2 * third:]], dim=-1)
+        if float(d.max()) > 3 * lr or float(tight.float().mean()) > 0.01:
+            raise AssertionError(f"{what}: parameter {name} differs from the CPU run by up to "
+                                 f"{float(d.max()):.3e}, {float(tight.float().mean()):.3f} of it beyond 1e-5")
+        if not all(same(g[r], g[0]) for r in range(1, g.shape[0])):
+            raise AssertionError(f"{what}: the ranks' parameter {name} differs")
+    model_axes = {axes for axes, _ in census if set(axes) <= set(ddp.group.model_axes)}
+    exchange = [(axes, main) for axes, main in census if not set(axes) <= set(ddp.group.model_axes)]
+    if any(axes != ddp.group.data_axes for axes, _ in exchange):
+        raise AssertionError(f"{what}: exchange collectives rode {sorted({a for a, _ in exchange})}, "
+                             f"want {ddp.group.data_axes} only")
+    hooks = sum(1 for _, main in exchange if not main)
+    if config == "dp 4 x tp 2" and device.type == "cuda" and not hooks:
+        raise AssertionError(f"{what}: no exchange ran on autograd's thread: the overlap check saw nothing")
+    log(f"{what}, card vs CPU: losses {[round(x, 5) for x in got_losses]} vs "
+        f"{[round(x, 5) for x in want_losses]}, parameters within {worst:.3e}, ranks bitwise equal; "
+        f"{len(exchange)} exchange collectives on {ddp.group.data_axes} ({hooks} from autograd's thread), "
+        f"the model's on {sorted(model_axes)}")
+    return dict(hooks=hooks, exchange=len(exchange))
+
+
+def phase_mesh_reference(device) -> None:
+    """``[mesh-ref]``: :func:`check_mesh_replicas_on_card`, then
+    :func:`check_mesh_engine_on_card` for both twins and both engine
+    configurations."""
+    check_mesh_replicas_on_card(device)
+    for twin in MESH_TWINS:
+        for config in MESH_ENGINE_REF:
+            check_mesh_engine_on_card(device, twin, config)
+
+
+def mesh_llama_kernels(ledger: Ledger, device, step: str) -> None:
+    """Rows 6-8 at [mesh-llama]'s blocks within ATTENTION_TOLS, timed per
+    step of it: dp x tp x sp ranks folded into the batch, a sequence a
+    rank, half-blocks of LLAMA_SEQ / (2 sp) tokens, 32 / tp heads of 128,
+    one call per (ring step, q half, k half) and layer; rank r's sp
+    coordinate is r mod sp (sp is the mesh's last axis)."""
+    dp, tp, sp = MESH_LLAMA
+    cfg = llama_7b_config()
+    R = dp * tp * sp
+    h, d = cfg.num_heads // tp, cfg.hidden_size // cfg.num_heads
+    t2 = LLAMA_SEQ // (2 * sp)
+    rows = MESH_LLAMA_BATCH // dp
+    gen = torch.Generator(device=device).manual_seed(13)
+    qf, k, v, dl, do = attention_inputs(gen, device, R * rows, t2, t2, h, cfg.num_kv_heads // tp, d)
+    blocks = {}
+    for mask in zigzag_pair_masks(sp, t2, device):
+        key = mask.cpu().numpy().tobytes()
+        full = mask.repeat(R // sp, 1, 1).repeat_interleave(rows, 0).contiguous()
+        blocks.setdefault(key, [full, 0])[1] += LLAMA_LAYERS
+    with _no_tf32():
+        for n, (mask, calls) in enumerate(blocks.values()):
+            live = float(mask.float().mean())
+            check_attention(ledger, f"{step}, block {n} (live share {live:.3f})", qf, k, v, mask, dl, do)
+            m = fa.block_attention_plain(qf, k, v, mask)[2]
+            lib_fwd, lib_bwd = sdpa_ms(qf, k, v, mask, do)
+            costs = attention_cost(qf, k, mask, d)
+            ledger.time("block_attention", *costs[0], qf, k, v, mask, per_step=calls, library=lambda: lib_fwd,
+                        step=step)
+            for name, cost in zip(("flash_attention_bwd_dq", "flash_attention_bwd_dkv"), costs[1:]):
+                ledger.time(name, *cost, qf, k, v, mask, m, dl, do, per_step=calls, library=lambda: lib_bwd,
+                            step=step)
+    _log_step_sums(ledger, step, f"{LLAMA_LAYERS} layers x {sp} ring steps x 4 half-block pairs")
+
+
+def phase_mesh_llama(ledger: Ledger, device, profile: bool) -> dict:
+    """``[mesh-llama]``: LLAMA_STEPS AdamW steps of the Llama twin's
+    hand-scheduled step at its default dp 2 x tp 2 x sp 2 on the named mesh
+    (``lp.mesh_spec``), llama_7b_config's width, LLAMA_LAYERS layers,
+    MESH_LLAMA_BATCH x LLAMA_SEQ tokens (zigzag), f32.  Checks the loss is
+    finite, every rank's parameters bitwise equal (JAX replicates the one
+    tree), the launches exact (steps x layers x sp x 4 of each of rows
+    6-8); prints ms/step, tokens/s and the peak memory; rows 6-8 at its
+    blocks (:func:`mesh_llama_kernels`)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp, tp, sp = MESH_LLAMA
+    group = BaguaProcessGroup([device] * (dp * tp * sp), mesh_spec=lp.mesh_spec(dp, tp, sp))
+    cfg = llama_7b_config(num_layers=LLAMA_LAYERS, tp_size=tp, tp_axis="tp", sp_axis="sp", sp_layout="zigzag")
+    model, params = init_llama(cfg, torch.Generator(device=device).manual_seed(0), device, group)
+    stacked = lp.replicate(params, group.size)
+    del params
+    optimizer = lp.make_optimizer(stacked, LLAMA_LR)
+    loss_fn = llama_loss_fn(model)
+    ids_gen = torch.Generator().manual_seed(0)
+    zz = zigzag_order(LLAMA_SEQ, sp)
+    batches = [lp.shard_ids(torch.randint(0, cfg.vocab_size, (MESH_LLAMA_BATCH, LLAMA_SEQ),
+                                          generator=ids_gen)[:, zz], group, device, "dp", "sp")
+               for _ in range(LLAMA_STEPS + 1)]
+    step = functools.partial(lp.train_step, stacked, optimizer, loss_fn=loss_fn, group=group, axis=("dp", "sp"))
+    n_params = sum(p[0].numel() for p in tree_leaves(stacked))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(batches[0])]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for ids in batches[1:LLAMA_STEPS]:
+        losses.append(step(ids))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    what = f"[mesh-llama] Llama dp {dp} x tp {tp} x sp {sp}"
+    losses = torch.stack(losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"{what}: non-finite loss {losses.tolist()}")
+    _bitwise_replicas(what, stacked)
+    calls = LLAMA_STEPS * LLAMA_LAYERS * sp * 4
+    want = {kernel: calls if kernel in ATTENTION_TOLS else 0 for kernel in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{what}: launch counts {launches}, want {want}")
+    step_s = (t2 - t1) / (LLAMA_STEPS - 1)
+    tokens = MESH_LLAMA_BATCH * LLAMA_SEQ
+    log(f"{what} at 7B width ({cfg.hidden_size} hidden, {cfg.num_heads} heads, {cfg.intermediate_size} MLP, "
+        f"vocab {cfg.vocab_size}), {LLAMA_LAYERS} layers, {n_params} parameters per rank, f32; "
+        f"{MESH_LLAMA_BATCH} x {LLAMA_SEQ} tokens over {group.size} ranks, AdamW {LLAMA_LR}: first step "
+        f"{t1 - t0:.3f} s, then {step_s * 1e3:.1f} ms/step = {tokens / step_s:.1f} tokens/s on the card; loss "
+        f"{losses[:, 0].tolist()}; peak memory {peak:.2f} GiB; launches {launches} ({calls} each expected: "
+        f"{LLAMA_STEPS} steps x {LLAMA_LAYERS} layers x {sp} ring steps x 4 half-block pairs)")
+    if profile:
+        profile_step(what, lambda: step(batches[-1]))
+    del stacked, optimizer, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_llama_kernels(ledger, device, f"Llama dp {dp} x tp {tp} x sp {sp}")
+    return launches
+
+
+def phase_mesh_gpt(ledger: Ledger, device, profile: bool) -> dict:
+    """``[mesh-gpt]``: the gpt_pretrain twin at its default pp 2 x tp 2 x sp
+    2 at GPT-2 small's widths (MESH_GPT_ARGS, none cut), f32, Adam 1e-3,
+    1F1B and GPipe: GPT_WARMUP + GPT_STEPS steps each (ms/step, tokens/s,
+    peak memory), the replicas bitwise, rows 6-8's launches exact, the two
+    schedules' losses within rtol 1e-4 of each other step by step; rows
+    6-8 at its blocks timed per step (:func:`gpt_pp_kernels`).  Returns
+    the timed steps' launches of both schedules."""
+    total, losses_by = {k: 0 for k in KERNELS}, {}
+    for schedule in ("1f1b", "gpipe"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = gp.parse_args(MESH_GPT_ARGS + ["--steps", str(GPT_WARMUP + GPT_STEPS), "--schedule", schedule])
+        twin = gp.Twin(args, device)
+        data = [(twin.shard(i), twin.shard(l)) for i, l in gp.batches(args)]
+        losses = [twin.step(*batch) for batch in data[:GPT_WARMUP]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        for batch in data[GPT_WARMUP:]:
+            losses.append(twin.step(*batch))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / GPT_STEPS
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        what = f"[mesh-gpt] GPT-2 small pp {args.pp} x tp {args.tp} x sp {args.sp} {schedule}"
+        losses = torch.stack(losses).cpu()
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"{what}: non-finite loss {losses[:, 0].tolist()}")
+        _replicas(what, twin)
+        want = {k: GPT_STEPS * n for k, n in gpt_pp_calls(args).items()}
+        if launches != want:
+            raise AssertionError(f"{what}: launch counts {launches}, want {want}")
+        losses_by[schedule] = losses[:, 0]
+        for k, n in launches.items():
+            total[k] += n
+        log(f"{what}: {args.batch} x {args.seq} tokens, {args.microbatches} microbatches, {twin.group.size} "
+            f"ranks, f32, Adam {gp.LR}: {step_s * 1e3:.1f} ms/step over {GPT_STEPS} steps = "
+            f"{args.batch * args.seq / step_s:.1f} tokens/s on the card; peak memory {peak:.2f} GiB; losses "
+            f"{[round(x, 4) for x in losses[:, 0].tolist()]}; launches {launches} (per step {gpt_pp_calls(args)})")
+        if profile:
+            profile_step(what, lambda: twin.step(*data[-1]))
+        del twin, data
+        gpt_pp_kernels(ledger, args, device)
+    if not torch.allclose(losses_by["1f1b"], losses_by["gpipe"], rtol=1e-4, atol=0.0):
+        raise AssertionError(f"[mesh-gpt] 1F1B losses {losses_by['1f1b'].tolist()} vs GPipe "
+                             f"{losses_by['gpipe'].tolist()}")
+    return total
+
+
+@contextlib.contextmanager
+def recorded_codecs(records):
+    """Each codec kernel call of the exchange (ByteGrad's three, the int8
+    ring's compress, decompress and hop) counted in ``records`` by kernel
+    and input shapes, the first call's inputs kept: ``{(name, shapes):
+    [tensors, kwargs, calls]}`` (the hop's ``bits`` in its name)."""
+    from bagua_tpu_torch.algorithms import bytegrad as bg
+
+    def recording(name, fn):
+        def call(*args, **kwargs):
+            tensors = [a for a in args if torch.is_tensor(a)]
+            bits = [a for a in args if not torch.is_tensor(a)] + [kwargs.get("bits")]
+            key = (f"{name}_int{bits[0]}" if name.startswith("hop") else name,
+                   tuple(tuple(t.shape) for t in tensors))
+            extra = {k: v for k, v in kwargs.items() if k != "bits"}
+            rec = records.setdefault(key, [[t.clone() for t in tensors], extra, 0])
+            rec[2] += 1
+            return fn(*args, **kwargs)
+        # the wrapper counts its launches under its own name, which now
+        # finds this function: share its attributes
+        call.__dict__ = fn.__dict__
+        return call
+
+    saved = [(bg, n, getattr(bg, n)) for n in ("compress_minmax_uint8", "decompress_reduce_requantize",
+                                               "decompress_minmax_uint8")]
+    saved += [(mm8, n, getattr(mm8, n)) for n in ("compress_minmax_uint8", "decompress_minmax_uint8")]
+    saved.append((qr, "hop_dequant_add_requant", qr.hop_dequant_add_requant))
+    for module, n, fn in saved:
+        setattr(module, n, recording(n, fn))
+    try:
+        yield
+    finally:
+        for module, n, fn in saved:
+            setattr(module, n, fn)
+
+
+def _codec_cost(kernel: str, inputs):
+    """(bytes, f32 operations) of one codec call on ``inputs``."""
+    if kernel == "compress_minmax_uint8":
+        return codec_cost(*inputs[0].shape, 6)
+    if kernel == "decompress_minmax_uint8":
+        return codec_cost(*inputs[0].shape, 2)
+    if kernel == "decompress_reduce_requantize":
+        r, n, chunk = inputs[0].shape
+        return r * n * chunk + r * n * 8 + r * (chunk + 8), r * n * chunk * 3 + r * chunk * 5
+    return hop_cost(inputs[2].shape[0], 8)
+
+
+def mesh_codec_step(ledger: Ledger, device, name: str) -> dict:
+    """One overlapped step of the GPT twin's engine model at GPT-2 small on
+    dp 4 x tp 2 with MESH_CODEC_STEPS[name] (the example's bucket size,
+    Adam 1e-3): the launches exact (per bucket and step), and each of rows 1-4
+    bitwise against its plain version on the very inputs the step gave it,
+    one of each shape, timed per step with the calls the step made of it.
+    Returns the step's launches."""
+    algorithm, per_bucket = MESH_CODEC_STEPS[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = gp.parse_args(MESH_ENGINE_ARGS + ["--dp", "4", "--tp", "2", "--steps", "1"])
+    spec = bagua.MeshSpec({"dp": 4, "tp": 2})
+    group = BaguaProcessGroup([device] * spec.size, mesh_spec=spec)
+    model = gp.EngineModel(args, group, device)
+    # foreach Adam: the fused one on the card refuses a gradient whose
+    # strides are not its parameter's, as a bucket flat's views are
+    ddp = DistributedDataParallel(model.loss, lambda ps: torch.optim.Adam(ps, lr=gp.LR), algorithm(), group,
+                                  bucket_size_bytes=lp.ENGINE_BUCKET_BYTES, overlap=True, dp_axis="dp",
+                                  tp_axis="tp")
+    state = ddp.init(params=model.params())
+    ids, labels = next(gp.batches(args))
+    batch = (torch.as_tensor(ids, device=device), torch.as_tensor(labels, device=device))
+    records = {}
+    reset_launches()
+    with recorded_codecs(records):
+        state, losses = ddp.train_step(state, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    buckets = ddp.plan.num_buckets
+    want = {k: buckets * per_bucket.get(k, 0) for k in KERNELS}
+    what = f"[mesh-engine] GPT-2 small dp 4 x tp 2, one {name} step (overlap)"
+    if launches != want or not torch.isfinite(losses).all():
+        raise AssertionError(f"{what}: launches {launches}, want {want} ({buckets} buckets); "
+                             f"losses {losses.tolist()}")
+    if {k: sum(r[2] for (n, _), r in records.items() if n == k) for k in per_bucket} != \
+            {k: want[k] for k in per_bucket}:
+        raise AssertionError(f"{what}: the recorded calls do not add up to the launches")
+    del ddp, state, model
+    step = f"GPT-2 small engine dp 4 x tp 2 {name}"
+    for (kernel, shapes), (inputs, kwargs, calls) in sorted(records.items(), key=lambda kv: str(kv[0])):
+        ledger.compare(kernel, f"{step}, inputs {shapes}", *inputs, **kwargs)
+        ledger.time(kernel, *_codec_cost(kernel, inputs), *inputs, per_step=calls, step=step, **kwargs)
+    _log_step_sums(ledger, step, f"{buckets} buckets")
+    log(f"{what}: {buckets} buckets, launches {launches} (exact), {len(records)} distinct inputs held "
+        f"bitwise against the plain versions")
+    records.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mesh_engine(ledger: Ledger, device, profile: bool) -> dict:
+    """``[mesh-engine]``: the GPT twin's engine mode at GPT-2 small
+    (MESH_ENGINE_ARGS: 12 blocks, 1024 tokens, global batch 8, none cut),
+    Adam 1e-3, on each of MESH_ENGINE_PATHS: GPT_WARMUP + GPT_STEPS steps
+    (ms/step, tokens/s, peak memory; a traced step under ``--profile``),
+    every rank's parameters bitwise equal (JAX replicates the tree over tp
+    and fsdp), ZeRO's optimizer bytes a rank equal to the plan's Adam state
+    over the exchange size; then one step of each of MESH_CODEC_STEPS
+    (:func:`mesh_codec_step`).  Returns the launches of all of it."""
+    total = {k: 0 for k in KERNELS}
+    for path, extra in MESH_ENGINE_PATHS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = gp.parse_args(MESH_ENGINE_ARGS + extra + ["--steps", str(GPT_WARMUP + GPT_STEPS), "--device",
+                                                         "cuda"])
+        ddp, state = gp.engine(args, device)
+        data = [(torch.as_tensor(i, device=device), torch.as_tensor(l, device=device)) for i, l in gp.batches(args)]
+        losses = []
+        for batch in data[:GPT_WARMUP]:
+            state, step_losses = ddp.train_step(state, batch)
+            losses.append(step_losses)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        for batch in data[GPT_WARMUP:]:
+            state, step_losses = ddp.train_step(state, batch)
+            losses.append(step_losses)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / GPT_STEPS
+        launches = _no_launches(f"[mesh-engine] {path}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        what = f"[mesh-engine] GPT-2 small {path}"
+        losses = torch.stack(losses).cpu()
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"{what}: non-finite loss {losses[:, 0].tolist()}")
+        state = ddp.finalize_pending_updates(state)
+        _bitwise_replicas(what, state.params)
+        opt_bytes = ddp.optimizer_state_bytes(state)
+        n_params = sum(t[0].numel() for t in tree_leaves(state.params))
+        note = ""
+        if args.algo == "zero":
+            plan_numel = sum(spec.numel for spec in ddp.plan.specs)
+            share = 2 * 4 * plan_numel // ddp.group.exchange_size  # Adam's two f32 moments
+            if opt_bytes != share:
+                raise AssertionError(f"{what}: a rank holds {opt_bytes} B of optimizer state, want "
+                                     f"{share} (the plan's {plan_numel} elements over {ddp.group.exchange_size})")
+            note = f" = 2 moments x {plan_numel} elements x 4 B / {ddp.group.exchange_size}"
+        tokens = args.batch * args.seq
+        log(f"{what}: {n_params} parameters a rank on {ddp.group.size} ranks ({ddp.group.mesh_spec}), "
+            f"{ddp.plan.num_buckets} buckets, {args.batch} x {args.seq} tokens, f32, Adam {gp.LR}: "
+            f"{step_s * 1e3:.1f} ms/step over {GPT_STEPS} steps = {tokens / step_s:.1f} tokens/s on the card; "
+            f"peak memory {peak:.2f} GiB; optimizer state {opt_bytes} B a rank{note}; losses "
+            f"{[round(x, 4) for x in losses[:, 0].tolist()]}")
+        if profile:
+            profile_step(what, lambda: ddp.train_step(state, data[-1]), side=ddp.side_stream)
+        ddp.shutdown()
+        del ddp, state, data
+    for name in MESH_CODEC_STEPS:
+        for k, n in mesh_codec_step(ledger, device, name).items():
+            total[k] += n
+    return total
+
+
 def vgg16_plan():
     """The bucket plan of VGG16 over RANKS ranks, from the model's shapes
     alone (built on the meta device); every algorithm here aligns its
@@ -3698,6 +4268,11 @@ def main(argv) -> int:
         per_path[f"GPT pp {schedule}"] = phase_gpt_pp(ledger, device, profile, schedule)
     per_path["pp-mem"] = phase_pp_mem(device)
     per_path["FSDP"] = phase_fsdp(device, profile)
+    phase_mesh_reference(device)
+    torch.cuda.empty_cache()
+    per_path["mesh Llama"] = phase_mesh_llama(ledger, device, profile)
+    per_path["mesh GPT"] = phase_mesh_gpt(ledger, device, profile)
+    per_path["mesh engine"] = phase_mesh_engine(ledger, device, profile)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]

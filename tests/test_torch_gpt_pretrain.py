@@ -1,8 +1,8 @@
 """The ``gpt_pretrain`` twin (``bagua_tpu_torch.examples.gpt_pretrain``)
 against the JAX example's ``main(argv)`` at its small defaults (vocab 128,
 hidden 32, 4 heads, 32 tokens, one block a stage, batch 8, 2 microbatches),
-for both schedules on four layouts: pp 2 x sp 2, pp 2 x tp 2, dp 2 x pp 2
-and pp 4.
+for both schedules on five layouts: the example's default pp 2 x tp 2 x
+sp 2, pp 2 x sp 2, pp 2 x tp 2, dp 2 x pp 2 and pp 4.
 
 The JAX example runs in-process on the simulated CPU devices; its final
 state is read off the jitted step's last outputs.  The twin starts from the
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh, PartitionSpec as P
 
 from bagua_tpu_torch.communication import BaguaProcessGroup, rank_id
 from bagua_tpu_torch.convert import gpt_params_from_jax
@@ -36,7 +37,8 @@ from bagua_tpu_torch.utils import tree_flatten_with_names
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 3
 LR = 1e-3
-LAYOUTS = {"pp2-sp2": (1, 2, 1, 2), "pp2-tp2": (1, 2, 2, 1), "dp2-pp2": (2, 2, 1, 1), "pp4": (1, 4, 1, 1)}
+LAYOUTS = {"pp2-sp2": (1, 2, 1, 2), "pp2-tp2": (1, 2, 2, 1), "dp2-pp2": (2, 2, 1, 1), "pp4": (1, 4, 1, 1),
+           "pp2-tp2-sp2": (1, 2, 2, 2)}
 
 
 def jax_example():
@@ -99,10 +101,9 @@ def test_twin_matches_jax_example(layout, schedule, monkeypatch):
     want_losses, want = run_jax(jmod, cli, monkeypatch)
 
     args = gp.parse_args(cli + ["--device", "cpu"])
-    axes = gp.mesh_axes(args.dp, args.pp, args.tp, args.sp)
     n = args.dp * args.pp * args.tp * args.sp
-    group = BaguaProcessGroup([torch.device("cpu")] * n, intra_size=axes["intra_size"])
-    rows = rank_id(group, axes["pp_axis"]) if axes["pp_axis"] else torch.zeros(n, dtype=torch.long)
+    spec = gp.mesh_spec(args.dp, args.pp, args.tp, args.sp)
+    rows = rank_id(BaguaProcessGroup([torch.device("cpu")] * n, mesh_spec=spec), "pp")
     losses, twin = gp.run(args, params=gpt_params_from_jax(initial, rows))
     np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
     assert losses[-1] < losses[0]
@@ -129,14 +130,22 @@ def check_leaf(got, want, initial, what):
 
 
 def test_layouts_and_refusals():
-    """Two live axes map onto (inter, intra) in the mesh's order, one onto
-    intra; three live axes and ``--engine`` raise."""
-    assert gp.mesh_axes(1, 2, 1, 2) == dict(intra_size=2, dp_axis=None, pp_axis="inter", tp_axis=None,
-                                            sp_axis="intra")
-    assert gp.mesh_axes(2, 2, 1, 1)["dp_axis"] == "inter" and gp.mesh_axes(2, 2, 1, 1)["pp_axis"] == "intra"
-    assert gp.mesh_axes(1, 4, 1, 1) == dict(intra_size=4, dp_axis=None, pp_axis="intra", tp_axis=None,
-                                            sp_axis=None)
-    with pytest.raises(NotImplementedError, match="MeshSpec"):
-        gp.main(["--device", "cpu", "--pp", "2", "--tp", "2", "--sp", "2"])
-    with pytest.raises(NotImplementedError, match="MeshSpec"):
-        gp.main(["--device", "cpu", "--engine", "--pp", "1", "--sp", "1", "--dp", "4"])
+    """The twin's group is the JAX example's mesh: every rank's coordinate on
+    each of ``("dp", "pp", "tp", "sp")`` is the JAX device's
+    ``lax.axis_index`` on the same mesh, for every layout (the three-axis
+    default included).  A ``MeshSpec`` whose size is not the group's
+    raises, and so does ``--engine`` with a live pp or sp axis."""
+    for layout, sizes in LAYOUTS.items():
+        spec = gp.mesh_spec(*sizes)
+        n = spec.size
+        group = BaguaProcessGroup([torch.device("cpu")] * n, mesh_spec=spec)
+        assert group.all_axes == gp.MESH and group.shape == sizes
+        mesh = Mesh(np.array(jax.devices()[:n]).reshape(sizes), gp.MESH)
+        for axis in gp.MESH:
+            index = jax.jit(jax.shard_map(lambda: jax.lax.axis_index(axis)[None], mesh=mesh, in_specs=(),
+                                          out_specs=P(gp.MESH), check_vma=False))()
+            assert rank_id(group, axis).tolist() == np.asarray(index).ravel().tolist(), (layout, axis)
+    with pytest.raises(ValueError, match="needs 8 devices, got 4"):
+        BaguaProcessGroup([torch.device("cpu")] * 4, mesh_spec=gp.mesh_spec(1, 2, 2, 2))
+    with pytest.raises(ValueError, match="use the default mode for pp/sp"):
+        gp.main(["--device", "cpu", "--engine", "--pp", "2", "--sp", "1", "--dp", "4"])

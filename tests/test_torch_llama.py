@@ -228,12 +228,76 @@ def test_train_steps_match_jax(optimizer):
 
 
 def test_example_main_runs_on_cpu(capsys):
-    ex.main(["--device", "cpu", "--dp", "2", "--sp", "2", "--steps", "2", "--batch", "4"])
+    """The example's layouts run, its three-axis default (dp 2 x tp 2 x sp
+    2) among them, on the named mesh; a legacy ``(inter, intra)`` group
+    holds two live axes (``mesh_axes`` raises for three), and a
+    ``MeshSpec`` whose size is not the group's raises."""
+    ex.main(["--device", "cpu", "--dp", "2", "--tp", "1", "--sp", "2", "--steps", "2", "--batch", "4"])
     assert "final:" in capsys.readouterr().out
     ex.main(["--device", "cpu", "--dp", "1", "--tp", "2", "--sp", "2", "--steps", "2", "--batch", "4"])
     assert "final:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="three-axis group"):
-        ex.main(["--device", "cpu", "--dp", "2", "--tp", "2", "--sp", "2", "--steps", "1"])
+    ex.main(["--device", "cpu", "--dp", "2", "--tp", "2", "--sp", "2", "--steps", "1"])
+    assert "final:" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="mesh_spec"):
+        ex.mesh_axes(2, 2, 2)
+    with pytest.raises(ValueError, match="needs 8 devices, got 4"):
+        BaguaProcessGroup([torch.device("cpu")] * 4, mesh_spec=ex.mesh_spec(2, 2, 2))
+
+
+def jax_example_main(argv, monkeypatch):
+    """The JAX example's hand-scheduled ``main()`` under ``argv``: its
+    printed losses, and its initial and final parameters (the jitted step's
+    first inputs and last outputs)."""
+    import importlib.util
+    import os
+    import sys
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples", "llama_pretrain", "main.py")
+    spec = importlib.util.spec_from_file_location("jax_llama_pretrain_example", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    calls, jit = [], jax.jit
+
+    def recording_jit(fun, *a, **kw):
+        compiled = jit(fun, *a, **kw)
+
+        def call(*args):
+            out = compiled(*args)
+            calls.append((args[0], out))
+            return out
+
+        return call
+
+    monkeypatch.setattr(jax, "jit", recording_jit)
+    monkeypatch.setattr(sys, "argv", ["main.py"] + argv)
+    module.main()
+    monkeypatch.setattr(jax, "jit", jit)
+    losses = [float(out[2]) for _, out in calls]
+    return losses, jax.tree.map(np.asarray, calls[0][0]), jax.tree.map(np.asarray, calls[-1][1][0])
+
+
+def test_three_axis_default_matches_jax_example(monkeypatch):
+    """The twin's hand-scheduled mode at the example's default, dp 2 x tp 2
+    x sp 2 (zigzag ring, Row ``psum`` over tp, the average over dp and sp),
+    3 AdamW steps from the example's initial parameters against its
+    ``main()``: losses within LOGIT_TOL, every element of every rank's
+    parameters within 3 lr of JAX's and all but 1% within 1e-5 (AdamW's
+    rule above)."""
+    argv = ["--steps", str(STEPS)]
+    want_losses, initial, want = jax_example_main(argv, monkeypatch)
+    args = ex.parse_args(argv + ["--device", "cpu"])
+    assert (args.dp, args.tp, args.sp) == (2, 2, 2)
+    got_losses, got = ex.run(args, torch.device("cpu"), params=params_from_jax(initial))
+    np.testing.assert_allclose(got_losses, want_losses, rtol=LOGIT_TOL, atol=0)
+    assert got_losses[-1] < got_losses[0]
+    moved = max(float(np.abs(w - i).max()) for w, i in zip(jax.tree.leaves(want), jax.tree.leaves(initial)))
+    assert moved > LR
+    for r in range(8):  # every rank, tp ranks included, holds JAX's one tree
+        diffs = np.concatenate([np.abs(g[r].detach().numpy() - w).ravel()
+                                for g, w in zip(tree_leaves(got), jax.tree.leaves(want))])
+        assert diffs.max() <= STEPS * LR, diffs.max()
+        assert (diffs > 1e-5).mean() <= 0.01, (diffs > 1e-5).mean()
 
 
 # ---------------------------------------------------------------------------

@@ -344,7 +344,9 @@ def test_port_imports_no_jax():
     average, gradient accumulation, BERT, the differentiable collectives,
     the SQuAD twin, the collectives twin, the MoE layer and its twins,
     ResNet, the contrib data tier, the imagenet twin, the pipeline
-    schedules, FSDP, GPT and the gpt_pretrain twin."""
+    schedules, FSDP, GPT, the gpt_pretrain twin and the named mesh
+    (``mesh.py``, a copy of the JAX package's, which imports nothing of
+    it)."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -367,7 +369,7 @@ def test_port_imports_no_jax():
         "        'bagua_tpu_torch.examples.bench_moe', 'bagua_tpu_torch.examples.imagenet',\n"
         "        'bagua_tpu_torch.parallel.pipeline', 'bagua_tpu_torch.parallel.fsdp',\n"
         "        'bagua_tpu_torch.models.gpt', 'bagua_tpu_torch.models._layers',\n"
-        "        'bagua_tpu_torch.examples.gpt_pretrain']\n"
+        "        'bagua_tpu_torch.examples.gpt_pretrain', 'bagua_tpu_torch.mesh']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )
