@@ -26,6 +26,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from bagua_tpu_torch.bucket import BucketPlan
 from bagua_tpu_torch.communication import BaguaProcessGroup
 from bagua_tpu_torch.env import get_default_bucket_size
+from bagua_tpu_torch.observability.annotations import bucket_scope
+from bagua_tpu_torch.observability.flight_recorder import notify_collective
 
 
 @dataclasses.dataclass
@@ -64,6 +66,9 @@ class OverlapCapability:
 class AlgorithmImpl:
     """A reified algorithm bound to a process group."""
 
+    #: registry-style short name carried in the exchange labels
+    #: (:func:`bagua_tpu_torch.observability.annotations.bucket_scope`) and
+    #: the flight records; subclasses set it to their registered name
     algo_name = ""
 
     #: algorithms that implement :meth:`overlap_exchange` set this True
@@ -93,6 +98,23 @@ class AlgorithmImpl:
     #: a lock the engine holds around the whole step when not None, shared
     #: with a background thread of the algorithm (async model average)
     host_dispatch_lock = None
+
+    def annotate(self, bucket_idx, phase: str):
+        """The ``record_function`` labeling one bucket's exchange in a
+        profiler trace (``bagua_ex/algo=<name>/bucket=<i>/phase=<phase>``).
+        A host-side marker: wrapping an exchange in it never changes the
+        computation.
+
+        Also the flight recorder's capture point: every exchange path wraps
+        its bucket collective in ``annotate``, so one notification here
+        records the step's whole collective program (a no-op unless the
+        engine has a capture active).  The record carries the mesh axes the
+        exchange rides (the group's data axes), so flight-recorder consumers
+        can tell a dp-ring collective from a model-axis one on named
+        meshes."""
+        name = self.algo_name or type(self).__name__
+        notify_collective(name, bucket_idx, phase, axes=list(self.process_group.data_axes))
+        return bucket_scope(name, bucket_idx, phase)
 
     def tensors_to_buckets(self, tree, bucket_size_bytes: Optional[int] = None, filter_fn=None) -> BucketPlan:
         """Default: dtype-grouped greedy buckets, aligned to the exchange

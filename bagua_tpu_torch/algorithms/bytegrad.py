@@ -93,7 +93,10 @@ class ByteGradAlgorithmImpl(AlgorithmImpl):
 
     def transform_gradients(self, grads, params, state, ctx: StepContext):
         flats = ctx.plan.bucketize(grads)
-        out = [self._exchange_flat(flat, spec) for flat, spec in zip(flats, ctx.plan.specs)]
+        out = []
+        for i, (flat, spec) in enumerate(zip(flats, ctx.plan.specs)):
+            with self.annotate(i, "mono"):
+                out.append(self._exchange_flat(flat, spec))
         return ctx.plan.debucketize(out, grads), params, state
 
     def overlap_exchange(self, bucket_idx: int, grads, ctx: StepContext, params_leaves=None):
@@ -102,7 +105,8 @@ class ByteGradAlgorithmImpl(AlgorithmImpl):
         chunks, same quantizer inputs), so it gives the monolithic path's
         bits."""
         spec = ctx.plan.specs[bucket_idx]
-        return split_bucket_flat(self._exchange_flat(flatten_bucket_leaves(grads, spec), spec), spec)
+        with self.annotate(bucket_idx, "overlap"):
+            return split_bucket_flat(self._exchange_flat(flatten_bucket_leaves(grads, spec), spec), spec)
 
 
 class ByteGradAlgorithm(Algorithm):

@@ -44,6 +44,7 @@ and ``communication_interval=1``.
 from typing import List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, OverlapCapability, StepContext
 from bagua_tpu_torch.bucket import flatten_bucket_leaves, split_bucket_flat
@@ -57,6 +58,7 @@ from bagua_tpu_torch.communication import (
     ppermute_shift,
 )
 from bagua_tpu_torch.kernels.minmax_uint8 import compress_minmax_uint8, decompress_minmax_uint8
+from bagua_tpu_torch.observability.scope_grammar import format_stale_scope
 
 #: one bucket for the whole model (the reference's layout)
 WHOLE_MODEL_BUCKET = 1 << 62
@@ -232,14 +234,19 @@ class DecentralizedAlgorithmImpl(_PeerExchange):
         ``shift_one`` schedule meets every peer whatever the interval."""
         if self.staleness_tau is not None:
             use_stale = self._gossip_gate(state)
-            new = [self._gossip_flat(flat, pub, use_stale, ctx.step)
-                   for flat, pub in zip(ctx.plan.bucketize(params), state["published"])]
+            new = []
+            for i, (flat, pub) in enumerate(zip(ctx.plan.bucketize(params), state["published"])):
+                with self.annotate(i, "mono"), record_function(format_stale_scope(self.staleness_tau)):
+                    new.append(self._gossip_flat(flat, pub, use_stale, ctx.step))
             state = {**state, "published": tuple(p for _, p in new), "staleness": self._count(state, use_stale)}
             return grads, ctx.plan.debucketize([w for w, _ in new], params), state
         if self._exchanges(ctx.step):
             comm_round = ctx.step // self.communication_interval
-            params = ctx.plan.debucketize(
-                [self._exchange_flat(flat, comm_round) for flat in ctx.plan.bucketize(params)], params)
+            out = []
+            for i, flat in enumerate(ctx.plan.bucketize(params)):
+                with self.annotate(i, "mono"):
+                    out.append(self._exchange_flat(flat, comm_round))
+            params = ctx.plan.debucketize(out, params)
         return grads, params, state
 
     def overlap_exchange(self, bucket_idx: int, grads, ctx: StepContext, params_leaves=None):
@@ -249,18 +256,21 @@ class DecentralizedAlgorithmImpl(_PeerExchange):
         if not self._exchanges(ctx.step):
             return list(params_leaves)
         spec = ctx.plan.specs[bucket_idx]
-        flat = flatten_bucket_leaves(params_leaves, spec)
         if self.staleness_tau is not None:
             # gossip: the bucket's new published flat cannot return through
             # this hook (it hands back the bucket's parameters alone); it
             # waits in ctx.extras for finalize_overlap.  On the card this
             # runs on autograd's thread, the side stream current
             state = ctx.extras["algo_state"]
-            new, published = self._gossip_flat(flat, state["published"][bucket_idx],
-                                               self._gossip_gate(state), ctx.step)
+            with self.annotate(bucket_idx, "overlap"), record_function(format_stale_scope(self.staleness_tau)):
+                new, published = self._gossip_flat(flatten_bucket_leaves(params_leaves, spec),
+                                                   state["published"][bucket_idx],
+                                                   self._gossip_gate(state), ctx.step)
             ctx.extras.setdefault("gossip_published", {})[bucket_idx] = published
             return split_bucket_flat(new, spec)
-        return split_bucket_flat(self._exchange_flat(flat, ctx.step // self.communication_interval), spec)
+        with self.annotate(bucket_idx, "overlap"):
+            flat = flatten_bucket_leaves(params_leaves, spec)
+            return split_bucket_flat(self._exchange_flat(flat, ctx.step // self.communication_interval), spec)
 
     def finalize_overlap(self, grads, params, state, ctx: StepContext):
         """Gossip: fold the buckets' published flats the hooks stashed into
@@ -354,7 +364,10 @@ class LowPrecisionDecentralizedAlgorithmImpl(_PeerExchange):
         flats = ctx.plan.bucketize(params)
         if self._axis() == INTER_AXIS:
             flats = [allreduce(f, ReduceOp.AVG, self.process_group, INTRA_AXIS) for f in flats]
-        new = [self._ring_step(*bucket) for bucket in zip(flats, state["weight"], state["left"], state["right"])]
+        new = []
+        for i, bucket in enumerate(zip(flats, state["weight"], state["left"], state["right"])):
+            with self.annotate(i, "post_step"):
+                new.append(self._ring_step(*bucket))
         weight, left, right = (list(x) for x in zip(*new))
         return ctx.plan.debucketize(weight, params), {"weight": weight, "left": left, "right": right}
 

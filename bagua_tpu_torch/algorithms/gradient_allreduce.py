@@ -131,7 +131,8 @@ class GradientAllReduceAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
         out = []
         for i, (spec, prec) in enumerate(zip(ctx.plan.specs, self.bucket_precisions(ctx.plan))):
             r = resid[i] if resid is not None and prec == "int4" else None
-            red, new_r = self._exchange_bucket([groups[i][s.name] for s in spec.slots], spec, prec, r)
+            with self.annotate(i, "mono"):
+                red, new_r = self._exchange_bucket([groups[i][s.name] for s in spec.slots], spec, prec, r)
             if new_r is not None:
                 resid[i] = new_r
             out.append(dict(zip((s.name for s in spec.slots), red)))
@@ -144,7 +145,8 @@ class GradientAllReduceAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
         operations as :meth:`transform_gradients` runs on it.  int4 and
         ``"auto"`` never get here (``holds_bucketized_state``)."""
         spec = ctx.plan.specs[bucket_idx]
-        return self._exchange_bucket(list(grads), spec, self._precision_for_bucket(bucket_idx, spec))[0]
+        with self.annotate(bucket_idx, "overlap"):
+            return self._exchange_bucket(list(grads), spec, self._precision_for_bucket(bucket_idx, spec))[0]
 
 
 class GradientAllReduceAlgorithm(Algorithm):

@@ -89,8 +89,11 @@ class QAdamAlgorithmImpl(AlgorithmImpl):
     def _allreduce_tree(self, tree, ctx: StepContext, compressed: bool):
         """Each bucket of ``tree`` exchanged; a leaf outside every bucket
         (``dp_filter``) keeps its local value."""
-        return ctx.plan.debucketize(
-            [self._exchange_flat(flat, compressed) for flat in ctx.plan.bucketize(tree)], tree)
+        out = []
+        for i, flat in enumerate(ctx.plan.bucketize(tree)):
+            with self.annotate(i, "mono"):
+                out.append(self._exchange_flat(flat, compressed))
+        return ctx.plan.debucketize(out, tree)
 
     def _momentum(self, m, g):
         b1 = self.optimizer.betas[0]
@@ -136,12 +139,14 @@ class QAdamAlgorithmImpl(AlgorithmImpl):
         tensor :meth:`BucketPlan.bucketize` builds: the monolithic path's
         bits."""
         spec = ctx.plan.specs[bucket_idx]
-        if ctx.step < self.warmup_steps:
-            flat = flatten_bucket_leaves(grads, spec)
-            return split_bucket_flat(self._exchange_flat(flat, compressed=False), spec)
-        m = ctx.plan.group_leaves(ctx.extras["algo_state"]["exp_avg"])[bucket_idx]
-        m2 = [self._momentum(m[s.name], g) for s, g in zip(spec.slots, grads)]
-        return split_bucket_flat(self._exchange_flat(flatten_bucket_leaves(m2, spec), compressed=True), spec)
+        with self.annotate(bucket_idx, "overlap"):
+            if ctx.step < self.warmup_steps:
+                flat = flatten_bucket_leaves(grads, spec)
+                return split_bucket_flat(self._exchange_flat(flat, compressed=False), spec)
+            m = ctx.plan.group_leaves(ctx.extras["algo_state"]["exp_avg"])[bucket_idx]
+            m2 = [self._momentum(m[s.name], g) for s, g in zip(spec.slots, grads)]
+            return split_bucket_flat(self._exchange_flat(flatten_bucket_leaves(m2, spec), compressed=True),
+                                     spec)
 
     def finalize_overlap(self, grads, params, state, ctx: StepContext):
         """``grads`` holds the exchanges' outputs: the averaged gradients in

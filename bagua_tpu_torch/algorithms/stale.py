@@ -33,16 +33,19 @@ State (rank-stacked, laid out on the bound plan):
 At ``τ == 0`` the stage is the parent's, verbatim: bitwise
 ``gradient_allreduce``.  The exchange is f32 only (``set_bucket_precision``
 refuses): stacking wire quantization's error feedback on this one would
-compound two loops.  The JAX package traces every exchange under a
-``bagua_stale/tau=<τ>`` frame for its static verifier, which the port does
-not have yet.
+compound two loops.  Every exchange runs under a ``bagua_stale/tau=<τ>``
+``record_function`` inside its bucket's label, as the JAX package traces it
+under that frame for its static verifier (which the port does not have
+yet).
 """
 
 import torch
+from torch.profiler import record_function
 
 from bagua_tpu_torch.algorithms.base import Algorithm, OverlapCapability, StepContext
 from bagua_tpu_torch.algorithms.gradient_allreduce import GradientAllReduceAlgorithmImpl
 from bagua_tpu_torch.communication import ReduceOp, allreduce, hierarchical_allreduce
+from bagua_tpu_torch.observability.scope_grammar import format_stale_scope
 
 
 def _check_tau(tau) -> int:
@@ -110,7 +113,9 @@ class StaleSyncAlgorithmImpl(GradientAllReduceAlgorithmImpl):
         for i, flat in enumerate(ctx.plan.bucketize(grads)):
             g = flat.to(torch.float32)
             contrib = torch.where(gate, state["stale"][i], g + state["residual"][i])
-            out.append(reduce(contrib, op, self.process_group).to(flat.dtype))
+            with self.annotate(i, "mono"), record_function(format_stale_scope(self.staleness_tau)):
+                avg = reduce(contrib, op, self.process_group)
+            out.append(avg.to(flat.dtype))
             new_stale.append(torch.where(gate, state["stale"][i], g))
             new_resid.append(state["residual"][i] + g - contrib)
         state = {

@@ -169,6 +169,10 @@ class BucketPlan:
     def num_buckets(self) -> int:
         return len(self.specs)
 
+    def total_bytes(self) -> int:
+        """Bytes of every bucket, padding included: one rank's wire census."""
+        return sum(s.nbytes for s in self.specs)
+
     def __repr__(self) -> str:
         return f"BucketPlan(buckets={[(len(s.slots), s.numel, s.dtype) for s in self.specs]})"
 

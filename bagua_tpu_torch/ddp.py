@@ -74,6 +74,27 @@ no optimizer call off its boundary steps.  The knobs of a live run:
 (between ``gradient_allreduce``, ``zero`` and ``bytegrad``) and
 ``shutdown`` / ``abort`` / ``resume`` (the algorithm's background
 machinery).
+
+Observability (``telemetry=``, ``health_monitor=``): a
+:class:`~bagua_tpu_torch.observability.telemetry.Telemetry` hub sees each
+step in the JAX engine's order (``on_step_start``, ``on_compile`` on a
+step-cache miss, ``enter_phase("dispatch")``, the flight recorder's replay
+around the step, ``on_compile_done``, ``enter_phase("wait")``,
+``on_step``), and every plan, precision, staleness or algorithm switch.
+The port has no jit cache: a "miss" is the first step of a variant after
+a reset (the engine's start, a switch, the algorithm's ``need_reset``).
+The flight recorder's program of a variant is captured on the first step
+after the engine's start or a switch (the overlap hooks re-enter the
+capture on autograd's thread) and replayed into the ring on every step.
+A :class:`~bagua_tpu_torch.observability.health.HealthMonitor` gets each
+step's loss, gradient norm and non-finite count, the columns of
+``health_scalars``: the losses and norms are read on the host once a
+step (on the card through pinned memory as soon as they are made, while
+the optimizer's kernels stay queued), and the count, several passes over
+the gradients and zero wherever a norm is finite, is taken only after a
+non-finite norm.  Both
+are host-side readers: the step's tensors are the same with them on or
+off.
 """
 
 import contextlib
@@ -91,36 +112,20 @@ from bagua_tpu_torch.communication import BaguaProcessGroup, default_axes, get_d
 from bagua_tpu_torch.defs import TensorDeclaration
 from bagua_tpu_torch.env import get_default_bucket_size
 from bagua_tpu_torch.mesh import _none_of_declared
+from bagua_tpu_torch.observability.core import StepTimer
+from bagua_tpu_torch.observability.flight_recorder import capture_program
+from bagua_tpu_torch.observability.health import grad_norms, nonfinite_counts
+from bagua_tpu_torch.observability.metrics import (
+    SWITCH_REASON_FAMILIES,
+    switch_reason_family,
+    validate_switch_reason,
+)
+from bagua_tpu_torch.observability.scope_grammar import format_exchange_label
 from bagua_tpu_torch.sharded.layout import ShardLayout
 from bagua_tpu_torch.sharded.updater import ShardedOptimizerUpdater, ShardedOptState
 from bagua_tpu_torch.utils import SpeedMeter, tree_flatten_with_names, tree_leaves, tree_map, tree_unflatten
 
 logger = logging.getLogger(__name__)
-
-#: who asked for a configuration switch (``rebucket``, ``apply_precision_plan``):
-#: ``planner`` and ``manual`` bare, ``health:<kind>`` and ``autopilot:<incident>``
-#: with a detail (the JAX package's ``observability/metrics.py`` vocabulary)
-SWITCH_REASON_FAMILIES = ("planner", "health", "autopilot", "manual")
-
-
-def validate_switch_reason(reason: str) -> str:
-    """``reason`` unchanged if it speaks the switch vocabulary, else ValueError."""
-    reason = str(reason)
-    family, sep, detail = reason.partition(":")
-    if family not in SWITCH_REASON_FAMILIES:
-        raise ValueError(
-            f"switch reason {reason!r} is not in the validated vocabulary "
-            f"(families: {'|'.join(SWITCH_REASON_FAMILIES)})"
-        )
-    if family in ("health", "autopilot") and not detail:
-        raise ValueError(
-            f"switch reason {reason!r} needs a detail suffix "
-            f"({family}:<{'kind' if family == 'health' else 'incident'}>)"
-        )
-    if family in ("planner", "manual") and sep:
-        raise ValueError(f"switch reason {reason!r} must be bare ({family!r} takes no detail suffix)")
-    return reason
-
 
 def _on_data_axes(method):
     """Run an engine method with ``axis=None`` collectives resolving to the
@@ -177,6 +182,22 @@ class DistributedDataParallel:
             ``dp_axis`` and ``fsdp_axis``, model for ``tp_axis``), else
             ValueError.  They assert, they do not assign: roles are the
             :class:`~bagua_tpu_torch.mesh.MeshSpec`'s.
+        telemetry: an optional
+            :class:`~bagua_tpu_torch.observability.telemetry.Telemetry` hub.
+            When attached the engine reports every step-cache miss (the
+            recompile detector), tags the host's position in the step
+            (watchdog phase heartbeats), replays each step's collective
+            program into the hub's flight recorder and feeds per-step wall
+            time, samples/s, wire bytes and host overhead into the metrics
+            pipeline.  Host-side only: the step's tensors are the same with
+            or without it.
+        health_monitor: an optional
+            :class:`~bagua_tpu_torch.observability.health.HealthMonitor`,
+            fed each step the ranks' mean loss, largest gradient norm and
+            non-finite count (the columns of
+            :func:`~bagua_tpu_torch.observability.health.health_scalars` on
+            the exchanged gradients: pure reads, one device-to-host copy a
+            step; the count only after a non-finite norm).
     """
 
     def __init__(
@@ -188,6 +209,8 @@ class DistributedDataParallel:
         bucket_size_bytes: Optional[int] = None,
         dp_filter: Optional[Callable[[str], bool]] = None,
         overlap="auto",
+        telemetry=None,
+        health_monitor=None,
         dp_axis=None,
         fsdp_axis=None,
         tp_axis=None,
@@ -240,6 +263,33 @@ class DistributedDataParallel:
         self.speed_meter = SpeedMeter()
         #: each rank's index within the data axes: the batch block it takes
         self._data_rank = rank_id(self.group, self.group.data_axes)
+        #: the step variants run since the last reset: the port's
+        #: counterpart of the JAX engine's jit cache, whose misses the
+        #: telemetry's recompile detector counts
+        self._variants_seen = set()
+        #: per-variant collective programs for the flight recorder: captured
+        #: on the variant's first step, replayed into the ring every step;
+        #: cleared wherever the collective sequence changes (a rebucket, a
+        #: precision, staleness or algorithm switch)
+        self._flight_programs = {}
+        #: the events list of the capture in progress, re-entered by the
+        #: overlap hooks (autograd's thread on the card)
+        self._capture: Optional[list] = None
+        #: steps completed as the engine last saw them: the step the
+        #: switch events name
+        self._host_step = 0
+        #: cumulative host-side seconds per train_step phase: pre
+        #: (host_pre_dispatch), lock_wait (host_dispatch_lock acquisition),
+        #: dispatch (the step's host work and kernel launches), post
+        #: (host_post_dispatch); read/reset via host_overhead_snapshot()
+        self.host_overhead = {"pre": 0.0, "lock_wait": 0.0, "dispatch": 0.0, "post": 0.0, "steps": 0}
+        self.telemetry = telemetry
+        self.health_monitor = health_monitor
+        if health_monitor is not None and telemetry is not None:
+            health_monitor.bind_telemetry(telemetry)
+        #: host-observed train_step wall times (ring-buffered), whose
+        #: p50/p95/p99 host_overhead_snapshot reports
+        self.step_timer = StepTimer()
 
     def _validate_mesh_axes(self, **axis_kwargs):
         """Check the ``dp_axis``/``fsdp_axis``/``tp_axis`` keywords against the
@@ -323,6 +373,7 @@ class DistributedDataParallel:
     def _adopt_plan(self, plan: BucketPlan) -> None:
         self.plan = plan
         self.impl.bind_plan(plan)
+        self._reset_programs()
         if getattr(self.impl, "sharded_update", False):
             self._sharded_updater = ShardedOptimizerUpdater(self.optimizer, plan, self.group)
         self.exchange_counts = [0] * plan.num_buckets
@@ -407,7 +458,10 @@ class DistributedDataParallel:
         start = torch.cuda.current_stream(device).record_event() if side is not None else None
 
         def issue(bi):
-            with default_axes(self.group.data_axes):
+            # the hooks run on autograd's thread on the card: enter the data
+            # axes and the flight capture there again
+            capture = capture_program(self._capture) if self._capture is not None else contextlib.nullcontext()
+            with default_axes(self.group.data_axes), capture:
                 exchange(bi)
             self.exchange_order.append(bi)
             self.exchange_counts[bi] += 1
@@ -479,7 +533,9 @@ class DistributedDataParallel:
         Around the step the algorithm's host hooks run: ``host_pre_dispatch``
         first (async model average folds a landed delta there), then the
         whole step and ``host_post_dispatch`` under ``host_dispatch_lock``
-        where the algorithm has one (its background thread takes it too)."""
+        where the algorithm has one (its background thread takes it too).
+        The telemetry and the health monitor, when attached, are fed as the
+        module docstring says."""
         for t in tree_leaves(batch):
             if t.shape[0] % self.group.exchange_size:
                 raise ValueError(
@@ -487,15 +543,181 @@ class DistributedDataParallel:
                     f"{self.group.exchange_size}"
                 )
         batch = tree_map(lambda t: t.to(self.group.device, non_blocking=True), batch)
+        impl, step = self.impl, state.step
+        if impl.need_reset(step):
+            self._variants_seen = set()
+        variant = impl.step_variant(step)
+        tel = self.telemetry
+        if tel is not None:
+            tel.on_step_start(step, variant=variant)
+        missed = variant not in self._variants_seen
+        if missed:
+            if tel is not None:
+                tel.on_compile(variant, step)
+            self._variants_seen.add(variant)
+        ov, step_ov = self.host_overhead, {}
+        t0 = time.perf_counter()
         if self._pending_reshard is not None:
             state = self._apply_pending_reshard(state)
-        impl = self.impl
         state = impl.host_pre_dispatch(state)
+        t1 = time.perf_counter()
+        step_ov["pre"] = t1 - t0
+        if tel is not None:
+            tel.enter_phase("dispatch")
+        flight = tel.flight if tel is not None else None
         lock = impl.host_dispatch_lock
         with lock if lock is not None else contextlib.nullcontext():
-            new_state, losses = self._step(state, batch)
+            t2 = time.perf_counter()
+            if lock is not None:
+                step_ov["lock_wait"] = t2 - t1
+            new_state, losses, health = self._flight_dispatch(state, batch, variant, flight)
+            t3 = time.perf_counter()
+            step_ov["dispatch"] = t3 - t2
             impl.host_post_dispatch(new_state, new_state.step)
+            step_ov["post"] = time.perf_counter() - t3
+        self._host_step = new_state.step
+        for k, v in step_ov.items():
+            ov[k] += v
+        ov["steps"] += 1
+        wall = time.perf_counter() - t0
+        self.step_timer.tick(wall)
+        if tel is not None:
+            if missed:
+                # the miss step's dispatch wall: the JAX engine's compile wall
+                tel.on_compile_done(variant, step, wall_ms=step_ov["dispatch"] * 1e3)
+            tel.enter_phase("wait")
+            self._report_step(tel, step, wall, batch, variant, step_ov)
+        if health is not None:
+            self._observe_health(step, new_state, *health)
         return new_state, losses
+
+    @staticmethod
+    def _health_rows(losses, grads):
+        """The step's losses and gradient norms, ``(2, size)``, pure reads of
+        the loss and the exchanged gradients, on their way to the host: on
+        the card a copy into pinned memory behind an event, so that reading
+        them waits for these rows, not for the optimizer's kernels queued
+        after them.  Returns ``(losses, grads, rows, event)``."""
+        rows = torch.stack([losses.to(torch.float32), grad_norms(losses, grads)])
+        if not rows.is_cuda:
+            return losses, grads, rows, None
+        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
+        return losses, grads, host, torch.cuda.current_stream(rows.device).record_event()
+
+    def _observe_health(self, step: int, state: TrainState, losses, grads, rows, copied) -> None:
+        """Feed the health monitor the ranks' mean loss, largest gradient
+        norm and summed non-finite count (``health_scalars``' columns, as the
+        JAX engine's ``_read_health`` aggregates them): one device-to-host
+        read of the losses and norms; the count, which is zero wherever a
+        norm is finite, only after a non-finite norm."""
+        if copied is not None:
+            copied.synchronize()
+        rows = rows.double()
+        nonfinite = 0 if bool(torch.isfinite(rows[1]).all()) else int(nonfinite_counts(losses, grads).sum())
+        self.health_monitor.observe(step=step, loss=float(rows[0].mean()), grad_norm=float(rows[1].max()),
+                                    nonfinite=nonfinite, state=state)
+
+    def _report_step(self, tel, step: int, wall: float, batch, variant: str, step_ov: dict) -> None:
+        """The step's ``on_step`` event: samples, the plan's wire bytes, by
+        leg under a sharded update (a reduce-scatter and an all-gather of N
+        bytes move N (n - 1) / n each), by precision, and on a named mesh by
+        axis (from the variant's captured program, each record's bytes
+        split evenly over its axes, else the plan's bytes over the data
+        axes)."""
+        leaves = tree_leaves(batch)
+        n_samples = int(leaves[0].shape[0]) if leaves and leaves[0].dim() else 0
+        plan = self.plan
+        by_leg = by_precision = by_axis = None
+        if self._sharded_updater is not None:
+            n = self.group.exchange_size
+            leg = plan.total_bytes() * (n - 1) // n
+            by_leg = {"rs": leg, "ag": leg}
+        if hasattr(self.impl, "wire_bytes_by_precision"):
+            by_precision = self.impl.wire_bytes_by_precision(plan)
+        if self.group.mesh_spec is not None:
+            by_axis = {}
+            for rec in self._flight_programs.get(variant) or ():
+                axes = [a for a in (rec.get("axes") or ()) if a]
+                for ax in axes:
+                    by_axis[ax] = by_axis.get(ax, 0) + int(rec.get("nbytes") or 0) // len(axes)
+            if not by_axis:
+                axes = [a for a in self.group.data_axes if a]
+                by_axis = {ax: plan.total_bytes() // len(axes) for ax in axes} if axes else {}
+            by_axis = by_axis or None
+        tel.on_step(
+            step=step, wall_s=wall, n_samples=n_samples, wire_bytes=plan.total_bytes(),
+            variant=variant, host_overhead=step_ov, wire_bytes_by_leg=by_leg,
+            wire_bytes_by_precision=by_precision, wire_bytes_by_axis=by_axis,
+        )
+
+    def host_overhead_snapshot(self, reset: bool = False) -> dict:
+        """Per-step host-side milliseconds by phase (see ``host_overhead``)
+        and the p50/p95/p99 of the step wall."""
+        ov = dict(self.host_overhead)
+        n = max(1, ov.pop("steps"))
+        out = {f"{k}_ms_per_step": round(v * 1e3 / n, 3) for k, v in ov.items()}
+        out["steps"] = n
+        out["step_wall_ms"] = {k: round(v * 1e3, 3) for k, v in self.step_timer.percentiles().items()}
+        if reset:
+            for k in self.host_overhead:
+                self.host_overhead[k] = 0.0 if k != "steps" else 0
+        return out
+
+    # -- the flight recorder: capture once, replay every step ---------------------
+
+    def _flight_dispatch(self, state: TrainState, batch, variant: str, flight):
+        """Run one step, feeding the flight recorder: the variant's program
+        is captured on its first step (every ``annotate`` and ring call of
+        the step notifies the capture), then replayed into the ring before
+        every step and retired after it, so a host that wedges inside the
+        step leaves unretired records as evidence."""
+        if flight is None:
+            return self._step(state, batch)
+        prog = self._flight_programs.get(variant)
+        if prog is None:
+            with capture_program() as events:
+                self._capture = events
+                try:
+                    out = self._step(state, batch)
+                finally:
+                    self._capture = None
+            prog = self._flight_programs[variant] = self._flight_finalize(variant, events)
+            flight.retire(flight.record_program(prog, step=state.step))
+            return out
+        if not prog:
+            return self._step(state, batch)
+        seqs = flight.record_program(prog, step=state.step)
+        out = self._step(state, batch)
+        flight.retire(seqs)
+        return out
+
+    def _flight_finalize(self, variant: str, events) -> tuple:
+        """The captured descriptors as replayable record templates: each
+        bucket's plan bytes and wire precision, the plan version, the
+        variant and the label in the scope grammar, so ring records and
+        trace labels join on one key."""
+        plan = self.plan
+        precisions = self.impl.bucket_precisions(plan) if hasattr(self.impl, "bucket_precisions") else None
+        out = []
+        for ev in events:
+            rec = dict(ev)
+            b = int(rec.get("bucket", -1))
+            if "nbytes" not in rec:
+                rec["nbytes"] = int(plan.specs[b].nbytes) if 0 <= b < len(plan.specs) else 0
+            if "precision" not in rec:
+                rec["precision"] = str(precisions[b]) if precisions and 0 <= b < len(precisions) else "f32"
+            rec["plan_version"] = int(self.plan_version)
+            rec["variant"] = str(variant)
+            rec["label"] = format_exchange_label(rec["algo"], b, rec["phase"])
+            out.append(rec)
+        return tuple(out)
+
+    def _reset_programs(self) -> None:
+        """The collective sequence changed: the next step of every variant
+        counts as a miss and captures its program again."""
+        self._variants_seen = set()
+        self._flight_programs = {}
 
     def _step(self, state: TrainState, batch):
         impl = self.impl
@@ -512,6 +734,7 @@ class DistributedDataParallel:
             grads, params, algo_state = impl.transform_gradients(local, params, algo_state, ctx)
         if mode is not None:
             grads, params, algo_state = impl.finalize_overlap(grads, params, algo_state, ctx)
+        health = self._health_rows(losses, grads) if self.health_monitor is not None else None
         self._write_params(state.params, params)
         if self._sharded_updater is not None:
             covered = self.plan.covered()
@@ -528,7 +751,7 @@ class DistributedDataParallel:
         # optimizer call at all, so Adam's count and moments stay as they are
         params, algo_state = impl.on_step_end(state.params, algo_state, ctx)
         self._write_params(state.params, params)
-        return TrainState(state.params, state.optimizer, algo_state, state.step + 1), losses
+        return TrainState(state.params, state.optimizer, algo_state, state.step + 1), losses, health
 
     # -- the bucket plan ----------------------------------------------------------
 
@@ -538,10 +761,11 @@ class DistributedDataParallel:
         follow it, and under a sharded-update algorithm the next step first
         migrates the optimizer's shards and the pending parameter shards to
         the new layout.  ``reason`` speaks the switch vocabulary
-        (``planner | health:<kind> | autopilot:<incident> | manual``).
-        ``predicted_exposed_ms`` is the planner's prediction for the plan,
-        which the JAX engine's telemetry records; the port has no telemetry
-        yet and does not read it."""
+        (``planner | health:<kind> | autopilot:<incident> | manual``) and
+        rides the telemetry's ``rebucket`` event with
+        ``predicted_exposed_ms``, the planner's prediction for the plan.
+        The JAX engine also re-verifies the step statically here; the port
+        has no static verifier yet (ROADMAP Queue 1 item 8)."""
         validate_switch_reason(reason)
         if getattr(self.impl, "holds_bucketized_state", False):
             raise ValueError(
@@ -555,7 +779,12 @@ class DistributedDataParallel:
         self.impl.overlap_hint = self.overlap_enabled
         self._adopt_plan(plan)
         self.plan_version += 1
-        self._plan_source = reason.partition(":")[0]
+        self._plan_source = switch_reason_family(reason)
+        if self.telemetry is not None:
+            self.telemetry.on_rebucket(
+                plan_version=self.plan_version, n_buckets=plan.num_buckets, step=self._host_step,
+                predicted_exposed_ms=predicted_exposed_ms, reason=reason,
+            )
 
     def export_plan_payload(self) -> Optional[dict]:
         """The live bucket plan and the configuration adopted with it (the
@@ -637,9 +866,9 @@ class DistributedDataParallel:
         it.  Returns True when the resolved per-bucket precisions changed.
         An algorithm without the ``wire_precision`` knob raises
         AttributeError.  ``reason`` speaks the switch vocabulary and is
-        recorded as the plan's source; the JAX engine also re-verifies the
-        step statically and emits a telemetry event here, which the port
-        does not have yet."""
+        recorded as the plan's source; a change emits the telemetry's
+        ``precision_switch`` event.  The JAX engine also re-verifies the
+        step statically here (ROADMAP Queue 1 item 8)."""
         validate_switch_reason(reason)
         impl = self.impl
         if not hasattr(impl, "set_bucket_precision"):
@@ -650,15 +879,23 @@ class DistributedDataParallel:
         old = impl.bucket_precisions(self.plan) if self.plan is not None else None
         impl.set_bucket_precision(precisions)
         new = impl.bucket_precisions(self.plan) if self.plan is not None else None
-        self._plan_source = reason.partition(":")[0]
-        return new != old
+        self._plan_source = switch_reason_family(reason)
+        if new == old:
+            return False
+        self._reset_programs()
+        if self.telemetry is not None:
+            self.telemetry.on_precision_switch(
+                step=self._host_step, plan_version=self.plan_version,
+                old_precisions=old or [], new_precisions=new or [], reason=reason,
+            )
+        return True
 
     # -- bounded staleness ---------------------------------------------------------
     #
-    # The JAX engine re-traces the step, re-verifies it statically and emits
-    # a telemetry event on each of these switches; the port runs its stages
-    # eagerly (nothing to re-trace) and has neither a static verifier nor
-    # telemetry yet.
+    # The JAX engine re-traces the step and re-verifies it statically on a τ
+    # switch; the port runs its stages eagerly (nothing to re-trace) and has
+    # no static verifier yet (ROADMAP Queue 1 item 8).  Both emit the
+    # telemetry's ``staleness_switch`` event.
 
     def _staleness_impl(self, what: str) -> AlgorithmImpl:
         """The algorithm, if it has the staleness knob; ``what`` names the
@@ -688,7 +925,13 @@ class DistributedDataParallel:
         impl.set_staleness_tau(tau)
         if old_tau == tau:
             return False
-        self._plan_source = reason.partition(":")[0]
+        self._reset_programs()
+        self._plan_source = switch_reason_family(reason)
+        if self.telemetry is not None:
+            self.telemetry.on_staleness_switch(
+                step=self._host_step, plan_version=self.plan_version, old_tau=old_tau, new_tau=tau,
+                reason=reason,
+            )
         return True
 
     def apply_degradation_directive(self, state: TrainState, ranks) -> TrainState:
@@ -712,6 +955,11 @@ class DistributedDataParallel:
                 raise ValueError(f"rank {r} out of range for world size {n}")
             flags[r] = 1
         directive = flags.to(algo_state["directive"].device)
+        if self.telemetry is not None:
+            for r in range(n):
+                self.telemetry.registry.gauge(
+                    f"staleness_directive_rank{r}", help="1 while this rank is allowed to run stale",
+                ).set(int(flags[r]))
         return dataclasses.replace(state, algo_state={**algo_state, "directive": directive})
 
     def reset_staleness_state(self, state: TrainState) -> TrainState:
@@ -759,9 +1007,10 @@ class DistributedDataParallel:
         same stacked parameter tensors.  Residuals restart at zero.  On any
         exception the engine rolls back its algorithm, plan, updater,
         overlap knob and plan version, and the caller keeps ``state``.  A
-        switch to the running algorithm returns ``state`` itself.  The JAX
-        engine also re-verifies the new step statically and emits a
-        telemetry event, which the port does not have yet."""
+        switch to the running algorithm returns ``state`` itself.  A switch
+        emits the telemetry's ``rebucket`` event naming the new algorithm.
+        The JAX engine also re-verifies the new step statically
+        (ROADMAP Queue 1 item 8)."""
         from bagua_tpu_torch.algorithms import build_algorithm
 
         validate_switch_reason(reason)
@@ -839,8 +1088,14 @@ class DistributedDataParallel:
             self.impl.bind_plan(self.plan)
             self._pending_reshard = pending_before
             self.plan_version = version + 1  # a version names one configuration: never reuse one
+            self._reset_programs()
             raise
-        self._plan_source = reason.partition(":")[0]
+        self._plan_source = switch_reason_family(reason)
+        if self.telemetry is not None:
+            self.telemetry.on_rebucket(
+                plan_version=self.plan_version, n_buckets=self.plan.num_buckets, step=self._host_step,
+                reason=reason, algorithm=new_name,
+            )
         return TrainState(state.params, optimizer, algo_state, state.step)
 
     # -- the sharded update --------------------------------------------------------

@@ -1,6 +1,7 @@
 """Environment/config accessors (the port of ``bagua_tpu/env.py``)."""
 
 import os
+from typing import Optional
 
 
 def get_default_bucket_size() -> int:
@@ -17,3 +18,134 @@ def get_world_size() -> int:
 def get_rank() -> int:
     """This process's index in the job: ``RANK``, else 0."""
     return int(os.environ.get("RANK", 0))
+
+
+def get_metrics_max_mb() -> float:
+    """``BAGUA_METRICS_MAX_MB``: size-based rotation threshold (MiB) for the
+    telemetry JSONL event stream — the live file rotates to ``path.N`` when
+    it would exceed this.  0 (the default) disables rotation."""
+    return float(os.environ.get("BAGUA_METRICS_MAX_MB", 0) or 0)
+
+
+def get_flight_recorder_enabled() -> bool:
+    """``BAGUA_FLIGHT_RECORDER``: the collective flight recorder — the
+    per-rank black-box ring of one record per collective the engine issues
+    (``bagua_tpu_torch/observability/flight_recorder.py``).  On by default whenever a
+    telemetry hub is attached; ``0``/``false``/``off`` disables.  The
+    recorder is bitwise-inert either way — the knob trades the (tiny)
+    host-side replay cost for hang forensics."""
+    return os.environ.get("BAGUA_FLIGHT_RECORDER", "1").strip().lower() not in (
+        "0", "false", "off", ""
+    )
+
+
+def get_tracing_enabled() -> bool:
+    """``BAGUA_TRACING``: the distributed tracer — causal spans from the
+    train step through the RPC tier to the fleet control plane
+    (``bagua_tpu_torch/observability/tracing.py``).  Off by default (unlike the flight
+    recorder: tracing writes a span stream, not just a ring); any of
+    ``1``/``true``/``on`` enables.  Bitwise-inert either way — the knob
+    trades host-side span bookkeeping for a queryable timeline."""
+    return os.environ.get("BAGUA_TRACING", "0").strip().lower() in (
+        "1", "true", "on", "yes"
+    )
+
+
+def get_trace_sample_every() -> int:
+    """``BAGUA_TRACE_SAMPLE``: step-sampling cadence for the tracer — a
+    root span is opened every Nth step (1, the default, traces every step;
+    RPCs issued outside a sampled step still get root client spans).
+    Clamped to ≥ 1."""
+    try:
+        return max(1, int(os.environ.get("BAGUA_TRACE_SAMPLE", 1)))
+    except ValueError:
+        return 1
+
+
+def get_trace_path() -> Optional[str]:
+    """``BAGUA_TRACE_PATH``: where the tracer appends its span JSONL
+    (one ``bagua.span.v1`` object per line — what ``ci/export_timeline.py``
+    renders to Perfetto).  None (default) keeps spans in the in-memory ring
+    only."""
+    return os.environ.get("BAGUA_TRACE_PATH") or None
+
+
+def get_regression_sentinel_enabled() -> bool:
+    """``BAGUA_REGRESSION_SENTINEL``: the performance-regression sentinel —
+    per-step budget attribution plus CUSUM changepoint detection over the
+    step-wall and goodput streams (``bagua_tpu_torch/observability/regression.py``).  Off
+    by default (it emits ``perf_regression`` incidents, an operator-facing
+    stream); any of ``1``/``true``/``on`` enables.  Bitwise-inert either
+    way — the knob trades host-side arithmetic for a slowdown verdict."""
+    return os.environ.get("BAGUA_REGRESSION_SENTINEL", "0").strip().lower() in (
+        "1", "true", "on", "yes"
+    )
+
+
+def get_regression_warmup() -> int:
+    """``BAGUA_REGRESSION_WARMUP``: steps the sentinel's CUSUM baselines
+    settle before a trip is possible (the health monitor's warmup
+    discipline).  Clamped to ≥ 1."""
+    try:
+        return max(1, int(os.environ.get("BAGUA_REGRESSION_WARMUP", 30)))
+    except ValueError:
+        return 30
+
+
+def get_regression_threshold() -> float:
+    """``BAGUA_REGRESSION_THRESHOLD``: the CUSUM trip threshold ``h`` in
+    baseline-σ units of accumulated drift.  Higher = fewer, surer
+    incidents; the default (8) holds a clean jittery run tripless while a
+    sustained few-σ shift still trips within a handful of steps."""
+    try:
+        return max(1.0, float(os.environ.get("BAGUA_REGRESSION_THRESHOLD", 8.0)))
+    except ValueError:
+        return 8.0
+
+
+def get_regression_cooldown() -> int:
+    """``BAGUA_REGRESSION_COOLDOWN``: steps after a sentinel trip before
+    it may trip again — one sustained regression becomes one incident, not
+    a stream of them."""
+    try:
+        return max(0, int(os.environ.get("BAGUA_REGRESSION_COOLDOWN", 50)))
+    except ValueError:
+        return 50
+
+
+def get_flight_ring_size() -> int:
+    """``BAGUA_FLIGHT_RING``: flight-recorder ring capacity in records.
+    The default (4096) covers hundreds of steps of a typical bucket plan —
+    far past any watchdog timeout — in ~a few MB of host memory."""
+    return int(os.environ.get("BAGUA_FLIGHT_RING", 4096))
+
+
+def get_dump_dir() -> str:
+    """``BAGUA_DUMP_DIR``: where hang evidence lands (the watchdog's
+    ``watchdog_dump.json``, the flight recorder's ``flight_<rank>.json``).
+    Defaults to the working directory."""
+    return os.environ.get("BAGUA_DUMP_DIR") or "."
+
+
+def get_rpc_retries() -> int:
+    """``BAGUA_RPC_RETRIES``: attempts (1 + retries) for service RPCs
+    (autotune client, rendezvous KV) before the error surfaces."""
+    return int(os.environ.get("BAGUA_RPC_RETRIES", 3))
+
+
+def get_rpc_backoff_base_s() -> float:
+    return float(os.environ.get("BAGUA_RPC_BACKOFF_BASE_S", 0.1))
+
+
+def get_rpc_backoff_max_s() -> float:
+    return float(os.environ.get("BAGUA_RPC_BACKOFF_MAX_S", 2.0))
+
+
+def get_rpc_breaker_threshold() -> int:
+    """``BAGUA_RPC_BREAKER_THRESHOLD``: consecutive RPC failures before the
+    circuit opens and calls fail fast (0 disables circuit breaking)."""
+    return int(os.environ.get("BAGUA_RPC_BREAKER_THRESHOLD", 5))
+
+
+def get_rpc_breaker_cooldown_s() -> float:
+    return float(os.environ.get("BAGUA_RPC_BREAKER_COOLDOWN_S", 30.0))

@@ -35,14 +35,16 @@ switch, its evidence gate and ``get_collective_matmul`` are not carried
 over: dispatch is by device, so the rings always take :func:`matmul_tile`.
 """
 
+import contextlib
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from bagua_tpu_torch.communication import _axes, axis_size, ppermute_shift, rank_id
 from bagua_tpu_torch.kernels import _build
 from bagua_tpu_torch.kernels import minmax_uint8 as mm8
+from bagua_tpu_torch.observability.annotations import mp_scope
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +155,12 @@ def _axis_meta(group, axis) -> int:
     return axis_size(group, axes[0])
 
 
+def _scope(axis_tag: Optional[str], phase: str):
+    """A model-parallel exchange label around one ring hop (none when
+    untagged)."""
+    return contextlib.nullcontext() if axis_tag is None else mp_scope(axis_tag, phase)
+
+
 def _ring_arcs(ring: str, n: int) -> Tuple[int, int]:
     """Hop counts per direction: ``"uni"`` walks the ``n - 1``-hop ring one
     way; ``"bidir"`` splits it into two counter-rotating arcs of
@@ -165,7 +173,7 @@ def _ring_arcs(ring: str, n: int) -> Tuple[int, int]:
 
 
 def ag_matmul(x_shard: torch.Tensor, w_local: torch.Tensor, group, axis="intra", *,
-              ring: str = "uni") -> torch.Tensor:
+              axis_tag: Optional[str] = None, ring: str = "uni") -> torch.Tensor:
     """All-gather matmul: ``allgather(x_shard) @ w_local`` over ``axis``.
 
     ``x_shard (R, m_shard, k)``: each rank's row block of the activations;
@@ -174,7 +182,9 @@ def ag_matmul(x_shard: torch.Tensor, w_local: torch.Tensor, group, axis="intra",
     while the ring forwards it.  Returns ``(R, n * m_shard, n_local)`` with
     rows in source-member order.  ``ring="bidir"`` forwards half the blocks
     each way; every block is still multiplied whole by the same kernel, so
-    the result is bitwise the unidirectional ring's."""
+    the result is bitwise the unidirectional ring's.  ``axis_tag`` (``"tp"``)
+    labels every hop ``mp_scope(axis_tag, "ag_ring")``, as in the JAX
+    package."""
     n = _axis_meta(group, axis)
     kf, kb = _ring_arcs(ring, n)
     if n == 1:
@@ -185,10 +195,12 @@ def ag_matmul(x_shard: torch.Tensor, w_local: torch.Tensor, group, axis="intra",
     parts[0] = tile_matmul(x_shard, w_local)
     fbuf = bbuf = x_shard
     for t in range(1, kf + 1):
-        fbuf = ppermute_shift(fbuf, 1, group, axis)
+        with _scope(axis_tag, "ag_ring"):
+            fbuf = ppermute_shift(fbuf, 1, group, axis)
         parts[t] = tile_matmul(fbuf, w_local)
         if t <= kb:
-            bbuf = ppermute_shift(bbuf, -1, group, axis)
+            with _scope(axis_tag, "ag_ring"):
+                bbuf = ppermute_shift(bbuf, -1, group, axis)
             parts[n - t] = tile_matmul(bbuf, w_local)
     # block s of a rank's output is member s's: parts[(idx - s) mod n], a
     # different order on every rank (JAX's roll of the reversed stack)
@@ -201,7 +213,7 @@ def ag_matmul(x_shard: torch.Tensor, w_local: torch.Tensor, group, axis="intra",
 
 
 def matmul_rs(x_local: torch.Tensor, w_local: torch.Tensor, group, axis="intra", *,
-              ring: str = "uni") -> torch.Tensor:
+              axis_tag: Optional[str] = None, ring: str = "uni") -> torch.Tensor:
     """Matmul reduce-scatter: each rank's row block of ``allreduce_SUM(x_local
     @ w_local)`` over ``axis``.
 
@@ -213,6 +225,7 @@ def matmul_rs(x_local: torch.Tensor, w_local: torch.Tensor, group, axis="intra",
     rows ``[idx m/n, (idx+1) m/n)``: ``(R, m / n, features)``.
     ``ring="bidir"`` sums the same partial products over two arcs, in
     another order (equal to f32 rounding; bitwise where the sums are exact).
+    ``axis_tag`` labels every hop ``mp_scope(axis_tag, "rs_ring")``.
 
     The slices are taken from one per-rank rotation of ``x_local``'s row
     blocks (a gather, as JAX's ``dynamic_slice`` is), after which every
@@ -242,20 +255,27 @@ def matmul_rs(x_local: torch.Tensor, w_local: torch.Tensor, group, axis="intra",
         for t in range(1, n):
             # arrival order is fixed by the ring, so the serial sum order is
             # the JAX package's
-            acc = ppermute_shift(acc, -1, group, axis) + part(t)
+            with _scope(axis_tag, "rs_ring"):
+                acc = ppermute_shift(acc, -1, group, axis)
+            acc = acc + part(t)
         return acc
     # backward chain: born at member d + ka, adds every member down to the
     # destination: sources d+ka .. d+1, then d's own part
     acc_a = part(-ka - 1)
     for t in range(1, ka + 1):
-        acc_a = ppermute_shift(acc_a, -1, group, axis) + part(t - ka - 1)
+        with _scope(axis_tag, "rs_ring"):
+            acc_a = ppermute_shift(acc_a, -1, group, axis)
+        acc_a = acc_a + part(t - ka - 1)
     if kb == 0:
         return acc_a
     # forward chain: born at member d - kb, adds through d - 1, then one last
     # hop delivers it (d's own part rode the backward chain)
     acc_b = part(kb - 1)
     for t in range(1, kb):
-        acc_b = ppermute_shift(acc_b, 1, group, axis) + part(kb - 1 - t)
-    acc_b = ppermute_shift(acc_b, 1, group, axis)
+        with _scope(axis_tag, "rs_ring"):
+            acc_b = ppermute_shift(acc_b, 1, group, axis)
+        acc_b = acc_b + part(kb - 1 - t)
+    with _scope(axis_tag, "rs_ring"):
+        acc_b = ppermute_shift(acc_b, 1, group, axis)
     return acc_a + acc_b
 

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from bagua_tpu_torch.communication import allgather, axis_size, ppermute_shift, rank_id
 from bagua_tpu_torch.kernels import _build
 from bagua_tpu_torch.kernels import minmax_uint8 as mm8
+from bagua_tpu_torch.observability.flight_recorder import notify_ring
 
 LEVELS4 = 15.0  # int4: 16 levels
 DEFAULT_BLOCK = 4096
@@ -258,6 +259,10 @@ def quantized_ring_reduce_scatter(
     comp, deco = _compressors(bits)
     xb, nblocks = _pad_to_blocks(x.reshape(size * n, S), B)
     xb = xb.reshape(size, n, nblocks, B)
+    # one flight-recorder descriptor per ring (hop count in-record, not one
+    # per hop); a no-op without an active capture
+    notify_ring(kind="rs", bits=bits, hops=n - 1,
+                wire_bytes=(n - 1) * (nblocks * B // (1 if bits == 8 else 2) + nblocks * 8))
     ranks, idx = torch.arange(size, device=flat.device), rank_id(group, axis)
     rows = size * nblocks
 
@@ -304,6 +309,10 @@ def quantized_allgather(
     B = resolve_block(block)
     comp, deco = _compressors(bits)
     blocks, nblocks = _pad_to_blocks(x, B)
+    # this rank ships its compressed shard to n-1 peers: one descriptor,
+    # hop count in-record
+    notify_ring(kind="ag", bits=bits, hops=n - 1,
+                wire_bytes=(n - 1) * (nblocks * B // (1 if bits == 8 else 2) + nblocks * 8))
     q, mm = comp(blocks.reshape(size * nblocks, B))
     q, mm = q.reshape(size, nblocks, -1), mm.reshape(size, nblocks, 2)
     TALLY.ship(q, n - 1)

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from bagua_tpu_torch.communication import ALL_AXES, _axes, axis_size
 from bagua_tpu_torch.models._rank_ops import rank_alltoall
+from bagua_tpu_torch.observability.annotations import mp_scope
 from bagua_tpu_torch.parallel.moe.routing import Routing, route_top1, route_top2
 from bagua_tpu_torch.utils import lecun_normal, resolve_device
 
@@ -176,12 +177,14 @@ class ExpertParallelFFN(nn.Module):
             # chunk g of every rank's tokens travels to the rank owning
             # expert group g (reference dist.all_to_all_single,
             # sharded_moe.py:77-91)
-            ob = rank_alltoall(ob, self.group, self.ep_axis)
+            with mp_scope("ep", "dispatch"):
+                ob = rank_alltoall(ob, self.group, self.ep_axis)
         expert_in = ob.movedim(0, 1).reshape(local, -1, model_dim)
         expert_out = self.experts(expert_in)
         ib = expert_out.reshape(local, ep, c, model_dim).movedim(0, 1)
         if ep > 1:
-            ib = rank_alltoall(ib, self.group, self.ep_axis)
+            with mp_scope("ep", "combine"):
+                ib = rank_alltoall(ib, self.group, self.ep_axis)
         return ib.reshape(self.num_experts, c, model_dim)
 
     def forward(self, x, train: bool = True, used_token=None, rng: Optional[torch.Generator] = None):

@@ -43,6 +43,7 @@ from bagua_tpu_torch.communication import (
 from bagua_tpu_torch.defs import ReduceOp
 from bagua_tpu_torch.kernels.collective_matmul import ag_matmul, matmul_rs
 from bagua_tpu_torch.models._rank_ops import rank_collective
+from bagua_tpu_torch.observability.annotations import mp_scope
 from bagua_tpu_torch.utils import lecun_normal, resolve_device
 
 #: ``ParallelMLP``'s activation: ``jax.nn.gelu``, the tanh approximation by
@@ -139,9 +140,11 @@ class ColumnParallelDense(_ParallelDense):
             axis = _single_axis(self.tp_axis)
             x2 = x.to(self.dtype).reshape(x.shape[0], -1, x.shape[-1])
             if _resolve_fused(self.fused, self.tp_size):
-                y = rank_collective(lambda a, b: ag_matmul(a, b, group, axis), group, x2, w)
+                y = rank_collective(lambda a, b: ag_matmul(a, b, group, axis, axis_tag="tp"), group, x2, w)
             else:
-                y = stacked_matmul(rank_collective(lambda a: allgather(a, group, axis), group, x2), w)
+                with mp_scope("tp", "col_allgather"):
+                    xg = rank_collective(lambda a: allgather(a, group, axis), group, x2)
+                y = stacked_matmul(xg, w)
         else:
             y = stacked_matmul(x.to(self.dtype), w)
         return self._add_bias(params, y)
@@ -187,14 +190,16 @@ class RowParallelDense(_ParallelDense):
             axis = _single_axis(self.tp_axis)
             x2 = x.to(self.dtype).reshape(R, tokens, x.shape[-1])
             # this rank's row block
-            y = rank_collective(lambda a, b: matmul_rs(a, b, group, axis), group, x2, w)
+            y = rank_collective(lambda a, b: matmul_rs(a, b, group, axis, axis_tag="tp"), group, x2, w)
             if not self.scatter_output:
-                y = rank_collective(lambda a: allgather(a, group, axis), group, y)
+                with mp_scope("tp", "row_allgather"):
+                    y = rank_collective(lambda a: allgather(a, group, axis), group, y)
                 y = y.reshape(R, *lead, self.features)
         else:
             y = stacked_matmul(x.to(self.dtype), w)
             if self.tp_size > 1:
-                y = rank_collective(lambda a: allreduce(a, ReduceOp.SUM, group, self.tp_axis), group, y)
+                with mp_scope("tp", "row_psum"):
+                    y = rank_collective(lambda a: allreduce(a, ReduceOp.SUM, group, self.tp_axis), group, y)
                 if self.scatter_output:
                     if tokens % self.tp_size != 0:
                         raise ValueError(

@@ -138,7 +138,8 @@ class ZeroAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
         cleared."""
         groups = ctx.plan.group_leaves(params)
         for bi, spec in enumerate(ctx.plan.specs):
-            full = allgather(state["pending"][bi], self.process_group)
+            with self.annotate(bi, "ag"):
+                full = allgather(state["pending"][bi], self.process_group)
             for s, g in zip(spec.slots, split_bucket_flat(full, spec)):
                 groups[bi][s.name].copy_(g)
         return params, state
@@ -171,9 +172,10 @@ class ZeroAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
         """One bucket's exchange: its stacked gradient leaves (slot order)
         reduce-scattered, ``(shard (size, numel / n), new_residual)``."""
         spec = ctx.plan.specs[bucket_idx]
-        return self._reduce_scatter_flat(
-            flatten_bucket_leaves(grads, spec), spec, self._precision_for_bucket(bucket_idx, spec), residual
-        )
+        with self.annotate(bucket_idx, "rs"):
+            return self._reduce_scatter_flat(
+                flatten_bucket_leaves(grads, spec), spec, self._precision_for_bucket(bucket_idx, spec), residual
+            )
 
     def transform_gradients(self, grads, params, state, ctx: StepContext):
         """The gradients out are each bucket's shards, plan order: what the

@@ -167,8 +167,30 @@ and no result line:
    bitwise, ZeRO's optimizer bytes a rank the plan's Adam state over the
    exchange size), then one flat-ByteGrad and one int8-ring step on dp 4
    x tp 2 with exact launches of rows 1-4, each held bitwise against its
-   plain version on the inputs the step gave it and timed per step.
-11. prints one JSON line naming each kernel with its launches and times
+   plain version on the inputs the step gave it and timed per step; the
+   dp 4 x tp 2 ``gradient_allreduce`` engine then takes one step with a
+   telemetry hub: every exchange record on ``["dp"]``, the step's bytes
+   all on dp.
+11. obs -- (after the mesh phases) observability.  The reference phase
+   already held the small VGG (ByteGrad, the int8 ring, ZeRO; overlap,
+   cuDNN deterministic) with every knob on bitwise equal to every knob
+   off.  ``[obs]``: full-width VGG16 through ``Trainer.fit`` with overlap,
+   ByteGrad and the int8 ring, three trainers (every knob off, the health
+   monitor alone, every knob on: the telemetry hub with a JSONL stream, the
+   flight recorder, the tracer and the regression sentinel, a goodput
+   meter priced as VGG16, a health monitor), 2 warm-up steps each, then 5
+   steps a turn in the order off, on, health, health, on, off: launches a
+   turn equal SLICE_PATHS'; with everything on the flight records hold one
+   exchange record a bucket and step in ``backward_order()`` with its
+   spec's bytes and the data axes (the ring: an rs and an ag hop record a
+   bucket, 3 hops each), all retired, the dump valid; the JSONL valid, one
+   step event a step; no health alert, the monitor's loss the mean of the
+   step's losses; one more step traced through ``ProfilerSession``:
+   ``analyze_trace`` gives every bucket a row, and the kernels launched
+   under an exchange label cover at least OBS_COVERAGE of the exchange
+   stream's busy time.  Prints the three step times, MFU, goodput, both
+   overlap measures and the flight records a step.
+12. prints one JSON line naming each kernel with its launches and times
    (``other_steps``: the sums per step of other paths, the BERT, GPT and
    mesh ones included), then the result line ``{"ok": true, "device":
    {...}}``.
@@ -185,6 +207,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -218,6 +241,12 @@ from bagua_tpu_torch.models.gpt import GPTConfig, GPTModel, init_gpt, lm_loss_fn
 from bagua_tpu_torch.models.resnet import ResNet, init_resnet, resnet_loss_fn
 from bagua_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_llama, llama_7b_config, llama_loss_fn
 from bagua_tpu_torch.models.vgg import VGG, init_vgg16, module_params, vgg16, vgg_loss_fn
+from bagua_tpu_torch.observability import (
+    GoodputMeter, HealthMonitor, ProfilerSession, RegressionSentinel, Telemetry, Tracer, analyze_trace,
+    attribute_device_events, flight_dump_path, load_trace_events, model_flops_per_sample, parse_exchange_label,
+    validate_flight_dump, validate_metrics_file,
+)
+from bagua_tpu_torch.observability.health import grad_norms
 from bagua_tpu_torch.parallel import pipeline as pl
 from bagua_tpu_torch.parallel.fsdp import FSDP, fsdp_shardings
 from bagua_tpu_torch.parallel.moe import MoE
@@ -1098,9 +1127,11 @@ def phase_reference(device) -> None:
     the two card runs' losses and parameters must be bitwise equal.  ZeRO's
     f32 and ByteGrad runs must also equal the unsharded f32 and (flat)
     ByteGrad runs on the card bit for bit (ZERO_TWINS).  The whole phase
-    runs with cuDNN's deterministic algorithms."""
+    runs with cuDNN's deterministic algorithms, and ends with
+    :func:`check_obs_inert_on_card`."""
     with _deterministic():
         _reference_vgg(device)
+        check_obs_inert_on_card(device)
 
 
 def _reference_vgg(device) -> None:
@@ -1225,12 +1256,21 @@ def profile_step(name: str, step, side=None) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
         mark()
     log(f"[profile] {name}:\n" + prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    marker = [e for e in events if "spin_kernel" in e.name]
-    events = [e for e in events if "spin_kernel" not in e.name]
+    # the card's activities, less the device-side spans of the host's
+    # record_function labels (the exchange labels, the optimizer's), which
+    # cover the gaps between their kernels; the busy time with them counted
+    # too is the measure of the idle shares taken before the labels existed
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in e.name]
+    labels = [e for e in events if e.is_user_annotation]
+    marker = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" in e.name]
+    events = [e for e in events if not e.is_user_annotation]
     busy = _length(_union((e.time_range.start, e.time_range.end) for e in events)) / 1e3
+    busy_labels = _length(_union((e.time_range.start, e.time_range.end) for e in events + labels)) / 1e3
     log(f"[profile] {name}, one traced step: {wall_ms:.1f} ms wall, card busy {busy:.1f} ms, "
-        f"idle share {1 - busy / wall_ms:.3f}; streams {sorted({e.device_resource_id for e in events})}")
+        f"idle share {1 - busy / wall_ms:.3f} (with the labels' device ranges as busy: "
+        f"{1 - busy_labels / wall_ms:.3f}); streams {sorted({e.device_resource_id for e in events})}")
     if side is None:
         return
     streams = {e.device_resource_id for e in marker}
@@ -4196,12 +4236,345 @@ def phase_mesh_engine(ledger: Ledger, device, profile: bool) -> dict:
             f"{[round(x, 4) for x in losses[:, 0].tolist()]}")
         if profile:
             profile_step(what, lambda: ddp.train_step(state, data[-1]), side=ddp.side_stream)
+        if path == MESH_OBS_PATH:
+            check_mesh_engine_records(ddp, state, data[-1])
         ddp.shutdown()
         del ddp, state, data
     for name in MESH_CODEC_STEPS:
         for k, n in mesh_codec_step(ledger, device, name).items():
             total[k] += n
     return total
+
+
+# ---------------------------------------------------------------------------
+# Observability
+# ---------------------------------------------------------------------------
+
+#: the small-VGG runs that every observability knob must leave bitwise as
+#: they are (overlap on: the engine's default for all three)
+OBS_INERT = ("ByteGrad", "int8 ring", "ZeRO f32")
+#: ``[obs]``: full-width VGG16's overlap paths through ``Trainer.fit``;
+#: name -> (algorithm, its arguments); the launches a step are SLICE_PATHS'
+OBS_PATHS = {"ByteGrad": ("bytegrad", {}), "int8 ring": ("gradient_allreduce", {"wire_precision": "int8"})}
+OBS_WARMUP, OBS_STEPS = 2, 5
+#: the order of ``[obs]``'s timed turns: every knob off, the health monitor
+#: alone, every knob on; each configuration twice, mirrored
+OBS_TURNS = ("off", "on", "health", "health", "on", "off")
+#: the least share of the exchange stream's busy time that the kernels
+#: launched under an exchange label must cover in a traced overlap step
+OBS_COVERAGE = 0.95
+#: the ``[mesh-engine]`` path that takes one step with telemetry on
+MESH_OBS_PATH = "dp 4 x tp 2 gradient_allreduce (overlap)"
+
+
+def obs_knobs(log_dir: str) -> dict:
+    """Every observability knob of the engine on: the telemetry hub with a
+    JSONL stream in ``log_dir``, the flight recorder, a tracer writing its
+    spans there too and the regression sentinel, a goodput meter priced as
+    VGG16 (``model_flops_per_sample("vgg16")`` against the H100's dense
+    bf16 peak), and a health monitor."""
+    tel = Telemetry(metrics_jsonl=f"{log_dir}/metrics.jsonl", goodput=GoodputMeter(model="vgg16"),
+                    flight="auto", tracing=Tracer(path=f"{log_dir}/spans.jsonl"), regression=RegressionSentinel())
+    return {"telemetry": tel, "health_monitor": HealthMonitor()}
+
+
+def _optimizer_tensors(opt) -> list:
+    opts = (opt.sharded, opt.local) if hasattr(opt, "sharded") else (opt,)
+    return [v for o in opts if o is not None for st in o.state.values() for v in st.values() if torch.is_tensor(v)]
+
+
+def check_obs_inert_on_card(device) -> None:
+    """Every observability knob on (:func:`obs_knobs`) against every one
+    off, on the small VGG on the card: REF_STEPS steps of each of OBS_INERT
+    with overlap (SGD with momentum, so that the optimizer has state), the
+    per-step losses, the parameters and the momentum bit for bit.  The caller holds cuDNN to its deterministic
+    algorithms (full-width VGG16's backward is not deterministic from one
+    run to the next, so only a small model can show this)."""
+    gen = torch.Generator().manual_seed(5)
+    params = module_params(VGG(device="cpu", generator=gen, **REF_VGG))
+    side = REF_VGG["image_size"]
+    batch = (torch.rand((RANKS * 8, side, side, 3), generator=gen).to(device),
+             torch.randint(0, REF_VGG["num_classes"], (RANKS * 8,), generator=gen).to(device))
+    for name in OBS_INERT:
+        runs = []
+        for on in (False, True):
+            with tempfile.TemporaryDirectory() as log_dir:
+                knobs = obs_knobs(log_dir) if on else {}
+                trainer = Trainer(vgg_loss_fn(VGG(device=device, **REF_VGG)),
+                                  lambda ps: torch.optim.SGD(ps, lr=REF_LR, momentum=0.9), REF_ALGORITHMS[name][0](),
+                                  BaguaProcessGroup([device] * RANKS, intra_size=1), **knobs)
+                if not trainer.ddp.overlap_enabled:
+                    raise AssertionError(f"[reference] {name}: the engine resolved overlap off")
+                state = trainer.init_state(tree_map(lambda t: t.to(device), params))
+                losses = []
+                for _ in range(REF_STEPS):
+                    state = trainer.fit(state, [batch], n_steps=1)
+                    losses.append(trainer.losses.clone())
+                state = trainer.ddp.finalize_pending_updates(state)
+                runs.append(losses + tree_leaves(state.params) + _optimizer_tensors(state.optimizer))
+                trainer.close()
+                if on:
+                    tel = knobs["telemetry"]
+                    records = tel.flight.records()
+                    tel.close()
+                    if not records or knobs["health_monitor"].alerts:
+                        raise AssertionError(f"[reference] {name} with observability on: "
+                                             f"{len(records)} flight records, alerts {knobs['health_monitor'].alerts}")
+        off, on = runs
+        if len(off) != len(on) or not all(same(a, b) for a, b in zip(off, on)):
+            raise AssertionError(f"[reference] {name}: observability on changed the losses, parameters or "
+                                 "optimizer state")
+        log(f"[reference] small VGG, {REF_STEPS} {name} steps (overlap), telemetry, flight recorder, tracer, "
+            f"regression sentinel, goodput meter and health monitor on vs off: {len(on)} tensors bitwise equal")
+
+
+def trace_exchange(step, side, log_dir: str):
+    """One call of ``step`` captured by :class:`ProfilerSession`, with a
+    marker kernel on ``side`` (the overlap exchange's stream) launched
+    before and after it, as :func:`profile_step` does.  Returns
+    ``analyze_trace``'s result and the exchange stream's account from the
+    same trace: its busy time (markers excluded), the part of it covered
+    by kernels launched under an exchange label, and the part during
+    which another stream also ran (profile_step's hidden share)."""
+    def mark():
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(1)
+        side.synchronize()
+
+    prof = ProfilerSession(log_dir)
+    torch.cuda.synchronize()
+    prof.start()
+    mark()
+    torch.cuda.synchronize()
+    step()
+    torch.cuda.synchronize()
+    mark()
+    prof.stop()
+    analysis = analyze_trace(prof.trace_path)
+    events = attribute_device_events(load_trace_events(prof.trace_path))
+    streams = {e["stream"] for e in events if "spin_kernel" in e["name"]}
+    if len(streams) != 1:
+        raise AssertionError(f"marker kernels on streams {sorted(streams)} of the trace, want one")
+    stream, = streams
+    events = [e for e in events if "spin_kernel" not in e["name"]]
+
+    def spans(pick):
+        return _union((e["ts"], e["ts"] + e["dur"]) for e in events if pick(e))
+
+    mine = spans(lambda e: e["stream"] == stream)
+    labeled = spans(lambda e: e["stream"] == stream and parse_exchange_label(e["label"] or "") is not None)
+    others = spans(lambda e: e["stream"] != stream)
+    busy = _length(mine)
+    return analysis, {"side_ms": busy / 1e3, "labeled_ms": _length(labeled) / 1e3,
+                      "coverage": _length(labeled) / busy if busy else 0.0,
+                      "hidden_share": _overlap_length(mine, others) / busy if busy else 0.0,
+                      "trace": prof.trace_path}
+
+
+def check_trace_join_on_card(device) -> dict:
+    """The trace join on the card at a small size: one traced ByteGrad
+    overlap step of the small VGG; every bucket has a ``per_bucket`` row,
+    and the kernels launched under an exchange label cover at least
+    OBS_COVERAGE of the exchange stream's busy time."""
+    trainer = _small_trainer("ByteGrad", device)
+    gen = torch.Generator().manual_seed(6)
+    state = trainer.init_state(module_params(VGG(device=device, generator=torch.Generator(device=device)
+                                                 .manual_seed(6), **REF_VGG)))
+    side = REF_VGG["image_size"]
+    batch = (torch.rand((RANKS * 8, side, side, 3), generator=gen).to(device),
+             torch.randint(0, REF_VGG["num_classes"], (RANKS * 8,), generator=gen).to(device))
+    state = trainer.fit(state, [batch], n_steps=1)
+    ddp = trainer.ddp
+    with tempfile.TemporaryDirectory() as log_dir:
+        analysis, side_stream = trace_exchange(lambda: ddp.train_step(state, batch), ddp.side_stream, log_dir)
+    trainer.close()
+    _check_trace("[obs] small VGG ByteGrad", ddp, analysis, side_stream)
+    return {"analysis": analysis, "side": side_stream}
+
+
+def _check_trace(what: str, ddp, analysis: dict, side_stream: dict) -> None:
+    if analysis["source"] != "device":
+        raise AssertionError(f"{what}: the trace holds no kernels (source {analysis['source']!r})")
+    rows = [(r["algo"], r["bucket"]) for r in analysis["per_bucket"]]
+    want = [(ddp.impl.algo_name, b) for b in range(ddp.plan.num_buckets)]
+    if rows != want:
+        raise AssertionError(f"{what}: the trace's per-bucket rows {rows}, want {want}")
+    if analysis["unattributed"] is not None:
+        raise AssertionError(f"{what}: device events whose launch the trace lacks: {analysis['unattributed']}")
+    if side_stream["coverage"] < OBS_COVERAGE:
+        raise AssertionError(f"{what}: labeled exchange kernels cover {side_stream['coverage']:.4f} of the "
+                             f"exchange stream's {side_stream['side_ms']:.3f} ms, want at least {OBS_COVERAGE}")
+
+
+def _check_flight(what: str, ddp, tel, steps: int, ring_hops: bool) -> int:
+    """The flight ring after ``steps`` steps: every step one exchange
+    record per plan bucket in ``backward_order()``, each with its spec's
+    bytes and the data axes, and with ``ring_hops`` an rs and an ag hop
+    record a bucket with RANKS - 1 hops; every record retired; the dump
+    validates.  Returns the records a step."""
+    plan, axes = ddp.plan, list(ddp.group.data_axes)
+    records = tel.flight.records()
+    per_step = len(records) // steps
+    for step in range(steps):
+        mine = [r for r in records if r["step"] == step]
+        exchange = [r for r in mine if r["phase"] != "hop"]
+        if [r["bucket"] for r in exchange] != plan.backward_order():
+            raise AssertionError(f"{what}: step {step}'s exchange records in bucket order "
+                                 f"{[r['bucket'] for r in exchange]}, want {plan.backward_order()}")
+        for r in exchange:
+            if r["nbytes"] != plan.specs[r["bucket"]].nbytes or r["axes"] != axes or r["phase"] != "overlap":
+                raise AssertionError(f"{what}: record {r} against its spec's {plan.specs[r['bucket']].nbytes} B, "
+                                     f"axes {axes}")
+        hops = [(r["bucket"], r["ring"], r["hops"]) for r in mine if r["phase"] == "hop"]
+        want = [(b, leg, RANKS - 1) for b in plan.backward_order() for leg in ("rs", "ag")] if ring_hops else []
+        if hops != want:
+            raise AssertionError(f"{what}: step {step}'s hop records {hops}, want {want}")
+        if len(mine) != per_step:
+            raise AssertionError(f"{what}: step {step} has {len(mine)} records, step 0 {per_step}")
+    if len(records) != steps * per_step or any(r["t_retire"] is None for r in records):
+        raise AssertionError(f"{what}: {len(records)} records over {steps} steps, or some unretired")
+    with tempfile.TemporaryDirectory() as d:
+        dump = tel.flight.dump(flight_dump_path(d, 0), reason="manual", telemetry=tel.snapshot())
+    problems = validate_flight_dump(dump)
+    if problems:
+        raise AssertionError(f"{what}: the flight dump does not validate: {problems[:5]}")
+    return per_step
+
+
+def phase_obs(device, profile: bool) -> dict:
+    """``[obs]``: full-width VGG16 (224x224, 1000 classes, bf16, 32 a rank,
+    RANKS ranks, ``intra_size=1``, 12 buckets of 10 MiB) through
+    ``Trainer.fit`` with overlap, on each of OBS_PATHS: three trainers from
+    the same weights, every observability knob off, the health monitor
+    alone and every knob on (:func:`obs_knobs`), OBS_WARMUP steps each, then
+    OBS_STEPS steps a turn in the order OBS_TURNS (each configuration's
+    step time is the mean of its two turns).  Every turn's launches equal
+    SLICE_PATHS' a bucket and step;
+    with the knobs on the flight records are complete and retired
+    (:func:`_check_flight`), the JSONL stream validates with one step event
+    a step, no health alert fired and the monitor's loss is the mean of the
+    last step's losses; one more step, traced, attributes every bucket and
+    covers the exchange stream (:func:`_check_trace`).  Prints the step
+    times of the three, the health norms' time on the card, MFU and goodput
+    (the meter's, from the host's step walls, and at the measured step
+    time), both overlap measures and the records a step.  Returns the
+    launches of the timed steps."""
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    total = {k: 0 for k in KERNELS}
+    flops = model_flops_per_sample("vgg16")
+    n = RANKS * BATCH_PER_RANK
+    for name, (algorithm, kwargs) in OBS_PATHS.items():
+        per_bucket = SLICE_PATHS[name][1]
+        gc.collect()
+        torch.cuda.empty_cache()
+        what = f"[obs] VGG16 {name} (overlap)"
+        with tempfile.TemporaryDirectory() as log_dir:
+            knobs = obs_knobs(log_dir)
+            tel, monitor = knobs["telemetry"], knobs["health_monitor"]
+            runs = {}
+            for config, config_knobs in (("off", {}), ("health", {"health_monitor": HealthMonitor()}), ("on", knobs)):
+                model, params = sb.build("vgg16", torch.bfloat16, device)
+                trainer = Trainer(vgg_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+                                  build_algorithm(algorithm, **kwargs), group, **config_knobs)
+                state = trainer.init_state(params)
+                del params
+                if not trainer.ddp.overlap_enabled:
+                    raise AssertionError(f"{what}: the engine resolved overlap off")
+                runs[config] = [trainer, state, []]
+            gen = torch.Generator(device=device).manual_seed(0)
+            batch = (torch.rand((n, IMAGE_SIZE, IMAGE_SIZE, 3), generator=gen, device=device),
+                     torch.randint(0, NUM_CLASSES, (n,), generator=gen, device=device))
+            for run in runs.values():
+                run[1] = run[0].fit(run[1], itertools.repeat(batch), n_steps=OBS_WARMUP)
+            buckets = runs["on"][0].ddp.plan.num_buckets
+            want = {kernel: OBS_STEPS * buckets * per_bucket.get(kernel, 0) for kernel in KERNELS}
+            for config in OBS_TURNS:
+                trainer = runs[config][0]
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                runs[config][1] = trainer.fit(runs[config][1], itertools.repeat(batch), n_steps=OBS_STEPS)
+                torch.cuda.synchronize()
+                runs[config][2].append((time.perf_counter() - t0) / OBS_STEPS)
+                launches = read_launches()
+                if launches != want:
+                    raise AssertionError(f"{what}, observability {config}: launch counts {launches}, want {want}")
+                if not torch.isfinite(trainer.losses).all():
+                    raise AssertionError(f"{what}: non-finite loss {trainer.losses.tolist()}")
+                total = {k: total[k] + c for k, c in launches.items()}
+            trainer, state, _ = runs["on"]
+            ddp, losses = trainer.ddp, trainer.losses
+            steps = OBS_WARMUP + OBS_STEPS * OBS_TURNS.count("on")
+            per_step = _check_flight(what, ddp, tel, steps, name == "int8 ring")
+            tel.flush()
+            problems = validate_metrics_file(f"{log_dir}/metrics.jsonl")
+            with open(f"{log_dir}/metrics.jsonl") as f:
+                step_events = [e for e in map(json.loads, f) if e["event"] == "step"]
+            if problems or [e["step"] for e in step_events] != list(range(steps)):
+                raise AssertionError(f"{what}: the JSONL stream: {problems[:5]}, step events "
+                                     f"{[e['step'] for e in step_events]}")
+            loss = tel.registry.snapshot()["health_loss"]
+            if monitor.alerts or loss != float(losses.double().mean()):
+                raise AssertionError(f"{what}: health alerts {monitor.alerts}; the monitor's loss {loss} against "
+                                     f"the step's mean {float(losses.double().mean())}")
+            grads = [torch.randn_like(p) for p in tree_leaves(state.params)]
+            norms_ms = median_ms(lambda: grad_norms(losses, grads))
+            del grads
+            analysis, side = trace_exchange(lambda: ddp.train_step(state, batch), ddp.side_stream, log_dir)
+            _check_trace(what, ddp, analysis, side)
+            if profile:
+                for config, (tr, st, _) in runs.items():
+                    profile_step(f"{what}, observability {config}",
+                                 lambda: tr.ddp.train_step(st, batch), side=tr.ddp.side_stream)
+            ms = {config: statistics.mean(run[2]) * 1e3 for config, run in runs.items()}
+            meter = tel.goodput
+            walls = [e["wall_ms"] for e in step_events[OBS_WARMUP:]]
+            mfu = flops * n / (ms["on"] / 1e3) / meter.peak_flops_per_chip
+            turns = {config: [round(t * 1e3, 2) for t in run[2]] for config, run in runs.items()}
+            log(f"{what}: {buckets} buckets; ms/step by turn ({OBS_STEPS} steps a turn, in the order "
+                f"{' '.join(OBS_TURNS)}): {turns}; everything on {ms['on']:.2f} against off {ms['off']:.2f} "
+                f"(ratio {ms['on'] / ms['off']:.4f}), the health monitor alone {ms['health']:.2f} (ratio "
+                f"{ms['health'] / ms['off']:.4f}); the health norms {norms_ms:.3f} ms on the card; launches a turn "
+                f"{want}")
+            log(f"{what}, observability on: MFU {meter.last_mfu:.4f} (the meter's, from the host's step wall, "
+                f"median {statistics.median(walls):.2f} ms) and {mfu:.4f} at the measured step time, against "
+                f"{meter.peak_flops_per_chip:.3e} FLOP/s (a MAC counted once); goodput "
+                f"{meter.ledger.goodput_frac():.4f} over {steps} steps (seconds by bucket "
+                f"{ {k: round(v, 4) for k, v in meter.ledger.report()['buckets'].items() if v} }; the other "
+                f"trainers' turns count as this fit loop's data wait); {per_step} flight records a step, all "
+                f"retired; {len(step_events)} step events valid; health loss {loss:.6f}; traced step: "
+                f"{len(analysis['per_bucket'])} buckets attributed, exchange stream {side['side_ms']:.3f} ms busy, "
+                f"{side['coverage']:.4f} of it under exchange labels, overlap {analysis['measured_overlap_frac']:.4f} "
+                f"(labeled kernels under compute) and {side['hidden_share']:.4f} (the exchange stream under "
+                f"another stream)")
+            tel.close()
+            for tr, _, _ in runs.values():
+                tr.close()
+            del runs, trainer, state, ddp, batch
+    return total
+
+
+def check_mesh_engine_records(ddp, state, batch) -> None:
+    """One step of the ``[mesh-engine]`` engine with a telemetry hub: every
+    exchange record carries ``["dp"]`` and the step's per-axis bytes are
+    the plan's, on ``dp`` alone."""
+    tel = Telemetry(flight="auto")
+    ddp.telemetry = tel
+    ddp.train_step(state, batch)
+    torch.cuda.synchronize()
+    ddp.telemetry = None
+    exchange = [r for r in tel.flight.records() if r["phase"] != "hop"]
+    snap = tel.registry.snapshot()
+    tel.close()
+    by_axis = {k: v for k, v in snap.items() if k.startswith("wire_bytes_axis_")}
+    if len(exchange) != ddp.plan.num_buckets or any(r["axes"] != ["dp"] for r in exchange):
+        raise AssertionError(f"[mesh-engine] {MESH_OBS_PATH}: {len(exchange)} exchange records for "
+                             f"{ddp.plan.num_buckets} buckets, axes {sorted({tuple(r['axes']) for r in exchange})}")
+    if by_axis != {"wire_bytes_axis_dp_total": ddp.plan.total_bytes()}:
+        raise AssertionError(f"[mesh-engine] {MESH_OBS_PATH}: per-axis bytes {by_axis}, want the plan's "
+                             f"{ddp.plan.total_bytes()} on dp")
+    log(f"[mesh-engine] {MESH_OBS_PATH}, one step with telemetry: {len(exchange)} exchange records, each on "
+        f"['dp']; wire bytes by axis {by_axis}")
 
 
 def vgg16_plan():
@@ -4273,6 +4646,8 @@ def main(argv) -> int:
     per_path["mesh Llama"] = phase_mesh_llama(ledger, device, profile)
     per_path["mesh GPT"] = phase_mesh_gpt(ledger, device, profile)
     per_path["mesh engine"] = phase_mesh_engine(ledger, device, profile)
+    torch.cuda.empty_cache()
+    per_path["obs"] = phase_obs(device, profile)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]

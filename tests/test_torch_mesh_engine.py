@@ -191,3 +191,107 @@ def test_engine_gradients_match_jax_at_dp4_tp2(twin, restore_groups):
         scale = max(float(np.abs(w).max()), 1e-30)
         err = float(np.abs(g.numpy() - w).max())
         assert err <= 1e-5 * scale + 1e-7, f"{leaf_name}: {err:.3e} of a leaf up to {scale:.3e}"
+
+
+# ---------------------------------------------------------------------------
+# The flight recorder's arms on named meshes (the JAX package's
+# tests/test_mesh_engine.py, against the port's captured programs)
+# ---------------------------------------------------------------------------
+
+MLP_LAYERS = [12, 16, 16, 4]
+
+
+def _mesh_engine_step(axes, algo, precision="f32"):
+    """One step of the MLP on a named mesh with a flight recorder; the
+    group, the engine and the captured program."""
+    from bagua_tpu_torch.algorithms import build_algorithm
+    from bagua_tpu_torch.ddp import DistributedDataParallel
+    from bagua_tpu_torch.mesh import MeshSpec
+    from bagua_tpu_torch.models import mlp
+    from bagua_tpu_torch.observability import FlightRecorder, Telemetry
+
+    g = comm.BaguaProcessGroup([CPU] * 8, mesh_spec=MeshSpec(axes))
+    tel = Telemetry(flight=FlightRecorder(capacity=256, rank=0, world_size=1))
+    ddp = DistributedDataParallel(mlp.mse_loss, lambda ps: torch.optim.SGD(ps, lr=0.1),
+                                  build_algorithm(algo, wire_precision=precision), g, bucket_size_bytes=1 << 9,
+                                  telemetry=tel)
+    state = ddp.init(mlp.init_mlp(torch.Generator().manual_seed(0), MLP_LAYERS, device=CPU))
+    rng = np.random.RandomState(0)
+    batch = (torch.from_numpy(rng.randn(32, MLP_LAYERS[0]).astype(np.float32)),
+             torch.from_numpy(rng.randn(32, MLP_LAYERS[-1]).astype(np.float32)))
+    ddp.train_step(state, batch)
+    (program,) = ddp._flight_programs.values()
+    return g, ddp, tel, program
+
+
+def test_flight_records_carry_data_axes():
+    """On dp 4 x tp 2 every exchange record carries ``["dp"]``, and the
+    step's per-axis wire census puts the plan's bytes on dp."""
+    g, ddp, tel, program = _mesh_engine_step({"dp": 4, "tp": 2}, "gradient_allreduce")
+    exchange = [r for r in program if r["phase"] != "hop"]
+    assert len(exchange) == ddp.plan.num_buckets
+    assert all(r["axes"] == ["dp"] for r in exchange)
+    snap = tel.registry.snapshot()
+    assert snap["wire_bytes_axis_dp_total"] == ddp.plan.total_bytes()
+    assert "wire_bytes_axis_tp_total" not in snap
+
+
+@pytest.mark.parametrize("axes", [{"dp": 8}, {"dp": 4, "tp": 2}, {"dp": 4, "fsdp": 2}],
+                         ids=["dp8", "dp4xtp2", "dp4xfsdp2"])
+@pytest.mark.parametrize("algo", ["gradient_allreduce", "zero"])
+@pytest.mark.parametrize("precision", ["f32", "int8"])
+def test_axis_budget_partition_exact_over_captured_program(axes, algo, precision):
+    """The JAX package's property over the port's captured programs
+    (gar/zero x f32/int8 x three meshes): the BudgetModel's per-axis wire
+    ledger joined from the program covers exactly the mesh's data axes, its
+    scalar promise is the ledger's sum, and the settled per-axis
+    wire_slowdown split sums bitwise to the scalar component on every
+    pricing path.  The planner's ``CostModel`` is not ported yet (ROADMAP
+    Queue 1 item 7): the test passes the JAX package's in as an input."""
+    from bagua_tpu.service.planner import AlphaBeta, CostModel
+
+    from bagua_tpu_torch.observability import BudgetModel
+
+    g, ddp, tel, program = _mesh_engine_step(axes, algo, precision)
+    legs = {ax: AlphaBeta(0.0, 1e8 * (i + 1)) for i, ax in enumerate(g.data_axes)}
+    cm = CostModel(flat=AlphaBeta(0.0, 1e9), axis_legs=legs)
+    model = BudgetModel(compute_ms=6.0, cost_model=cm, program=program)
+    assert set(model.axis_wire_ms) == set(g.data_axes)
+    assert all(v > 0 for v in model.axis_wire_ms.values())
+    assert model.wire_ms == sum(model.axis_wire_ms[ax] for ax in sorted(model.axis_wire_ms))
+
+    def assert_exact(budget):
+        assert set(budget.wire_axis_ms) == set(g.data_axes)
+        assert budget.components["wire_slowdown"] == sum(budget.wire_axis_ms[ax] for ax in sorted(budget.wire_axis_ms))
+        assert budget.axis_partition_error_ms() == 0.0
+
+    # path 1: per-axis measured wire
+    model.note_wire(sum(model.axis_wire_ms.values()) * 2.0,
+                    by_axis={ax: ms * 2.0 for ax, ms in model.axis_wire_ms.items()})
+    assert_exact(model.settle(0, 20.0))
+    # path 2: scalar measured wire, split by the ledger's expected shares
+    model.note_wire(model.wire_ms * 3.0)
+    assert_exact(model.settle(1, 20.0))
+    # path 3: per-axis byte census over the program's own traffic
+    census = {ax: 0.0 for ax in g.data_axes}
+    for rec in program:
+        rec_axes = [a for a in (rec.get("axes") or ()) if a]
+        if rec_axes and rec.get("nbytes"):
+            for ax in rec_axes:
+                census[ax] += float(rec["nbytes"]) / len(rec_axes)
+    assert all(v > 0 for v in census.values())
+    base = model.expected()
+    for step in range(2, 7):
+        model.settle(step, base, wire_bytes_by_axis=dict(census))
+    inflated = dict(census)
+    inflated[sorted(inflated)[-1]] *= 2.0
+    assert_exact(model.settle(7, base + 4.0, wire_bytes_by_axis=inflated))
+    # the engine's own census: the step event's per-axis bytes are the
+    # program's (each record's bytes split evenly over its axes); on the f32
+    # allreduce that is the plan's bytes (ZeRO adds its gather's, the ring
+    # its hops' wire bytes)
+    snap = tel.registry.snapshot()
+    got = sum(snap[f"wire_bytes_axis_{ax}_total"] for ax in g.data_axes)
+    assert got == sum(int(census[ax]) for ax in g.data_axes)
+    if algo == "gradient_allreduce" and precision == "f32":
+        assert got == ddp.plan.total_bytes()

@@ -369,7 +369,10 @@ def test_port_imports_no_jax():
         "        'bagua_tpu_torch.examples.bench_moe', 'bagua_tpu_torch.examples.imagenet',\n"
         "        'bagua_tpu_torch.parallel.pipeline', 'bagua_tpu_torch.parallel.fsdp',\n"
         "        'bagua_tpu_torch.models.gpt', 'bagua_tpu_torch.models._layers',\n"
-        "        'bagua_tpu_torch.examples.gpt_pretrain', 'bagua_tpu_torch.mesh']\n"
+        "        'bagua_tpu_torch.examples.gpt_pretrain', 'bagua_tpu_torch.mesh',\n"
+        "        'bagua_tpu_torch.resilience.retry'] + ['bagua_tpu_torch.observability.' + m for m in (\n"
+        "        'scope_grammar', 'metrics', 'core', 'annotations', 'tracing', 'flight_recorder', 'telemetry',\n"
+        "        'health', 'goodput', 'attribution', 'regression', 'aggregate', 'trace_analysis')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )

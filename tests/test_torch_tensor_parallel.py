@@ -151,6 +151,57 @@ def test_sequence_parallel_pair_matches_jax(tp, fused):
     assert_grads(grads, want_grads)
 
 
+def jax_mp_phases(module, trees, x, tp, x_spec):
+    """The ``mp_scope`` phases in the op names of the JAX package's compiled
+    forward of ``module``, by logical axis."""
+    from bagua_tpu.observability.scope_grammar import hlo_op_labels, parse_mp_label
+
+    stacked = jax.tree.map(lambda *a: jnp.stack(a), *trees)
+    fwd = jax.shard_map(lambda p, xx: module.apply({"params": jax.tree.map(lambda q: q[0], p)}, xx)[None],
+                        mesh=mesh(tp), in_specs=(P("tp"), x_spec), out_specs=P("tp"), check_vma=False)
+    hlo = jax.jit(fwd).lower(stacked, jnp.asarray(x)).compile().as_text()
+    out = {}
+    for label in hlo_op_labels(hlo)[1].values():
+        mp = parse_mp_label(label)
+        if mp is not None:
+            out.setdefault(mp["axis"], set()).add(mp["phase"])
+    return out
+
+
+@pytest.mark.parametrize("layout", ["mlp", "pair"])
+def test_fused_trace_labels_the_jax_mp_phases(tmp_path, layout):
+    """A CPU ``ProfilerSession`` capture of the fused layers' forward over tp
+    4: ``analyze_trace``'s ``per_scope`` rows carry the ``mp_scope`` axes and
+    phases of the JAX package's compiled forward of the same layers
+    (``ParallelMLP``: ``rs_ring`` and ``row_allgather``; the
+    sequence-parallel pair: ``rs_ring`` and ``ag_ring``), and no ring hop is
+    counted as a bucket exchange."""
+    from bagua_tpu_torch.observability import ProfilerSession, analyze_trace
+
+    tp = 4
+    if layout == "mlp":
+        x = np.random.RandomState(10).randn(8, 16).astype(np.float32)
+        jmod = jtp.ParallelMLP(hidden_features=32, out_features=16, tp_size=tp, axis_name="tp", fused=True)
+        trees, x_spec = per_rank_params(jmod, jnp.asarray(x), tp), P()
+        port = ttp.ParallelMLP(16, 32, 16, tp, "intra", fused=True, group=tgroup(tp), device="cpu")
+        x_stacked = np.stack([x] * tp)
+    else:
+        x = np.random.RandomState(12).randn(8, 20).astype(np.float32)
+        jmod = JaxPair(tp, True)
+        trees, x_spec = per_rank_params(jmod, jnp.asarray(x[:, :20 // tp]), tp), P(None, "tp")
+        port = PortPair(tp, True, 20 // tp)
+        x_stacked = np.stack(np.split(x, tp, axis=1))
+    want = jax_mp_phases(jmod, trees, x, tp, x_spec)
+    assert want == ({"tp": {"rs_ring", "row_allgather"}} if layout == "mlp" else {"tp": {"rs_ring", "ag_ring"}})
+    params = stacked_params_from_jax(trees)
+    with ProfilerSession(str(tmp_path)) as prof:
+        port(params, torch.from_numpy(x_stacked))
+    out = analyze_trace(prof.trace_path)
+    assert {r["axis"]: set(r["phases"]) for r in out["per_scope"]} == want
+    assert all(r["spans"] > 0 for r in out["per_scope"])
+    assert out["per_bucket"] == [] and out["unattributed"] is None
+
+
 #: bf16 parity: every element within 2^-5 of its tensor's largest magnitude,
 #: 8 bf16 rounding steps (2^-8 relative) there.  Both frameworks round each
 #: product and each ring add to bf16, but accumulate the f32 dot products in
