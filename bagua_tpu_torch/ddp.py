@@ -101,9 +101,11 @@ import contextlib
 import dataclasses
 import functools
 import logging
+import re
 import time
-from typing import Any, Callable, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContext
@@ -150,6 +152,145 @@ class TrainState:
     optimizer: Union[torch.optim.Optimizer, ShardedOptState]
     algo_state: Any
     step: int
+
+
+# -- the train state as flat leaves (snapshots, checkpoints, resume) -------------
+#
+# One flattening serves the snapshotter, the checkpoint and the resume: the
+# parameters keyed by the paths the JAX snapshot's ``leaf_keys`` gives them
+# (``.params['Dense_0']['kernel']``), then every tensor of the optimizer's
+# ``state_dict()`` (parameter order, keys sorted; a step count is a 0-d
+# tensor), under a sharded update the updater's rows first, then the
+# algorithm's state and the step.
+
+_OPT_KEY = re.compile(r"^\['state'\]\[(\d+)\]\['([^']+)'\]$")
+
+
+def _optimizer_leaves(prefix: str, opt: torch.optim.Optimizer) -> List[Tuple[str, torch.Tensor]]:
+    state = opt.state_dict()["state"]
+    out = []
+    for i in sorted(state):
+        for k in sorted(state[i]):
+            v = state[i][k]
+            if torch.is_tensor(v):
+                out.append((f"{prefix}['state'][{i}][{k!r}]", v))
+    return out
+
+
+def _param_leaves(state: "TrainState") -> List[Tuple[str, torch.Tensor]]:
+    return [(".params" + n, t) for n, t in tree_flatten_with_names(state.params)]
+
+
+def _row_leaves(state: "TrainState") -> List[Tuple[str, torch.Tensor]]:
+    opt = state.optimizer
+    return [(f".optimizer.rows[{gi}]", r) for gi, r in enumerate(opt.rows)] if isinstance(opt, ShardedOptState) else []
+
+
+def _algo_leaves(state: "TrainState") -> List[Tuple[str, torch.Tensor]]:
+    return [(".algo_state" + n, t) for n, t in tree_flatten_with_names(state.algo_state) if torch.is_tensor(t)]
+
+
+def _structural_leaves(state: "TrainState") -> List[Tuple[str, torch.Tensor]]:
+    """The leaves whose keys and shapes a state's definition fixes (the
+    optimizer's state is made lazily, at its first step)."""
+    return _param_leaves(state) + _row_leaves(state) + _algo_leaves(state)
+
+
+def state_leaves(state: "TrainState") -> List[Tuple[str, torch.Tensor]]:
+    """The train state as ``[(key, tensor), ...]``: references to the live
+    tensors, not copies (the snapshotter clones them)."""
+    opt = state.optimizer
+    if isinstance(opt, ShardedOptState):
+        optimizer = _optimizer_leaves(".optimizer.sharded", opt.sharded)
+        if opt.local is not None:
+            optimizer += _optimizer_leaves(".optimizer.local", opt.local)
+    else:
+        optimizer = _optimizer_leaves(".optimizer", opt)
+    return (_param_leaves(state) + _row_leaves(state) + optimizer + _algo_leaves(state)
+            + [(".step", torch.tensor(int(state.step), dtype=torch.int64))])
+
+
+def _host_tensor(a, dtype_name: Optional[str], like_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A stored leaf as a host tensor of its recorded dtype (bfloat16 from
+    its 16-bit pattern)."""
+    a = np.asarray(a)
+    t = torch.from_numpy(a if a.flags.c_contiguous and a.flags.writeable else a.copy())
+    dtype = getattr(torch, dtype_name) if dtype_name else like_dtype
+    if dtype == torch.bfloat16 and t.dtype == torch.int16:
+        return t.view(torch.bfloat16)
+    return t if dtype is None else t.to(dtype)
+
+
+def _optimizer_state(opt: torch.optim.Optimizer, prefix: str, leaves, dtypes) -> Dict[int, dict]:
+    """The stored optimizer leaves under ``prefix`` as a ``state_dict()``
+    ``state`` for ``opt``, each checked against its parameter's shape."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    state: Dict[int, dict] = {}
+    for key, a in leaves.items():
+        if not key.startswith(prefix + "['state']"):
+            continue
+        m = _OPT_KEY.match(key[len(prefix):])
+        if m is None or int(m.group(1)) >= len(params):
+            raise ValueError(f"snapshot optimizer leaf {key} does not fit this optimizer "
+                             f"({len(params)} parameters)")
+        i = int(m.group(1))
+        t = _host_tensor(a, dtypes.get(key))
+        if t.dim() and t.shape != params[i].shape:
+            raise ValueError(f"snapshot optimizer leaf {key} has shape {tuple(t.shape)}; "
+                             f"its parameter has {tuple(params[i].shape)}")
+        state.setdefault(i, {})[m.group(2)] = t
+    return state
+
+
+@torch.no_grad()
+def load_state_leaves(state: "TrainState", leaves: Dict[str, Any], dtypes: Optional[Dict[str, str]] = None):
+    """Load stored leaves (``{key: host array}`` as :func:`state_leaves`
+    keyed them; ``dtypes`` their torch dtype names) into ``state``, a
+    freshly built state of the same definition and layout: the parameters
+    and the updater's rows are copied into its tensors in place (onto
+    their device, at their dtypes), the algorithm's state is replaced, the
+    optimizer is loaded through ``load_state_dict`` (its hyperparameters
+    stay the live ones) and the step is set.  Returns the loaded state.  A
+    snapshot of another definition (leaf keys or shapes) raises
+    ValueError; every leaf is checked before anything is written, so
+    ``state`` is then left as it was."""
+    dtypes = dtypes or {}
+    mine = _structural_leaves(state)
+    want = {k for k, _ in mine}
+    have = {k for k in leaves if k.startswith((".params", ".algo_state", ".optimizer.rows"))}
+    if want != have or ".step" not in leaves:
+        missing, extra = sorted(want - have), sorted(have - want)
+        raise ValueError(
+            f"the snapshot holds {len(leaves)} leaves that do not match the engine's state "
+            f"({len(want)} parameter, row and algorithm-state leaves; missing {missing[:3]}, "
+            f"unexpected {extra[:3]}): the model or optimizer definition changed since it was taken"
+        )
+    host = {}
+    for key, like in mine:
+        t = host[key] = _host_tensor(leaves[key], dtypes.get(key), like.dtype)
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"snapshot leaf {key} shape {tuple(t.shape)} != engine state {tuple(like.shape)}")
+    opt = state.optimizer
+    if isinstance(opt, ShardedOptState):
+        parts = [(opt.sharded, ".optimizer.sharded")]
+        if opt.local is not None:
+            parts.append((opt.local, ".optimizer.local"))
+    else:
+        parts = [(opt, ".optimizer")]
+    optimizers = [(o, _optimizer_state(o, prefix, leaves, dtypes)) for o, prefix in parts]
+    for o, opt_state in optimizers:
+        o.load_state_dict({"state": opt_state, "param_groups": o.state_dict()["param_groups"]})
+    loaded = {}
+    for key, like in mine:
+        if key.startswith(".algo_state"):
+            # replaced, not written in place: a fresh state's tensors may
+            # be views of the parameters (a ZeRO bucket of one leaf)
+            loaded[key] = host[key].to(like.device, like.dtype)
+        else:
+            like.copy_(host[key].to(like.dtype))
+    algo_state = tree_unflatten(state.algo_state, [
+        loaded.get(".algo_state" + name, leaf) for name, leaf in tree_flatten_with_names(state.algo_state)])
+    return TrainState(state.params, state.optimizer, algo_state, int(np.asarray(leaves[".step"])))
 
 
 class DistributedDataParallel:
@@ -1143,6 +1284,95 @@ class DistributedDataParallel:
         params, algo_state = self.impl.on_step_start(state.params, state.algo_state, ctx)
         return TrainState(params, state.optimizer, algo_state, state.step)
 
+    # -- the train state on the host: snapshots, checkpoints, elastic resume -------
+
+    def state_template(self, state: TrainState) -> TrainState:
+        """A fresh state of the CURRENT layout over ``state``'s parameter
+        tensors: the optimizer (under a sharded update, the updater's rows
+        and the optimizer over them) and the algorithm's state built anew
+        as :meth:`init` builds them, without re-planning.  What a resume
+        loads a snapshot into after adopting its plan (the state built by
+        ``init`` before that may describe another shard layout)."""
+        updater = self._sharded_updater
+        one = tree_map(lambda p: p[0], state.params)
+        with default_axes(self.group.data_axes):
+            algo_state = self.impl.init_state(one)
+            optimizer = updater.init(state.params) if updater else self.optimizer(tree_leaves(state.params))
+        return TrainState(state.params, optimizer, algo_state, state.step)
+
+    def reshard_host_state(self, leaves: Dict[str, np.ndarray], plan_payload: dict, old_world: int,
+                           dtypes: Optional[Dict[str, str]] = None):
+        """Re-shard a sharded-update snapshot's host leaves (``{key:
+        array}``, rank-stacked at ``old_world``) into this engine's current
+        layout and world size: the sharded-update replacement for a plain
+        ``remap_world_size`` on an elastic resume.  Replicated leaves (the
+        parameters, the uncovered leaves' optimizer state) take row 0; the
+        updater's rows, their per-element optimizer state and the pending
+        shards migrate value for value by tensor name through the shard
+        layout the snapshot's plan payload records; 0-d leaves stay;
+        error-feedback residuals restart at zero.  Returns ``(leaves,
+        dtypes)``, the torch dtype names (``dtypes``, as the snapshot's
+        manifest records them) following the leaves' new keys."""
+        from bagua_tpu_torch.checkpoint.checkpointing import remap_leaf
+        from bagua_tpu_torch.resilience.snapshot import dtype_name
+        from bagua_tpu_torch.sharded.layout import reshard_bucket_rows, reshard_group_flat
+        from bagua_tpu_torch.utils import from_bagua_datatype
+
+        if self.group.exchange_size != self.group.size:
+            raise ValueError(
+                "snapshot resharding is undefined when model axes are present "
+                "(per-rank shard rows don't map 1:1 to exchange-ring slots); "
+                "resume onto a data-only mesh, then re-shard"
+            )
+        old = ShardLayout.from_payload(plan_payload, old_world)
+        new = self._sharded_updater.layout
+        n_new = self.group.size
+        new_index = {}
+        for oi, og in enumerate(old.groups):
+            ng = new.group_for(og.dtype)
+            if ng is None:
+                raise ValueError(f"the live shard layout lacks the snapshot's dtype group {og.dtype!r}")
+            new_index[oi] = new.groups.index(ng)
+        for ng in new.groups:
+            if old.group_for(ng.dtype) is None:
+                raise ValueError(f"snapshot shard layout lacks dtype group {ng.dtype!r}")
+        rows_key = re.compile(r"^\.optimizer\.(rows|sharded\['state'\])\[(\d+)\](.*)$")
+        dtypes = dtypes or {}
+        out: Dict[str, np.ndarray] = {}
+        out_dtypes: Dict[str, str] = {}
+        pending = {}
+        for key, a in leaves.items():
+            a = np.asarray(a)
+            m = rows_key.match(key)
+            if m is not None:
+                oi = int(m.group(2))
+                og = old.groups[oi]
+                nkey = f".optimizer.{m.group(1)}[{new_index[oi]}]{m.group(3)}"
+                if key in dtypes:
+                    out_dtypes[nkey] = dtypes[key]
+                if a.ndim >= 2 and a.shape[0] == old.n_shards and a.shape[-1] == og.shard_total:
+                    out[nkey] = reshard_group_flat(a, old, new, og.dtype).astype(a.dtype)
+                else:
+                    out[nkey] = remap_leaf(nkey, a, n_new, lambda _: False)
+            elif key.startswith(".algo_state['pending']"):
+                pending[int(key[len(".algo_state['pending']"):].strip("[]"))] = a
+            elif key.startswith(".algo_state['qr_residual']"):
+                continue
+            else:
+                out[key] = remap_leaf(key, a, n_new, lambda _: False)
+                if key in dtypes:
+                    out_dtypes[key] = dtypes[key]
+        if pending:
+            rows = reshard_bucket_rows([pending[bi] for bi in sorted(pending)], old, new)
+            for bi, (r, b) in enumerate(zip(rows, new.buckets)):
+                out[f".algo_state['pending'][{bi}]"] = r
+                out_dtypes[f".algo_state['pending'][{bi}]"] = dtype_name(from_bagua_datatype(b.dtype))
+        if any(k.startswith(".algo_state['qr_residual']") for k in leaves):
+            for bi, b in enumerate(new.buckets):
+                out[f".algo_state['qr_residual'][{bi}]"] = np.zeros((n_new, b.numel), np.float32)
+                out_dtypes[f".algo_state['qr_residual'][{bi}]"] = "float32"
+        return out, out_dtypes
+
     def optimizer_state_bytes(self, state: TrainState) -> int:
         """Bytes of optimizer state one rank holds: the state tensors' bytes
         over the group size (they are rank-stacked).  A sharded update's
@@ -1219,3 +1449,135 @@ class DistributedDataParallel:
     def params_unstacked(self, state: TrainState, rank: int = 0):
         """One rank's parameter copy."""
         return tree_map(lambda x: x[rank], state.params)
+
+
+class AutotuneSession:
+    """Drives the autotune service's register / report / re-bucket cycle for
+    one engine (the port of ``bagua_tpu/ddp.py``'s): register the plan's
+    tensors at construction, report the speed and ask for hyperparameters
+    every ``interval`` steps, and apply what comes back.
+
+    Each knob that changes what a step exchanges (the bucket plan, the
+    hierarchical reduction, the wire dtype, the overlap mode) resets the
+    engine's per-variant state: the variants seen (the recompile detector's
+    misses) and the flight recorder's captured programs, so the next step
+    captures its program again instead of replaying a stale one.  The
+    overlap hooks are registered anew every step and hold nothing across
+    steps."""
+
+    def __init__(self, ddp: DistributedDataParallel, model_name: str, client=None, interval: int = 100):
+        from bagua_tpu_torch.env import get_rpc_breaker_cooldown_s, get_rpc_breaker_threshold
+        from bagua_tpu_torch.observability.core import SpanRecorder
+        from bagua_tpu_torch.resilience.retry import CircuitBreaker, CircuitOpenError
+        from bagua_tpu_torch.service.autotune_client import get_hyperparameters_service_client
+
+        self.ddp = ddp
+        self.model_name = model_name
+        self.client = client or get_hyperparameters_service_client()
+        self.interval = interval
+        self._step = 0
+        self.completed = False
+        decls = [td for bucket in ddp.plan.declarations() for td in bucket]
+        # the wire dtype and mode the first speed reports are measured under
+        self.client.register_tensors(
+            model_name, decls,
+            current_wire_bf16=getattr(ddp.impl, "wire_dtype", None) == torch.bfloat16,
+            current_overlap=ddp.overlap_enabled,
+        )
+        self.spans = SpanRecorder()
+        # until profile_and_report runs, the service orders tensors by their
+        # registration, which is the plan's order
+        self.profiled = False
+        # a service that flaps mid-run leaves the session on its current
+        # hyperparameters: the client retries, and once the breaker opens
+        # tick is a fast no-op until the cooldown
+        self._breaker = CircuitBreaker(failure_threshold=get_rpc_breaker_threshold(),
+                                       cooldown_s=get_rpc_breaker_cooldown_s(), name="autotune")
+        self._CircuitOpenError = CircuitOpenError
+
+    def profile_and_report(self, state: TrainState, batch) -> None:
+        """Measure the buckets' gradient-arrival order
+        (:meth:`DistributedDataParallel.profile_bucket_order`: one forward
+        and backward, no exchange, no update) and send it to the service as
+        ``tensor_ready`` spans.  Call once when training starts (the
+        ``Trainer`` does)."""
+        times = self.ddp.profile_bucket_order(state, batch)
+        self.spans.record_measured_order(self.ddp.plan, times)
+        self.spans.report_to_autotune(self.client, self.model_name)
+        self.profiled = True
+
+    def report_wire_timings(self, analysis, hierarchical: Optional[bool] = None) -> None:
+        """Send a device-trace analysis
+        (:func:`~bagua_tpu_torch.observability.trace_analysis.analyze_trace`)
+        to the service as per-bucket ``bucket_wire`` spans, the measured
+        wire times the service's planner fits its alpha-beta cost model on.
+        A sharded-update algorithm's spans calibrate the reduce-scatter leg."""
+        if hierarchical is None:
+            hierarchical = bool(getattr(self.ddp.impl, "hierarchical", False))
+        leg = "rs" if getattr(self.ddp.impl, "sharded_update", False) else None
+        self.spans.record_wire_timings(self.ddp.plan, analysis, intra_size=self.ddp.group.intra_size,
+                                       hierarchical=hierarchical, leg=leg)
+        self.spans.report_to_autotune(self.client, self.model_name)
+
+    def tick(self, n_samples: int) -> None:
+        """Call once per training step with the samples it processed."""
+        from bagua_tpu_torch.env import get_rank
+
+        self.ddp.record_speed(n_samples)
+        self._step += 1
+        if self.completed or self._step % self.interval != 0:
+            return
+        # the service tunes once every rank in [0, world_size) has reported
+        # for an iteration: each process reports its own index (0 on one
+        # controller, which drives every rank of the group)
+        rank = get_rank()
+        try:
+            self._breaker.before_call()
+            self.client.report_metrics(self.model_name, rank, self._step, self.ddp.speed_meter.speed(60.0))
+            hp, self.completed = self.client.ask_hyperparameters(self.model_name, rank, self._step)
+        except self._CircuitOpenError:
+            return
+        except (OSError, ConnectionError) as e:
+            # the client already retried: the service is down; keep training
+            # on the current hyperparameters (the breaker opens after a few)
+            self._breaker.record_failure()
+            logger.warning("autotune service unreachable at step %d (%s); keeping current "
+                           "hyperparameters", self._step, e)
+            return
+        self._breaker.record_success()
+        self._apply(hp)
+
+    def _apply(self, hp) -> None:
+        ddp, impl = self.ddp, self.ddp.impl
+        if getattr(impl, "holds_bucketized_state", False):
+            return  # cannot re-bucket this algorithm
+        current = ddp.plan.declarations()
+        proposed = [list(bucket) for bucket in hp.buckets]
+        if proposed and [[td.name for td in b] for b in proposed] != [[td.name for td in b] for b in current]:
+            plan = BucketPlan.from_declarations(proposed, ddp._tree_template,
+                                                align_elems=ddp.group.exchange_size)
+            ddp.rebucket(plan, predicted_exposed_ms=getattr(hp, "predicted_exposed_ms", None))
+        if hp.is_hierarchical_reduce != impl.hierarchical:
+            if hp.is_hierarchical_reduce and ddp.group.mesh_spec is not None:
+                logger.info("autotune proposed a hierarchical reduction; the named mesh has no "
+                            "(inter, intra) axes, so it stays flat")
+            else:
+                impl.hierarchical = hp.is_hierarchical_reduce
+                ddp._reset_programs()
+        # the wire-dtype knob: only algorithms with ``wire_dtype``
+        # (gradient_allreduce) take part; None means the service is not
+        # tuning it, and a user-configured wire dtype is left alone
+        if hp.wire_bf16 is not None and hasattr(impl, "wire_dtype"):
+            want = torch.bfloat16 if hp.wire_bf16 else None
+            if want != impl.wire_dtype:
+                impl.wire_dtype = want
+                ddp._reset_programs()
+        # the execution-mode knob, same tri-state contract, for
+        # gradient-mode algorithms only: weight and post_step algorithms
+        # shape their plan by the mode, which would need a re-plan
+        cap = impl.overlap_capability()
+        if hp.overlap is not None and cap.supported and cap.mode == "gradient":
+            if bool(hp.overlap) != ddp.overlap_enabled:
+                ddp.overlap = bool(hp.overlap)
+                impl.overlap_hint = ddp.overlap_enabled
+                ddp._reset_programs()

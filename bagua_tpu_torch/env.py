@@ -20,6 +20,75 @@ def get_rank() -> int:
     return int(os.environ.get("RANK", 0))
 
 
+def get_local_rank() -> int:
+    return int(os.environ.get("LOCAL_RANK", 0))
+
+
+def get_local_size() -> int:
+    return int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+
+
+def get_node_rank() -> int:
+    return int(os.environ.get("NODE_RANK", get_rank() // max(get_local_size(), 1)))
+
+
+def get_master_addr() -> str:
+    return os.environ.get("MASTER_ADDR", "127.0.0.1")
+
+
+def get_bagua_service_port() -> int:
+    return int(os.environ.get("BAGUA_SERVICE_PORT", -1))
+
+
+def get_autotune_level() -> int:
+    return int(os.environ.get("BAGUA_AUTOTUNE", 0))
+
+
+def get_autotune_planner_mode() -> str:
+    """``BAGUA_AUTOTUNE_PLANNER``: how the trace-driven bucket planner
+    takes part in autotune (``bagua_tpu_torch/service/planner.py``).
+
+    * ``"warmstart"`` (default): once measured spans arrive, the Bayesian
+      optimizer's initial points are the planner's top-k proposals instead
+      of a cold grid walk; the bucket assignment stays the greedy split.
+    * ``"on"``: warm start, and each proposal's bucket assignment is the
+      planner's DP-optimal contiguous partition (capped at the proposed
+      bucket size) instead of the greedy byte-threshold split.
+    * ``"off"``: pure Bayesian optimization, no planner.
+
+    Unknown values fall back to ``"warmstart"``; with no spans reported the
+    planner never activates, so every mode degrades to pure BO."""
+    mode = os.environ.get("BAGUA_AUTOTUNE_PLANNER", "warmstart").strip().lower()
+    return mode if mode in ("on", "off", "warmstart") else "warmstart"
+
+
+def get_autotune_max_samples() -> int:
+    return int(os.environ.get("BAGUA_AUTOTUNE_MAX_SAMPLES", 60))
+
+
+def get_autotune_warmup_time_s() -> float:
+    return float(os.environ.get("BAGUA_AUTOTUNE_WARMUP_TIME_S", 30.0))
+
+
+def get_autotune_sampling_confidence_time_s() -> float:
+    return float(os.environ.get("BAGUA_AUTOTUNE_SAMPLING_CONFIDENCE_TIME_S", 5.0))
+
+
+def get_autotune_server_wait_time_s() -> float:
+    return float(os.environ.get("BAGUA_AUTOTUNE_SERVER_WAIT_TIME", 60.0))
+
+
+def get_autotune_logfile_path() -> str:
+    return os.environ.get("BAGUA_AUTOTUNE_LOGFILE_PATH", "/tmp/bagua_autotune.log")
+
+
+def get_snapshot_every() -> int:
+    """``BAGUA_SNAPSHOT_EVERY``: the async snapshot cadence in steps (0
+    leaves the ``Trainer``'s ``snapshot_every``; a value overrides it, so an
+    operator can retune the lost-work bound without editing the script)."""
+    return int(os.environ.get("BAGUA_SNAPSHOT_EVERY", 0))
+
+
 def get_metrics_max_mb() -> float:
     """``BAGUA_METRICS_MAX_MB``: size-based rotation threshold (MiB) for the
     telemetry JSONL event stream — the live file rotates to ``path.N`` when
@@ -149,3 +218,11 @@ def get_rpc_breaker_threshold() -> int:
 
 def get_rpc_breaker_cooldown_s() -> float:
     return float(os.environ.get("BAGUA_RPC_BREAKER_COOLDOWN_S", 30.0))
+
+
+def get_rpc_timeout_s() -> float:
+    """``BAGUA_RPC_TIMEOUT_S``: per-attempt socket timeout for service RPCs
+    (the rendezvous store, the autotune service).  One knob for every
+    client; the retry layer (``BAGUA_RPC_RETRIES``) multiplies it into the
+    worst-case blocking time."""
+    return float(os.environ.get("BAGUA_RPC_TIMEOUT_S", 10.0))

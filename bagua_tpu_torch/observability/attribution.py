@@ -1,7 +1,7 @@
 """Step-time budget attribution: price the expected step, name the residual.
 
 The stack already *records* every ingredient of a slow step — the perflab
-prices compute, the planner's fitted α–β :class:`~bagua_tpu.service.planner.CostModel`
+prices compute, the planner's fitted α–β :class:`~bagua_tpu_torch.service.planner.CostModel`
 prices the wire, the recompile detector measures compile walls, the
 snapshotter reports blocking writes, the gang aggregator scores stragglers,
 and ``retry_call`` counts backpressure sleeps — but they are disjoint
@@ -67,7 +67,7 @@ def priced_axis_wire_ms(cost_model, program) -> Dict[str, float]:
     """Join one step's flight/IR program against the planner's per-axis α–β
     legs: every record carrying ``axes`` (stamped by ``annotate()`` and
     mirrored by ``predict_flight_program``) is priced on each axis's fitted
-    leg — :meth:`~bagua_tpu.service.planner.CostModel.axis_leg` falls back
+    leg — :meth:`~bagua_tpu_torch.service.planner.CostModel.axis_leg` falls back
     to the ``flat`` leg on legacy 1-D meshes — with a joint multi-axis
     exchange's bytes split evenly across its axes.  Returns ``{axis: ms}``
     (empty when no record carries axes)."""

@@ -13,7 +13,7 @@ module makes the observation first-class instead of hand-math in
   counts as one FLOP (VGG16 fwd at 224² = 15.5 GFLOP, ×3 for fwd+bwd).
 * **:class:`GoodputMeter`** — per-step ``mfu`` (model FLOPs / wall /
   peak) and ``wire_efficiency`` (α–β-predicted wire time from the planner's
-  fitted :class:`~bagua_tpu.service.planner.CostModel` over the live bucket
+  fitted :class:`~bagua_tpu_torch.service.planner.CostModel` over the live bucket
   plan, divided by the measured wire time a device-trace analysis supplies)
   gauges, fed by the :class:`~bagua_tpu_torch.observability.telemetry.Telemetry`
   hub.
@@ -158,7 +158,7 @@ def predicted_wire_time(
     wire_pattern: str = "allreduce",
 ) -> float:
     """α–β-predicted wire seconds for one step's bucketed exchange: the
-    planner's fitted :class:`~bagua_tpu.service.planner.CostModel` applied
+    planner's fitted :class:`~bagua_tpu_torch.service.planner.CostModel` applied
     to every live bucket — the denominator-side input of the
     ``wire_efficiency`` gauge."""
     return float(
@@ -178,7 +178,7 @@ def predicted_axis_wire_time(
     """Per-mesh-axis α–β-predicted wire seconds for one step's bucketed
     exchange: each bucket's bytes split evenly across the exchange axes and
     priced on each axis's fitted leg
-    (:meth:`~bagua_tpu.service.planner.CostModel.axis_leg`, falling back to
+    (:meth:`~bagua_tpu_torch.service.planner.CostModel.axis_leg`, falling back to
     ``flat`` on legacy 1-D meshes).  Returns ``{axis: seconds}``."""
     axes = [str(a) for a in axes if a]
     if not axes:
@@ -318,7 +318,7 @@ class GoodputMeter:
         n_chips: chips the ``n_samples`` global batch spreads over — MFU is
             quoted per chip.
         cost_model: the planner's fitted
-            :class:`~bagua_tpu.service.planner.CostModel`; with
+            :class:`~bagua_tpu_torch.service.planner.CostModel`; with
             ``bucket_bytes`` (the live plan's per-bucket bytes) it prices
             the predicted wire time for ``wire_efficiency``.
         registry: metrics registry for the gauges (the hub injects its own

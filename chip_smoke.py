@@ -190,7 +190,35 @@ and no result line:
    under an exchange label cover at least OBS_COVERAGE of the exchange
    stream's busy time.  Prints the three step times, MFU, goodput, both
    overlap measures and the flight records a step.
-12. prints one JSON line naming each kernel with its launches and times
+12. resil -- (after ``[obs]``) snapshots, the preemption drain, the
+   elastic resume, checkpoints and the autotune service.  ``[resil-ref]``:
+   the small VGG (cuDNN deterministic, SGD with momentum) with ByteGrad,
+   the int8 ring and ZeRO f32: 6 steps uninterrupted; then 2 steps, a
+   triggered preemption that drains step 3 and forces the final snapshot,
+   and a fresh ``Trainer`` on the same directory that resumes at step 3
+   and takes 3 more; every leaf (parameters, momentum, the algorithm's
+   state) and each resumed loss bitwise the uninterrupted run's; ByteGrad
+   again through ``ckpt_dir`` alone; the snapshot directory read with
+   numpy (``leaf_keys`` and the leaf count as the CPU test pins them,
+   :func:`resil_leaf_keys`); a cadence snapshot taken while the next step
+   already updates the parameters in place holds the state of its own
+   step.  ``[resil]``: full-width VGG16 over 4 ranks, ByteGrad with
+   overlap, through ``Trainer.fit``: two trainers from the same weights,
+   the snapshotter off and on (cadence 5, ``keep=1``, a temporary
+   directory removed at the end), 5 warm-up steps each (through one
+   snapshot), then 80 steps a turn (longer than a snapshot's write) in the
+   order off, on, on, off, the writer never waited for between on-turns
+   and idle before an off-turn, every turn's launches SLICE_PATHS' (a
+   snapshot launches no codec); then a drain, a fresh ``Trainer`` that
+   resumes with every leaf bitwise the drained one's, and one autotune
+   session against an in-process ``AutotuneService`` on localhost that
+   re-buckets the live engine, each step's launches exact for the plan it
+   ran, the replicas bitwise equal.  No warning may be logged (the
+   best-effort fallbacks log one).  Prints ms/step off and on, the on-turn
+   steps that started with the writer busy, the clone's time on the card,
+   the snapshot's wall time and bytes, the skipped cadence ticks, the
+   drain's and the resume's wall times.
+13. prints one JSON line naming each kernel with its launches and times
    (``other_steps``: the sums per step of other paths, the BERT, GPT and
    mesh ones included), then the result line ``{"ok": true, "device":
    {...}}``.
@@ -203,7 +231,9 @@ import functools
 import gc
 import itertools
 import json
+import logging
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -222,7 +252,7 @@ from bagua_tpu_torch.algorithms import (
     LowPrecisionDecentralizedAlgorithm, QAdamAlgorithm, QAdamOptimizer, StaleSyncAlgorithm,
 )
 from bagua_tpu_torch.algorithms.base import StepContext
-from bagua_tpu_torch.ddp import DistributedDataParallel
+from bagua_tpu_torch.ddp import DistributedDataParallel, state_leaves
 from bagua_tpu_torch.examples import gpt_pretrain as gp
 from bagua_tpu_torch.examples import llama_pretrain as lp
 from bagua_tpu_torch.examples import bench_moe, communication_primitives, imagenet, mnist, moe, squad
@@ -4577,6 +4607,343 @@ def check_mesh_engine_records(ddp, state, batch) -> None:
         f"['dp']; wire bytes by axis {by_axis}")
 
 
+#: ``[resil-ref]``: the small VGG's runs: 6 steps, a preemption during step
+#: 3, the resumed trainer's last 3 steps
+RESIL_REF = ("ByteGrad", "int8 ring", "ZeRO f32")
+RESIL_STEPS, RESIL_DRAIN_AT = 6, 3
+#: ``[resil]``: warm-up steps (through one cadence snapshot, so that the
+#: clones find the allocator warm), steps a turn (longer than a snapshot's
+#: write, so that an on-turn runs beside a busy writer most of the way),
+#: the turns' order, the cadence
+RESIL_WARMUP, RESIL_TURN_STEPS = 5, 80
+RESIL_TURNS = ("off", "on", "on", "off")
+RESIL_EVERY = 5
+#: ``[resil]``: steps the autotune session may take to re-bucket, and the
+#: steps it then takes on the new plan
+AUTOTUNE_STEPS, AUTOTUNE_AFTER = 8, 2
+
+
+def resil_leaf_keys(params) -> list:
+    """A snapshot's ``leaf_keys`` for an engine whose algorithm keeps no
+    state (ByteGrad) and an SGD with momentum over ``params``: each
+    parameter's path, each parameter's momentum buffer, the step."""
+    names = [name for name, _ in tree_flatten_with_names(params)]
+    return ([".params" + n for n in names]
+            + [f".optimizer['state'][{i}]['momentum_buffer']" for i in range(len(names))] + [".step"])
+
+
+class _Warnings(logging.Handler):
+    """Collects the port's warnings: a best-effort fallback taken (a failed
+    resume, an unreachable autotune service) logs one.  The drain's own
+    notice is not a fallback."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.seen = []
+
+    def emit(self, record):
+        if not record.getMessage().startswith("preemption signal received"):
+            self.seen.append(f"{record.name}: {record.getMessage()}")
+
+
+@contextlib.contextmanager
+def _no_warnings(what: str):
+    handler = _Warnings()
+    root = logging.getLogger("bagua_tpu_torch")
+    root.addHandler(handler)
+    try:
+        yield
+    finally:
+        root.removeHandler(handler)
+    if handler.seen:
+        raise AssertionError(f"{what}: warnings logged: {handler.seen[:5]}")
+
+
+def _resil_trainer(name, device, **kw):
+    return Trainer(vgg_loss_fn(VGG(device=device, **REF_VGG)),
+                   lambda ps: torch.optim.SGD(ps, lr=REF_LR, momentum=0.9), REF_ALGORITHMS[name][0](),
+                   BaguaProcessGroup([device] * RANKS, intra_size=1), **kw)
+
+
+def _final_leaves(trainer, state) -> list:
+    return state_leaves(trainer.ddp.finalize_pending_updates(state))
+
+
+def _same_leaves(what: str, got, want) -> None:
+    if [k for k, _ in got] != [k for k, _ in want]:
+        raise AssertionError(f"{what}: leaf keys {[k for k, _ in got][:4]}... against {[k for k, _ in want][:4]}...")
+    bad = [k for (k, a), (_, b) in zip(got, want) if a.dtype != b.dtype or not same(a, b)]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(got)} leaves differ, first {bad[:3]}")
+
+
+def check_resil_on_card(device) -> dict:
+    """``[resil-ref]`` (see the module docstring); the caller holds cuDNN to
+    its deterministic algorithms.  Returns what it read."""
+    gen = torch.Generator().manual_seed(7)
+    params = module_params(VGG(device="cpu", generator=gen, **REF_VGG))
+    side = REF_VGG["image_size"]
+    batches = [(torch.rand((RANKS * 8, side, side, 3), generator=gen).to(device),
+                torch.randint(0, REF_VGG["num_classes"], (RANKS * 8,), generator=gen).to(device))
+               for _ in range(RESIL_STEPS)]
+    start = lambda: tree_map(lambda t: t.to(device), params)  # noqa: E731
+    seen = {}
+    with _no_warnings("[resil-ref]"), tempfile.TemporaryDirectory() as root:
+        for name in RESIL_REF:
+            ref = _resil_trainer(name, device)
+            state, want_losses = ref.init_state(start()), []
+            for batch in batches:
+                state = ref.fit(state, [batch])
+                want_losses.append(ref.losses.clone())
+            want = _final_leaves(ref, state)
+            ref.close()
+            routes = {"snapshot": {"snapshot_dir": f"{root}/{name}/snap", "snapshot_every": 1000}}
+            if name == "ByteGrad":
+                routes["checkpoint"] = {"ckpt_dir": f"{root}/{name}/ckpt", "ckpt_interval": RESIL_DRAIN_AT}
+            for route, kw in routes.items():
+                what = f"[resil-ref] small VGG {name}, resumed from a {route}"
+                first = _resil_trainer(name, device, **kw)
+                state = first.fit(first.init_state(start()), batches[:RESIL_DRAIN_AT - 1])
+                if route == "snapshot":
+                    first.preemption.trigger()
+                    state = first.fit(state, batches[RESIL_DRAIN_AT - 1:])
+                    if not first.preempted or state.step != RESIL_DRAIN_AT:
+                        raise AssertionError(f"{what}: drained at step {state.step}, want {RESIL_DRAIN_AT}")
+                else:
+                    state = first.fit(state, batches[RESIL_DRAIN_AT - 1:RESIL_DRAIN_AT + 1])
+                first.close()
+                second = _resil_trainer(name, device, **kw)
+                state = second.init_state(start())
+                res = second.resume_result
+                if state.step != RESIL_DRAIN_AT or (route == "snapshot" and (res is None or res.step != RESIL_DRAIN_AT)):
+                    raise AssertionError(f"{what}: resumed at step {state.step}, result {res and res.step}")
+                for i, batch in enumerate(batches[RESIL_DRAIN_AT:]):
+                    state = second.fit(state, [batch])
+                    if not same(second.losses, want_losses[RESIL_DRAIN_AT + i]):
+                        raise AssertionError(f"{what}: step {RESIL_DRAIN_AT + i + 1}'s losses differ")
+                _same_leaves(what, _final_leaves(second, state), want)
+                second.close()
+                seen[(name, route)] = len(want)
+            if name == "ByteGrad":
+                store = f"{root}/{name}/snap"
+                with open(f"{store}/step_{RESIL_DRAIN_AT:07d}/manifest.json") as f:
+                    manifest = json.load(f)
+                with np.load(f"{store}/step_{RESIL_DRAIN_AT:07d}/proc0.npz") as z:
+                    n_arrays = len(z.files)
+                keys = resil_leaf_keys(params)
+                if manifest["leaf_keys"] != keys or n_arrays != len(keys) or manifest["kind"] != "final":
+                    raise AssertionError(f"[resil-ref] the snapshot's leaf_keys ({len(manifest['leaf_keys'])}, "
+                                         f"{n_arrays} arrays, kind {manifest['kind']}) against the pinned {len(keys)}")
+                seen["leaf_keys"] = len(keys)
+        seen["side_stream"] = check_snapshot_copy_on_card(device, f"{root}/copy")
+    log(f"[resil-ref] small VGG, {RANKS} ranks, {' / '.join(RESIL_REF)}: drained at step {RESIL_DRAIN_AT} and "
+        f"resumed, {RESIL_STEPS} steps bitwise the uninterrupted run ({seen[(RESIL_REF[0], 'snapshot')]} leaves, "
+        f"each resumed loss too); ByteGrad through ckpt_dir alone bitwise; the snapshot's {seen['leaf_keys']} "
+        f"leaf_keys as pinned; a cadence snapshot taken while the next step ran holds its own step's "
+        f"{seen['side_stream']} leaves bitwise")
+    return seen
+
+
+def check_snapshot_copy_on_card(device, directory: str) -> int:
+    """A cadence snapshot (the side-stream copy of the clone) taken after
+    step 2 while step 3 already updates the parameters in place holds step
+    2's state bit for bit.  Returns the leaves compared."""
+    gen = torch.Generator().manual_seed(8)
+    params = module_params(VGG(device="cpu", generator=gen, **REF_VGG))
+    side = REF_VGG["image_size"]
+    batch = (torch.rand((RANKS * 8, side, side, 3), generator=gen).to(device),
+             torch.randint(0, REF_VGG["num_classes"], (RANKS * 8,), generator=gen).to(device))
+    trainer = _resil_trainer("ByteGrad", device, snapshot_dir=directory, snapshot_every=2)
+    state = trainer.fit(trainer.init_state(tree_map(lambda t: t.to(device), params)), [batch, batch])
+    want = [(k, t.clone()) for k, t in state_leaves(state)]
+    state = trainer.fit(state, [batch])  # in place, while the copy may still run
+    trainer.snapshotter.drain()
+    trainer.close()
+    with np.load(f"{directory}/step_0000002/proc0.npz") as z:
+        got = [z[k] for k in sorted(z.files)]
+    if len(got) != len(want):
+        raise AssertionError(f"[resil-ref] the cadence snapshot holds {len(got)} leaves, want {len(want)}")
+    for (key, w), g in zip(want, got):
+        if not same(torch.from_numpy(g), w.cpu()):
+            raise AssertionError(f"[resil-ref] the cadence snapshot's {key} is not step 2's")
+    if same(state_leaves(state)[0][1], want[0][1]):
+        raise AssertionError("[resil-ref] step 3 left the parameters as they were: the check proves nothing")
+    return len(want)
+
+
+def _turns(runs, batch, per_bucket, what) -> dict:
+    """RESIL_TURNS' timed turns; returns the launches.  The writer is not
+    waited for between on-turns, so that they run beside it as training
+    does; an off-turn starts after it has finished (untimed).  Each turn's
+    steps that started while the writer was busy are counted into
+    ``runs[config][3]``."""
+    total = {k: 0 for k in KERNELS}
+    snap = runs["on"][0].snapshotter
+    for config in RESIL_TURNS:
+        trainer = runs[config][0]
+        want = {k: RESIL_TURN_STEPS * trainer.ddp.plan.num_buckets * per_bucket.get(k, 0) for k in KERNELS}
+        if config == "off":
+            snap.drain(600.0)
+        busy = []
+
+        def batches():
+            while True:
+                busy.append(snap.busy)
+                yield batch
+
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        runs[config][1] = trainer.fit(runs[config][1], batches(), n_steps=RESIL_TURN_STEPS)
+        torch.cuda.synchronize()
+        runs[config][2].append((time.perf_counter() - t0) / RESIL_TURN_STEPS)
+        runs[config][3].append(sum(busy[:RESIL_TURN_STEPS]))
+        launches = read_launches()
+        if launches != want:
+            raise AssertionError(f"{what}, snapshots {config}: launch counts {launches}, want {want}")
+        if not torch.isfinite(trainer.losses).all():
+            raise AssertionError(f"{what}: non-finite loss {trainer.losses.tolist()}")
+        total = {k: total[k] + c for k, c in launches.items()}
+    return total
+
+
+def _autotune(trainer, state, batch, per_bucket, what):
+    """The resumed trainer's autotune session: steps until the service's
+    proposal re-buckets the live engine, then AUTOTUNE_AFTER more, each
+    step's launches exact for the plan it ran on.  Returns ``(state,
+    launches, versions, buckets)``."""
+    total = {k: 0 for k in KERNELS}
+    ddp, version0, buckets = trainer.ddp, trainer.ddp.plan_version, [trainer.ddp.plan.num_buckets]
+    after = None
+    for i in range(AUTOTUNE_STEPS + AUTOTUNE_AFTER):
+        nb = ddp.plan.num_buckets
+        want = {k: nb * per_bucket.get(k, 0) for k in KERNELS}
+        reset_launches()
+        state = trainer.fit(state, [batch])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != want:
+            raise AssertionError(f"{what}, autotune step {i} on {nb} buckets: launches {launches}, want {want}")
+        total = {k: total[k] + c for k, c in launches.items()}
+        if ddp.plan.num_buckets != buckets[-1]:
+            buckets.append(ddp.plan.num_buckets)
+        if after is None and ddp.plan_version != version0:
+            after = i
+        if after is not None and i >= after + AUTOTUNE_AFTER:
+            break
+    if after is None:
+        raise AssertionError(f"{what}: the autotune session never re-bucketed in {AUTOTUNE_STEPS} steps")
+    _bitwise_replicas(what, state.params)
+    return state, total, (version0, ddp.plan_version), buckets
+
+
+def phase_resil(device, profile: bool) -> dict:
+    """``[resil]`` (see the module docstring).  Returns the launches of the
+    timed turns and the autotune steps."""
+    from bagua_tpu_torch.ddp import AutotuneSession
+    from bagua_tpu_torch.observability.telemetry import Telemetry
+    from bagua_tpu_torch.service.autotune_client import AutotuneClient
+    from bagua_tpu_torch.service.autotune_service import AutotuneService, start_autotune_server
+
+    with _deterministic():
+        check_resil_on_card(device)
+    name = "ByteGrad"
+    per_bucket = SLICE_PATHS[name][1]
+    what = f"[resil] VGG16 {name} (overlap)"
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    n = RANKS * BATCH_PER_RANK
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="bagua_resil_")
+    service = AutotuneService(world_size=1, autotune_level=1, max_samples=AUTOTUNE_STEPS,
+                              sampling_confidence_time_s=0.0, warmup_time_s=0.0)
+    server = start_autotune_server(service, port=0)
+    try:
+        with _no_warnings(what):
+            runs = {}
+            for config in ("off", "on"):
+                kw = {"snapshot_dir": f"{root}/snaps", "snapshot_every": RESIL_EVERY, "snapshot_keep": 1} \
+                    if config == "on" else {}
+                model, params = sb.build("vgg16", torch.bfloat16, device)
+                trainer = Trainer(vgg_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+                                  build_algorithm("bytegrad"), group, telemetry=Telemetry(flight=None), **kw)
+                state = trainer.init_state(params)
+                del params
+                if not trainer.ddp.overlap_enabled:
+                    raise AssertionError(f"{what}: the engine resolved overlap off")
+                runs[config] = [trainer, state, [], []]
+            gen = torch.Generator(device=device).manual_seed(0)
+            batch = (torch.rand((n, IMAGE_SIZE, IMAGE_SIZE, 3), generator=gen, device=device),
+                     torch.randint(0, NUM_CLASSES, (n,), generator=gen, device=device))
+            for run in runs.values():
+                run[1] = run[0].fit(run[1], itertools.repeat(batch), n_steps=RESIL_WARMUP)
+            on = runs["on"][0]
+            total = _turns(runs, batch, per_bucket, what)
+            snap = on.snapshotter
+            leaves = [t for _, t in state_leaves(runs["on"][1])]
+            n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+            clone_ms = median_ms(lambda: [t.clone() for t in leaves], reps=3, calls=1, warm=1)
+            del leaves
+            skipped = on.telemetry.registry.snapshot().get("snapshot_skipped_total", 0)
+            ms = {config: statistics.mean(run[2]) * 1e3 for config, run in runs.items()}
+            turns = {config: [round(t * 1e3, 2) for t in run[2]] for config, run in runs.items()}
+            busy_steps = runs["on"][3]
+            written, wall_ms, clone_host_ms = snap.written, snap.last_wall_ms, snap.last_clone_ms
+            if snap.last_bytes != n_bytes or written < 1:
+                raise AssertionError(f"{what}: {written} snapshots written, the last {snap.last_bytes} B, "
+                                     f"want the state's {n_bytes} B")
+            runs["off"][0].close()
+            del runs["off"]
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            on.preemption.trigger()
+            state = on.fit(runs["on"][1], itertools.repeat(batch), n_steps=RESIL_TURN_STEPS)
+            if not on.preempted or state.step != runs["on"][1].step + 1:
+                raise AssertionError(f"{what}: the preemption drained at step {state.step}")
+            drained, drain_ms = state_leaves(state), on.drain_ms
+            model, params = sb.build("vgg16", torch.bfloat16, device)
+            resumed = Trainer(vgg_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+                              build_algorithm("bytegrad"), group, snapshot_dir=f"{root}/snaps", snapshot_every=0)
+            state2 = resumed.init_state(params)
+            del params
+            res = resumed.resume_result
+            if res is None or res.step != state.step or res.plan_source != "carried":
+                raise AssertionError(f"{what}: resume {res and (res.step, res.plan_source)} at drained step "
+                                     f"{state.step}")
+            # the session the Trainer builds for autotune_model_name, against
+            # the in-process service and asking every 2 steps
+            resumed._session = AutotuneSession(resumed.ddp, "vgg16",
+                                               client=AutotuneClient(port=server.server_address[1]), interval=2)
+            _same_leaves(f"{what}, resumed against drained", state_leaves(state2), drained)
+            n_leaves = len(drained)
+            on.close()
+            del drained, state, runs, on
+            gc.collect()
+            torch.cuda.empty_cache()
+            state2, tuned, versions, buckets = _autotune(resumed, state2, batch, per_bucket, what)
+            total = {k: total[k] + c for k, c in tuned.items()}
+            if profile:
+                profile_step(f"{what}, after autotune", lambda: resumed.ddp.train_step(state2, batch),
+                             side=resumed.ddp.side_stream)
+            resumed.close()
+            del state2, resumed
+    finally:
+        server.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"{what}: ms/step by turn ({RESIL_TURN_STEPS} steps a turn, in the order {' '.join(RESIL_TURNS)}): "
+        f"{turns}; snapshots on {ms['on']:.2f} against off {ms['off']:.2f} (ratio {ms['on'] / ms['off']:.4f}), "
+        f"cadence {RESIL_EVERY}, steps of each on-turn started with the writer busy {busy_steps}; the clone of "
+        f"{n_leaves} leaves {clone_ms:.3f} ms on the card "
+        f"({clone_host_ms:.3f} ms of host time to queue it); a snapshot {wall_ms:.1f} ms on the writer "
+        f"thread for {n_bytes} B ({written} written, snapshot_skipped_total {skipped})")
+    log(f"{what}: drain {drain_ms:.1f} ms (final snapshot, marker), resume {res.wall_ms:.1f} ms (load, "
+        f"commit), {n_leaves} leaves bitwise the drained state; autotune re-bucketed the live engine "
+        f"(plan version {versions[0]} -> {versions[1]}, buckets {buckets}), each step's launches exact for "
+        f"its plan, replicas bitwise")
+    return total
+
+
 def vgg16_plan():
     """The bucket plan of VGG16 over RANKS ranks, from the model's shapes
     alone (built on the meta device); every algorithm here aligns its
@@ -4648,6 +5015,8 @@ def main(argv) -> int:
     per_path["mesh engine"] = phase_mesh_engine(ledger, device, profile)
     torch.cuda.empty_cache()
     per_path["obs"] = phase_obs(device, profile)
+    torch.cuda.empty_cache()
+    per_path["resil"] = phase_resil(device, profile)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]

@@ -246,11 +246,9 @@ def test_axis_budget_partition_exact_over_captured_program(axes, algo, precision
     ledger joined from the program covers exactly the mesh's data axes, its
     scalar promise is the ledger's sum, and the settled per-axis
     wire_slowdown split sums bitwise to the scalar component on every
-    pricing path.  The planner's ``CostModel`` is not ported yet (ROADMAP
-    Queue 1 item 7): the test passes the JAX package's in as an input."""
-    from bagua_tpu.service.planner import AlphaBeta, CostModel
-
+    pricing path, with the port's own planner ``CostModel``."""
     from bagua_tpu_torch.observability import BudgetModel
+    from bagua_tpu_torch.service.planner import AlphaBeta, CostModel
 
     g, ddp, tel, program = _mesh_engine_step(axes, algo, precision)
     legs = {ax: AlphaBeta(0.0, 1e8 * (i + 1)) for i, ax in enumerate(g.data_axes)}

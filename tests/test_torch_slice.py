@@ -344,15 +344,17 @@ def test_port_imports_no_jax():
     average, gradient accumulation, BERT, the differentiable collectives,
     the SQuAD twin, the collectives twin, the MoE layer and its twins,
     ResNet, the contrib data tier, the imagenet twin, the pipeline
-    schedules, FSDP, GPT, the gpt_pretrain twin and the named mesh
+    schedules, FSDP, GPT, the gpt_pretrain twin, the named mesh
     (``mesh.py``, a copy of the JAX package's, which imports nothing of
-    it)."""
+    it), the resilience tier, the checkpoints, the autotune service, the
+    launcher and the elastic twin; neither pydantic nor orbax is loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(bagua_tpu_torch.__path__, 'bagua_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'bagua_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'bagua_tpu',\n"
+        "                                                     'pydantic', 'orbax')]\n"
         "assert not bad, bad\n"
         "need = ['bagua_tpu_torch.kernels.collective_matmul', 'bagua_tpu_torch.parallel.tensor_parallel',\n"
         "        'bagua_tpu_torch.examples.synthetic_benchmark', 'bagua_tpu_torch.sharded.updater',\n"
@@ -370,7 +372,14 @@ def test_port_imports_no_jax():
         "        'bagua_tpu_torch.parallel.pipeline', 'bagua_tpu_torch.parallel.fsdp',\n"
         "        'bagua_tpu_torch.models.gpt', 'bagua_tpu_torch.models._layers',\n"
         "        'bagua_tpu_torch.examples.gpt_pretrain', 'bagua_tpu_torch.mesh',\n"
-        "        'bagua_tpu_torch.resilience.retry'] + ['bagua_tpu_torch.observability.' + m for m in (\n"
+        "        'bagua_tpu_torch.resilience.retry', 'bagua_tpu_torch.resilience.snapshot',\n"
+        "        'bagua_tpu_torch.resilience.preemption', 'bagua_tpu_torch.resilience.resume',\n"
+        "        'bagua_tpu_torch.checkpoint.checkpointing', 'bagua_tpu_torch.service.bayesian_optimizer',\n"
+        "        'bagua_tpu_torch.service.planner', 'bagua_tpu_torch.service.autotune_task_manager',\n"
+        "        'bagua_tpu_torch.service.autotune_service', 'bagua_tpu_torch.service.autotune_client',\n"
+        "        'bagua_tpu_torch.distributed.rendezvous', 'bagua_tpu_torch.distributed.run',\n"
+        "        'bagua_tpu_torch.distributed.baguarun', 'bagua_tpu_torch.examples.elastic_training',\n"
+        "        'bagua_tpu_torch.trainer'] + ['bagua_tpu_torch.observability.' + m for m in (\n"
         "        'scope_grammar', 'metrics', 'core', 'annotations', 'tracing', 'flight_recorder', 'telemetry',\n"
         "        'health', 'goodput', 'attribution', 'regression', 'aggregate', 'trace_analysis')]\n"
         "assert all(m in sys.modules for m in need), need\n"

@@ -430,9 +430,30 @@ def port_batches():
     return [(torch.from_numpy(x), torch.from_numpy(y)) for x, y in batches()]
 
 
-def test_trainer_gang_window_raises(tgroup):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        port_trainer(tgroup, gang_window=4)
+def test_trainer_gang_window_exports_the_local_view(group, tgroup):
+    """``gang_window=2`` with a telemetry hub on one controller: after step
+    2 the trainer's gang aggregator holds a local view with the keys of the
+    JAX ``Trainer``'s local view, one rank reporting, and the same gang
+    gauges in the registry."""
+    from bagua_tpu.trainer import Trainer as JaxTrainer
+
+    jtel, tel = JaxTelemetry(), Telemetry()
+    jtr = JaxTrainer(jax_mlp.mse_loss, optax.sgd(LR), jax_build("gradient_allreduce"), process_group=group,
+                     telemetry=jtel, gang_window=2, watchdog_timeout_s=0)
+    jtr.fit(jtr.init_state(jax_params()), [(jnp.asarray(x), jnp.asarray(y)) for x, y in batches()], log_every=0)
+    tr = port_trainer(tgroup, telemetry=tel, gang_window=2)
+    tr.fit(tr.init_state(params_from_jax(jax.tree.map(np.asarray, jax_params()))), port_batches(), log_every=0)
+    view, jview = tr.gang.last_view, jtr.gang.last_view
+    assert view is not None and jview is not None
+    assert set(view.report()) == set(jview.report())
+    assert set(view.report()["ranks"][0]) == set(jview.report()["ranks"][0])
+    assert view.ranks_reporting == jview.ranks_reporting == 1 and view.local_only == jview.local_only
+    gauges = lambda t: sorted(k for k in t.registry.snapshot() if k.startswith("gang_"))  # noqa: E731
+    assert gauges(tel) == gauges(jtel)
+    tr.close()
+    jtr.close()
+    tel.close()
+    jtel.close()
 
 
 def test_trainer_profile_dir_writes_a_trace_the_analyzer_reads(tgroup, tmp_path):
