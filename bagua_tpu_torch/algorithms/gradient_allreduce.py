@@ -37,7 +37,8 @@ from bagua_tpu_torch.communication import (
     INTRA_AXIS,
     ReduceOp,
     allreduce,
-    hierarchical_allreduce,
+    allreduce_many,
+    hierarchical_allreduce_many,
 )
 from bagua_tpu_torch.kernels.quantized_ring import quantized_ring_allreduce
 
@@ -105,12 +106,18 @@ class GradientAllReduceAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
             out, err = quantized_ring_allreduce(x, group, bits=bits, average=self.average)
         return out.to(flat.dtype), (err if residual is not None else None)
 
-    def _reduce(self, x):
-        """One allreduce of ``x`` over the group, in the wire dtype."""
+    def _reduce(self, xs):
+        """One allreduce of the tensors ``xs`` over the group, in the wire
+        dtype: a single variadic collective (each leg of it, hierarchical),
+        as the JAX package's ``psum`` of the leaves' tuple."""
         op = ReduceOp.AVG if self.average else ReduceOp.SUM
-        wire = x.to(self.wire_dtype) if self.wire_dtype is not None and x.is_floating_point() else x
-        reduce = hierarchical_allreduce if self.hierarchical else allreduce
-        return reduce(wire, op, self.process_group).to(x.dtype)
+        wires = [x.to(self.wire_dtype) if self.wire_dtype is not None and x.is_floating_point() else x
+                 for x in xs]
+        if self.hierarchical:
+            out = hierarchical_allreduce_many(wires, op, self.process_group)
+        else:
+            out = allreduce_many(wires, op, self.process_group)
+        return [o.to(x.dtype) for o, x in zip(out, xs)]
 
     def _exchange_bucket(self, leaves, spec, precision, residual=None):
         """One bucket's exchange on its stacked leaves (slot order); returns
@@ -118,8 +125,8 @@ class GradientAllReduceAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
         flat tensor (flat); quantized: the ring on the flat tensor."""
         if precision == "f32":
             if self.fuse == "tuple":
-                return [self._reduce(leaf) for leaf in leaves], None
-            return split_bucket_flat(self._reduce(flatten_bucket_leaves(leaves, spec)), spec), None
+                return self._reduce(leaves), None
+            return split_bucket_flat(self._reduce([flatten_bucket_leaves(leaves, spec)])[0], spec), None
         out, new_r = self._quantized_bucket_allreduce(
             flatten_bucket_leaves(leaves, spec), precision, residual
         )

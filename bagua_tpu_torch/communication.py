@@ -26,6 +26,11 @@ The reference's eager user API (``broadcast``, ``reduce``, ``scatter``,
 ``gather``, ``reducescatter``, ``barrier``, ``broadcast_object``) closes the
 module, over every rank of a group, on the same stacked tensors.
 
+Inside :class:`~bagua_tpu_torch.analysis.collective_ir.capture_collectives`
+each collective also records one descriptor of the JAX primitive it stands
+for (the static verifier's CollectiveIR); outside one it pays a
+thread-local read.
+
 All ranks of a group live on one device.  Ranks on several cards need one
 process per card over NCCL, which this package does not have yet.
 """
@@ -36,6 +41,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from bagua_tpu_torch.analysis import collective_ir as _ir
 from bagua_tpu_torch.defs import ReduceOp
 from bagua_tpu_torch.mesh import MeshSpec
 
@@ -300,6 +306,8 @@ def ppermute_shift(
     """Ring shift: within each collective over ``axis``, the member with
     index i receives member (i - shift) mod n's slice."""
     group = comm or get_default_group()
+    if _ir._tls.capture is not None:
+        _ir.record_collective("ppermute", (x,), group, _resolve(group, axis))
     return _ungrouped(torch.roll(_grouped(x, group, axis), shift, dims=1), group, axis)
 
 
@@ -312,6 +320,8 @@ def ppermute_apply(
     zeros, as ``lax.ppermute`` gives them; a member may be the source and
     the destination of one pair each at most."""
     group = comm or get_default_group()
+    if _ir._tls.capture is not None:
+        _ir.record_collective("ppermute", (x,), group, _resolve(group, axis))
     g = _grouped(x, group, axis)
     n = g.shape[1]
     perm = [(int(s), int(d)) for s, d in perm]
@@ -368,6 +378,17 @@ def _reduce_members(g: torch.Tensor, op: ReduceOp) -> torch.Tensor:
     return red
 
 
+#: the JAX primitive each reduction runs as (PRODUCT and the bitwise ops
+#: gather the members and fold them)
+_REDUCE_PRIMITIVE = {ReduceOp.SUM: "psum", ReduceOp.AVG: "psum", ReduceOp.MAX: "pmax", ReduceOp.MIN: "pmin"}
+
+
+def _allreduce(send: torch.Tensor, op: ReduceOp, group: BaguaProcessGroup, axis) -> torch.Tensor:
+    g = _grouped(send, group, axis)
+    red = _reduce_members(g, op)
+    return _ungrouped(red.unsqueeze(1).expand_as(g), group, axis)
+
+
 def allreduce(
     send: torch.Tensor, op: ReduceOp = ReduceOp.AVG,
     comm: Optional[BaguaProcessGroup] = None, axis=None,
@@ -377,10 +398,22 @@ def allreduce(
     ``pmean``), MAX and MIN (``pmax``, ``pmin``), PRODUCT, and BOR, BAND
     and BXOR on integer or bool tensors, each folded over the members left
     to right (``communication.py:280-308``)."""
+    return allreduce_many([send], op, comm, axis)[0]
+
+
+def allreduce_many(
+    sends: Sequence[torch.Tensor], op: ReduceOp = ReduceOp.AVG,
+    comm: Optional[BaguaProcessGroup] = None, axis=None,
+) -> List[torch.Tensor]:
+    """:func:`allreduce` of each tensor of ``sends``, as ONE collective: the
+    JAX package's variadic ``lax.psum`` over a tuple of leaves, one
+    primitive whose operand bytes are the leaves' sum.  Each result is
+    bitwise :func:`allreduce` of its tensor."""
     group = comm or get_default_group()
-    g = _grouped(send, group, axis)
-    red = _reduce_members(g, ReduceOp(op))
-    return _ungrouped(red.unsqueeze(1).expand_as(g), group, axis)
+    op = ReduceOp(op)
+    if _ir._tls.capture is not None and sends:
+        _ir.record_collective(_REDUCE_PRIMITIVE.get(op, "all_gather"), tuple(sends), group, _resolve(group, axis))
+    return [_allreduce(s, op, group, axis) for s in sends]
 
 
 def reduce_scatter(
@@ -396,6 +429,8 @@ def reduce_scatter(
     if op not in (ReduceOp.SUM, ReduceOp.AVG):
         # the JAX package's reduce_scatter refuses the rest too
         raise NotImplementedError(f"reduce_scatter supports SUM and AVG, not {op.name}")
+    if _ir._tls.capture is not None:
+        _ir.record_collective("reduce_scatter", (send,), group, _resolve(group, axis))
     g = _grouped(send, group, axis)
     G, n, m = g.shape[:3]
     if m % n:
@@ -411,12 +446,21 @@ def hierarchical_allreduce(
     """Intra-axis reduce, then inter-axis reduce (the reference's
     hierarchical communicator).  AVG sums both phases and divides once, by
     the group size; every other op composes across the phases."""
+    return hierarchical_allreduce_many([send], op, comm)[0]
+
+
+def hierarchical_allreduce_many(
+    sends: Sequence[torch.Tensor], op: ReduceOp = ReduceOp.AVG,
+    comm: Optional[BaguaProcessGroup] = None,
+) -> List[torch.Tensor]:
+    """:func:`hierarchical_allreduce` of each tensor of ``sends``, each leg
+    one variadic collective (:func:`allreduce_many`)."""
     group = comm or get_default_group()
     op = ReduceOp(op)
     phase = ReduceOp.SUM if op == ReduceOp.AVG else op
-    x = allreduce(send, phase, group, INTRA_AXIS)
-    x = allreduce(x, phase, group, INTER_AXIS)
-    return x / torch.full_like(x, group.size) if op == ReduceOp.AVG else x
+    xs = allreduce_many(sends, phase, group, INTRA_AXIS)
+    xs = allreduce_many(xs, phase, group, INTER_AXIS)
+    return [x / torch.full_like(x, group.size) for x in xs] if op == ReduceOp.AVG else xs
 
 
 def alltoall(
@@ -426,6 +470,8 @@ def alltoall(
     goes to member j, and each rank's output is the chunks it received, in
     member order."""
     group = comm or get_default_group()
+    if _ir._tls.capture is not None:
+        _ir.record_collective("all_to_all", (send,), group, _resolve(group, axis))
     g = _grouped(send, group, axis)
     G, n, m = g.shape[:3]
     if m % n:
@@ -440,6 +486,8 @@ def allgather(
     """Each rank's output is every member's slice, concatenated along the
     first dim."""
     group = comm or get_default_group()
+    if _ir._tls.capture is not None:
+        _ir.record_collective("all_gather", (send,), group, _resolve(group, axis))
     g = _grouped(send, group, axis)
     G, n = g.shape[:2]
     full = g.reshape(G, 1, n * g.shape[2], *g.shape[3:])

@@ -95,6 +95,16 @@ the gradients and zero wherever a norm is finite, is taken only after a
 non-finite norm.  Both
 are host-side readers: the step's tensors are the same with them on or
 off.
+
+The static gate (``BAGUA_STATIC_VERIFY=warn|strict``, off by default): on
+the first step of a variant, before it runs, the engine's step runs dry on
+the ``meta`` device under the collective capture
+(:func:`bagua_tpu_torch.analysis.verify_step_program`), and the four
+checkers rule on the captured program; ``strict`` raises before anything
+is dispatched and leaves the variant unseen, ``warn`` logs and steps.  A
+rebucket, a precision, staleness or algorithm switch re-verifies the new
+program at once (rolling back on a rejection), and the flight recorder's
+live capture of a verified variant is held against its prediction.
 """
 
 import contextlib
@@ -112,7 +122,7 @@ from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContex
 from bagua_tpu_torch.bucket import BucketPlan, tree_leaf_names
 from bagua_tpu_torch.communication import BaguaProcessGroup, default_axes, get_default_group, rank_id
 from bagua_tpu_torch.defs import TensorDeclaration
-from bagua_tpu_torch.env import get_default_bucket_size
+from bagua_tpu_torch.env import get_default_bucket_size, get_static_verify_mode
 from bagua_tpu_torch.mesh import _none_of_declared
 from bagua_tpu_torch.observability.core import StepTimer
 from bagua_tpu_torch.observability.flight_recorder import capture_program
@@ -416,6 +426,15 @@ class DistributedDataParallel:
         #: the events list of the capture in progress, re-entered by the
         #: overlap hooks (autograd's thread on the card)
         self._capture: Optional[list] = None
+        #: the static verifier's collective capture in progress: set only
+        #: while the step runs dry on meta (re-entered, with the meta mode,
+        #: by the overlap hooks)
+        self._ir_capture: Optional[list] = None
+        #: per-variant flight programs the static gate predicted; the live
+        #: capture is held against them
+        self._predicted_programs = {}
+        #: the last verified batch, on meta: what a switch re-verifies with
+        self._verify_batch_template = None
         #: steps completed as the engine last saw them: the step the
         #: switch events name
         self._host_step = 0
@@ -586,12 +605,14 @@ class DistributedDataParallel:
         stream waits for it before anything writes them.  A gradient
         exchange waits for the backward queued so far; a weight exchange
         reads no gradient and waits only for the step's start."""
-        plan, impl, device = self.plan, self.impl, self.group.device
+        plan, impl = self.plan, self.impl
+        weights = tree_leaves(params)
+        # by the tensors' device: a dry run of a card's engine is on meta
+        device = weights[0].device
         if device.type == "cuda" and self.side_stream is None:
             self.side_stream = torch.cuda.Stream(device)
         side = self.side_stream if device.type == "cuda" else None
         leaves = self._grad_leaves(params)
-        weights = tree_leaves(params)
         order = plan.backward_order()
         ready = [False] * plan.num_buckets
         exchanged: List[Optional[list]] = [None] * plan.num_buckets
@@ -600,9 +621,8 @@ class DistributedDataParallel:
 
         def issue(bi):
             # the hooks run on autograd's thread on the card: enter the data
-            # axes and the flight capture there again
-            capture = capture_program(self._capture) if self._capture is not None else contextlib.nullcontext()
-            with default_axes(self.group.data_axes), capture:
+            # axes and the captures there again
+            with default_axes(self.group.data_axes), self._hook_captures():
                 exchange(bi)
             self.exchange_order.append(bi)
             self.exchange_counts[bi] += 1
@@ -652,6 +672,19 @@ class DistributedDataParallel:
             return losses.detach(), local, plan.ungroup_leaves(groups, params), local
         return losses.detach(), plan.ungroup_leaves(groups, local), params, local
 
+    def _hook_captures(self) -> contextlib.ExitStack:
+        """The captures (and a dry run's meta mode) active on the step's
+        thread, for an overlap hook to enter on its own."""
+        stack = contextlib.ExitStack()
+        if self._capture is not None:
+            stack.enter_context(capture_program(self._capture))
+        if self._ir_capture is not None:
+            from bagua_tpu_torch.analysis import capture_collectives, on_meta
+
+            stack.enter_context(capture_collectives(self._ir_capture))
+            stack.enter_context(on_meta())
+        return stack
+
     @staticmethod
     @torch.no_grad()
     def _write_params(stacked, params) -> None:
@@ -695,6 +728,10 @@ class DistributedDataParallel:
         if missed:
             if tel is not None:
                 tel.on_compile(variant, step)
+            # the pre-dispatch gate, before the variant counts as seen: a
+            # strict rejection leaves nothing behind, so a retry verifies
+            # again (a no-op with BAGUA_STATIC_VERIFY off)
+            self._maybe_static_verify(variant, state, batch)
             self._variants_seen.add(variant)
         ov, step_ov = self.host_overhead, {}
         t0 = time.perf_counter()
@@ -824,6 +861,7 @@ class DistributedDataParallel:
                 finally:
                     self._capture = None
             prog = self._flight_programs[variant] = self._flight_finalize(variant, events)
+            self._flight_crosscheck(variant, prog)
             flight.retire(flight.record_program(prog, step=state.step))
             return out
         if not prog:
@@ -859,6 +897,89 @@ class DistributedDataParallel:
         counts as a miss and captures its program again."""
         self._variants_seen = set()
         self._flight_programs = {}
+        self._predicted_programs = {}
+
+    # -- the static gate -----------------------------------------------------------
+
+    def _maybe_static_verify(self, variant: str, state: TrainState, batch) -> None:
+        """The ``BAGUA_STATIC_VERIFY`` pre-dispatch gate: run the variant's
+        step dry on meta (nothing reaches the card), capture its collective
+        program and run the four checkers.  ``strict`` raises before
+        dispatch; ``warn`` logs and proceeds.  The meta batch is kept so a
+        switch can re-verify its new program at once."""
+        mode = get_static_verify_mode()
+        if mode == "off" or self.plan is None:
+            return
+        from bagua_tpu_torch import analysis as _an
+
+        self._verify_batch_template = tree_map(lambda t: torch.empty_like(t, device="meta"), batch)
+        where = f"variant={variant!r}"
+        report = self._run_verify(_an, lambda: _an.meta_state(self, state), variant, mode, where)
+        if report is None:
+            return
+        self._verify_report(report, mode, where)
+        # committed only once the gate passed (or warn proceeds): a strict
+        # rejection leaves no prediction behind
+        self._predicted_programs[variant] = report.predicted
+
+    def _static_reverify(self, reason: str) -> None:
+        """Re-run the gate on the CURRENT plan, precision and algorithm over
+        a meta state built in the current layout and the kept batch.  A
+        no-op until the gate has seen a batch."""
+        mode = get_static_verify_mode()
+        if mode == "off" or self.plan is None or self._verify_batch_template is None:
+            return
+        from bagua_tpu_torch import analysis as _an
+
+        variant = self.impl.step_variant(self._host_step)
+        with default_axes(self.group.data_axes):
+            report = self._run_verify(_an, lambda: _an.meta_state(self, None), variant, mode, reason)
+        if report is None:
+            return
+        self._verify_report(report, mode, reason)
+        self._predicted_programs[variant] = report.predicted
+
+    def _run_verify(self, _an, meta, variant: str, mode: str, where: str):
+        """Dry-run and check one step variant.  A failure of the dry run
+        itself (not a checker's finding) raises under strict and is logged
+        under warn, where the gate is advisory; returns None then."""
+        try:
+            return _an.verify_step_program(self, meta(), self._verify_batch_template, variant=variant)
+        except _an.StaticVerifyError:
+            raise
+        except Exception as e:
+            if mode == "strict":
+                raise
+            logger.warning("static verify (%s): dry run failed, gate skipped: %s", where, e)
+            return None
+
+    @staticmethod
+    def _verify_report(report, mode: str, where: str) -> None:
+        if report.ok:
+            logger.debug("static verify (%s): %s", where, report.summary())
+            return
+        if mode == "strict":
+            report.raise_if_failed()
+        for f in report.errors:
+            logger.warning("static verify (%s): %s", where, f)
+
+    def _flight_crosscheck(self, variant: str, prog) -> None:
+        """Static/dynamic agreement on the real step: the program the flight
+        recorder just captured must equal the one the gate predicted.  Only
+        where the gate ran for this variant."""
+        predicted = self._predicted_programs.get(variant)
+        mode = get_static_verify_mode()
+        if predicted is None or mode == "off":
+            return
+        from bagua_tpu_torch.analysis import StaticVerifyError, check_static_dynamic
+
+        findings = check_static_dynamic(predicted, prog)
+        if not findings:
+            return
+        if mode == "strict":
+            raise StaticVerifyError(findings)
+        for f in findings:
+            logger.warning("static verify (flight capture, variant=%r): %s", variant, f)
 
     def _step(self, state: TrainState, batch):
         impl = self.impl
@@ -875,9 +996,14 @@ class DistributedDataParallel:
             grads, params, algo_state = impl.transform_gradients(local, params, algo_state, ctx)
         if mode is not None:
             grads, params, algo_state = impl.finalize_overlap(grads, params, algo_state, ctx)
-        health = self._health_rows(losses, grads) if self.health_monitor is not None else None
+        dry = self._ir_capture is not None
+        health = self._health_rows(losses, grads) if self.health_monitor is not None and not dry else None
         self._write_params(state.params, params)
-        if self._sharded_updater is not None:
+        if dry:
+            # the static gate's dry run: the update issues no collective (a
+            # sharded update's gather is the next step's on_step_start)
+            pass
+        elif self._sharded_updater is not None:
             covered = self.plan.covered()
             local_grads = {n: g for n, g in tree_flatten_with_names(local) if n not in covered}
             pending, _, params = self._sharded_updater.update_shards(
@@ -905,14 +1031,15 @@ class DistributedDataParallel:
         (``planner | health:<kind> | autopilot:<incident> | manual``) and
         rides the telemetry's ``rebucket`` event with
         ``predicted_exposed_ms``, the planner's prediction for the plan.
-        The JAX engine also re-verifies the step statically here; the port
-        has no static verifier yet (ROADMAP Queue 1 item 8)."""
+        Under ``BAGUA_STATIC_VERIFY`` the new program is verified at once;
+        a rejection re-adopts the previous plan and raises."""
         validate_switch_reason(reason)
         if getattr(self.impl, "holds_bucketized_state", False):
             raise ValueError(
                 f"{type(self.impl).__name__} keeps per-bucket state; re-bucketing "
                 "mid-training would desync it"
             )
+        prev_plan, prev_pending = self.plan, self._pending_reshard
         if self._sharded_updater is not None and self._pending_reshard is None:
             # the layout the live state was built under: the first of a
             # burst of rebuckets keeps it
@@ -920,6 +1047,16 @@ class DistributedDataParallel:
         self.impl.overlap_hint = self.overlap_enabled
         self._adopt_plan(plan)
         self.plan_version += 1
+        try:
+            self._static_reverify("rebucket")
+        except Exception:
+            # the engine keeps dispatching the last good program (the
+            # version moves on again: a version names one configuration)
+            if prev_plan is not None:
+                self._adopt_plan(prev_plan)
+            self._pending_reshard = prev_pending
+            self.plan_version += 1
+            raise
         self._plan_source = switch_reason_family(reason)
         if self.telemetry is not None:
             self.telemetry.on_rebucket(
@@ -1008,8 +1145,9 @@ class DistributedDataParallel:
         An algorithm without the ``wire_precision`` knob raises
         AttributeError.  ``reason`` speaks the switch vocabulary and is
         recorded as the plan's source; a change emits the telemetry's
-        ``precision_switch`` event.  The JAX engine also re-verifies the
-        step statically here (ROADMAP Queue 1 item 8)."""
+        ``precision_switch`` event.  Under ``BAGUA_STATIC_VERIFY`` the new
+        program is verified at once; a rejection restores the previous
+        precisions and raises."""
         validate_switch_reason(reason)
         impl = self.impl
         if not hasattr(impl, "set_bucket_precision"):
@@ -1017,6 +1155,7 @@ class DistributedDataParallel:
                 f"{type(impl).__name__} has no wire_precision knob; "
                 "precision plans apply to gradient_allreduce"
             )
+        prev_raw = getattr(impl, "bucket_precision", None)
         old = impl.bucket_precisions(self.plan) if self.plan is not None else None
         impl.set_bucket_precision(precisions)
         new = impl.bucket_precisions(self.plan) if self.plan is not None else None
@@ -1024,6 +1163,12 @@ class DistributedDataParallel:
         if new == old:
             return False
         self._reset_programs()
+        try:
+            self._static_reverify("apply_precision_plan")
+        except Exception:
+            impl.set_bucket_precision(prev_raw)
+            self._reset_programs()
+            raise
         if self.telemetry is not None:
             self.telemetry.on_precision_switch(
                 step=self._host_step, plan_version=self.plan_version,
@@ -1033,10 +1178,10 @@ class DistributedDataParallel:
 
     # -- bounded staleness ---------------------------------------------------------
     #
-    # The JAX engine re-traces the step and re-verifies it statically on a τ
-    # switch; the port runs its stages eagerly (nothing to re-trace) and has
-    # no static verifier yet (ROADMAP Queue 1 item 8).  Both emit the
-    # telemetry's ``staleness_switch`` event.
+    # The JAX engine re-traces the step on a τ switch; the port runs its
+    # stages eagerly (nothing to re-trace).  Both re-verify the new program
+    # statically under ``BAGUA_STATIC_VERIFY`` and emit the telemetry's
+    # ``staleness_switch`` event.
 
     def _staleness_impl(self, what: str) -> AlgorithmImpl:
         """The algorithm, if it has the staleness knob; ``what`` names the
@@ -1067,6 +1212,12 @@ class DistributedDataParallel:
         if old_tau == tau:
             return False
         self._reset_programs()
+        try:
+            self._static_reverify("apply_staleness")
+        except Exception:
+            impl.set_staleness_tau(old_tau)
+            self._reset_programs()
+            raise
         self._plan_source = switch_reason_family(reason)
         if self.telemetry is not None:
             self.telemetry.on_staleness_switch(
@@ -1150,8 +1301,9 @@ class DistributedDataParallel:
         overlap knob and plan version, and the caller keeps ``state``.  A
         switch to the running algorithm returns ``state`` itself.  A switch
         emits the telemetry's ``rebucket`` event naming the new algorithm.
-        The JAX engine also re-verifies the new step statically
-        (ROADMAP Queue 1 item 8)."""
+        Under ``BAGUA_STATIC_VERIFY`` the new program is verified before
+        the switch completes; a rejection rolls back as any exception
+        does."""
         from bagua_tpu_torch.algorithms import build_algorithm
 
         validate_switch_reason(reason)
@@ -1223,6 +1375,8 @@ class DistributedDataParallel:
             else:
                 optimizer = self.optimizer(tree_leaves(state.params))
                 optimizer.load_state_dict(full_opt)
+            # prove the new program before anything can dispatch it
+            self._static_reverify("switch_algorithm")
         except Exception:
             self.impl, self.plan, self._sharded_updater, self.overlap, self.exchange_counts, version = prev
             self.impl.overlap_hint = self.overlap_enabled

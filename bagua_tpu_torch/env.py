@@ -182,6 +182,16 @@ def get_regression_cooldown() -> int:
         return 50
 
 
+def get_static_verify_mode() -> str:
+    """``BAGUA_STATIC_VERIFY``: the pre-dispatch static collective-program
+    verifier (:mod:`bagua_tpu_torch.analysis`).  ``off`` (default) skips
+    it; ``warn`` logs the findings and dispatches anyway; ``strict`` raises
+    :class:`~bagua_tpu_torch.analysis.StaticVerifyError` before any
+    dispatch.  Any unrecognized value degrades to ``off``."""
+    mode = os.environ.get("BAGUA_STATIC_VERIFY", "off").strip().lower()
+    return mode if mode in ("warn", "strict") else "off"
+
+
 def get_flight_ring_size() -> int:
     """``BAGUA_FLIGHT_RING``: flight-recorder ring capacity in records.
     The default (4096) covers hundreds of steps of a typical bucket plan —

@@ -24,6 +24,12 @@ import threading
 import time
 from typing import Dict, Iterable, List, Tuple
 
+#: devices whose tensors a wrapper hands to its kernel's plain version: the
+#: CPU (the tests' device), and ``meta``, where the plain version computes
+#: shapes only (the static verifier's dry run); neither launches a kernel
+#: nor counts a launch
+PLAIN_DEVICES = ("cpu", "meta")
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = (

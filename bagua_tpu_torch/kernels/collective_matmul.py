@@ -84,7 +84,7 @@ def matmul_tile(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     whose ``matmul_tile_pallas`` returns ``jnp.dot(x, w)`` for them outside
     its Pallas kernel (``bagua_tpu/kernels/collective_matmul.py:247-248,
     262-263``)."""
-    if x.device.type == "cpu" or x.dtype != torch.float32 or w.dtype != torch.float32:
+    if x.device.type in _build.PLAIN_DEVICES or x.dtype != torch.float32 or w.dtype != torch.float32:
         return matmul_tile_plain(x, w)
     what = "matmul_tile"
     if x.device.type != "cuda" or w.device != x.device:

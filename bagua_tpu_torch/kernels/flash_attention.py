@@ -200,7 +200,7 @@ def block_attention(
     """One K/V block's unnormalized contribution ``(o, l, m)``, the contract
     of :func:`block_attention_plain`; grouped K/V by index.  Dead tiles
     (mask all false) are skipped."""
-    if qf.device.type == "cpu":
+    if qf.device.type in _build.PLAIN_DEVICES:
         return block_attention_plain(qf, k_blk, v_blk, mask)
     qf, k_blk, v_blk, mask, dims, strides = _operands("block_attention", qf, k_blk, v_blk, mask)
     b, tq, _, h, _, d = dims
@@ -244,7 +244,7 @@ def _bwd_operands(what, qf, k_blk, v_blk, mask, m, dl, do):
 def flash_attention_bwd_dq(qf, k_blk, v_blk, mask, m, dl, do) -> torch.Tensor:
     """``dq (b, tq, h, d)`` float32 of the fused backward: one launch of the
     dq kernel on the card, :func:`flash_attention_bwd_dq_plain` on the CPU."""
-    if qf.device.type == "cpu":
+    if qf.device.type in _build.PLAIN_DEVICES:
         return flash_attention_bwd_dq_plain(qf, k_blk, v_blk, mask, m, dl, do)
     what = "flash_attention_bwd_dq"
     keep, ptrs, (b, tq, _, h, _, d), tail = _bwd_operands(what, qf, k_blk, v_blk, mask, m, dl, do)
@@ -260,7 +260,7 @@ def flash_attention_bwd_dkv(qf, k_blk, v_blk, mask, m, dl, do) -> Tuple[torch.Te
     """``(dk, dv)``, ``(b, tk, h_kv, d)`` in ``k_blk``'s type, of the fused
     backward: one launch of the dk/dv kernel on the card,
     :func:`flash_attention_bwd_dkv_plain` on the CPU."""
-    if qf.device.type == "cpu":
+    if qf.device.type in _build.PLAIN_DEVICES:
         return flash_attention_bwd_dkv_plain(qf, k_blk, v_blk, mask, m, dl, do)
     what = "flash_attention_bwd_dkv"
     keep, ptrs, (b, _, tk, _, h_kv, d), tail = _bwd_operands(what, qf, k_blk, v_blk, mask, m, dl, do)

@@ -219,7 +219,7 @@ def compress_minmax_uint8(chunks: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
 
     Returns ``(q, minmax)``: ``q`` uint8 of the same shape and ``minmax``
     float32 of shape ``(nchunks, 2)``."""
-    if chunks.device.type == "cpu":
+    if chunks.device.type in _build.PLAIN_DEVICES:
         return compress_minmax_uint8_plain(chunks)
     x = _cuda_operand(chunks.to(torch.float32), torch.float32, 2, "compress_minmax_uint8")
     rows, chunk = x.shape
@@ -238,7 +238,7 @@ def compress_minmax_uint8(chunks: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
 
 def decompress_minmax_uint8(q: torch.Tensor, minmax: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`compress_minmax_uint8` (lossy); float32 out."""
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return decompress_minmax_uint8_plain(q, minmax)
     q = _cuda_operand(q, torch.uint8, 2, "decompress_minmax_uint8")
     minmax = _cuda_operand(minmax, torch.float32, 2, "decompress_minmax_uint8 minmax")
@@ -264,7 +264,7 @@ def decompress_reduce_requantize(
     each of its n peers), ``minmax`` float32 ``(R, n, 2)``.  Returns
     ``(q2, mm2)`` with ``q2`` uint8 ``(R, 1, chunk)`` and ``mm2`` float32
     ``(R, 1, 2)``: per rank, ``compress(sum(decompress(q, minmax))[/ n])``."""
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return decompress_reduce_requantize_plain(q, minmax, average)
     q = _cuda_operand(q, torch.uint8, 3, "decompress_reduce_requantize")
     minmax = _cuda_operand(minmax, torch.float32, 3, "decompress_reduce_requantize minmax")

@@ -22,6 +22,11 @@ changes no tensor, so a labeled and an unlabeled step are bitwise equal
 (``tests/test_torch_observability.py`` pins it), and the labels stay on.
 Outside a profiler it costs one dispatcher call on entry and one on exit.
 
+While the static verifier captures a step
+(:class:`~bagua_tpu_torch.analysis.collective_ir.capture_collectives`) each
+label is also pushed on a thread-local stack, which names the collectives
+issued inside it; outside a capture that costs one thread-local read.
+
 The grammar itself (prefixes, regexes, formatters and parsers) lives in
 :mod:`bagua_tpu_torch.observability.scope_grammar`, shared with the trace
 joiner and the flight recorder's record templates; this module re-exports
@@ -30,6 +35,7 @@ the parsers and adds the factories.
 
 from torch.profiler import record_function
 
+from bagua_tpu_torch.analysis.collective_ir import label_scope
 from bagua_tpu_torch.observability.scope_grammar import (
     EXCHANGE_PREFIX,
     STEP_PREFIX,
@@ -53,6 +59,25 @@ __all__ = [
 ]
 
 
+class _Labeled:
+    """A ``record_function`` that also enters :class:`label_scope`."""
+
+    __slots__ = ("_fn", "_scope")
+
+    def __init__(self, label: str):
+        self._fn = record_function(label)
+        self._scope = label_scope(label)
+
+    def __enter__(self):
+        self._fn.__enter__()
+        self._scope.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._scope.__exit__(*exc)
+        return self._fn.__exit__(*exc)
+
+
 def bucket_scope(algo: str, bucket_idx, phase: str):
     """A ``record_function`` labeling one bucket's exchange (the JAX
     package's ``named_scope`` of the same string).
@@ -60,14 +85,14 @@ def bucket_scope(algo: str, bucket_idx, phase: str):
     ``algo`` is the algorithm's registry-style name, ``phase`` distinguishes
     the monolithic tail exchange (``mono``) from the backward-anchored one
     (``overlap``).  Use as a context manager around the exchange."""
-    return record_function(format_exchange_label(algo, bucket_idx, phase))
+    return _Labeled(format_exchange_label(algo, bucket_idx, phase))
 
 
 def step_scope(phase: str):
     """A ``record_function`` labeling one engine phase of the train step
     (``fwd_bwd``, ``optimizer``, ``algo_start``, ``algo_end``,
     ``finalize``...)."""
-    return record_function(format_step_label(phase))
+    return _Labeled(format_step_label(phase))
 
 
 def mp_scope(axis: str, phase: str):
@@ -80,4 +105,4 @@ def mp_scope(axis: str, phase: str):
     ``row_allgather``, ``col_allgather``, ``dispatch``, ``combine``).  Use as
     a context manager around the collective, exactly like
     :func:`bucket_scope`."""
-    return record_function(format_mp_label(axis, phase))
+    return _Labeled(format_mp_label(axis, phase))

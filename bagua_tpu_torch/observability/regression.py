@@ -100,26 +100,6 @@ class Cusum:
         return False
 
 
-class LinkClasses:
-    """The physical link a named mesh axis's collectives ride on H100 hosts
-    (the counterpart of the JAX package's TPU topology, which answers
-    ``ici``/``dcn``): model axes (tp/sp/ep/...) and the legacy ``intra``
-    axis are packed inside a host and ride NVLink; data axes span hosts and
-    ride the network, unless the whole gang fits one host
-    (``within_host``)."""
-
-    def axis_link(self, axis: str, within_host: bool = False) -> str:
-        from bagua_tpu_torch.mesh import MODEL_AXIS_NAMES
-
-        if axis == "intra" or axis in MODEL_AXIS_NAMES or within_host:
-            return "nvlink"
-        return "network"
-
-
-#: the sentinel's default link model
-DEFAULT_LINKS = LinkClasses()
-
-
 class RegressionSentinel:
     """Watches the per-step stream, attributes regressions, emits incidents.
 
@@ -138,8 +118,10 @@ class RegressionSentinel:
         window: how many recent budgets an incident's verdict aggregates.
         topology: any object with ``axis_link(axis) -> str`` resolving an
             indicted axis to its physical link class on wire-dominant
-            incidents; defaults to :data:`DEFAULT_LINKS` (``nvlink`` /
-            ``network``; the JAX package resolves to ``ici`` / ``dcn``).
+            incidents; defaults to
+            :data:`~bagua_tpu_torch.perflab.topology.DEFAULT_TOPOLOGY`, the
+            port's one link model (``nvlink`` / ``network``; the JAX
+            package's resolves to ``ici`` / ``dcn``).
 
     Beyond the wall/goodput detectors, the sentinel runs **one CUSUM stream
     per mesh axis** over the budgets' per-axis ``wire_slowdown`` split
@@ -158,7 +140,11 @@ class RegressionSentinel:
         self.budget = budget or BudgetModel()
         self.sink = sink
         self.registry = registry
-        self.topology = DEFAULT_LINKS if topology is None else topology
+        if topology is None:
+            from bagua_tpu_torch.perflab.topology import DEFAULT_TOPOLOGY
+
+            topology = DEFAULT_TOPOLOGY
+        self.topology = topology
         self.cooldown = max(0, int(cooldown))
         self.window = max(1, int(window))
         self.max_incidents = max(1, int(max_incidents))

@@ -79,6 +79,14 @@ class Trainer:
             report / ask / re-bucket cycle against the autotune service the
             environment names (``AUTO_TUNE_SERVER_ADDR``, or
             ``MASTER_ADDR`` and ``BAGUA_SERVICE_PORT``).
+        autopilot: opt-in
+            :class:`~bagua_tpu_torch.autopilot.GangAutopilot` bound to this
+            trainer's engine (or a callable taking the engine and returning
+            one).  The fit loop ticks it once per step with the step's mean
+            loss; the controller may switch the gang's algorithm or
+            precision (the state it returns replaces the loop's), each move
+            statically verified before dispatch under
+            ``BAGUA_STATIC_VERIFY``.
 
     The best-effort paths are the JAX ``Trainer``'s, and log a warning: a
     snapshot resume that fails starts fresh, an autotune service that
@@ -92,7 +100,7 @@ class Trainer:
                  profile_dir: Optional[str] = None, profile_steps: Tuple[int, int] = (10, 13),
                  gang_window: int = 0, ckpt_dir: Optional[str] = None, ckpt_interval: int = 1000,
                  snapshot_dir: Optional[str] = None, snapshot_every: int = 10, snapshot_keep: int = 2,
-                 autotune_model_name: Optional[str] = None):
+                 autotune_model_name: Optional[str] = None, autopilot=None):
         self.ddp = DistributedDataParallel(
             loss_fn, optimizer, algorithm, process_group=process_group,
             bucket_size_bytes=bucket_size_bytes, overlap=overlap,
@@ -101,6 +109,11 @@ class Trainer:
         )
         self.telemetry = telemetry
         self.health_monitor = health_monitor
+        if callable(autopilot) and not hasattr(autopilot, "tick"):
+            autopilot = autopilot(self.ddp)
+        elif autopilot is not None:
+            autopilot.ddp = self.ddp
+        self.autopilot = autopilot
         self.losses = None
         self.gang_window = int(gang_window)
         self.gang = None  # built in init_state
@@ -293,6 +306,10 @@ class Trainer:
             if self._session is not None:
                 self._session.tick(n_samples)
             step = state.step
+            if self.autopilot is not None:
+                # the controller may remap the state (an algorithm switch);
+                # the mean loss feeds its canary parity check
+                state = self.autopilot.tick(state, step, float(self.losses.mean()))
             if self.snapshotter is not None:
                 self.snapshotter.maybe_snapshot(state, step)
             if self.gang is not None:

@@ -218,7 +218,31 @@ and no result line:
    steps that started with the writer busy, the clone's time on the card,
    the snapshot's wall time and bytes, the skipped cadence ticks, the
    drain's and the resume's wall times.
-13. prints one JSON line naming each kernel with its launches and times
+13. verify -- (after ``[resil]``) the static gate,
+   ``BAGUA_STATIC_VERIFY=strict``: every kernel wrapper takes meta
+   tensors to its plain version (no launch counted, nothing allocated on
+   the card) and still launches on CUDA tensors; the small VGG's gate on
+   each VERIFY_PATHS wire allocates and launches nothing; then full-width
+   VGG16 over 4 ranks (``intra_size=1``, overlap as the engine resolves
+   it) with f32 ``gradient_allreduce``, ByteGrad, the int8 ring and ZeRO
+   int8 through ``Trainer.fit``, the gate off and then strict, 1 +
+   VERIFY_STEPS steps each: around every gate (:class:`GateWatch`) no
+   launch, ``torch.cuda.memory_allocated`` unchanged, no allocation, the
+   report ok; launches exact and equal with the gate off; for the modeled
+   algorithms the flight capture equal to the prediction; a rebucket
+   re-verified, a planted rejection rolled back, one step on the new plan
+   with exact launches; ``model_step_cell`` beside the measured step.
+   Prints each gate's host ms, the first and the later steps with the gate
+   on and off, and the modeled step.
+14. autopilot -- the ``Trainer`` with a ``GangAutopilot`` (int8/f32 over
+   ``wire_precision="auto"``, the telemetry's ``RegressionSentinel`` as
+   its sentinel, fed the JAX tests' incident shape) under the strict gate
+   at full-width VGG16: a planted rejection of the first demotion,
+   counted and recorded, with the next steps launching no codec; then a
+   demotion to the int8 ring re-verified and dispatched, each step's
+   launches row 4's exactly, and the canary committed (or rolled back)
+   after 3 steps.  Prints the decision rows and the gates' host ms.
+15. prints one JSON line naming each kernel with its launches and times
    (``other_steps``: the sums per step of other paths, the BERT, GPT and
    mesh ones included), then the result line ``{"ok": true, "device":
    {...}}``.
@@ -233,6 +257,7 @@ import itertools
 import json
 import logging
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -276,7 +301,9 @@ from bagua_tpu_torch.observability import (
     attribute_device_events, flight_dump_path, load_trace_events, model_flops_per_sample, parse_exchange_label,
     validate_flight_dump, validate_metrics_file,
 )
+from bagua_tpu_torch.observability.flight_recorder import FlightRecorder
 from bagua_tpu_torch.observability.health import grad_norms
+import bagua_tpu_torch.analysis as tan
 from bagua_tpu_torch.parallel import pipeline as pl
 from bagua_tpu_torch.parallel.fsdp import FSDP, fsdp_shardings
 from bagua_tpu_torch.parallel.moe import MoE
@@ -4944,6 +4971,388 @@ def phase_resil(device, profile: bool) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# [verify]: the static gate on the engine's main path; [autopilot]: the gang
+# autopilot through the Trainer under the strict gate
+# ---------------------------------------------------------------------------
+
+#: the gate's paths: name -> (algorithm, kwargs, launches a bucket and step)
+VERIFY_PATHS = {
+    "f32": ("gradient_allreduce", {}, {}),
+    "ByteGrad": ("bytegrad", {}, SLICE_PATHS["ByteGrad"][1]),
+    "int8 ring": ("gradient_allreduce", {"wire_precision": "int8"}, SLICE_PATHS["int8 ring"][1]),
+    "ZeRO int8": ("zero", {"wire_precision": "int8"}, ZERO_PATHS["ZeRO int8 ring"][2]),
+}
+VERIFY_STEPS = 10
+#: the small VGG's gate arm: the same paths, every wire
+VERIFY_SMALL_BATCH = 8
+
+
+@contextlib.contextmanager
+def static_verify(mode: str):
+    """``BAGUA_STATIC_VERIFY`` set to ``mode`` within."""
+    saved = os.environ.get("BAGUA_STATIC_VERIFY")
+    os.environ["BAGUA_STATIC_VERIFY"] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("BAGUA_STATIC_VERIFY", None)
+        else:
+            os.environ["BAGUA_STATIC_VERIFY"] = saved
+
+
+def _allocations() -> int:
+    return int(torch.cuda.memory_stats().get("allocation.all.allocated", 0))
+
+
+class GateWatch:
+    """Wraps the engine's gate (``analysis.verify_step_program``, which the
+    engine calls through the module): around every call, no wrapper's
+    launch count may move, ``torch.cuda.memory_allocated`` must stay as it
+    was and no allocation may be made on the card; the report must be ok.
+    ``calls`` keeps ``(variant, host ms, report)``; ``reject`` plants a
+    rejection instead of verifying."""
+
+    def __init__(self, what: str):
+        self.what = what
+        self.calls = []
+        self.reject = False
+
+    def __enter__(self):
+        self._orig = tan.verify_step_program
+        tan.verify_step_program = self._gate
+        return self
+
+    def __exit__(self, *exc):
+        tan.verify_step_program = self._orig
+        return False
+
+    def _gate(self, ddp, state, batch, variant="default", payload=None):
+        if self.reject:
+            raise tan.StaticVerifyError([tan.Finding(check="plan_conformance", severity="error",
+                                                     message="planted rejection")])
+        # garbage of earlier runs freed now, not inside the gate
+        gc.collect()
+        launches, mem, allocs = read_launches(), torch.cuda.memory_allocated(), _allocations()
+        t0 = time.perf_counter()
+        report = self._orig(ddp, state, batch, variant=variant, payload=payload)
+        ms = (time.perf_counter() - t0) * 1e3
+        if read_launches() != launches:
+            raise AssertionError(f"{self.what}: the gate launched kernels: {read_launches()} against {launches}")
+        if torch.cuda.memory_allocated() != mem or _allocations() != allocs:
+            raise AssertionError(f"{self.what}: the gate allocated on the card ({torch.cuda.memory_allocated()} "
+                                 f"B against {mem}; {_allocations() - allocs} allocations)")
+        if not report.ok:
+            raise AssertionError(f"{self.what}: the gate rejected the engine's own program: {report.summary()}")
+        self.calls.append((variant, ms, report))
+        return report
+
+
+def check_meta_wrappers_on_card(device) -> int:
+    """Every kernel wrapper: meta tensors take the plain version (shapes
+    only, no launch counted, nothing allocated on the card); the same call
+    on CUDA tensors launches the kernel once.  Returns the wrappers
+    checked."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand((8, 64), generator=gen, device=device)
+    q, mm = mm8.compress_minmax_uint8(x)
+    q3, mm3 = q.reshape(2, 4, 64), mm.reshape(2, 4, 2)
+    qb, qm, qx = qr.compress_minmax_uint4(x)[0], mm, x
+    a = torch.rand((1, 16, 2, 32), generator=gen, device=device)
+    mask = torch.ones((1, 16, 16), dtype=torch.bool, device=device)
+    stats = torch.zeros((1, 2, 16), device=device)
+    do = torch.rand((1, 2, 16, 32), generator=gen, device=device)
+    w = torch.rand((64, 32), generator=gen, device=device)
+    calls = [
+        (mm8.compress_minmax_uint8, (x,)),
+        (mm8.decompress_minmax_uint8, (q, mm)),
+        (mm8.decompress_reduce_requantize, (q3, mm3)),
+        (qr.hop_dequant_add_requant, (q, mm, x, 8)),
+        (qr.hop_dequant_add_requant, (qb, qm, qx, 4)),
+        (fa.block_attention, (a, a, a, mask)),
+        (fa.flash_attention_bwd_dq, (a, a, a, mask, stats, stats, do)),
+        (fa.flash_attention_bwd_dkv, (a, a, a, mask, stats, stats, do)),
+        (cm.matmul_tile, (x, w)),
+    ]
+    torch.cuda.synchronize()
+    for fn, args in calls:
+        meta = tuple(torch.empty_like(t, device="meta") if torch.is_tensor(t) else t for t in args)
+        gc.collect()
+        before, mem, allocs = fn.launches, torch.cuda.memory_allocated(), _allocations()
+        out = fn(*meta)
+        outs = out if isinstance(out, tuple) else (out,)
+        if not all(t.is_meta for t in outs) or fn.launches != before:
+            raise AssertionError(f"[verify] {fn.__name__} on meta tensors: launches {fn.launches - before}, "
+                                 f"outputs on {[t.device.type for t in outs]}")
+        if torch.cuda.memory_allocated() != mem or _allocations() != allocs:
+            raise AssertionError(f"[verify] {fn.__name__} on meta tensors allocated on the card")
+        real = fn(*args)
+        reals = real if isinstance(real, tuple) else (real,)
+        if fn.launches != before + 1 or [t.shape for t in reals] != [t.shape for t in outs]:
+            raise AssertionError(f"[verify] {fn.__name__} on CUDA tensors: {fn.launches - before} launches, "
+                                 f"shapes {[tuple(t.shape) for t in reals]} against meta's "
+                                 f"{[tuple(t.shape) for t in outs]}")
+    torch.cuda.synchronize()
+    return len(calls)
+
+
+def check_gate_on_card(device) -> dict:
+    """The strict gate on the small VGG over RANKS ranks of the card, every
+    VERIFY_PATHS path: the gate allocates and launches nothing
+    (:class:`GateWatch`), then one real step runs with each wrapper's
+    launches exact.  Returns the host ms of each path's gate."""
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = (torch.rand((RANKS * VERIFY_SMALL_BATCH, REF_VGG["image_size"], REF_VGG["image_size"], 3),
+                        generator=gen, device=device),
+             torch.randint(0, REF_VGG["num_classes"], (RANKS * VERIFY_SMALL_BATCH,), generator=gen, device=device))
+    group = BaguaProcessGroup([device] * RANKS, intra_size=1)
+    with static_verify("strict"):
+        for name, (algo, kw, per_bucket) in VERIFY_PATHS.items():
+            what = f"[verify] small VGG {name}"
+            model = VGG(device=device, generator=torch.Generator(device=device).manual_seed(0), **REF_VGG)
+            trainer = Trainer(vgg_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=REF_LR, momentum=0.9),
+                              build_algorithm(algo, **kw), group, bucket_size_bytes=1 << 14)
+            state = trainer.init_state(module_params(model))
+            with GateWatch(what) as watch:
+                reset_launches()
+                state = trainer.fit(state, [batch])
+                torch.cuda.synchronize()
+            nb = trainer.ddp.plan.num_buckets
+            want = {k: nb * per_bucket.get(k, 0) for k in KERNELS}
+            if len(watch.calls) != 1 or read_launches() != want:
+                raise AssertionError(f"{what}: {len(watch.calls)} gates, launches {read_launches()}, want {want}")
+            if not torch.isfinite(trainer.losses).all():
+                raise AssertionError(f"{what}: non-finite loss")
+            out[name] = watch.calls[0][1]
+            trainer.close()
+    return out
+
+
+def _verify_trainer(name, device, group, mode, telemetry=None):
+    algo, kw, _ = VERIFY_PATHS[name]
+    model, params = sb.build("vgg16", torch.bfloat16, device)
+    trainer = Trainer(vgg_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+                      build_algorithm(algo, **kw), group, telemetry=telemetry)
+    return trainer, trainer.init_state(params)
+
+
+def phase_verify(device) -> dict:
+    """``[verify]`` (see the module docstring).  Returns the launches of
+    the strict runs' steps."""
+    from bagua_tpu_torch.observability.goodput import PEAK_FLOPS_PER_CHIP as PEAK_FLOPS
+    from bagua_tpu_torch.perflab import DEFAULT_TOPOLOGY, model_step_cell
+    from bagua_tpu_torch.service.planner import CostModel
+
+    n = RANKS * BATCH_PER_RANK
+    wrappers = check_meta_wrappers_on_card(device)
+    small = check_gate_on_card(device)
+    log(f"[verify] {wrappers} wrappers: meta tensors take the plain versions (no launch, nothing allocated on "
+        f"the card), CUDA tensors launch; the small VGG's strict gate allocates and launches nothing, host ms "
+        f"{ {k: round(v, 1) for k, v in small.items()} }")
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = (torch.rand((n, IMAGE_SIZE, IMAGE_SIZE, 3), generator=gen, device=device),
+             torch.randint(0, NUM_CLASSES, (n,), generator=gen, device=device))
+    total = {k: 0 for k in KERNELS}
+    rows = []
+    for name, (algo, kw, per_bucket) in VERIFY_PATHS.items():
+        what = f"[verify] VGG16 {name}"
+        runs = {}
+        for mode in ("off", "strict"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            with static_verify(mode), GateWatch(what) as watch:
+                tel = Telemetry(flight=FlightRecorder(capacity=4096, rank=0, world_size=1), tracing=None,
+                                regression=None)
+                trainer, state = _verify_trainer(name, device, group, mode, tel)
+                ddp = trainer.ddp
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                state = trainer.fit(state, itertools.repeat(batch), n_steps=1)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state = trainer.fit(state, itertools.repeat(batch), n_steps=VERIFY_STEPS)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                launches = read_launches()
+                nb = ddp.plan.num_buckets
+                want = {k: (1 + VERIFY_STEPS) * nb * per_bucket.get(k, 0) for k in KERNELS}
+                if launches != want:
+                    raise AssertionError(f"{what}, gate {mode}: launches {launches}, want {want}")
+                if not torch.isfinite(trainer.losses).all():
+                    raise AssertionError(f"{what}, gate {mode}: non-finite loss {trainer.losses.tolist()}")
+                _bitwise_replicas(f"{what}, gate {mode}", ddp.finalize_pending_updates(state).params)
+                runs[mode] = {"first_ms": (t1 - t0) * 1e3, "ms": (t2 - t1) * 1e3 / VERIFY_STEPS,
+                              "launches": launches, "gates": [round(c[1], 1) for c in watch.calls]}
+                if mode == "off":
+                    if watch.calls:
+                        raise AssertionError(f"{what}: the gate ran with BAGUA_STATIC_VERIFY off")
+                    trainer.close()
+                    del trainer, state, ddp
+                    continue
+                variant = ddp.impl.step_variant(0)
+                if len(watch.calls) != 1:
+                    raise AssertionError(f"{what}: {len(watch.calls)} gates on one variant's steps")
+                report = watch.calls[0][2]
+                if algo in tan.MODELED_ALGOS:
+                    predicted, captured = ddp._predicted_programs.get(variant), ddp._flight_programs.get(variant)
+                    if not predicted or tan.canonical_records(predicted) != tan.canonical_records(captured):
+                        raise AssertionError(f"{what}: the flight capture differs from the gate's prediction")
+                # a rebucket re-verifies at once; a planted rejection rolls back
+                old_plan = ddp.plan
+                plan2 = ddp.impl.tensors_to_buckets(ddp._tree_template, 2 * ddp.bucket_size_bytes)
+                ddp.rebucket(plan2, reason="manual")
+                if len(watch.calls) != 2 or ddp.plan is not plan2:
+                    raise AssertionError(f"{what}: the rebucket was not re-verified")
+                watch.reject = True
+                try:
+                    ddp.rebucket(old_plan, reason="manual")
+                    raise AssertionError(f"{what}: the planted rejection did not raise")
+                except tan.StaticVerifyError:
+                    pass
+                watch.reject = False
+                if ddp.plan is not plan2:
+                    raise AssertionError(f"{what}: the rejected plan was not rolled back")
+                reset_launches()
+                state = trainer.fit(state, itertools.repeat(batch), n_steps=1)
+                torch.cuda.synchronize()
+                nb2 = plan2.num_buckets
+                want2 = {k: nb2 * per_bucket.get(k, 0) for k in KERNELS}
+                if read_launches() != want2:
+                    raise AssertionError(f"{what}: after the rebucket launches {read_launches()}, want {want2}")
+                launches = runs[mode]["launches"] = {k: launches[k] + c for k, c in read_launches().items()}
+                # the modeled step beside the measured one
+                gc.collect()
+                mem, allocs = torch.cuda.memory_allocated(), _allocations()
+                cell = model_step_cell(ddp, state, batch, CostModel(),
+                                       wire={"int8 ring": "int8", "ZeRO int8": "int8",
+                                             "ByteGrad": "bytegrad"}.get(name, "f32"))
+                if torch.cuda.memory_allocated() != mem or _allocations() != allocs or not cell.verified:
+                    raise AssertionError(f"{what}: the modeled cell allocated, or did not verify")
+                runs[mode].update(gates=[round(c[1], 1) for c in watch.calls], variant=variant,
+                                  collectives=report.num_collectives, records=len(report.predicted),
+                                  modeled=cell, buckets=(nb, nb2), overlap=ddp.overlap_enabled)
+                trainer.close()
+                del trainer, state, ddp
+            total = {k: total[k] + c for k, c in runs["strict"]["launches"].items()}
+        if runs["strict"]["launches"] != {k: runs["off"]["launches"][k] + c for k, c in want2.items()}:
+            raise AssertionError(f"{what}: launches with the gate {runs['strict']['launches']} against off "
+                                 f"{runs['off']['launches']} plus the rebucketed step")
+        s, o = runs["strict"], runs["off"]
+        cell = s["modeled"]
+        # the same cell at the bf16 tensor-core peak (the convolutions' type here)
+        bf16_compute = cell.flops_per_step / (PEAK_FLOPS["h100-sxm-bf16"] * 0.3) * 1e3
+        window = DEFAULT_TOPOLOGY.overlap_window_frac * bf16_compute if cell.overlap else 0.0
+        bf16_ms = bf16_compute + max(0.0, cell.wire_ms - window)
+        rows.append((name, cell.modeled_step_ms, bf16_ms, s["ms"]))
+        log(f"{what} (overlap {s['overlap']}, {s['buckets'][0]} buckets): gate host ms {s['gates']} (variant "
+            f"{s['variant']!r}, then the rebucket's to {s['buckets'][1]} buckets), {s['collectives']} "
+            f"collectives, {s['records']} flight records predicted{' = captured' if algo in tan.MODELED_ALGOS else ''}; "
+            f"first step {s['first_ms']:.1f} ms strict against {o['first_ms']:.1f} off; then {s['ms']:.2f} "
+            f"ms/step strict against {o['ms']:.2f} off; launches equal; planted rejection rolled back; modeled "
+            f"{cell.modeled_step_ms:.3f} ms (compute {cell.compute_ms:.3f}, wire {cell.wire_ms:.3f}, exposed "
+            f"{cell.exposed_wire_ms:.3f}, {cell.census_wire_bytes} B, {cell.flops_per_step:.4e} FLOPs, legs "
+            f"{cell.legs_used}, kernels {cell.kernel_basis['basis']}; at the bf16 peak {bf16_ms:.3f}) against "
+            f"{s['ms']:.2f} measured")
+    log("[verify] modeled (planner priors, MFU 0.3 of h100-sxm-f32; of h100-sxm-bf16) against measured "
+        "ms/step: " + "; ".join(f"{n}: {m:.3f}; {b:.3f} / {t:.2f}" for n, m, b, t in rows))
+    return total
+
+
+#: the controller's α–β legs (s, B/s): the JAX autopilot tests' regime,
+#: where a bandwidth collapse makes the int8 ring the cheaper wire
+AUTOPILOT_COST = {"flat": (50e-6, 40e9), "qr8": (60e-6, 90e9)}
+AUTOPILOT_INCIDENT = {"dominant": "wire_slowdown", "measured_ms": 600.0, "expected_ms": 60.0, "step": 0,
+                      "plan_version": 0}
+
+
+def phase_autopilot(device) -> dict:
+    """``[autopilot]`` (see the module docstring).  Returns the launches."""
+    from bagua_tpu_torch.autopilot import AutopilotConfig, GangAutopilot
+    from bagua_tpu_torch.service.planner import AlphaBeta, CostModel
+
+    what = "[autopilot] VGG16"
+    n = RANKS * BATCH_PER_RANK
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = (torch.rand((n, IMAGE_SIZE, IMAGE_SIZE, 3), generator=gen, device=device),
+             torch.randint(0, NUM_CLASSES, (n,), generator=gen, device=device))
+    sentinel = RegressionSentinel()
+    tel = Telemetry(flight=FlightRecorder(capacity=4096, rank=0, world_size=1), tracing=None, regression=sentinel)
+    config = AutopilotConfig(hysteresis_incidents=2, canary_steps=3, cooldown_steps=2, compute_ms=60.0,
+                             algorithms=("gradient_allreduce",))
+    total = {k: 0 for k in KERNELS}
+    int8 = SLICE_PATHS["int8 ring"][1]
+    with static_verify("strict"), GateWatch(what) as watch:
+        model, params = sb.build("vgg16", torch.bfloat16, device)
+        trainer = Trainer(vgg_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+                          GradientAllReduceAlgorithm(wire_precision="auto"), group, telemetry=tel,
+                          autopilot=lambda ddp: GangAutopilot(
+                              ddp, CostModel(**{k: AlphaBeta(*v) for k, v in AUTOPILOT_COST.items()}), config,
+                              sentinel=sentinel, telemetry=tel))
+        state = trainer.init_state(params)
+        del params
+        ddp, pilot = trainer.ddp, trainer.autopilot
+        nb = ddp.plan.num_buckets
+        log_steps = []
+
+        def steps(k, per_bucket, tag):
+            nonlocal state
+            for _ in range(k):
+                reset_launches()
+                t0 = time.perf_counter()
+                state = trainer.fit(state, [batch])
+                torch.cuda.synchronize()
+                log_steps.append((tag, round((time.perf_counter() - t0) * 1e3, 1)))
+                launches = read_launches()
+                want = {kk: nb * per_bucket.get(kk, 0) for kk in KERNELS}
+                # the step that demoted runs on the old wire; the tick comes after it
+                if launches != want:
+                    raise AssertionError(f"{what}, {tag}: launches {launches}, want {want}")
+                for kk, c in launches.items():
+                    total[kk] += c
+                if not torch.isfinite(trainer.losses).all():
+                    raise AssertionError(f"{what}: non-finite loss")
+
+        steps(2, {}, "f32")
+        # a planted rejection: two wire-dominant incidents, the demotion's
+        # re-verification rejected; counted, recorded, nothing dispatched
+        sentinel.incidents.extend([dict(AUTOPILOT_INCIDENT, trace_id="tr-planted-1"),
+                                   dict(AUTOPILOT_INCIDENT, trace_id="tr-planted-2")])
+        watch.reject = True
+        steps(1, {}, "f32, rejected demotion")
+        watch.reject = False
+        rejected = [d for d in pilot.decisions if d["verdict"] == "rejected"]
+        if pilot.verifier_rejections != 1 or len(rejected) != 1 or pilot.current_configuration().precision != "f32":
+            raise AssertionError(f"{what}: the planted rejection: {pilot.report()}")
+        steps(2, {}, "f32 after the rejection")
+        # the demotion: re-verified and dispatched on the int8 ring
+        sentinel.incidents.extend([dict(AUTOPILOT_INCIDENT, trace_id="tr-wire-1"),
+                                   dict(AUTOPILOT_INCIDENT, trace_id="tr-wire-2")])
+        gates = len(watch.calls)
+        steps(1, {}, "f32, demotes")
+        demoted = [d for d in pilot.decisions if d["decision"] == "demote_precision" and d["verdict"] == "canary"]
+        if not demoted or pilot.current_configuration().precision != "int8" or len(watch.calls) != gates + 1:
+            raise AssertionError(f"{what}: no verified demotion: {pilot.report()}, {len(watch.calls) - gates} gates")
+        steps(config.canary_steps, int8, "int8 ring, canary")
+        committed = [d for d in pilot.decisions if d["verdict"] in ("committed", "rolled_back")]
+        if not committed:
+            raise AssertionError(f"{what}: the canary was not adjudicated: {pilot.report()}")
+        steps(2, int8 if committed[-1]["verdict"] == "committed" else {}, "after the canary")
+        _bitwise_replicas(what, state.params)
+        rows = [{k: d[k] for k in ("step", "decision", "verdict", "trace_id", "plan_version")} for d in pilot.decisions]
+        gate_ms = [round(c[1], 1) for c in watch.calls]
+        trainer.close()
+    log(f"{what}, strict gate, Trainer(autopilot=GangAutopilot): decisions {rows}; verifier rejections "
+        f"{pilot.verifier_rejections}; gate host ms {gate_ms}; step ms {log_steps}")
+    return total
+
+
 def vgg16_plan():
     """The bucket plan of VGG16 over RANKS ranks, from the model's shapes
     alone (built on the meta device); every algorithm here aligns its
@@ -5017,6 +5426,10 @@ def main(argv) -> int:
     per_path["obs"] = phase_obs(device, profile)
     torch.cuda.empty_cache()
     per_path["resil"] = phase_resil(device, profile)
+    torch.cuda.empty_cache()
+    per_path["verify"] = phase_verify(device)
+    torch.cuda.empty_cache()
+    per_path["autopilot"] = phase_autopilot(device)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]

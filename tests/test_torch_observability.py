@@ -251,11 +251,12 @@ def test_cusum_and_regression_sentinel_match_jax(tmp_path):
 
 
 def test_sentinel_default_links_name_h100_links():
-    from bagua_tpu_torch.observability.regression import DEFAULT_LINKS
+    from bagua_tpu_torch.perflab.topology import DEFAULT_TOPOLOGY
 
-    assert [DEFAULT_LINKS.axis_link(a) for a in ("tp", "intra", "dp", "inter")] == [
+    assert tobs.RegressionSentinel().topology is DEFAULT_TOPOLOGY
+    assert [DEFAULT_TOPOLOGY.axis_link(a) for a in ("tp", "intra", "dp", "inter")] == [
         "nvlink", "nvlink", "network", "network"]
-    assert DEFAULT_LINKS.axis_link("dp", within_host=True) == "nvlink"
+    assert DEFAULT_TOPOLOGY.axis_link("dp", within_pod=True) == "nvlink"
 
 
 def test_budget_model_matches_jax():

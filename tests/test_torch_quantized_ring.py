@@ -193,12 +193,19 @@ def test_hop_plain_bitwise(bits, case):
 
 
 def test_hop_refuses_other_devices():
-    """A tensor neither on the CPU nor on a card reaches no plain version."""
+    """A tensor on ``meta`` (the static verifier's dry run) takes the plain
+    version, which computes shapes only and counts no launch; the kernel's
+    operand check takes CUDA tensors alone."""
+    before = port.hop_dequant_add_requant.launches
+    q2, mm2, err = port.hop_dequant_add_requant(
+        torch.empty((2, 8), dtype=torch.uint8, device="meta"),
+        torch.empty((2, 2), device="meta"), torch.empty((2, 8), device="meta"), 8,
+    )
+    assert (q2.shape, q2.dtype, q2.is_meta) == ((2, 8), torch.uint8, True)
+    assert mm2.shape == (2, 2) and err.shape == (2, 8) and err.is_meta
+    assert port.hop_dequant_add_requant.launches == before
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        port.hop_dequant_add_requant(
-            torch.empty((2, 8), dtype=torch.uint8, device="meta"),
-            torch.empty((2, 2), device="meta"), torch.empty((2, 8), device="meta"), 8,
-        )
+        port.mm8._cuda_operand(torch.empty((2, 8), device="meta"), torch.float32, 2, "hop")
 
 
 # ---------------------------------------------------------------------------

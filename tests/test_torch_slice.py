@@ -157,10 +157,18 @@ def test_init_mlp_layout_matches_jax():
 
 
 def test_codec_refuses_other_devices():
-    """A tensor that is neither on the CPU nor on a card reaches no plain
-    version: the wrapper raises."""
+    """A meta tensor (the static verifier's dry run) takes the plain
+    versions, shapes only, counting no launch; the kernels' operand check
+    takes CUDA tensors alone."""
+    counts = [k.launches for k in minmax_uint8.KERNELS]
+    q, mm = minmax_uint8.compress_minmax_uint8(torch.empty((2, 8), device="meta"))
+    assert q.is_meta and (q.shape, q.dtype, mm.shape) == ((2, 8), torch.uint8, (2, 2))
+    x = minmax_uint8.decompress_minmax_uint8(q, mm)
+    q2, mm2 = minmax_uint8.decompress_reduce_requantize(q.reshape(1, 2, 8), mm.reshape(1, 2, 2))
+    assert x.shape == (2, 8) and q2.shape == (1, 1, 8) and mm2.shape == (1, 1, 2)
+    assert [k.launches for k in minmax_uint8.KERNELS] == counts
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        minmax_uint8.compress_minmax_uint8(torch.empty((2, 8), device="meta"))
+        minmax_uint8._cuda_operand(torch.empty((2, 8), device="meta"), torch.float32, 2, "compress")
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +355,9 @@ def test_port_imports_no_jax():
     schedules, FSDP, GPT, the gpt_pretrain twin, the named mesh
     (``mesh.py``, a copy of the JAX package's, which imports nothing of
     it), the resilience tier, the checkpoints, the autotune service, the
-    launcher and the elastic twin; neither pydantic nor orbax is loaded."""
+    launcher and the elastic twin, the static gate (``analysis/``), the
+    modeled step (``perflab/``) and the gang autopilot; neither pydantic
+    nor orbax is loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -381,7 +391,11 @@ def test_port_imports_no_jax():
         "        'bagua_tpu_torch.distributed.baguarun', 'bagua_tpu_torch.examples.elastic_training',\n"
         "        'bagua_tpu_torch.trainer'] + ['bagua_tpu_torch.observability.' + m for m in (\n"
         "        'scope_grammar', 'metrics', 'core', 'annotations', 'tracing', 'flight_recorder', 'telemetry',\n"
-        "        'health', 'goodput', 'attribution', 'regression', 'aggregate', 'trace_analysis')]\n"
+        "        'health', 'goodput', 'attribution', 'regression', 'aggregate', 'trace_analysis')] + [\n"
+        "        'bagua_tpu_torch.' + m for m in (\n"
+        "        'analysis.collective_ir', 'analysis.checks', 'analysis.verify', 'perflab.topology',\n"
+        "        'perflab.compute', 'perflab.costbridge', 'perflab.engine', 'autopilot.pricing',\n"
+        "        'autopilot.controller', 'autopilot.staleness')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )
