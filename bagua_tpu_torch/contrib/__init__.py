@@ -1,8 +1,9 @@
-"""Contrib tier, the jax-free data path copied from ``bagua_tpu/contrib``:
-the stores, the cache loader, the cached dataset and the load-balancing
-samplers (reference ``bagua/torch_api/contrib/``).  The fused optimizer,
-ZeRO's optax wrapper, SyncBatchNorm and the native stores are not ported
-(ROADMAP Queue 1 items 3 and 9)."""
+"""Contrib tier (reference ``bagua/torch_api/contrib/``): the stores, the
+native shared-memory store and IO prefetcher (C++ built at first use by
+g++), the rendezvous blob store, the cache loader, the cached dataset, the
+load-balancing samplers and synchronized batch norm.  The fused optimizer
+and ZeRO's optax wrapper are not ported: the engine takes a
+``torch.optim`` factory in their place."""
 
 from bagua_tpu_torch.contrib.store import (  # noqa: F401
     Store,
@@ -16,3 +17,10 @@ from bagua_tpu_torch.contrib.load_balancing_data_loader import (  # noqa: F401
     LoadBalancingDistributedSampler,
     LoadBalancingDistributedBatchSampler,
 )
+from bagua_tpu_torch.contrib.io_prefetcher import IOPrefetcher  # noqa: F401
+from bagua_tpu_torch.contrib.rendezvous_store import (  # noqa: F401
+    RendezvousStore,
+    make_rendezvous_cluster_store,
+)
+from bagua_tpu_torch.contrib.shm_store import ShmStore  # noqa: F401
+from bagua_tpu_torch.contrib.sync_batchnorm import SyncBatchNorm  # noqa: F401

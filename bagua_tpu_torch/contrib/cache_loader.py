@@ -1,6 +1,5 @@
 """CacheLoader: memoize expensive sample loads through a KV store (a copy
-of ``bagua_tpu/contrib/cache_loader.py``; the native ``shm`` and
-``rendezvous`` backends are not ported yet).
+of ``bagua_tpu/contrib/cache_loader.py``).
 
 Analog of the reference's ``contrib/cache_loader.py:17-140``: ``get(key,
 load_fn)`` consults the store first and computes+caches on miss, with write
@@ -21,9 +20,15 @@ class CacheLoader:
         store: Optional[Store] = None,
         **kwargs,
     ):
-        """``backend`` ∈ {"memory", "file"} or pass an explicit ``store``.
-        ``writer_buffer_size`` batches that many pending writes before
-        flushing (reference ``cache_loader.py:75-140``)."""
+        """``backend`` ∈ {"memory", "file", "shm", "rendezvous"} or pass an
+        explicit ``store``.  ``writer_buffer_size`` batches that many pending
+        writes before flushing (reference ``cache_loader.py:75-140``).
+
+        ``backend="rendezvous"`` is the cross-host path (the analog of the
+        reference's redis-backed cluster cache): pass
+        ``endpoints=["host1:29400", "host2:29400", ...]`` (one rendezvous
+        blob server per node, same order on every worker) and optionally
+        ``bootstrap=True`` to start this host's server if absent."""
         self.dataset_name = dataset_name
         if store is not None:
             self.store = store
@@ -33,11 +38,14 @@ class CacheLoader:
             from bagua_tpu_torch.contrib.store import FileStore
 
             self.store = FileStore(kwargs.get("path"))
-        elif backend in ("shm", "rendezvous"):
-            raise NotImplementedError(
-                f"the {backend!r} cache backend (a native store) is not ported yet "
-                "(ROADMAP Queue 1 item 9); use 'memory', 'file' or pass a store"
-            )
+        elif backend == "shm":
+            from bagua_tpu_torch.contrib.shm_store import ShmStore
+
+            self.store = ShmStore(**kwargs)
+        elif backend == "rendezvous":
+            from bagua_tpu_torch.contrib.rendezvous_store import make_rendezvous_cluster_store
+
+            self.store = make_rendezvous_cluster_store(**kwargs)
         else:
             raise ValueError(f"unknown cache backend {backend!r}")
         self.writer_buffer_size = writer_buffer_size

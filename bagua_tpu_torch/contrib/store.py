@@ -1,7 +1,7 @@
 """Key-value stores backing the cached-dataset tier (a copy of
 ``bagua_tpu/contrib/store.py``).
 
-TPU-native analog of the reference's ``contrib/utils/store.py`` (``Store`` /
+The analog of the reference's ``contrib/utils/store.py`` (``Store`` /
 ``ClusterStore`` ABCs with xxhash key routing, ``store.py:56-143``) and
 ``redis_store.py``.  Redis isn't available in this image, so the concrete
 backends are:
@@ -9,8 +9,10 @@ backends are:
 * :class:`InMemoryStore` — plain dict, single process.
 * :class:`FileStore` — directory of pickled blobs, usable across processes on
   one host (and across hosts on shared filesystems).
-* the JAX package's C++ shared-memory store (``ShmStore``) is not ported
-  yet (ROADMAP Queue 1 item 9).
+* :class:`~bagua_tpu_torch.contrib.shm_store.ShmStore` — the C++
+  shared-memory store (the native-runtime equivalent of the reference
+  bootstrapping local redis servers), provided separately, as is the
+  cross-host :mod:`~bagua_tpu_torch.contrib.rendezvous_store`.
 
 ``ClusterStore`` shards keys over multiple backends with xxhash, exactly like
 the reference routes keys across redis instances.

@@ -124,6 +124,7 @@ from bagua_tpu_torch.communication import BaguaProcessGroup, default_axes, get_d
 from bagua_tpu_torch.defs import TensorDeclaration
 from bagua_tpu_torch.env import get_default_bucket_size, get_static_verify_mode
 from bagua_tpu_torch.mesh import _none_of_declared
+from bagua_tpu_torch.models._rank_ops import over_ranks
 from bagua_tpu_torch.observability.core import StepTimer
 from bagua_tpu_torch.observability.flight_recorder import capture_program
 from bagua_tpu_torch.observability.health import grad_norms, nonfinite_counts
@@ -562,7 +563,7 @@ class DistributedDataParallel:
             return blocks if e == n else blocks[self._data_rank.to(t.device)]
 
         local = tree_map(shard, batch)
-        with torch.enable_grad():
+        with torch.enable_grad(), over_ranks(self.group):
             return torch.func.vmap(self.loss_fn)(tree_unflatten(params, leaves), local)
 
     def _rank_grads(self, params, batch):
@@ -1066,7 +1067,8 @@ class DistributedDataParallel:
 
     def export_plan_payload(self) -> Optional[dict]:
         """The live bucket plan and the configuration adopted with it (the
-        algorithm, the overlap knob, the wire precisions and who chose them)
+        algorithm, the overlap knob, the wire precisions, the staleness
+        bound and who chose them)
         as a JSON-serializable payload, for :meth:`adopt_plan_payload`."""
         if self.plan is None:
             return None
@@ -1079,6 +1081,9 @@ class DistributedDataParallel:
         if wp is not None:
             config["wire_precision"] = str(wp)
             config["bucket_precisions"] = [str(p) for p in self.impl.bucket_precisions(self.plan)]
+        tau = getattr(self.impl, "staleness_tau", None)
+        if hasattr(self.impl, "set_staleness_tau") and tau is not None:
+            config["staleness_tau"] = int(tau)
         payload = {
             "plan_version": self.plan_version,
             "bucket_size_bytes": int(self.bucket_size_bytes),
@@ -1097,8 +1102,8 @@ class DistributedDataParallel:
         because the live plan already is it; False for a payload without
         buckets.  Raises when the payload names another algorithm, no
         longer fits the model, or the algorithm holds per-bucket state.
-        The carried configuration (overlap, per-bucket precisions) is
-        re-applied on top."""
+        The carried configuration (overlap, per-bucket precisions, the
+        staleness bound) is re-applied on top."""
         cfg = payload.get("config") or {}
         mine = self.impl.algo_name or type(self.impl).__name__
         if cfg.get("algorithm") and cfg["algorithm"] != mine:
@@ -1134,6 +1139,10 @@ class DistributedDataParallel:
         precisions = cfg.get("bucket_precisions")
         if precisions and getattr(self.impl, "wire_precision", None) == "auto":
             self.apply_precision_plan(list(precisions), reason=reason)
+        tau = cfg.get("staleness_tau")
+        if (tau is not None and hasattr(self.impl, "set_staleness_tau")
+                and getattr(self.impl, "staleness_tau", None) is not None):
+            self.apply_staleness(int(tau), reason=reason)
         if source in SWITCH_REASON_FAMILIES:
             self._plan_source = source
 

@@ -232,7 +232,26 @@ def get_rpc_breaker_cooldown_s() -> float:
 
 def get_rpc_timeout_s() -> float:
     """``BAGUA_RPC_TIMEOUT_S``: per-attempt socket timeout for service RPCs
-    (the rendezvous store, the autotune service).  One knob for every
-    client; the retry layer (``BAGUA_RPC_RETRIES``) multiplies it into the
-    worst-case blocking time."""
+    (the rendezvous store, the autotune service, the fleet control plane).
+    One knob for every client; the retry layer (``BAGUA_RPC_RETRIES``)
+    multiplies it into the worst-case blocking time."""
     return float(os.environ.get("BAGUA_RPC_TIMEOUT_S", 10.0))
+
+
+def get_fleet_lease_ttl_s() -> float:
+    """``BAGUA_FLEET_LEASE_TTL_S``: gang-lease TTL on the fleet control
+    plane.  A gang whose lease goes this long without any request is
+    considered dead and its namespace is garbage-collected."""
+    return float(os.environ.get("BAGUA_FLEET_LEASE_TTL_S", 300.0))
+
+
+def get_fleet_rate_limit() -> float:
+    """``BAGUA_FLEET_RATE``: per-gang admission rate (requests/second) on
+    the fleet control plane's token bucket.  0 disables backpressure."""
+    return float(os.environ.get("BAGUA_FLEET_RATE", 0) or 0)
+
+
+def get_fleet_burst() -> float:
+    """``BAGUA_FLEET_BURST``: per-gang token-bucket burst capacity (requests
+    admitted at full speed before the rate limit engages)."""
+    return float(os.environ.get("BAGUA_FLEET_BURST", 200.0))

@@ -24,12 +24,41 @@ the engine's ``vmap``, where each rank's model sees a rank axis of one
 (``models.bert.one_rank``), its rule runs the collective on the whole
 stack, so a rank's tp peers are there and the backward is the one the
 hand-scheduled step takes through the same collective.
+
+:func:`over_ranks` marks code that runs under a ``vmap`` over a group's
+ranks (the engine enters it around its forward).  A model's collectives
+that bind axes only there, as a JAX model's bind only under
+``shard_map`` (:class:`~bagua_tpu_torch.contrib.sync_batchnorm.SyncBatchNorm`),
+read the group from :func:`ranks_group`.
 """
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
 
 from bagua_tpu_torch.communication import alltoall, axis_size
+
+
+#: the group whose ranks the current ``vmap`` runs over, where one is entered
+_RANKS: contextvars.ContextVar = contextvars.ContextVar("bagua_vmap_ranks", default=None)
+
+
+@contextlib.contextmanager
+def over_ranks(group):
+    """Within, code runs under a ``vmap`` over ``group``'s ranks (on this
+    thread)."""
+    token = _RANKS.set(group)
+    try:
+        yield
+    finally:
+        _RANKS.reset(token)
+
+
+def ranks_group():
+    """The group :func:`over_ranks` entered, or None outside one."""
+    return _RANKS.get()
 
 
 def _ranks(t: torch.Tensor, dim, n: int):

@@ -21,6 +21,11 @@ convolution's output comes back f32 and the next convolution casts it).
 The running-statistics update is dropped, as ``resnet_loss_fn`` drops it
 in the JAX package: the ``batch_stats`` tree rides in the train state
 (``dp_filter=lambda n: "batch_stats" not in n``) and no step changes it.
+
+``sync_bn=True`` builds :class:`~bagua_tpu_torch.contrib.sync_batchnorm.SyncBatchNorm`
+for every norm, under the same names: its statistics are averaged over the
+group's ranks under the engine's ``vmap`` and taken in the convolution's
+type (bf16 under bf16 compute), as the JAX module's are.
 """
 
 from typing import Sequence
@@ -30,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from bagua_tpu_torch.contrib.sync_batchnorm import SyncBatchNorm
 from bagua_tpu_torch.models._rank_ops import rank_conv2d
 from bagua_tpu_torch.models.llama import module_params
 from bagua_tpu_torch.utils import dotted_leaves, lecun_normal, resolve_device
@@ -69,21 +75,29 @@ class BatchNorm(nn.Module):
         return (xf - mean) * mul + self.bias[:, None, None]
 
 
+def norm(features: int, sync_bn: bool, device):
+    """The block's norm: flax's ``BatchNorm``, or ``SyncBatchNorm`` on the
+    NCHW view (its running statistics dropped, as the loss drops them)."""
+    if sync_bn:
+        return SyncBatchNorm(features, channel_dim=1, track_running_stats=False, device=device)
+    return BatchNorm(features, device)
+
+
 class BottleneckBlock(nn.Module):
     def __init__(self, in_features: int, features: int, strides: int = 1, compute_dtype=torch.float32,
-                 device=None, generator=None):
+                 device=None, generator=None, sync_bn: bool = False):
         super().__init__()
         conv = dict(dtype=compute_dtype, device=device, generator=generator)
         self.Conv_0 = Conv(in_features, features, 1, 1, 0, **conv)
-        self.bn1 = BatchNorm(features, device)
+        self.bn1 = norm(features, sync_bn, device)
         self.Conv_1 = Conv(features, features, 3, strides, 1, **conv)
-        self.bn2 = BatchNorm(features, device)
+        self.bn2 = norm(features, sync_bn, device)
         self.Conv_2 = Conv(features, features * 4, 1, 1, 0, **conv)
-        self.bn3 = BatchNorm(features * 4, device)
+        self.bn3 = norm(features * 4, sync_bn, device)
         # flax projects where the residual's shape differs from the output's
         if in_features != features * 4 or strides != 1:
             self.proj = Conv(in_features, features * 4, 1, strides, 0, **conv)
-            self.bn_proj = BatchNorm(features * 4, device)
+            self.bn_proj = norm(features * 4, sync_bn, device)
 
     def forward(self, x):
         residual = x
@@ -99,21 +113,17 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000, compute_dtype=torch.float32,
                  sync_bn: bool = False, device=None, generator=None):
         super().__init__()
-        if sync_bn:
-            raise NotImplementedError(
-                "sync_bn=True needs SyncBatchNorm (contrib), which is not ported yet "
-                "(ROADMAP Queue 1 item 9)"
-            )
         device = resolve_device(device)
         self.stage_sizes, self.num_classes, self.compute_dtype = tuple(stage_sizes), num_classes, compute_dtype
+        self.sync_bn = sync_bn
         self.Conv_0 = Conv(3, 64, 7, 2, 3, compute_dtype, device, generator)
-        self.bn_init = BatchNorm(64, device)
+        self.bn_init = norm(64, sync_bn, device)
         channels = 64
         for i, n_blocks in enumerate(self.stage_sizes):
             for b in range(n_blocks):
                 strides = 2 if i > 0 and b == 0 else 1
                 self.add_module(f"stage{i}_block{b}", BottleneckBlock(
-                    channels, 64 * 2 ** i, strides, compute_dtype, device, generator))
+                    channels, 64 * 2 ** i, strides, compute_dtype, device, generator, sync_bn))
                 channels = 64 * 2 ** i * 4
         self.Dense_0 = nn.Module()
         self.Dense_0.kernel = nn.Parameter(lecun_normal((channels, num_classes), channels, device=device,
@@ -140,10 +150,10 @@ def resnet50(num_classes: int = 1000, compute_dtype=torch.float32, sync_bn: bool
 
 def batch_stats(model: ResNet):
     """The ``batch_stats`` tree flax's ``init`` gives the same model: each
-    BatchNorm's ``mean`` (zeros) and ``var`` (ones), f32."""
+    norm's ``mean`` (zeros) and ``var`` (ones), f32."""
     tree = {}
     for name, module in model.named_modules():
-        if isinstance(module, BatchNorm):
+        if isinstance(module, (BatchNorm, SyncBatchNorm)):
             *path, leaf = name.split(".")
             node = tree
             for key in path:

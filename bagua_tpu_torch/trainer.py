@@ -1,8 +1,8 @@
 """High-level training loop (the port of ``bagua_tpu/trainer.py``): the fit
 loop with its observability (telemetry, health monitor, hang watchdog, one
 profiler capture, the gang view), its resilience (async snapshots, the
-preemption drain, the elastic resume, checkpoints) and the autotune
-session.  The autopilot comes with ROADMAP Queue 1 item 9."""
+preemption drain, the elastic resume, checkpoints), the autotune session
+and the gang autopilot."""
 
 import logging
 import os

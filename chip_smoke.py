@@ -242,7 +242,46 @@ and no result line:
    demotion to the int8 ring re-verified and dispatched, each step's
    launches row 4's exactly, and the canary committed (or rolled back)
    after 3 steps.  Prints the decision rows and the gates' host ms.
-15. prints one JSON line naming each kernel with its launches and times
+15. fleet -- the fleet control plane (``bagua_tpu_torch.fleet``) in this
+   process: an ``AsyncFleetServer`` on 127.0.0.1 over a write-ahead log in
+   a temporary directory.  Gang ``alpha`` (full-width VGG16, 4 ranks x 32,
+   ``intra_size=1``, bf16, ByteGrad with overlap, FLEET_ALPHA_BUCKET-byte
+   buckets) trains under an ``AutotuneSession`` whose client is
+   ``FleetClient.autotune_client("alpha")`` until the gang's own autotune
+   service re-buckets it, takes FLEET_STEPS timed steps and publishes its
+   plan; gang ``beta``, a fresh ``Trainer`` at the default bucket size,
+   adopts it at step 0 through ``ElasticResumeCoordinator(fleet_plan_fn=...)``
+   (``"fleet"``, one rebucket, a ``restart`` event with
+   ``plan_source="fleet"``), its buckets alpha's, its first step and
+   FLEET_STEPS timed ones launching rows 1-3 exactly at that plan's bucket
+   count.  Then incidents
+   that cite the plan quarantine it through ``FleetClient.remediate()``,
+   beta's ``fleet_directive()`` is the ``rollback_plan`` directive and beta
+   acks it; the plane, closed and rebuilt from its log, has the same dump,
+   plan statuses, directives and scheduler view (but FLEET_VOLATILE's
+   fields, which a restart resets by design), and a third gang is
+   refused the quarantined plan; ``run_fleet`` through the plane's
+   namespaces flags its injected straggler in every window.  No card
+   memory is left allocated.  Prints both gangs' ms/step and the
+   adoption's and the replay's wall times.
+16. sync-bn -- SyncBatchNorm: the small ResNet with ``sync_bn=True`` on the
+   card against the CPU (f64 losses, gradients and statistics under a
+   ``vmap`` over 4 ranks, the statistics the same on every rank; 2 f32
+   ``gradient_allreduce`` engine steps, cuDNN deterministic); then
+   ResNet-50 (224x224, bf16, 4 ranks x 32, ``gradient_allreduce``) under the
+   engine with ``sync_bn=False`` and ``True``, RESNET_WARMUP + 5 steps each:
+   ms/step, img/s, peak memory and the statistics' collectives a step (one
+   a norm, 53 norms).  No kernel runs.
+17. contrib -- the native tier: an ``ShmStore`` segment written here and
+   read by a ``spawn`` child (which writes back); a ``RendezvousStore`` and
+   a two-server cluster store against live rendezvous servers of the port;
+   the ``IOPrefetcher`` streaming CONTRIB_FILES generated files in order,
+   their bytes equal; a ``CachedDataset`` over ``SyntheticImageNet`` on the
+   ``"shm"`` backend feeding two ResNet-50 ``sync_bn=True`` steps, its
+   batches bitwise the memory backend's.  The imagenet twin's
+   ``--data-dir`` is not driven: PIL is not installed where the card is
+   (the CPU tests drive it).  No kernel runs.
+18. prints one JSON line naming each kernel with its launches and times
    (``other_steps``: the sums per step of other paths, the BERT, GPT and
    mesh ones included), then the result line ``{"ok": true, "device":
    {...}}``.
@@ -5353,6 +5392,564 @@ def phase_autopilot(device) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# [fleet]: the fleet control plane and two gangs at full-width VGG16;
+# [sync-bn]: SyncBatchNorm in ResNet; [contrib]: the native stores and the
+# IO prefetcher
+# ---------------------------------------------------------------------------
+
+#: gang alpha's bucket size, twice the default (the fleet's plan is not the default one)
+FLEET_ALPHA_BUCKET = 2 * 10 * 2 ** 20
+FLEET_STEPS = 5
+FLEET_RDZV = {"min_nodes": 1, "settle_s": 0.05}
+FLEET_INCIDENT = {"dominant": "wire_slowdown", "stream": "step_wall", "trace_id": "fleet-beta-regressed"}
+
+
+def _plan_names(ddp) -> list:
+    return [[td.name for td in b] for b in ddp.plan.declarations()]
+
+
+def _timed_steps(trainer, state, batch, steps, per_bucket, what):
+    """``steps`` steps of ``trainer``, each one's launches exact for the
+    plan; returns ``(state, ms a step, launches)``."""
+    want = {k: steps * trainer.ddp.plan.num_buckets * per_bucket.get(k, 0) for k in KERNELS}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, itertools.repeat(batch), n_steps=steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = read_launches()
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    if not torch.isfinite(trainer.losses).all():
+        raise AssertionError(f"{what}: non-finite loss {trainer.losses.tolist()}")
+    _bitwise_replicas(what, state.params)
+    return state, ms, launches
+
+
+#: the scheduler view's fields a restart resets by design: the lease clock,
+#: and the incident tier (volatile, like the span and decision tiers) with
+#: the verdict it drives
+FLEET_VOLATILE = ("lease_remaining_s", "incidents", "last_incident", "regressed", "verdict")
+
+
+def _durable_view(plane) -> dict:
+    """What a restart of the plane must reproduce: the durable dump, the
+    plan statuses, each gang's pending directive, and the scheduler view
+    but for FLEET_VOLATILE."""
+    view = plane.scheduler_view()["gangs"]
+    return {"dump": json.dumps(plane.dump(), sort_keys=True), "statuses": plane.plan_statuses(),
+            "directives": {g: plane.directive(g) for g in view},
+            "view": {g: {k: v for k, v in row.items() if k not in FLEET_VOLATILE} for g, row in view.items()}}
+
+
+def check_fleet_adoption_on_card(device) -> dict:
+    """The small VGG's ByteGrad plan through an in-process fleet plane on the
+    card: gang alpha at 2 KiB buckets publishes, gang beta at the default
+    size adopts it at step 0 (``adopt_fleet_plan``), and beta's 2 steps
+    launch rows 1-3 exactly at the adopted plan's bucket count.  Returns
+    the bucket counts and launches."""
+    from bagua_tpu_torch.fleet import FleetClient, FleetControlPlane, adopt_fleet_plan, publish_engine_plan
+    from bagua_tpu_torch.fleet import start_async_fleet_server
+
+    per_bucket = SLICE_PATHS["ByteGrad"][1]
+    group = BaguaProcessGroup([device] * RANKS, intra_size=1)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = (torch.randn((RANKS * 4, REF_VGG["image_size"], REF_VGG["image_size"], 3), generator=gen, device=device),
+             torch.randint(0, REF_VGG["num_classes"], (RANKS * 4,), generator=gen, device=device))
+    params = module_params(VGG(device=device, **REF_VGG))
+    plane = FleetControlPlane(rdzv_kwargs=FLEET_RDZV)
+    server = start_async_fleet_server(plane, 0, host="127.0.0.1")
+    try:
+        fc = FleetClient(f"http://127.0.0.1:{server.server_address[1]}")
+        trainers = {}
+        for gang, size in (("alpha", 2048), ("beta", None)):
+            trainers[gang] = Trainer(vgg_loss_fn(VGG(device=device, **REF_VGG)),
+                                     lambda ps: torch.optim.SGD(ps, lr=REF_LR), ByteGradAlgorithm(), group,
+                                     bucket_size_bytes=size)
+        alpha, beta = trainers["alpha"], trainers["beta"]
+        alpha.init_state(tree_map(torch.clone, params))
+        state = beta.init_state(tree_map(torch.clone, params))
+        fresh = beta.ddp.plan.num_buckets
+        if publish_engine_plan(fc, alpha.ddp, meta={"gang": "alpha"}) is None:
+            raise AssertionError("fleet on the card: alpha's plan was not published")
+        if adopt_fleet_plan(fc, beta.ddp, gang="beta") != "fleet" or \
+                _plan_names(beta.ddp) != _plan_names(alpha.ddp) or fresh == beta.ddp.plan.num_buckets:
+            raise AssertionError(f"fleet on the card: beta ({fresh} buckets) did not adopt alpha's "
+                                 f"{alpha.ddp.plan.num_buckets}")
+        nb = beta.ddp.plan.num_buckets
+        reset_launches()
+        beta.fit(state, itertools.repeat(batch), n_steps=2)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = {k: 2 * nb * per_bucket.get(k, 0) for k in KERNELS}
+        if launches != want:
+            raise AssertionError(f"fleet on the card: beta's launches {launches}, want {want}")
+        for trainer in trainers.values():
+            trainer.close()
+    finally:
+        server.shutdown()
+        plane.close()
+    return {"fresh": fresh, "adopted": nb, "launches": launches}
+
+
+def _tensor_bytes() -> int:
+    """The card memory tensors hold, garbage collected first: cuBLAS's
+    workspaces (one a stream the engines ran a GEMM on, kept by PyTorch for
+    the process's life) are released before the reading."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def phase_fleet(device) -> dict:
+    """``[fleet]`` (see the module docstring).  Returns the launches."""
+    from bagua_tpu_torch.ddp import AutotuneSession
+    from bagua_tpu_torch.fleet import (
+        FleetClient, FleetControlPlane, engine_plan_key, gang_endpoint, publish_engine_plan,
+        start_async_fleet_server,
+    )
+    from bagua_tpu_torch.observability.aggregate import StepSummary, gang_kv_key
+    from bagua_tpu_torch.perflab import FleetConfig, Straggler, run_fleet
+    from bagua_tpu_torch.resilience import ElasticResumeCoordinator
+
+    what = "[fleet] VGG16 ByteGrad (overlap)"
+    per_bucket = SLICE_PATHS["ByteGrad"][1]
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    n = RANKS * BATCH_PER_RANK
+    mem0 = _tensor_bytes()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="bagua_fleet_")
+    wal_dir = os.path.join(root, "wal")
+    plane = FleetControlPlane(wal_dir=wal_dir, rdzv_kwargs=FLEET_RDZV, autotune_kwargs=dict(
+        max_samples=AUTOTUNE_STEPS, sampling_confidence_time_s=0.0, warmup_time_s=0.0))
+    servers = [start_async_fleet_server(plane, 0, host="127.0.0.1")]
+    total = {k: 0 for k in KERNELS}
+
+    def add(launches):
+        for k, c in launches.items():
+            total[k] += c
+
+    def sgd(ps):
+        return torch.optim.SGD(ps, lr=0.01, momentum=0.9)
+
+    try:
+        fc = FleetClient(f"http://127.0.0.1:{servers[0].server_address[1]}")
+        gen = torch.Generator(device=device).manual_seed(0)
+        batch = (torch.rand((n, IMAGE_SIZE, IMAGE_SIZE, 3), generator=gen, device=device),
+                 torch.randint(0, NUM_CLASSES, (n,), generator=gen, device=device))
+        # gang alpha: tuned by its namespace's autotune service, then publishes
+        model, params = sb.build("vgg16", torch.bfloat16, device)
+        alpha = Trainer(vgg_loss_fn(model), sgd, build_algorithm("bytegrad"), group,
+                        bucket_size_bytes=FLEET_ALPHA_BUCKET)
+        state = alpha.init_state(params)
+        del params
+        if not alpha.ddp.overlap_enabled:
+            raise AssertionError(f"{what}: the engine resolved overlap off")
+        alpha._session = AutotuneSession(alpha.ddp, "vgg16", client=fc.autotune_client("alpha"), interval=2)
+        state, tuned, versions, alpha_buckets = _autotune(alpha, state, batch, per_bucket, f"{what}, gang alpha")
+        add(tuned)
+        if plane.gang("alpha").autotune_models != ["vgg16"]:
+            raise AssertionError(f"{what}: alpha's session did not reach its namespace's autotune service")
+        alpha._session = None  # the tuned plan stands while it is timed and published
+        state, alpha_ms, launches = _timed_steps(alpha, state, batch, FLEET_STEPS, per_bucket, f"{what}, alpha")
+        add(launches)
+        alpha_plan_version = alpha.ddp.plan_version
+        key = publish_engine_plan(fc, alpha.ddp, meta={"gang": "alpha", "plan_version": alpha_plan_version})
+        alpha_names = _plan_names(alpha.ddp)
+        if key is None or plane.plan_count() != 1:
+            raise AssertionError(f"{what}: alpha's plan was not published ({key})")
+        alpha.close()
+        del alpha, state, model
+        gc.collect()
+        # gang beta: a fresh Trainer at the default size adopts alpha's plan at step 0
+        jsonl = os.path.join(root, "beta.jsonl")
+        tel = Telemetry(metrics_jsonl=jsonl, flight=None, tracing=None, regression=None)
+        model, params = sb.build("vgg16", torch.bfloat16, device)
+        beta = Trainer(vgg_loss_fn(model), sgd, build_algorithm("bytegrad"), group, telemetry=tel)
+        state = beta.init_state(params)
+        del params
+        fresh_buckets = beta.ddp.plan.num_buckets
+        if _plan_names(beta.ddp) == alpha_names:
+            raise AssertionError(f"{what}: beta's fresh plan is alpha's already; the adoption would test nothing")
+        plan_key = engine_plan_key(beta.ddp)
+        coordinator = ElasticResumeCoordinator(
+            os.path.join(root, "beta_snapshots"), telemetry=tel,
+            fleet_plan_fn=lambda: (fc.lookup_plan(gang="beta", **plan_key) or {}).get("plan"),
+            fleet_directive_fn=lambda: fc.gang_directive("beta"))
+        version0 = beta.ddp.plan_version
+        t0 = time.perf_counter()
+        source = coordinator.fleet_warm_start(beta.ddp)
+        adopt_ms = (time.perf_counter() - t0) * 1e3
+        if source != "fleet" or _plan_names(beta.ddp) != alpha_names or beta.ddp.plan_version != version0 + 1:
+            raise AssertionError(f"{what}: beta's warm start {source!r}, plan version {version0} -> "
+                                 f"{beta.ddp.plan_version}, buckets equal alpha's: "
+                                 f"{_plan_names(beta.ddp) == alpha_names}")
+        state, beta_first_ms, launches = _timed_steps(beta, state, batch, 1, per_bucket, f"{what}, beta's first step")
+        add(launches)
+        state, beta_ms, launches = _timed_steps(beta, state, batch, FLEET_STEPS, per_bucket, f"{what}, beta")
+        add(launches)
+        beta_buckets = beta.ddp.plan.num_buckets
+        beta.close()
+        tel.close()
+        restarts = [json.loads(line) for line in open(jsonl) if '"restart"' in line]
+        if validate_metrics_file(jsonl) or [(r["step"], r["plan_source"]) for r in restarts] != [(0, "fleet")]:
+            raise AssertionError(f"{what}: beta's restart events {restarts}")
+        del beta, state, model
+        gc.collect()
+        # the incidents that cite the plan: quarantine, and beta's rollback directive
+        fc.rendezvous_client("beta", node_rank=0).kv_set(
+            gang_kv_key("0", 0), StepSummary(rank=0, step=FLEET_STEPS, p50_ms=beta_ms).payload())
+        fc.push_incidents("beta", [dict(FLEET_INCIDENT, step=FLEET_STEPS, plan_version=alpha_plan_version)])
+        summary = fc.remediate()
+        directive = coordinator.fleet_directive()
+        if (summary.get("quarantined") != [key] or not directive or directive["action"] != "rollback_plan"
+                or directive["detail"]["cache_key"] != key):
+            raise AssertionError(f"{what}: remediation {summary}, beta's directive {directive}")
+        if not fc.ack_directive("beta", directive["id"]) or coordinator.fleet_directive() is not None:
+            raise AssertionError(f"{what}: beta's ack of directive {directive['id']} did not clear it")
+        # a restart of the plane on the same WAL
+        before = _durable_view(plane)
+        servers.pop().shutdown()
+        plane.close()
+        t0 = time.perf_counter()
+        plane = FleetControlPlane(wal_dir=wal_dir, rdzv_kwargs=FLEET_RDZV)
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        after = _durable_view(plane)
+        if after != before:
+            raise AssertionError(f"{what}: the replayed plane differs: {before} against {after}")
+        servers.append(start_async_fleet_server(plane, 0, host="127.0.0.1"))
+        base = f"http://127.0.0.1:{servers[0].server_address[1]}"
+        fc = FleetClient(base)
+        if fc.lookup_plan(gang="gamma", **plan_key) is not None:
+            raise AssertionError(f"{what}: a third gang was served the quarantined plan")
+        # the fleet simulator through the plane's namespaces
+        fault = Straggler(gang=1, rank=3, factor=3.0, phase="wire")
+        cfg = FleetConfig(n_gangs=2, ranks_per_gang=4, windows=3, seed=11, faults=(fault,))
+        report = run_fleet(cfg, gang_endpoint=lambda g: gang_endpoint(base, f"sim-{g}"))
+        detections = report["gangs"][1]["straggler_detections"]
+        if (report["gangs"][0]["straggler_detections"] or len(detections) != cfg.windows
+                or any((d["rank"], d["phase"]) != (3, "wire") for d in detections)):
+            raise AssertionError(f"{what}: run_fleet flagged {report['gangs']}")
+        del batch
+        workspaces = torch.cuda.memory_allocated()
+        left = _tensor_bytes()
+        workspaces -= left
+        if left != mem0:
+            raise AssertionError(f"{what}: {left - mem0} B of card memory left allocated")
+    finally:
+        for server in servers:
+            server.shutdown()
+        plane.close()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"{what}, {RANKS} ranks x {BATCH_PER_RANK}: gang alpha at {FLEET_ALPHA_BUCKET} B buckets, tuned by its "
+        f"namespace's autotune service (plan version {versions[0]} -> {versions[1]}, buckets {alpha_buckets}), "
+        f"{alpha_ms:.2f} ms/step; published {key}; gang beta (fresh plan {fresh_buckets} buckets) adopted it "
+        f"at step 0 in {adopt_ms:.1f} ms (one rebucket, plan_source=fleet), {beta_buckets} buckets equal "
+        f"alpha's, its first step {beta_first_ms:.1f} ms, then {beta_ms:.2f} ms/step against alpha's {alpha_ms:.2f}, "
+        f"launches exact; the incident quarantined "
+        f"the plan, beta's rollback_plan directive acked; the WAL replayed in {replay_ms:.1f} ms to the same "
+        f"dump, statuses, directives and scheduler view (but {', '.join(FLEET_VOLATILE)}), a third gang "
+        f"refused the plan; run_fleet flagged rank 3 "
+        f"(wire) in {len(detections)} of {cfg.windows} windows; phase {time.perf_counter() - t_phase:.1f} s, "
+        f"card memory held by tensors as before ({workspaces} B of cuBLAS workspaces released)")
+    return total
+
+
+#: the sync-BN phase: the statistics' collectives a ResNet-50 step, one a norm (its mean and mean of squares
+#: stacked)
+RESNET50_NORMS = 53
+
+
+def _sync_resnet_pass(device, dtype, variables, x, y):
+    """The small ResNet with ``sync_bn=True`` over RANKS rank-stacked copies
+    under a ``vmap`` over the ranks on ``device``: the losses, the
+    gradients (``batch_stats`` left out) and each norm's statistics as the
+    ranks hold them."""
+    from bagua_tpu_torch.contrib.sync_batchnorm import statistics_sink
+    from bagua_tpu_torch.models._rank_ops import over_ranks
+
+    group = BaguaProcessGroup([device] * RANKS, intra_size=1)
+    model = ResNet(SMALL_RESNET_STAGES, SMALL_RESNET_CLASSES, dtype, sync_bn=True, device=device)
+    stacked = tree_map(lambda t: t.to(device, dtype).expand(RANKS, *t.shape).clone().requires_grad_(True), variables)
+    loss_fn = resnet_loss_fn(model)
+
+    def one_rank(v, xr, yr):
+        sink = []
+        with statistics_sink(sink):
+            loss = loss_fn(v, (xr, yr))
+        return loss, [t for st in sink for t in st]
+
+    with over_ranks(group):
+        losses, stats = torch.func.vmap(one_rank)(stacked, x.to(device, dtype), y.to(device))
+    losses.sum().backward()
+    grads = [leaf.grad.cpu() for name, leaf in tree_flatten_with_names(stacked) if "batch_stats" not in name]
+    return losses.detach().cpu(), grads, [t.detach().cpu() for t in stats]
+
+
+def _sync_resnet_steps(device, variables, x, y):
+    """SMALL_RESNET_STEPS f32 ``gradient_allreduce`` engine steps of the
+    small ResNet with ``sync_bn=True`` (SGD 0.005 momentum 0.9): the last
+    losses, and the starting and final parameters as CPU f64 leaves."""
+    model = ResNet(SMALL_RESNET_STAGES, SMALL_RESNET_CLASSES, torch.float32, sync_bn=True, device=device)
+    ddp = DistributedDataParallel(
+        resnet_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=SMALL_RESNET_LR, momentum=0.9),
+        GradientAllReduceAlgorithm(), BaguaProcessGroup([device] * RANKS, intra_size=1),
+        dp_filter=lambda name: "batch_stats" not in name)
+    state = ddp.init(tree_map(lambda t: t.to(device), variables))
+    start = [leaf.detach().double().cpu() for leaf in tree_leaves(state.params)]
+    batch = (x.reshape(-1, *x.shape[2:]).to(device, torch.float32), y.reshape(-1).to(device))
+    for _ in range(SMALL_RESNET_STEPS):
+        state, losses = ddp.train_step(state, batch)
+    ddp.shutdown()
+    return losses.detach().double().cpu(), start, [leaf.detach().double().cpu() for leaf in tree_leaves(state.params)]
+
+
+def check_sync_resnet_on_card(device) -> dict:
+    """The small ResNet with ``sync_bn=True`` on the card against the CPU:
+    f64 losses and gradients under a ``vmap`` over RANKS ranks (rtol 1e-12,
+    1e-9 of each leaf's largest value), every norm's statistics the same on
+    every rank (bitwise) and within 1e-12 of the CPU's; then
+    SMALL_RESNET_STEPS f32 ``gradient_allreduce`` engine steps, TF32 off
+    and cuDNN deterministic, each leaf within SMALL_RESNET_SHARE of the
+    CPU run's move and the losses within SMALL_RESNET_LOSS_RTOL.  Raises on
+    a miss; returns the readings."""
+    variables, x, y = _small_resnet_data(8)
+    card_losses, card, card_stats = _sync_resnet_pass(device, torch.float64, variables, x, y)
+    cpu_losses, cpu, cpu_stats = _sync_resnet_pass(torch.device("cpu"), torch.float64, variables, x, y)
+    grad_err = max(abs_err(a, b) / max(float(b.abs().max()), 1e-300) for a, b in zip(card, cpu))
+    stat_err = max(abs_err(a, b) / max(float(b.abs().max()), 1e-300) for a, b in zip(card_stats, cpu_stats))
+    if not torch.allclose(card_losses, cpu_losses, rtol=1e-12, atol=0) or grad_err > 1e-9 or stat_err > 1e-12:
+        raise AssertionError(f"[sync-bn] small ResNet card vs CPU (f64): losses {card_losses.tolist()} vs "
+                             f"{cpu_losses.tolist()}, gradients {grad_err:.3e}, statistics {stat_err:.3e}")
+    if len(card_stats) != 2 * 17 or any(not torch.equal(t, t[:1].expand_as(t)) for t in card_stats):
+        raise AssertionError(f"[sync-bn] small ResNet: {len(card_stats)} statistics, not the same on every rank")
+    variables, x, y = _small_resnet_data(SMALL_RESNET_BATCH)
+    with _deterministic(), _no_tf32():
+        card_losses, card_start, card = _sync_resnet_steps(device, variables, x, y)
+    cpu_losses, cpu_start, cpu = _sync_resnet_steps(torch.device("cpu"), variables, x, y)
+    readings = {"grad_err": grad_err, "stat_err": stat_err, "vs_cpu": share_of_move(card, cpu, cpu_start),
+                "loss_rtol": float(((card_losses - cpu_losses).abs() / cpu_losses.abs()).max())}
+    if readings["vs_cpu"] > SMALL_RESNET_SHARE or readings["loss_rtol"] > SMALL_RESNET_LOSS_RTOL:
+        raise AssertionError(f"[sync-bn] small ResNet f32 engine steps, card vs CPU: {readings}")
+    return readings
+
+
+def phase_sync_bn(device, profile: bool = False) -> dict:
+    """``[sync-bn]`` (see the module docstring); ``--profile`` traces one
+    more step of each.  No kernel runs."""
+    from bagua_tpu_torch.contrib import sync_batchnorm
+    from bagua_tpu_torch.models.resnet import init_resnet50
+
+    reset_launches()
+    r = check_sync_resnet_on_card(device)
+    log(f"[sync-bn] small ResNet [1,1,1,1] sync_bn=True: f64 losses and gradients under vmap, {RANKS} ranks x 8, "
+        f"card within {r['grad_err']:.2e} of the CPU (of each leaf's scale), the 34 statistics the same on every "
+        f"rank and within {r['stat_err']:.2e} of the CPU's; {SMALL_RESNET_STEPS} f32 gradient_allreduce engine "
+        f"steps, {RANKS} ranks x {SMALL_RESNET_BATCH}: card within {r['vs_cpu']:.3e} of the CPU's move (bound "
+        f"{SMALL_RESNET_SHARE}), losses within rtol {r['loss_rtol']:.2e}")
+    group = BaguaProcessGroup([device] * RANKS, intra_size=1)
+    n = RANKS * BATCH_PER_RANK
+    rows = {}
+    for sync in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=device).manual_seed(0)
+        model, variables = init_resnet50(gen, IMAGE_SIZE, imagenet.CLASSES, compute_dtype=torch.bfloat16,
+                                         sync_bn=sync, device=device)
+        ddp = DistributedDataParallel(resnet_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.005, momentum=0.9),
+                                      GradientAllReduceAlgorithm(), group,
+                                      dp_filter=lambda name: "batch_stats" not in name)
+        state = ddp.init(variables)
+        del variables
+        batch = (torch.rand(n, IMAGE_SIZE, IMAGE_SIZE, 3, device=device, generator=gen),
+                 torch.randint(0, imagenet.CLASSES, (n,), device=device, generator=gen, dtype=torch.int32))
+        seconds, calls = [], []
+        real = sync_batchnorm.allreduce
+
+        def counted(*args, **kwargs):
+            calls.append(args[0].shape)
+            return real(*args, **kwargs)
+
+        sync_batchnorm.allreduce = counted
+        try:
+            for _ in range(RESNET_STEPS):
+                calls.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, losses = ddp.train_step(state, batch)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                per_step = len(calls)
+        finally:
+            sync_batchnorm.allreduce = real
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"[sync-bn] ResNet-50 sync_bn={sync}: non-finite losses {losses.tolist()}")
+        if per_step != (RESNET50_NORMS if sync else 0) or any(c[:2] != (RANKS, 2) for c in calls):
+            raise AssertionError(f"[sync-bn] ResNet-50 sync_bn={sync}: {per_step} statistics collectives a step")
+        _bitwise_replicas(f"[sync-bn] ResNet-50 sync_bn={sync}", state.params)
+        timed = seconds[RESNET_WARMUP:]
+        rows[sync] = (statistics.mean(timed) * 1e3, n / statistics.mean(timed),
+                      torch.cuda.max_memory_allocated() / 2 ** 30, per_step, [round(t * 1e3, 1) for t in timed])
+        if profile:
+            profile_step(f"ResNet-50 gradient_allreduce sync_bn={sync}", lambda: ddp.train_step(state, batch))
+        ddp.shutdown()
+        del ddp, state, batch, model
+    for sync, (ms, ips, peak, per_step, each) in rows.items():
+        log(f"[sync-bn] ResNet-50 {IMAGE_SIZE}x{IMAGE_SIZE} bf16, {RANKS} ranks x {BATCH_PER_RANK}, "
+            f"gradient_allreduce, sync_bn={sync}: {ms:.1f} ms/step over {len(each)} steps (each {each}), "
+            f"{ips:.1f} img/s on the card, peak memory {peak:.2f} GiB, {per_step} statistics collectives a step")
+    log(f"[sync-bn] sync_bn=True against False: {rows[True][0] / rows[False][0]:.4f} of the step time")
+    return _no_launches("[sync-bn]")
+
+
+#: the prefetcher's files: count and the largest size in bytes
+CONTRIB_FILES, CONTRIB_FILE_BYTES = 300, 1 << 16
+CONTRIB_SHM_BYTES = 256 * 2 ** 20
+
+
+def _shm_child(name: str, queue) -> None:
+    """``[contrib]``'s ``spawn`` child: reads the parent's value from the
+    segment and writes one back."""
+    from bagua_tpu_torch.contrib import ShmStore
+
+    try:
+        store = ShmStore(name=name, capacity_bytes=1 << 20, create=False)
+        queue.put(("ok", store.get("from_parent")))
+        store.set("from_child", {"pid": os.getpid()})
+        store.shutdown()
+    except Exception as e:  # the parent raises on it
+        queue.put(("err", repr(e)))
+
+
+def phase_contrib(device) -> dict:
+    """``[contrib]`` (see the module docstring).  No kernel runs."""
+    import multiprocessing
+
+    from bagua_tpu_torch.contrib import (
+        CachedDataset, IOPrefetcher, RendezvousStore, ShmStore, make_rendezvous_cluster_store,
+    )
+    from bagua_tpu_torch.distributed.rendezvous import RendezvousState, start_rendezvous_server
+    from bagua_tpu_torch.models.resnet import init_resnet50
+
+    reset_launches()
+    t_phase = time.perf_counter()
+    # the shm store: the parent writes, a spawned process reads and writes back
+    name = f"/bagua_smoke_{os.getpid()}"
+    store = ShmStore(name=name, capacity_bytes=1 << 20)
+    try:
+        store.clear()
+        value = {"array": np.arange(1000, dtype=np.float32), "label": 7}
+        store.set("from_parent", value)
+        ctx = multiprocessing.get_context("spawn")
+        queue = ctx.Queue()
+        child = ctx.Process(target=_shm_child, args=(name, queue))
+        child.start()
+        try:
+            status, got = queue.get(timeout=120)
+        finally:
+            child.join(timeout=60)
+            if child.is_alive():
+                child.kill()
+        if status != "ok" or not np.array_equal(got["array"], value["array"]) or got["label"] != 7:
+            raise AssertionError(f"[contrib] shm: the child read {status} {got!r}")
+        if store.get("from_child") != {"pid": child.pid} or store.num_keys() != 2:
+            raise AssertionError(f"[contrib] shm: the child's write {store.get('from_child')!r}")
+    finally:
+        store.shutdown()
+        ShmStore(name=name, capacity_bytes=1 << 20).unlink()
+    # the rendezvous store against two live servers
+    servers = [start_rendezvous_server(RendezvousState(max_blob_bytes=1 << 24), 0, host="127.0.0.1")
+               for _ in range(2)]
+    try:
+        endpoints = [f"127.0.0.1:{s.server_address[1]}" for s in servers]
+        single = RendezvousStore(endpoints[0])
+        single.set("sample/0", (np.arange(10), {"label": 3}))
+        arr, meta = single.get("sample/0")
+        if not np.array_equal(arr, np.arange(10)) or meta != {"label": 3} or single.num_keys() != 1:
+            raise AssertionError("[contrib] rendezvous store: round trip")
+        single.clear()
+        cluster = make_rendezvous_cluster_store(endpoints)
+        items = {f"k{i}": np.full(4, i) for i in range(64)}
+        cluster.mset(items)
+        counts = [RendezvousStore(e).num_keys() for e in endpoints]
+        if any(not np.array_equal(cluster.get(k), v) for k, v in items.items()) or sum(counts) != 64 \
+                or min(counts) == 0:
+            raise AssertionError(f"[contrib] rendezvous cluster store: keys a server {counts}")
+    finally:
+        for s in servers:
+            s.shutdown()
+    # the IO prefetcher streams generated files in order
+    root = tempfile.mkdtemp(prefix="bagua_contrib_")
+    try:
+        rng = np.random.RandomState(0)
+        paths = []
+        for i in range(CONTRIB_FILES):
+            path = os.path.join(root, f"f{i:04d}.bin")
+            with open(path, "wb") as f:
+                f.write(rng.bytes(int(rng.randint(1, CONTRIB_FILE_BYTES))))
+            paths.append(path)
+        pf = IOPrefetcher(n_threads=8)
+        try:
+            t0 = time.perf_counter()
+            stream = list(pf.read_ordered(paths))
+            read_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            pf.close()
+        n_bytes = sum(len(p) for _, p in stream if p is not None)
+        if [p for p, _ in stream] != paths or any(payload != open(p, "rb").read() for p, payload in stream):
+            raise AssertionError("[contrib] the prefetcher's stream differs from the files")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the cached dataset on the shm backend feeds ResNet-50 with sync_bn=True
+    n = RANKS * BATCH_PER_RANK
+    data = imagenet.SyntheticImageNet(n=n, image_size=IMAGE_SIZE)
+    shm_name = f"/bagua_smoke_cache_{os.getpid()}"
+    shm = CachedDataset(data, backend="shm", name=shm_name, capacity_bytes=CONTRIB_SHM_BYTES)
+    memory = CachedDataset(data, backend="memory")
+    try:
+        shm.cache_loader.store.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=device).manual_seed(0)
+        model, variables = init_resnet50(gen, IMAGE_SIZE, imagenet.CLASSES, compute_dtype=torch.bfloat16,
+                                         sync_bn=True, device=device)
+        ddp = DistributedDataParallel(resnet_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=0.005, momentum=0.9),
+                                      GradientAllReduceAlgorithm(), BaguaProcessGroup([device] * RANKS, intra_size=1),
+                                      dp_filter=lambda name: "batch_stats" not in name)
+        state = ddp.init(variables)
+        del variables
+        for step in range(2):
+            order = np.random.RandomState(step).permutation(n)
+            got = [shm[int(i)] for i in order]
+            want = [memory[int(i)] for i in order]
+            if any(not np.array_equal(g[0], w[0]) or g[1] != w[1] for g, w in zip(got, want)):
+                raise AssertionError(f"[contrib] step {step}: the shm backend's batch differs from the memory one's")
+            x = torch.from_numpy(np.stack([s[0] for s in got])).to(device)
+            y = torch.from_numpy(np.array([s[1] for s in got], np.int32)).to(device)
+            state, losses = ddp.train_step(state, (x, y))
+            if not torch.isfinite(losses).all():
+                raise AssertionError(f"[contrib] ResNet-50 step {step}: non-finite losses {losses.tolist()}")
+        hits = (shm.cache_loader.hit_rate, memory.cache_loader.hit_rate)
+        if hits[0] != hits[1] or shm.cache_loader.num_keys() != n:
+            raise AssertionError(f"[contrib] cache hit rates {hits}, {shm.cache_loader.num_keys()} keys in the segment")
+        ddp.shutdown()
+        del ddp, state, model
+    finally:
+        shm.cache_loader.store.shutdown()
+        ShmStore(name=shm_name, capacity_bytes=CONTRIB_SHM_BYTES).unlink()
+    log(f"[contrib] shm store written by this process and read by a spawned one; the rendezvous store and a "
+        f"two-server cluster ({counts} keys a server) round trip; the IO prefetcher streamed {CONTRIB_FILES} "
+        f"files ({n_bytes} B) in order in {read_ms:.1f} ms; CachedDataset on the shm backend fed 2 ResNet-50 "
+        f"sync_bn=True steps ({RANKS} ranks x {BATCH_PER_RANK}, {IMAGE_SIZE}x{IMAGE_SIZE}) with batches bitwise "
+        f"the memory backend's (hit rate {hits[0]:.2f}); phase {time.perf_counter() - t_phase:.1f} s")
+    return _no_launches("[contrib]")
+
+
 def vgg16_plan():
     """The bucket plan of VGG16 over RANKS ranks, from the model's shapes
     alone (built on the meta device); every algorithm here aligns its
@@ -5430,6 +6027,12 @@ def main(argv) -> int:
     per_path["verify"] = phase_verify(device)
     torch.cuda.empty_cache()
     per_path["autopilot"] = phase_autopilot(device)
+    torch.cuda.empty_cache()
+    per_path["fleet"] = phase_fleet(device)
+    torch.cuda.empty_cache()
+    per_path["sync-bn"] = phase_sync_bn(device, profile)
+    torch.cuda.empty_cache()
+    per_path["contrib"] = phase_contrib(device)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]

@@ -7,6 +7,7 @@ The copies are held against the JAX package's modules on the same seeds
 and calls: the same samples, orders, batches, hits and keys, exactly.
 """
 
+import contextlib
 import importlib.util
 import os
 
@@ -24,6 +25,7 @@ from bagua_tpu_torch.contrib import (
     LoadBalancingDistributedSampler,
 )
 from bagua_tpu_torch.contrib import store as tstore
+from bagua_tpu_torch.contrib.shm_store import ShmStore
 from bagua_tpu_torch.examples import imagenet
 from bagua_tpu_torch.utils import tree_leaves
 
@@ -121,6 +123,26 @@ def test_stores_match_the_jax_package(make, tmp_path):
         ClusterStore([])
 
 
+@contextlib.contextmanager
+def _blob_server():
+    from bagua_tpu_torch.distributed.rendezvous import RendezvousState, start_rendezvous_server
+
+    server = start_rendezvous_server(RendezvousState(max_blob_bytes=1 << 20), 0, host="127.0.0.1")
+    try:
+        yield f"127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+
+
+def native_backends():
+    """The two native backends' keyword arguments: an shm segment of this
+    process's own name, and the endpoint of a live port rendezvous server.
+    Each package's loader runs over the store emptied, in turn."""
+    with _blob_server() as endpoint:
+        yield "shm", {"name": f"/bagua_torch_cl_{os.getpid()}", "capacity_bytes": 1 << 20}
+        yield "rendezvous", {"endpoints": [endpoint]}
+
+
 def test_cache_loader_and_cached_dataset_match_the_jax_package():
     calls = {"got": [], "want": []}
 
@@ -133,8 +155,23 @@ def test_cache_loader_and_cached_dataset_match_the_jax_package():
     assert [got.get(str(k), loader("got")) for k in order] == [want.get(str(k), loader("want")) for k in order]
     assert calls["got"] == calls["want"] and got.hit_rate == want.hit_rate
     assert got.num_keys() == want.num_keys()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        CacheLoader(backend="shm")
+    for backend, kwargs in native_backends():
+        runs = {}
+        for tag, module in (("got", CacheLoader), ("want", jcache_loader.CacheLoader)):
+            native = module(backend=backend, writer_buffer_size=4, dataset_name="d", **kwargs)
+            try:
+                native.store.clear()
+                calls[tag] = []
+                values = [native.get(str(k), loader(tag)) for k in order]
+                native.flush()
+                runs[tag] = (values, list(calls[tag]), native.hit_rate, native.num_keys())
+            finally:
+                native.store.clear()
+                native.store.shutdown()
+        assert runs["got"] == runs["want"]
+        assert runs["got"][2] == want.hit_rate and runs["got"][3] == want.num_keys()
+        if backend == "shm":
+            ShmStore(**kwargs).unlink()
     with pytest.raises(ValueError, match="unknown cache backend"):
         CacheLoader(backend="redis")
     data = imagenet.SyntheticImageNet(n=16, image_size=8, classes=5)
@@ -173,11 +210,6 @@ def test_main_trains_on_the_cpu(arch, algorithm, capsys):
     out = capsys.readouterr().out
     assert np.isfinite(loss) and len(seconds) == 2
     assert "step 0: loss" in out and "cache hit rate" in out and "final loss" in out
-
-
-def test_data_dir_raises():
-    with pytest.raises(NotImplementedError, match="IO prefetcher"):
-        imagenet.main(["--data-dir", "/nonexistent", "--device", "cpu"])
 
 
 def test_build_gives_the_example_s_models():

@@ -22,6 +22,11 @@ or more in bf16 (bf16 rounds every product to 2^-8).  Tolerances:
   the gradients' relative errors (each leaf in the Frobenius norm) within
   1e-2 in their root mean square over the leaves; bf16: 0.15, 0.02 and
   0.6 (the JAX package's own bf16 reach 0.034, 0.002 and 0.27);
+- ``sync_bn=True`` (8 ranks of 16 images under a ``vmap`` over the ranks,
+  and one ``gradient_allreduce`` engine step): the truth is the JAX
+  package's ``sync_bn=True`` function in f64 on the global batch of 128
+  (its SyncBatchNorm there is batch norm over all of it); logits, the
+  ranks' losses and the rank-averaged gradient within the bounds above;
 - 3 steps of decentralized SGD (``all`` peers, ``dp_filter`` on
   ``batch_stats``, SGD 0.005 momentum 0.9, 8 ranks): the truth is the
   engine's recurrence in f64 over the JAX package's f64 gradients (each
@@ -55,7 +60,7 @@ from bagua_tpu_torch.communication import BaguaProcessGroup
 from bagua_tpu_torch.convert import resnet_params_from_jax
 from bagua_tpu_torch.ddp import DistributedDataParallel
 from bagua_tpu_torch.models._rank_ops import rank_conv2d
-from bagua_tpu_torch.models.resnet import ResNet, init_resnet, init_resnet50, resnet50, resnet_loss_fn
+from bagua_tpu_torch.models.resnet import ResNet, init_resnet, init_resnet50, resnet_loss_fn
 from bagua_tpu_torch.utils import dotted_leaves, tree_flatten_with_names, tree_leaves, tree_map
 
 STAGES, CLASSES, IMAGE, BATCH = [1, 1, 1, 1], 10, 32, 16
@@ -190,9 +195,119 @@ def test_rank_conv2d_stride_is_the_per_rank_loop():
     assert plain.grad.shape == plain.shape
 
 
-def test_sync_bn_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        resnet50(sync_bn=True, device="cpu")
+def sync_bn_reference(variables, x, y):
+    """The JAX package's ``sync_bn=True`` ResNet in f64 on the whole batch
+    (outside ``shard_map`` its SyncBatchNorm is batch norm on what it is
+    given, the global batch): logits, each rank's loss on its slice, and
+    the gradient of the global mean loss, kernels OIHW."""
+    model = JResNet(STAGES, CLASSES, sync_bn=True)
+    with jax.enable_x64(True):
+        v = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        xs = jnp.asarray(x, jnp.float64)
+        logits = jax.jit(lambda v, xs: model.apply(v, xs, mutable=["batch_stats"])[0])(v, xs)
+        g = jax.jit(jax.grad(jresnet_loss_fn(model)))(v, (xs, jnp.asarray(y)))
+    logits = np.asarray(logits, np.float64)
+    logp = logits - np.log(np.exp(logits - logits.max(1, keepdims=True)).sum(1, keepdims=True)) - \
+        logits.max(1, keepdims=True)
+    losses = -logp[np.arange(len(y)), y].reshape(N, -1).mean(1)
+    leaves = [np.asarray(a, np.float64) for a in jax.tree.leaves(g)]
+    return logits, losses, [a.transpose(3, 2, 0, 1) if a.ndim == 4 else a for a in leaves]
+
+
+def port_sync_bn_grads(dtype, variables, x, y):
+    """The port's ``sync_bn=True`` ResNet over 8 rank-stacked copies under a
+    ``vmap`` over the ranks: logits, the ranks' losses, the mean over the
+    ranks of each rank's gradient of their summed loss, and each norm's
+    ``(mean, var)`` as every rank holds them."""
+    from bagua_tpu_torch.contrib.sync_batchnorm import statistics_sink
+    from bagua_tpu_torch.models._rank_ops import over_ranks
+
+    tgroup = BaguaProcessGroup([torch.device("cpu")] * N, intra_size=4)
+    model = ResNet(STAGES, CLASSES, dtype, sync_bn=True, device="cpu")
+    stacked = tree_map(lambda a: a[None].repeat(N, *([1] * a.dim())).requires_grad_(True),
+                       resnet_params_from_jax(variables))
+    xs = torch.from_numpy(x).reshape(N, -1, *x.shape[1:])
+    ys = torch.from_numpy(y).reshape(N, -1)
+
+    def one_rank(v, xr, yr):
+        sink = []
+        with statistics_sink(sink):
+            logits = torch.func.functional_call(model, dotted_leaves(v["params"]), (xr,))
+        logp = F.log_softmax(logits, dim=-1)
+        return logits, -torch.mean(torch.gather(logp, 1, yr[:, None].long())), [t for st in sink for t in st]
+
+    with over_ranks(tgroup):
+        logits, losses, stats = torch.func.vmap(one_rank)(stacked, xs, ys)
+    losses.sum().backward()
+    grads = [(leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)).double().mean(0).numpy()
+             for leaf in tree_leaves(stacked)]
+    return (logits.detach().double().reshape(-1, CLASSES).numpy(), losses.detach().double().numpy(), grads,
+            [t.detach() for t in stats])
+
+
+@pytest.fixture(scope="module")
+def sync_reference(reference):
+    variables = reference[0]
+    x, y = data(seed=20, n=N * BATCH)
+    return variables, x, y, sync_bn_reference(variables, x, y)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_sync_bn_matches_the_f64_function_on_the_global_batch(sync_reference, dtype):
+    """``sync_bn=True`` over 8 ranks of 16 images is batch norm over the
+    128: logits, the ranks' losses and the rank-averaged gradient within
+    the single model's shares of the JAX package's f64 function; every
+    norm's statistics the same on every rank (17 norms)."""
+    variables, x, y, (ref_logits, ref_losses, ref) = sync_reference
+    logits, losses, grads, stats = port_sync_bn_grads(DTYPES[dtype][1], variables, x, y)
+    names = [n for n, _ in tree_flatten_with_names(variables)]
+    logits_tol, loss_tol, grad_tol = ACCURACY[dtype]
+    assert _rel(logits, ref_logits) <= logits_tol
+    assert np.abs(losses - ref_losses).max() <= loss_tol * np.abs(ref_losses).max()
+    assert _grad_rms(grads, ref, names) <= grad_tol
+    assert len(stats) == 2 * 17
+    for t in stats:
+        assert t.shape[0] == N and torch.equal(t, t[:1].expand_as(t))
+        assert t.dtype == DTYPES[dtype][1]
+
+
+def test_sync_bn_engine_step_is_the_global_batch_s(sync_reference):
+    """One f32 ``gradient_allreduce`` step of the engine (SGD 0.005, no
+    momentum) moves every rank's parameters by the global batch's gradient:
+    within the f32 share of the f64 function's move; one statistics
+    collective a norm a step (the mean and the mean of squares stacked), 17
+    norms."""
+    from bagua_tpu_torch.algorithms import GradientAllReduceAlgorithm
+    from bagua_tpu_torch.contrib import sync_batchnorm
+
+    variables, x, y, (_, ref_losses, ref) = sync_reference
+    tgroup = BaguaProcessGroup([torch.device("cpu")] * N, intra_size=4)
+    model = ResNet(STAGES, CLASSES, torch.float32, sync_bn=True, device="cpu")
+    ddp = DistributedDataParallel(resnet_loss_fn(model), lambda ps: torch.optim.SGD(ps, lr=LR),
+                                  GradientAllReduceAlgorithm(), tgroup,
+                                  dp_filter=lambda n: "batch_stats" not in n)
+    state = ddp.init(resnet_params_from_jax(variables))
+    start = [t.clone().double().numpy() for t in tree_leaves(state.params)]
+    calls = []
+    real = sync_batchnorm.allreduce
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    sync_batchnorm.allreduce = counted
+    try:
+        state, losses = ddp.train_step(state, (torch.from_numpy(x), torch.from_numpy(y)))
+    finally:
+        sync_batchnorm.allreduce = real
+        ddp.shutdown()
+    assert len(calls) == 17 and all(c[:2] == (N, 2) for c in calls)
+    assert np.abs(losses.double().numpy() - ref_losses).max() <= ACCURACY["f32"][1] * np.abs(ref_losses).max()
+    names = [n for n, _ in tree_flatten_with_names(variables)]
+    moves = [(p0 - p1.double().numpy()) / LR for p0, p1 in zip(start, tree_leaves(state.params))]
+    for name, m in zip(names, moves):
+        assert "batch_stats" in name or (m == m[:1]).all(), name
+    assert _grad_rms([m[0] for m in moves], ref, names) <= ACCURACY["f32"][2]
 
 
 def jax_engine(group, variables, batches, dtype):

@@ -356,8 +356,9 @@ def test_port_imports_no_jax():
     (``mesh.py``, a copy of the JAX package's, which imports nothing of
     it), the resilience tier, the checkpoints, the autotune service, the
     launcher and the elastic twin, the static gate (``analysis/``), the
-    modeled step (``perflab/``) and the gang autopilot; neither pydantic
-    nor orbax is loaded."""
+    modeled step (``perflab/``), the gang autopilot, the fleet control
+    plane (``fleet/``), the fleet simulator, SyncBatchNorm and the native
+    stores and prefetcher; neither pydantic nor orbax is loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -395,7 +396,10 @@ def test_port_imports_no_jax():
         "        'bagua_tpu_torch.' + m for m in (\n"
         "        'analysis.collective_ir', 'analysis.checks', 'analysis.verify', 'perflab.topology',\n"
         "        'perflab.compute', 'perflab.costbridge', 'perflab.engine', 'autopilot.pricing',\n"
-        "        'autopilot.controller', 'autopilot.staleness')]\n"
+        "        'autopilot.controller', 'autopilot.staleness', 'fleet.wal', 'fleet.control_plane',\n"
+        "        'fleet.remediation', 'fleet.shards', 'fleet.server', 'fleet.client', 'perflab.fleetsim',\n"
+        "        'contrib.sync_batchnorm', 'contrib.native', 'contrib.shm_store', 'contrib.io_prefetcher',\n"
+        "        'contrib.rendezvous_store')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )
