@@ -19,6 +19,7 @@ from bagua_tpu_torch.communication import (  # noqa: F401
     broadcast,
     broadcast_object,
     default_axes,
+    destroy_process_group,
     gather,
     get_default_group,
     init_process_group,

@@ -42,12 +42,26 @@ Here:
 * ``abort()`` drains any average in flight, discards it and parks the
   averager; ``resume()`` re-arms it; ``host_shutdown()`` stops the thread
   and joins it with a timeout.  The reference negotiates the abort with a
-  one-byte MIN allreduce across processes; the port's group is one
-  controller, so :meth:`_negotiate` is the local flag.
+  one-byte MIN allreduce across processes: on a group that spans processes
+  :meth:`_negotiate` is that MIN over every rank, each cycle, so every
+  process runs the same collectives in the same order (an aborted process
+  contributes 0 and keeps negotiating); single-controller, the local flag.
+  Stopping is negotiated too: a process whose averager stops runs one more
+  round, saying so, and every process's averager leaves after that round
+  (:meth:`_leave`), so none is left waiting in a round its peer never
+  joins.
+* Across processes the averager's collectives ride a fork of the group
+  (``BaguaProcessGroup.fork``): communicators of its own, so they never
+  interleave with the step's.  The snapshot is then a copy taken under
+  ``host_dispatch_lock`` and the collectives run after the lock is
+  released: a process waiting in one for its peer holds no lock that
+  its own training step needs.  No cycle starts before this process's
+  warmup is over, as in the reference.
 
 Only ``peer_selection_mode="all"`` exists, as in the reference.
 """
 
+import contextlib
 import logging
 import threading
 import time
@@ -56,7 +70,7 @@ import torch
 
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContext
 from bagua_tpu_torch.communication import ReduceOp, _grouped, _ungrouped, allreduce
-from bagua_tpu_torch.utils import tree_flatten_with_names
+from bagua_tpu_torch.utils import tree_flatten_with_names, tree_unflatten
 
 logger = logging.getLogger(__name__)
 
@@ -109,6 +123,15 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
         self._shutdown = False
         self.folds_applied = 0  # averages that landed in the parameters
         self.folds_failed = 0  # averages dropped for a failure
+        #: across processes: the averager's own communicators (a collective
+        #: call at construction, as every process builds the engine)
+        self._spans = process_group.distributed
+        self._avg_group = process_group.fork() if self._spans else process_group
+        #: the outcome of every negotiation, in order
+        self.negotiated = []
+        #: across processes: a round said that some process's averager
+        #: stopped, and this one left with it for good
+        self._left = False
 
     # -- the delta ---------------------------------------------------------------
 
@@ -124,11 +147,14 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
         over the ranks of each collective over the data axes left to right
         and divided, as the AVG ``allreduce``, without materializing its
         broadcast.  It runs off the engine's step, so it names the data
-        axes itself."""
+        axes itself.  Across processes it is the AVG ``allreduce`` itself
+        (the same fold, on the averager's communicators) minus the leaf."""
         group = self.process_group
         axes = group.data_axes
 
         def delta_of(x):
+            if self._spans:
+                return allreduce(x, ReduceOp.AVG, self._avg_group, axes) - x
             g = _grouped(x, group, axes)
             red = g[:, 0]
             for r in range(1, g.shape[1]):
@@ -140,23 +166,52 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
         with torch.no_grad():
             return {name: delta_of(leaves[name]) for name in self.averaged_names()}
 
-    def _dispatch_delta(self, latest, event):
+    def _averager_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.process_group.device)
+        return self._stream
+
+    def _dispatch_delta(self, latest, event, guard: bool = True):
         """Start the delta of ``latest``: ``(delta, done)``.  On the card it
         runs on the averager's stream after ``event`` and ``done`` is
         recorded after it; on the CPU it is computed here and ``done`` is
-        None.  Called under ``host_dispatch_lock``."""
+        None.  Called under ``host_dispatch_lock`` when it reads the live
+        parameters (``guard``: the training stream waits for ``done``
+        before it writes them)."""
         device = self.process_group.device
         if device.type != "cuda":
             return self._delta(latest), None
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device=device)
-        with torch.cuda.stream(self._stream):
+        stream = self._averager_stream()
+        with torch.cuda.stream(stream):
             if event is not None:
-                self._stream.wait_event(event)
+                stream.wait_event(event)
             delta = self._delta(latest)
-            done = self._stream.record_event()
-        self._unwaited = done
+            done = stream.record_event()
+        if guard:
+            self._unwaited = done
         return delta, done
+
+    def _snapshot(self, latest, event):
+        """A copy of the averaged leaves of ``latest`` (across processes,
+        where the collectives run outside ``host_dispatch_lock``), under
+        that lock: on the card on the averager's stream after ``event``,
+        the training stream waiting for it before it writes them."""
+        names = set(self.averaged_names())
+        device = self.process_group.device
+
+        def copy():
+            return tree_unflatten(latest, [t.clone() if n in names else t
+                                           for n, t in tree_flatten_with_names(latest)])
+        with torch.no_grad():
+            if device.type != "cuda":
+                return copy()
+            stream = self._averager_stream()
+            with torch.cuda.stream(stream):
+                if event is not None:
+                    stream.wait_event(event)
+                out = copy()
+                self._unwaited = stream.record_event()
+            return out
 
     @staticmethod
     def _landed(done) -> bool:
@@ -166,29 +221,61 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
 
     # -- the averager thread -------------------------------------------------------
 
-    def _negotiate(self, ready: bool) -> bool:
+    def _negotiate(self, ready: bool, staying: bool = True) -> bool:
         """The group's MIN of the ranks' readiness (the reference's one-byte
-        abort negotiation): one controller drives every rank here, so it is
-        the local flag."""
-        return bool(ready)
+        abort negotiation, ``bagua_tpu/algorithms/async_model_average.py:
+        147-165``): across processes a MIN allreduce of every rank's flags
+        on the averager's communicators (on the card on its stream), the
+        readiness and ``staying``, which a process whose averager stops
+        sends as 0: then every process leaves after this round
+        (``_left``).  Single-controller the local flag."""
+        if not self._spans:
+            agreed = bool(ready)
+        else:
+            group = self._avg_group
+            with torch.cuda.stream(self._averager_stream()) if group.device.type == "cuda" else contextlib.nullcontext():
+                flags = torch.tensor([[int(bool(ready)), int(bool(staying))]] * group.local_size,
+                                     dtype=torch.int32, device=group.device)
+                agreed, stay = (bool(f) for f in allreduce(flags, ReduceOp.MIN, group, group.all_axes).amin(0))
+            if not stay:
+                self._left = True
+        self.negotiated.append(agreed)
+        return agreed
+
+    def _leave(self) -> None:
+        """Across processes, the round in which this process's averager
+        stops (:meth:`_negotiate` with ``staying`` 0), which takes every
+        peer's averager with it; nothing where it has left already."""
+        if self._spans and not self._left:
+            with self._cycle_lock:
+                self._negotiate(False, staying=False)
 
     def _cycle(self, stop_event=None, wait: bool = True):
         """One averaging cycle.  ``wait=False`` (the thread's mode) publishes
         the delta in flight and never waits for it; ``wait=True`` (a manual
         call) waits until it has landed."""
         stop_event = stop_event or self._stop_event
+        if self._spans and self._published_step < self.warmup_steps:
+            # every process negotiates only once its warmup's allreduces
+            # are behind it, so the collectives keep one order
+            return
         with self._cycle_lock:
             with self._pending_lock:
                 # a delta that is waiting makes a new one pure waste
                 slot_free = self._pending is None
             ready = (self._status == "running" and not stop_event.is_set() and self._latest is not None
                      and self._published_step >= self.warmup_steps and slot_free)
-            if not self._negotiate(ready):
+            if not self._negotiate(ready, staying=not stop_event.is_set()):
                 return
             with self.host_dispatch_lock:
                 with self._pending_lock:
                     gen, latest, event = self._fold_generation, self._latest, self._latest_event
-                delta, done = self._dispatch_delta(latest, event)
+                if self._spans:
+                    latest = self._snapshot(latest, event)
+                else:
+                    delta, done = self._dispatch_delta(latest, event)
+            if self._spans:
+                delta, done = self._dispatch_delta(latest, None, guard=False)
             if wait and done is not None:
                 done.synchronize()
             with self._pending_lock:
@@ -247,10 +334,13 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
         while True:
             wake.wait(self.sync_interval_ms / 1000.0)
             wake.clear()
-            if stop_event.is_set():
-                return
             try:
+                if stop_event.is_set():
+                    self._leave()
+                    return
                 self._cycle(stop_event, wait=False)
+                if self._left:
+                    return
                 self._watch_pending(stop_event)
             except Exception as e:  # the thread's boundary: record, count, stop averaging
                 logger.exception("async model average: the averager thread failed")
@@ -258,7 +348,7 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
                 return
 
     def _ensure_thread(self):
-        if self._shutdown:
+        if self._shutdown or self._left:
             return
         if self._thread is None or not self._thread.is_alive():
             # fresh events per thread: a stuck old thread keeps its own (set)
@@ -346,13 +436,23 @@ class AsyncModelAverageAlgorithmImpl(AlgorithmImpl):
         self._status = "running"
 
     def host_shutdown(self) -> None:
-        """Stop the averager thread for good (end of training)."""
+        """Stop the averager thread for good (end of training).  Across
+        processes the thread's last act is the round that stops its peers'
+        averagers too (:meth:`_leave`); where no thread ever ran, this call
+        runs that round."""
+        if self._shutdown:
+            return
         self._shutdown = True
         self._stop_event.set()
         if self._thread is not None:
             self._wake.set()
             self._thread.join(timeout=JOIN_TIMEOUT_S)
+            if self._thread.is_alive():
+                logger.warning("async model average: the averager thread did not stop within %.1f s",
+                               JOIN_TIMEOUT_S)
             self._thread = None
+        else:
+            self._leave()
 
     # -- the step's stage ------------------------------------------------------------------
 

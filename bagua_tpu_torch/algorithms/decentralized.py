@@ -195,7 +195,7 @@ class DecentralizedAlgorithmImpl(_PeerExchange):
         if self.staleness_tau is None:
             return super().init_state(params)
         group = self.process_group
-        n, device = group.size, group.device
+        n, device = group.local_size, group.device
         return {
             "published": tuple(flat.to(device).unsqueeze(0).repeat(n, 1)
                                for flat in self._bound_plan.bucketize(params)),
@@ -338,7 +338,7 @@ class LowPrecisionDecentralizedAlgorithmImpl(_PeerExchange):
         which every rank starts from).  They start as one tensor: no stage
         writes them in place."""
         group = self.process_group
-        flats = [flat.to(group.device).unsqueeze(0).repeat(group.size, 1)
+        flats = [flat.to(group.device).unsqueeze(0).repeat(group.local_size, 1)
                  for flat in self._bound_plan.bucketize(params)]
         return {"weight": list(flats), "left": list(flats), "right": list(flats)}
 

@@ -86,7 +86,7 @@ class GradientAccumulationImpl(AlgorithmImpl):
         the inner algorithm's state."""
         group = self.process_group
         return {
-            "acc": tree_map(lambda p: torch.zeros((group.size, *p.shape), dtype=torch.float32,
+            "acc": tree_map(lambda p: torch.zeros((group.local_size, *p.shape), dtype=torch.float32,
                                                   device=group.device), params),
             "inner": self.inner.init_state(params),
         }

@@ -74,7 +74,7 @@ class GradientAllReduceAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
         group = self.process_group
         return {
             "qr_residual": tuple(
-                torch.zeros((group.size, spec.numel), dtype=torch.float32, device=group.device)
+                torch.zeros((group.local_size, spec.numel), dtype=torch.float32, device=group.device)
                 for spec in self._bound_plan.specs
             )
         }

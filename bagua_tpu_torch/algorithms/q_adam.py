@@ -72,7 +72,7 @@ class QAdamAlgorithmImpl(AlgorithmImpl):
         """Both moments, zeros of each parameter's shape, rank-stacked on
         the group's device."""
         group = self.process_group
-        zeros = lambda p: torch.zeros((group.size, *p.shape), dtype=p.dtype, device=group.device)  # noqa: E731
+        zeros = lambda p: torch.zeros((group.local_size, *p.shape), dtype=p.dtype, device=group.device)  # noqa: E731
         return {"exp_avg": tree_map(zeros, params), "exp_avg_sq": tree_map(zeros, params)}
 
     def _exchange_flat(self, flat: torch.Tensor, compressed: bool) -> torch.Tensor:

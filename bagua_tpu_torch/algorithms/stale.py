@@ -90,7 +90,7 @@ class StaleSyncAlgorithmImpl(GradientAllReduceAlgorithmImpl):
         """Allocated whatever τ (even 0), so that a later ``apply_staleness``
         finds it: zeros on the group's device."""
         group = self.process_group
-        n, device = group.size, group.device
+        n, device = group.local_size, group.device
         zeros = tuple(torch.zeros((n, spec.numel), dtype=torch.float32, device=device)
                       for spec in self._bound_plan.specs)
         return {

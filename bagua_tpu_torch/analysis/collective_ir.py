@@ -240,10 +240,10 @@ def record_collective(primitive: str, operands: Sequence[torch.Tensor], group, a
         n *= int(sizes[a])
     shapes = tuple(tuple(int(d) for d in t.shape[1:]) for t in operands)
     nbytes = sum(t[0].numel() * t.element_size() for t in operands if t.shape[0])
-    rows = min((int(t.shape[0]) for t in operands), default=group.size)
+    rows = min((int(t.shape[0]) for t in operands), default=group.local_size)
     label = "/".join(_tls.labels)
     scope, mp, qr, stale = (dict(f) if isinstance(f, dict) else f for f in _parsed(label))
-    conditional = rows < group.size
+    conditional = rows < group.local_size
     cap = _tls.capture
     cap.append(CollectiveDescriptor(
         index=len(cap),

@@ -168,7 +168,7 @@ def meta_state(ddp, state):
     from bagua_tpu_torch.ddp import TrainState
     from bagua_tpu_torch.utils import tree_map
 
-    n = ddp.group.size
+    n = ddp.group.local_size
     if state is not None:
         params = _to_meta(state.params)
         step = state.step

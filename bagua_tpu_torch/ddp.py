@@ -110,6 +110,7 @@ live capture of a verified variant is held against its prediction.
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import logging
 import re
 import time
@@ -120,7 +121,7 @@ import torch
 
 from bagua_tpu_torch.algorithms.base import Algorithm, AlgorithmImpl, StepContext
 from bagua_tpu_torch.bucket import BucketPlan, tree_leaf_names
-from bagua_tpu_torch.communication import BaguaProcessGroup, default_axes, get_default_group, rank_id
+from bagua_tpu_torch.communication import BaguaProcessGroup, allgather, default_axes, get_default_group, rank_id
 from bagua_tpu_torch.defs import TensorDeclaration
 from bagua_tpu_torch.env import get_default_bucket_size, get_static_verify_mode
 from bagua_tpu_torch.mesh import _none_of_declared
@@ -415,6 +416,8 @@ class DistributedDataParallel:
         self.speed_meter = SpeedMeter()
         #: each rank's index within the data axes: the batch block it takes
         self._data_rank = rank_id(self.group, self.group.data_axes)
+        #: the batch's blocks and each local rank's block (None: in order)
+        self._batch_blocks = self._blocks_of_batch()
         #: the step variants run since the last reset: the port's
         #: counterpart of the JAX engine's jit cache, whose misses the
         #: telemetry's recompile detector counts
@@ -479,6 +482,22 @@ class DistributedDataParallel:
                             f"(dp_axis/fsdp_axis/tp_axis at spec construction)"
                         )
 
+    def _blocks_of_batch(self):
+        """``(blocks, pick)``: the batch a step takes cut into ``blocks``
+        equal blocks, local rank i taking block ``pick[i]`` (None: block
+        i).  Single-controller, the global batch in ``exchange_size``
+        blocks; on a group that spans processes, this process's rows: one
+        block for each data index its ranks hold, in order."""
+        group = self.group
+        if not group.distributed:
+            e = group.exchange_size
+            return e, (None if e == group.size else self._data_rank)
+        ranks = self._data_rank.cpu()
+        distinct = torch.unique(ranks)
+        if len(distinct) == group.local_size and bool((ranks == distinct).all()):
+            return len(distinct), None
+        return len(distinct), torch.searchsorted(distinct, ranks).to(group.device)
+
     @property
     def overlap_enabled(self) -> bool:
         """The resolved execution mode of the next step."""
@@ -496,20 +515,30 @@ class DistributedDataParallel:
         broadcasting from rank 0) OR ``stacked_params``, a tree whose leaves
         have a leading ``group.size`` axis, taken as it is, when the ranks
         must start from different values.  The algorithm's state is then
-        built from each rank's own slice (one ``init_state`` call a rank)."""
-        n, device = self.group.size, self.group.device
+        built from each rank's own slice (one ``init_state`` call a rank).
+
+        On a group that spans processes each process stacks its own ranks
+        (``stacked_params`` holds its ``local_size`` rows), and ``params``
+        must be the same on every process (the same seed, as the JAX
+        package's multi-process test makes them): one all-gather of a digest
+        of them checks it and raises ValueError on a mismatch."""
+        n, device = self.group.local_size, self.group.device
         if stacked_params is not None and params is not None:
             raise ValueError("pass either params or stacked_params, not both")
         if stacked_params is not None:
             for name, leaf in tree_flatten_with_names(stacked_params):
                 if leaf.dim() == 0 or leaf.shape[0] != n:
+                    where = (f"the {n} ranks this process holds" if self.group.distributed
+                             else f"the group size {n}")
                     raise ValueError(f"stacked_params leaf {name} has shape {tuple(leaf.shape)}; "
-                                     f"its leading axis must be the group size {n}")
+                                     f"its leading axis must be {where}")
             template = tree_map(lambda p: p[0], stacked_params)
         elif params is None:
             raise ValueError("pass params or stacked_params")
         else:
             template = params
+            if self.group.distributed:
+                self._check_same_params(params)
         self._tree_template = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), template)
         self.impl.overlap_hint = self.overlap_enabled
         self._adopt_plan(self.impl.tensors_to_buckets(template, self.bucket_size_bytes, filter_fn=self.dp_filter))
@@ -530,6 +559,23 @@ class DistributedDataParallel:
             algo_state=algo_state,
             step=0,
         )
+
+    def _check_same_params(self, params) -> None:
+        """Raise unless every process passed the same ``params``: a SHA-256
+        of their bytes, all-gathered over the group."""
+        digest = hashlib.sha256()
+        for name, leaf in tree_flatten_with_names(params):
+            host = leaf.detach().cpu().contiguous()
+            digest.update(name.encode())
+            digest.update(host.reshape(-1).view(torch.uint8).numpy().tobytes())
+        mine = int.from_bytes(digest.digest()[:8], "little", signed=True)
+        k = self.group.local_size
+        rows = torch.full((k, 1), mine, dtype=torch.int64, device=self.group.device)
+        seen = allgather(rows, self.group, self.group.all_axes)[0].cpu()
+        if not bool((seen == mine).all()):
+            raise ValueError("init(params=...) got different parameters on different processes: "
+                             "make them from the same seed on every process, or pass each "
+                             "process's own rows as stacked_params")
 
     def _adopt_plan(self, plan: BucketPlan) -> None:
         self.plan = plan
@@ -556,11 +602,11 @@ class DistributedDataParallel:
         """Every rank's loss on its slice of the global batch, ``(size,)``,
         in one ``vmap`` over the ranks: the batch in ``exchange_size``
         blocks, rank r taking the block of its index within the data axes."""
-        n, e = self.group.size, self.group.exchange_size
+        blocks_of, pick = self._batch_blocks
 
         def shard(t):
-            blocks = t.reshape(e, t.shape[0] // e, *t.shape[1:])
-            return blocks if e == n else blocks[self._data_rank.to(t.device)]
+            blocks = t.reshape(blocks_of, t.shape[0] // blocks_of, *t.shape[1:])
+            return blocks if pick is None else blocks[pick.to(t.device)]
 
         local = tree_map(shard, batch)
         with torch.enable_grad(), over_ranks(self.group):
@@ -701,7 +747,9 @@ class DistributedDataParallel:
     def train_step(self, state: TrainState, batch):
         """One training step.  ``batch`` leaves have a leading global-batch
         dim divisible by ``group.exchange_size``; rank r takes the slice of
-        its index within the data axes (the r-th on the legacy mesh).
+        its index within the data axes (the r-th on the legacy mesh).  On a
+        group that spans processes ``batch`` is this process's rows
+        (:meth:`shard_batch`): its ranks' blocks, in rank order.
         Returns ``(state, losses)``, ``losses`` the per-rank local loss of
         shape ``(size,)``.
 
@@ -711,11 +759,12 @@ class DistributedDataParallel:
         where the algorithm has one (its background thread takes it too).
         The telemetry and the health monitor, when attached, are fed as the
         module docstring says."""
+        blocks = self._batch_blocks[0]
         for t in tree_leaves(batch):
-            if t.shape[0] % self.group.exchange_size:
+            if t.shape[0] % blocks:
                 raise ValueError(
-                    f"global batch {t.shape[0]} not divisible by the exchange size "
-                    f"{self.group.exchange_size}"
+                    f"batch {t.shape[0]} not divisible into the {blocks} blocks of this "
+                    f"process's ranks (exchange size {self.group.exchange_size})"
                 )
         batch = tree_map(lambda t: t.to(self.group.device, non_blocking=True), batch)
         impl, step = self.impl, state.step
@@ -1255,7 +1304,8 @@ class DistributedDataParallel:
             if not 0 <= r < n:
                 raise ValueError(f"rank {r} out of range for world size {n}")
             flags[r] = 1
-        directive = flags.to(algo_state["directive"].device)
+        # the directive holds this process's ranks
+        directive = flags[list(self.group.local_rows)].to(algo_state["directive"].device)
         if self.telemetry is not None:
             for r in range(n):
                 self.telemetry.registry.gauge(
@@ -1538,13 +1588,13 @@ class DistributedDataParallel:
 
     def optimizer_state_bytes(self, state: TrainState) -> int:
         """Bytes of optimizer state one rank holds: the state tensors' bytes
-        over the group size (they are rank-stacked).  A sharded update's
+        over the ranks this process stacks.  A sharded update's
         parameter rows are parameters, not state, and are not counted."""
         opt = state.optimizer
         opts = (opt.sharded, opt.local) if isinstance(opt, ShardedOptState) else (opt,)
         total = sum(v.numel() * v.element_size() for o in opts if o is not None
                     for st in o.state.values() for v in st.values() if torch.is_tensor(v))
-        return total // self.group.size
+        return total // self.group.local_size
 
     # -- the algorithm's background machinery --------------------------------------
 
@@ -1601,17 +1651,30 @@ class DistributedDataParallel:
         return [m - start for m in marks]
 
     def shard_batch(self, local_batch):
-        """The global batch from this process's rows.  The group is
-        single-controller (one process drives every rank), so the batch
-        passes through."""
+        """The batch :meth:`train_step` takes from this process's rows (the
+        JAX package's ``make_array_from_process_local_data`` over the data
+        axes): single-controller, the global batch, passed through; on a
+        group that spans processes every process loads only its own ranks'
+        rows, ``local_size`` blocks of the per-rank batch on the legacy
+        mesh, and they are the step's batch as they are (checked here)."""
+        if self.group.distributed:
+            blocks = self._batch_blocks[0]
+            for t in tree_leaves(local_batch):
+                if t.dim() == 0 or t.shape[0] % blocks:
+                    raise ValueError(f"a local batch of {tuple(t.shape)[:1]} rows does not divide "
+                                     f"into this process's {blocks} blocks")
         return local_batch
 
     def record_speed(self, n_samples: int) -> None:
         self.speed_meter.record(n_samples)
 
     def params_unstacked(self, state: TrainState, rank: int = 0):
-        """One rank's parameter copy."""
-        return tree_map(lambda x: x[rank], state.params)
+        """One rank's parameter copy; on a group that spans processes
+        ``rank`` is a global rank this process holds (another raises)."""
+        rows = self.group.local_rows
+        if rank not in rows:
+            raise ValueError(f"rank {rank} is not one of this process's ranks {list(rows)}")
+        return tree_map(lambda x: x[rank - rows.start], state.params)
 
 
 class AutotuneSession:

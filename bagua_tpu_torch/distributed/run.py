@@ -77,7 +77,7 @@ def parse_args(argv=None):
     p.add_argument("--node_rank", type=int, default=0)
     p.add_argument(
         "--nproc_per_node", type=int, default=1,
-        help="worker processes per node (one process drives every rank of its group; one process per GPU waits for ROADMAP Queue 1 item 10)",
+        help="worker processes per node: one per card, worker i on cuda:LOCAL_RANK=i, the gang formed by init_from_env() over NCCL (gloo for CPU ranks); 1: one process drives every rank of its group",
     )
     p.add_argument(
         "--min_replicas", type=int, default=None,

@@ -1,6 +1,7 @@
 """Environment/config accessors (the port of ``bagua_tpu/env.py``)."""
 
 import os
+import sys
 from typing import Optional
 
 
@@ -9,19 +10,35 @@ def get_default_bucket_size() -> int:
     return int(os.environ.get("BAGUA_DEFAULT_BUCKET_SIZE", 10 * 1024 ** 2))
 
 
+def _gang():
+    """The default process group where it spans processes (a live
+    ``torch.distributed`` gang), else None."""
+    comm = sys.modules.get("bagua_tpu_torch.communication")
+    group = getattr(comm, "_default_group", None)
+    return group if group is not None and group.distributed else None
+
+
 def get_world_size() -> int:
-    """Processes in the job: ``WORLD_SIZE``, else 1 (one controller drives
-    every rank of a group)."""
-    return int(os.environ.get("WORLD_SIZE", 1))
+    """Processes in the job: the live gang's, else ``WORLD_SIZE``, else 1
+    (one controller drives every rank of a group)."""
+    gang = _gang()
+    return gang.process_count if gang is not None else int(os.environ.get("WORLD_SIZE", 1))
 
 
 def get_rank() -> int:
-    """This process's index in the job: ``RANK``, else 0."""
-    return int(os.environ.get("RANK", 0))
+    """This process's index in the job: the live gang's, else ``RANK``,
+    else 0."""
+    gang = _gang()
+    return gang.process_index if gang is not None else int(os.environ.get("RANK", 0))
 
 
 def get_local_rank() -> int:
-    return int(os.environ.get("LOCAL_RANK", 0))
+    """This process's index on its node: ``LOCAL_RANK`` (the launcher's),
+    else the live gang's process index, else 0."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    gang = _gang()
+    return gang.process_index if gang is not None else 0
 
 
 def get_local_size() -> int:

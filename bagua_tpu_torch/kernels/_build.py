@@ -22,13 +22,32 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 #: devices whose tensors a wrapper hands to its kernel's plain version: the
 #: CPU (the tests' device), and ``meta``, where the plain version computes
 #: shapes only (the static verifier's dry run); neither launches a kernel
 #: nor counts a launch
 PLAIN_DEVICES = ("cpu", "meta")
+
+#: when a dict, each codec and hop wrapper records its first launch in it
+#: under its name (a ring hop: ``hop_dequant_add_requant_int<bits>``):
+#: copies of its operands and of its outputs, for a caller to hold against
+#: the plain version on the same inputs (``examples/gang.py``); None, the
+#: default, records nothing
+WITNESS: Optional[dict] = None
+
+
+def witness(key: str, operands: tuple, outputs: tuple) -> None:
+    """Record a launch in :data:`WITNESS`, called by a wrapper after it
+    launched its kernel (which leaves its operands as they were)."""
+    if WITNESS is None or key in WITNESS:
+        return
+    import torch
+
+    def copy(v):
+        return v.clone() if torch.is_tensor(v) else v
+    WITNESS[key] = (tuple(copy(v) for v in operands), tuple(copy(v) for v in outputs))
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")

@@ -24,8 +24,9 @@ wrapper                         replaces the Pallas kernel
 
 Dispatch is by device and nothing else: a tensor on the CPU goes to the
 plain version, a CUDA tensor launches the kernel (or raises).  Each wrapper
-counts its kernel launches in ``<wrapper>.launches``, one a call; the plain
-path leaves the count alone.  The kernels are bounded by device-memory
+counts its kernel launches in ``<wrapper>.launches``, one a call, and
+records its first launch where ``_build.WITNESS`` asks; the plain path
+does neither.  The kernels are bounded by device-memory
 bytes; the CUDA source's header says what each moves and how many kernels
 one call runs (compress 1 where a chunk has at most 16384 elements, else 2;
 decompress 1; fused 2, or 1 where the chunk is a single tile of 4096).  The
@@ -233,6 +234,7 @@ def compress_minmax_uint8(chunks: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
         )
     _check(err, "compress_minmax_uint8")
     compress_minmax_uint8.launches += 1
+    _build.witness("compress_minmax_uint8", (x,), (q, minmax))
     return q, minmax
 
 
@@ -252,6 +254,7 @@ def decompress_minmax_uint8(q: torch.Tensor, minmax: torch.Tensor) -> torch.Tens
         )
     _check(err, "decompress_minmax_uint8")
     decompress_minmax_uint8.launches += 1
+    _build.witness("decompress_minmax_uint8", (q, minmax), (out,))
     return out
 
 
@@ -283,6 +286,7 @@ def decompress_reduce_requantize(
         )
     _check(err, "decompress_reduce_requantize")
     decompress_reduce_requantize.launches += 1
+    _build.witness("decompress_reduce_requantize", (q, minmax, bool(average)), (q2, mm2))
     return q2, mm2
 
 

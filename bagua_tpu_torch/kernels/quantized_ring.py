@@ -190,6 +190,7 @@ def hop_dequant_add_requant(
     mm8._check(code, what)
     hop_dequant_add_requant.launches += 1
     hop_dequant_add_requant.launches_by_bits[bits] += 1
+    _build.witness(f"hop_dequant_add_requant_int{bits}", (q, minmax, local, bits), (q2, mm2, err))
     return q2, mm2, err
 
 

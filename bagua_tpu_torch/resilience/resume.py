@@ -24,6 +24,8 @@ import logging
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
+
 from bagua_tpu_torch.env import get_rank, get_world_size
 from bagua_tpu_torch.resilience.retry import CircuitBreaker, RetryPolicy, retry_call
 from bagua_tpu_torch.resilience.snapshot import SnapshotStore
@@ -86,8 +88,10 @@ class ElasticResumeCoordinator:
 
         ``nonce`` names the agreement round in the rendezvous KV (the
         launcher's attempt counter), so a second restart never reads the
-        first one's views.  The process count and index are the
-        environment's ``WORLD_SIZE`` and ``RANK``."""
+        first one's views.  The process count and index are the live
+        gang's (a group that spans processes), else the environment's
+        ``WORLD_SIZE`` and ``RANK``: each process publishes its newest
+        complete snapshot and every process takes the smallest."""
         local = self.store.latest_complete()
         client = self.rendezvous_client
         nprocs = get_world_size()
@@ -170,6 +174,11 @@ class ElasticResumeCoordinator:
             else:
                 flt = self.expert_filter or is_moe_param_path
                 leaves = {k: remap_leaf(k, a, new_world, flt) for k, a in leaves.items()}
+        rows = ddp.group.local_rows
+        if len(rows) != new_world:
+            # a group that spans processes: this process loads its own ranks' rows
+            leaves = {k: a[rows.start:rows.stop] if np.ndim(a) and np.shape(a)[0] == new_world else a
+                      for k, a in leaves.items()}
         state = load_state_leaves(ddp.state_template(init_state), leaves, dtypes)
         ddp._host_step = state.step
         # Lost work: the drained exit's marker records the step the previous

@@ -180,7 +180,8 @@ class SnapshotStore:
     def load_stacked(self, step: int) -> Tuple[Dict[str, Any], List[np.ndarray]]:
         """Load a complete snapshot as full ``(world_size, ...)`` host
         arrays: every process file named by the manifest, concatenated along
-        the leading (rank) axis in process order."""
+        the leading (rank) axis in process order; a 0-d leaf (the step, an
+        optimizer's count), the same in every process, is process 0's."""
         manifest = self.read_manifest(step)
         if manifest is None or not self.is_complete(step):
             raise FileNotFoundError(
@@ -196,7 +197,7 @@ class SnapshotStore:
             raise ValueError(f"snapshot step {step}: process files disagree on leaf count")
         leaves = [
             np.concatenate([p[i] for p in per_proc], axis=0)
-            if len(per_proc) > 1 else per_proc[0][i]
+            if len(per_proc) > 1 and per_proc[0][i].ndim else per_proc[0][i]
             for i in range(n_leaves)
         ]
         return manifest, leaves

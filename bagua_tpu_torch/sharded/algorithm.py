@@ -95,13 +95,14 @@ class ZeroAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
         n = group.exchange_size
         plan = self._bound_plan
         groups = plan.group_leaves(params)
-        mine = None if n == group.size else rank_id(group, group.data_axes)
+        # this process's ranks' rows: every row when it holds the whole ring
+        mine = None if n == group.local_size else rank_id(group, group.data_axes)
         rows = [flatten_bucket_leaves([groups[bi][s.name] for s in spec.slots], spec)
                 .to(group.device).reshape(n, spec.numel // n) for bi, spec in enumerate(plan.specs)]
         state = {"pending": tuple(r if mine is None else r[mine] for r in rows)}
         if self._ef_enabled():
             state["qr_residual"] = tuple(
-                torch.zeros((group.size, spec.numel), dtype=torch.float32, device=group.device)
+                torch.zeros((group.local_size, spec.numel), dtype=torch.float32, device=group.device)
                 for spec in plan.specs
             )
         return state
@@ -163,7 +164,7 @@ class ZeroAlgorithmImpl(WirePrecisionMixin, AlgorithmImpl):
             q2, mm2 = compressed_reduce_scatter(flat, group, average=self.average)
             # flat ByteGrad would all-gather (q2, mm2) here; the sharded path
             # decompresses its own chunk: bitwise that row of ByteGrad's output
-            shard = decompress_minmax_uint8(q2.reshape(group.size, -1), mm2.reshape(group.size, 2))
+            shard = decompress_minmax_uint8(q2.reshape(group.local_size, -1), mm2.reshape(group.local_size, 2))
             return shard.to(flat.dtype), None
         op = ReduceOp.AVG if self.average else ReduceOp.SUM
         return reduce_scatter(flat, op, group), None

@@ -84,13 +84,14 @@ class ShardedOptimizerUpdater:
         """Each rank's flat slice of every bucket of the rank-stacked
         ``tree``, plan order: ``(n, shard_numel)``, row r rank r's."""
         groups = self.plan.group_leaves(tree)
-        ranks = torch.arange(self.group.size, device=self.group.device)
+        k = self.group.local_size  # the stack's rows: this process's ranks
+        ranks = torch.arange(k, device=self.group.device)
         me = rank_id(self.group, self.group.data_axes)  # the shard index: within the data axes
         shards = []
         for bi, spec in enumerate(self.plan.specs):
             flat = flatten_bucket_leaves([groups[bi][s.name] for s in spec.slots], spec)
             b = self.layout.buckets[bi]
-            shards.append(flat.reshape(self.group.size, self.layout.n_shards, b.shard_numel)[ranks, me])
+            shards.append(flat.reshape(k, self.layout.n_shards, b.shard_numel)[ranks, me])
         return shards
 
     def _group_rows(self, shards: List[torch.Tensor]) -> Tuple[torch.Tensor, ...]:

@@ -149,6 +149,9 @@ class Trainer:
                 snapshot_dir, get_snapshot_every() or snapshot_every,
                 leaves_fn=state_leaves,
                 world_size=self.ddp.group.size,
+                # each process writes its own ranks' rows (proc<p>.npz)
+                process_index=self.ddp.group.process_index,
+                num_processes=self.ddp.group.process_count,
                 telemetry=telemetry,
                 keep=snapshot_keep,
                 # the live bucket plan rides every manifest, so a resume

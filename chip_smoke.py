@@ -281,7 +281,27 @@ and no result line:
    batches bitwise the memory backend's.  The imagenet twin's
    ``--data-dir`` is not driven: PIL is not installed where the card is
    (the CPU tests drive it).  No kernel runs.
-18. prints one JSON line naming each kernel with its launches and times
+18. dist -- a group that spans processes: ``W = torch.cuda.device_count()``
+   worker processes (at most 4, a divisor of 4) through the
+   launcher (``python -m bagua_tpu_torch.distributed.run --nproc_per_node
+   W``) running ``examples/gang.py``: each forms the gang over NCCL at
+   the launcher's coordinator (even at W = 1, so every collective goes
+   through ``torch.distributed``), holds ``4 / W`` of the usual 4 ranks
+   (``intra_size=1``) on ``cuda:LOCAL_RANK`` and trains full-width VGG16
+   (32 a rank, bf16, 10 MiB buckets, seed-0 weights, the synthetic batch,
+   each process its own rows) for 1 + 5 steps under DIST_CASES: f32
+   ``gradient_allreduce``, ByteGrad with overlap, the int8 ring and ZeRO
+   over the int8 ring, its warm-up step holding each codec and hop kernel
+   it launches against the plain version on the same inputs (bitwise; the
+   wrappers record their first launch, ``kernels._build.WITNESS``).
+   Every worker must exit 0; each process's parameters must be bitwise the
+   single-controller 4-rank run's rows (the same cases in this process on
+   ``cuda:0``) and equal across processes, rows 1-4 launched exactly
+   ``6 x buckets x`` the wire's count a process, and no rank on the CPU.
+   Prints, per wire, W, ms/step beside the single-controller run's, the
+   bytes a step each process sent to other processes and to itself, and
+   the card's name and power limit.
+19. prints one JSON line naming each kernel with its launches and times
    (``other_steps``: the sums per step of other paths, the BERT, GPT and
    mesh ones included), then the result line ``{"ok": true, "device":
    {...}}``.
@@ -319,7 +339,7 @@ from bagua_tpu_torch.algorithms.base import StepContext
 from bagua_tpu_torch.ddp import DistributedDataParallel, state_leaves
 from bagua_tpu_torch.examples import gpt_pretrain as gp
 from bagua_tpu_torch.examples import llama_pretrain as lp
-from bagua_tpu_torch.examples import bench_moe, communication_primitives, imagenet, mnist, moe, squad
+from bagua_tpu_torch.examples import bench_moe, communication_primitives, gang, imagenet, mnist, moe, squad
 from bagua_tpu_torch.examples import synthetic_benchmark as sb
 from bagua_tpu_torch.communication import allgather, allreduce, hierarchical_allreduce, reduce_scatter
 from bagua_tpu_torch.defs import ReduceOp
@@ -5950,6 +5970,112 @@ def phase_contrib(device) -> dict:
     return _no_launches("[contrib]")
 
 
+#: [dist]: the gang's wires, each run in turn by the same workers: name ->
+#: (algorithm, its arguments, overlap, launches per step and bucket)
+DIST_CASES = {
+    "f32": ("gradient_allreduce", {}, "auto", {}),
+    "ByteGrad": ("bytegrad", {}, "on", SLICE_PATHS["ByteGrad"][1]),
+    "int8 ring": ("gradient_allreduce", {"wire_precision": "int8"}, "auto", SLICE_PATHS["int8 ring"][1]),
+    "ZeRO int8 ring": ("zero", {"wire_precision": "int8"}, "auto", ZERO_PATHS["ZeRO int8 ring"][2]),
+}
+DIST_WARMUP, DIST_STEPS = 1, 5
+DIST_TIMEOUT_S = 600
+GANG_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bagua_tpu_torch", "examples", "gang.py")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_dist(device, smi: str, model: str = "vgg16") -> dict:
+    """The gang's run (see the module docstring, ``dist``): the launcher's
+    workers, then the single-controller run of each case here.  Returns the
+    workers' launches summed over the processes."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    W = max(w for w in (4, 2, 1) if w <= cards and RANKS % w == 0)
+    k = RANKS // W
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cases = [[algo, kw, ov] for algo, kw, ov, _ in DIST_CASES.values()]
+    with tempfile.TemporaryDirectory() as out_dir:
+        report = os.path.join(out_dir, "gang")
+        cmd = [sys.executable, "-m", "bagua_tpu_torch.distributed.run", "--nproc_per_node", str(W),
+               "--max_restarts", "0", "--monitor_interval", "0.2", "--master_port", str(_free_port()),
+               GANG_SCRIPT, "--model", model, "--device", device.type, "--ranks-per-process", str(k),
+               "--intra-size", "1", "--warmup", str(DIST_WARMUP), "--steps", str(DIST_STEPS),
+               "--cases", json.dumps(cases), "--report", report]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join([repo] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env=env, cwd=repo, capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+        if run.returncode != 0:
+            raise AssertionError(f"[dist] the gang of {W} failed (launcher rc {run.returncode}):\n"
+                                 f"{run.stderr[-8000:]}")
+        reports = [json.load(open(f"{report}.proc{p}.json")) for p in range(W)]
+    log(f"[dist] {W} worker process(es) x {k} ranks over {'NCCL' if device.type == 'cuda' else 'gloo'}, "
+        f"{len(cases)} wires in {time.perf_counter() - t0:.1f} s; {smi}")
+    steps = DIST_WARMUP + DIST_STEPS
+    total = {}
+    for i, (name, (algorithm, kwargs, overlap, per_bucket)) in enumerate(DIST_CASES.items()):
+        got = [r[i] for r in reports]
+        what = f"[dist] {name}"
+        for p, r in enumerate(got):
+            if (r["process"], r["processes"], r["local_ranks"]) != (p, W, k) or r["algorithm"] != algorithm:
+                raise AssertionError(f"{what}: process {p} reports {r['process']}/{r['processes']} x "
+                                     f"{r['local_ranks']} ranks, {r['algorithm']}")
+            if not r["device"].startswith(device.type):
+                raise AssertionError(f"{what}: process {p}'s ranks ran on {r['device']}")
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        # the workers' cuDNN settings (examples/gang.py), for the same convolutions
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            ref = gang.run_case(BaguaProcessGroup([device] * RANKS, intra_size=1), model, algorithm, kwargs,
+                                {"on": True, "off": False}.get(overlap, overlap), steps=DIST_STEPS,
+                                warmup=DIST_WARMUP, processes=W)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        buckets = ref["buckets"]
+        for p, r in enumerate(got):
+            if r["digests"] != ref["digests"][p * k:(p + 1) * k]:
+                raise AssertionError(f"{what}: process {p}'s parameters differ from the single-controller "
+                                     f"run's ranks {p * k}..{(p + 1) * k - 1}")
+            if r["overlap"] != ref["overlap"] or r["buckets"] != buckets:
+                raise AssertionError(f"{what}: process {p} ran overlap={r['overlap']} on {r['buckets']} buckets, "
+                                     f"the single-controller run {ref['overlap']} on {buckets}")
+            if device.type == "cuda":
+                want = {kernel: steps * buckets * per_bucket.get(kernel, 0) for kernel in r["launches"]}
+                if r["launches"] != want:
+                    raise AssertionError(f"{what}: process {p} launched {r['launches']}, want {want}")
+                unheld = [kernel for kernel in per_bucket if not r["held"].get(kernel, {}).get("bitwise")]
+                if unheld:
+                    raise AssertionError(f"{what}: process {p}'s {unheld} not bitwise their plain versions: "
+                                         f"{r['held']}")
+        if len(set(d for r in got for d in r["digests"])) != 1:
+            raise AssertionError(f"{what}: the ranks' parameters differ across processes")
+        for r in got:
+            for kernel, n in r["launches"].items():
+                total[kernel] = total.get(kernel, 0) + n
+        wire = got[0]["wire_bytes_per_step"]
+        held = {kernel: (h["shapes"][0], h["max_abs_err"]) for kernel, h in got[0]["held"].items()}
+        log(f"{what}: {'VGG16 bf16' if model == 'vgg16' else model}, W={W} x {k} ranks, {buckets} buckets, "
+            f"{'overlap' if ref['overlap'] else 'monolithic'}: {got[0]['ms_per_step']:.2f} ms/step "
+            f"(processes {[round(r['ms_per_step'], 2) for r in got]}) against the single-controller run's "
+            f"{ref['ms_per_step']:.2f} (ratio {got[0]['ms_per_step'] / ref['ms_per_step']:.3f}); a step, "
+            f"process 0 sent {wire['to_other_processes']} B to other processes and {wire['to_itself']} B to "
+            f"itself; launches per process {got[0]['launches']}; held against the plain versions "
+            f"(first shape, max abs err) {held}; parameters bitwise the single-controller run's and equal "
+            f"across processes; {smi}")
+    return total
+
+
 def vgg16_plan():
     """The bucket plan of VGG16 over RANKS ranks, from the model's shapes
     alone (built on the meta device); every algorithm here aligns its
@@ -5961,7 +6087,7 @@ def vgg16_plan():
 
 def main(argv) -> int:
     profile = "--profile" in argv
-    phase_device()
+    smi = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
     ledger = Ledger()
@@ -6033,10 +6159,12 @@ def main(argv) -> int:
     per_path["sync-bn"] = phase_sync_bn(device, profile)
     torch.cuda.empty_cache()
     per_path["contrib"] = phase_contrib(device)
+    torch.cuda.empty_cache()
+    per_path["dist"] = phase_dist(device, smi)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         row = ledger.rows[name]
-        launches = sum(counts[name] for counts in per_path.values())
+        launches = sum(counts.get(name, 0) for counts in per_path.values())
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": row["max_abs_err"],

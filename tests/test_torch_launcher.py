@@ -2,7 +2,7 @@
 JAX package's modules): the rendezvous state machine gives the JAX store's
 assignments for the same event sequence, the client round-trips its KV
 through the port's server, ``init_from_env`` builds the single-controller
-group and refuses ``WORLD_SIZE > 1``, and one run of
+group and, under ``WORLD_SIZE=2``, a gang of two processes, and one run of
 ``python -m bagua_tpu_torch.distributed.run --nproc_per_node 1
 --max_restarts 1`` restarts the elastic twin after it fails once past a
 checkpoint: the second attempt resumes there and finishes."""
@@ -97,9 +97,24 @@ def test_init_from_env(monkeypatch):
     assert group.size == 2
     monkeypatch.setenv("WORLD_SIZE", "1")
     assert init_from_env([torch.device("cpu")]).size == 1
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        init_from_env([torch.device("cpu")])
+    # WORLD_SIZE=2: two processes form one gloo gang of 2 x 2 ranks
+    port = str(free_port())
+    code = ("import torch\n"
+            "from bagua_tpu_torch.communication import ReduceOp, allreduce, destroy_process_group\n"
+            "from bagua_tpu_torch.distributed import init_from_env\n"
+            "torch.set_num_threads(1)\n"
+            "g = init_from_env([torch.device('cpu')] * 2)\n"
+            "s = allreduce(torch.full((2,), float(g.process_index)), ReduceOp.SUM, g)\n"
+            "print(g.size, g.spans_processes, g.process_index, list(g.local_rows), s.tolist())\n"
+            "destroy_process_group()\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=REPO_ROOT, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              env={**os.environ, "WORLD_SIZE": "2", "RANK": str(r), "MASTER_ADDR": "127.0.0.1",
+                                   "MASTER_PORT": port, "OMP_NUM_THREADS": "1"}) for r in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [err[-2000:] for _, err in outs]
+    assert [out.split() for out, _ in outs] == [
+        ["4", "True", "0", "[0,", "1]", "[2.0,", "2.0]"], ["4", "True", "1", "[2,", "3]", "[2.0,", "2.0]"]]
 
 
 WORKER = textwrap.dedent("""

@@ -358,7 +358,10 @@ def test_port_imports_no_jax():
     launcher and the elastic twin, the static gate (``analysis/``), the
     modeled step (``perflab/``), the gang autopilot, the fleet control
     plane (``fleet/``), the fleet simulator, SyncBatchNorm and the native
-    stores and prefetcher; neither pydantic nor orbax is loaded."""
+    stores and prefetcher, and the process-spanning tier (the group's
+    ``torch.distributed`` backing in ``communication.py``, the gang-aware
+    ``env.py`` and ``init_from_env``, the gang twin ``examples/gang.py``);
+    neither pydantic nor orbax is loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -399,7 +402,7 @@ def test_port_imports_no_jax():
         "        'autopilot.controller', 'autopilot.staleness', 'fleet.wal', 'fleet.control_plane',\n"
         "        'fleet.remediation', 'fleet.shards', 'fleet.server', 'fleet.client', 'perflab.fleetsim',\n"
         "        'contrib.sync_batchnorm', 'contrib.native', 'contrib.shm_store', 'contrib.io_prefetcher',\n"
-        "        'contrib.rendezvous_store')]\n"
+        "        'contrib.rendezvous_store', 'examples.gang', 'communication', 'env', 'distributed')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )
