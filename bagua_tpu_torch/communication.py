@@ -58,7 +58,20 @@ collective:
 
 A reduction takes whichever of the two moves fewer bytes out of the
 busiest process, a choice the layout alone fixes, so every process makes
-the same one.  Each collective's docstring states the bytes a process
+the same one.
+
+Gradients: on either kind of group, a collective whose input takes a
+gradient is recorded by autograd as one function whose backward is the
+transposed collective over the same axes (a shift's is the shift back, a
+permutation's its inverse, an all-to-all's the all-to-all back, an
+allgather's the SUM reduce-scatter, a SUM or AVG allreduce's the SUM
+allreduce, divided by n under AVG, a reduce-scatter's the allgather).  Its
+sums fold left to right in member order and its cotangents come out
+contiguous, on the single controller as across processes, so a gang's
+gradients are bitwise the single controller's rows.  MAX, MIN, PRODUCT and
+the bitwise reductions differentiate through autograd's own rules on the
+single controller and raise, across processes, on an input that requires
+grad.  Each collective's docstring states the bytes a process
 sends to others ("wire"): S is one rank's slice, n the members of a
 collective, and "native" the same collective with one rank a process (one
 process a card), as NCCL runs it.
@@ -119,7 +132,8 @@ class BaguaProcessGroup:
     so every process builds the same groups in the same order."""
 
     def __init__(self, devices: Sequence, intra_size: Optional[int] = None,
-                 mesh_spec: Optional[MeshSpec] = None, distributed: bool = False):
+                 mesh_spec: Optional[MeshSpec] = None, distributed: bool = False,
+                 processes: Optional[Sequence[int]] = None):
         devices = [_normalize(d) for d in devices]
         if not devices:
             raise ValueError("a process group needs at least one device")
@@ -132,13 +146,19 @@ class BaguaProcessGroup:
         self.devices = devices
         self.mesh_spec = mesh_spec
         self.process_count, self.process_index = 1, 0
+        #: the ``torch.distributed`` ranks of the processes holding the
+        #: group's ranks, in group order (None: a single controller)
+        self.processes: Optional[Tuple[int, ...]] = None
         if distributed:
             import torch.distributed as dist
 
             if not dist.is_initialized():
                 raise RuntimeError("distributed=True needs torch.distributed initialized: call "
                                    "init_process_group(..., coordinator_address=...) first")
-            self.process_count, self.process_index = dist.get_world_size(), dist.get_rank()
+            me = dist.get_rank()
+            self.processes = tuple(range(dist.get_world_size())) if processes is None else tuple(processes)
+            self.process_count = len(self.processes)
+            self.process_index = self.processes.index(me) if me in self.processes else -1
         n = len(devices) * self.process_count
         if mesh_spec is not None:
             if intra_size is not None:
@@ -184,6 +204,12 @@ class BaguaProcessGroup:
         return self.process_count > 1
 
     @property
+    def member(self) -> bool:
+        """False on a process that holds none of a sub-group's ranks
+        (:func:`new_group`): its collectives raise."""
+        return self.process_index >= 0
+
+    @property
     def local_rows(self) -> range:
         """This process's ranks."""
         k = self.local_size
@@ -222,7 +248,7 @@ class BaguaProcessGroup:
         if not self.distributed:
             return self
         return BaguaProcessGroup(self.devices, None if self.mesh_spec is not None else self.intra_size,
-                                 self.mesh_spec, distributed=True)
+                                 self.mesh_spec, distributed=True, processes=self.processes)
 
     @functools.cached_property
     def stacked(self) -> "BaguaProcessGroup":
@@ -257,11 +283,14 @@ class _Backing:
     """The ``torch.distributed`` side of a group that spans processes: its
     communicators and the one exchange every collective goes through.
 
-    Built in the same order on every process: a global communicator, then
-    for the whole mesh and for each axis, the process blocks whose ranks
-    meet in a collective over it (the reference's global, inter and intra
-    communicators on the legacy mesh); a block set equal to the whole job
-    shares the global communicator."""
+    Built in the same order on every process of the job, members of the
+    group or not: a communicator of the group's processes, then for the
+    whole mesh and for each axis, the process blocks whose ranks meet in a
+    collective over it (the reference's global, inter and intra
+    communicators on the legacy mesh); a block set equal to every process
+    of the group shares the first communicator.  Processes are numbered
+    within the group (``group.processes[q]`` is process q's
+    ``torch.distributed`` rank)."""
 
     def __init__(self, group: BaguaProcessGroup):
         import torch.distributed as dist
@@ -271,7 +300,7 @@ class _Backing:
         #: bytes this process's collectives sent to each process (itself
         #: included), since the group was built
         self.sent: Dict[int, int] = {}
-        self.world = (dist.new_group(list(everyone)), everyone)
+        self.world = (dist.new_group([group.processes[q] for q in everyone]), everyone)
         self.comms: Dict[frozenset, tuple] = {}
         made: Dict[tuple, tuple] = {}
         for axes in [group.all_axes] + [(a,) for a in group.all_axes]:
@@ -285,7 +314,7 @@ class _Backing:
             if blocks not in made:
                 mine = None
                 for b in blocks:  # every process makes every block's group, in order
-                    pg = dist.new_group(list(b))
+                    pg = dist.new_group([group.processes[q] for q in b])
                     if group.process_index in b:
                         mine = (pg, b)
                 made[blocks] = mine
@@ -324,6 +353,7 @@ class _Backing:
         received payloads by process."""
         import torch.distributed as dist
 
+        _check_member(self.group)
         pg, block = self.comm(axes)
         device = self.group.device
         parts = [sends.get(q) for q in block]
@@ -379,7 +409,7 @@ def init_process_group(
             )
         here = torch.device("cuda", torch.cuda.current_device())
         if mesh_spec is not None:
-            devices = [here] * (mesh_spec.size // (num_processes if distributed else 1))
+            devices = [here] * mesh_share(mesh_spec, num_processes if distributed else 1)
         elif distributed or torch.cuda.device_count() == 1:
             devices = [here]
         else:
@@ -406,6 +436,14 @@ def init_process_group(
     return _default_group
 
 
+def mesh_share(mesh_spec: MeshSpec, processes: int) -> int:
+    """The ranks of ``mesh_spec`` each of ``processes`` processes holds;
+    raises ValueError where they do not divide evenly."""
+    if mesh_spec.size % processes:
+        raise ValueError(f"a mesh of {mesh_spec.size} ranks does not divide among {processes} processes")
+    return mesh_spec.size // processes
+
+
 def destroy_process_group() -> None:
     """Forget the default group and leave ``torch.distributed``'s job."""
     global _default_group
@@ -430,17 +468,46 @@ def new_group(ranks: Optional[Sequence[int]] = None, intra_size: Optional[int] =
               mesh_spec: Optional[MeshSpec] = None) -> BaguaProcessGroup:
     """A group of the default group's ranks ``ranks`` (all of them by
     default), in that order (reference ``communication.py:217``), on the
-    legacy mesh or on ``mesh_spec``.  On a group that spans processes only
-    every rank (``ranks=None``) is supported, on new communicators; every
-    process calls it."""
+    legacy mesh or on ``mesh_spec``: rank i of the new group is
+    ``ranks[i]``.
+
+    On a group that spans processes every process calls it, with the same
+    arguments, in the same order (it makes the new group's
+    ``torch.distributed`` communicators).  ``ranks`` must list the ranks
+    process by process, in increasing process order, every process that
+    holds one holding equally many (:func:`subgroup_layout`); each member
+    process then passes the stack of its own ranks of the new group, in
+    the order listed.  A process that holds none gets a group whose
+    collectives raise."""
     base = get_default_group()
     if base.distributed:
-        if ranks is not None and list(ranks) != list(range(base.size)):
-            raise NotImplementedError("a group of some ranks of a group that spans processes "
-                                      "is not supported (ROADMAP item 10b)")
-        return BaguaProcessGroup(base.devices, intra_size=intra_size, mesh_spec=mesh_spec, distributed=True)
+        if ranks is None:
+            return BaguaProcessGroup(base.devices, intra_size=intra_size, mesh_spec=mesh_spec, distributed=True,
+                                     processes=base.processes)
+        members, k = subgroup_layout(base, ranks)
+        return BaguaProcessGroup([base.device] * k, intra_size=intra_size, mesh_spec=mesh_spec, distributed=True,
+                                 processes=[base.processes[q] for q in members])
     devices = base.devices if ranks is None else [base.devices[r] for r in ranks]
     return BaguaProcessGroup(devices, intra_size=intra_size, mesh_spec=mesh_spec)
+
+
+def subgroup_layout(base: BaguaProcessGroup, ranks: Sequence[int]) -> Tuple[List[int], int]:
+    """``(member processes, ranks a member process holds)`` of a group of
+    ``ranks`` of the spanning ``base``; raises ValueError unless ``ranks``
+    are distinct ranks of ``base`` listed process by process, in
+    increasing process order, each member process holding equally many."""
+    ranks = [int(r) for r in ranks]
+    k = base.local_size
+    rule = ("list distinct ranks process by process, in increasing process order, every process "
+            f"that holds one holding equally many (process p holds ranks [p * {k}, (p + 1) * {k}))")
+    if not ranks or len(set(ranks)) != len(ranks) or not all(0 <= r < base.size for r in ranks):
+        raise ValueError(f"new_group({ranks}): not distinct ranks of a group of {base.size}: {rule}")
+    owners = [r // k for r in ranks]
+    members = sorted(set(owners))
+    runs = [owners.count(q) for q in members]
+    if owners != sorted(owners) or len(set(runs)) != 1:
+        raise ValueError(f"new_group({ranks}): held by processes {owners}: {rule}")
+    return members, runs[0]
 
 
 def local_ranks(group: Optional[BaguaProcessGroup] = None) -> List[int]:
@@ -549,6 +616,7 @@ def rank_id(group: BaguaProcessGroup, axis=None) -> torch.Tensor:
     spans processes ``(k,)``, this process's ranks' (no bytes move; the
     tensor is kept and shared, so do not write to it)."""
     if group.distributed:
+        _check_member(group)
         axes = _resolve(group, axis)
         return _index(group, ("rank_id", axes), lambda: _member_index(group, axes)[list(group.local_rows)])
     n = axis_size(group, axis)
@@ -565,9 +633,7 @@ def ppermute_shift(
     group = comm or get_default_group()
     if _ir._tls.capture is not None:
         _ir.record_collective("ppermute", (x,), group, _resolve(group, axis))
-    if group.distributed:
-        return _route(group, _resolve(group, axis), x, ("shift", int(shift) % axis_size(group, axis)))
-    return _ungrouped(torch.roll(_grouped(x, group, axis), shift, dims=1), group, axis)
+    return _move(group, _resolve(group, axis), x, ("shift", int(shift) % axis_size(group, axis)))
 
 
 def ppermute_apply(
@@ -589,14 +655,7 @@ def ppermute_apply(
         raise ValueError(f"ppermute_apply: {perm} names a source or a destination twice")
     if not all(0 <= i < n for i in srcs + dsts):
         raise ValueError(f"ppermute_apply: {perm} names a member outside 0..{n - 1}")
-    if group.distributed:
-        return _route(group, _resolve(group, axis), x, ("apply", tuple(perm)))
-    # one gather (each slice copied once), then zeros where no pair arrives
-    g = _grouped(x, group, axis)
-    source = dict(zip(dsts, srcs))
-    out = g[:, [source.get(d, d) for d in range(n)]]
-    out[:, [d for d in range(n) if d not in source]] = 0
-    return _ungrouped(out, group, axis)
+    return _move(group, _resolve(group, axis), x, ("apply", tuple(perm)))
 
 
 def broadcast_inplace(
@@ -646,8 +705,14 @@ _REDUCE_PRIMITIVE = {ReduceOp.SUM: "psum", ReduceOp.AVG: "psum", ReduceOp.MAX: "
 
 
 def _allreduce(send: torch.Tensor, op: ReduceOp, group: BaguaProcessGroup, axis) -> torch.Tensor:
+    return _allreduce_by(send, functools.partial(_reduce_members, op=op), group, axis)
+
+
+def _allreduce_by(send: torch.Tensor, reduce, group: BaguaProcessGroup, axis) -> torch.Tensor:
+    """The stacked allreduce whose ``reduce`` maps the grouped ``(G, n,
+    ...)`` stack to ``(G, ...)``."""
     g = _grouped(send, group, axis)
-    red = _reduce_members(g, op)
+    red = reduce(g)
     return _ungrouped(red.unsqueeze(1).expand_as(g), group, axis)
 
 
@@ -681,7 +746,17 @@ def allreduce_many(
     if _ir._tls.capture is not None and sends:
         _ir.record_collective(_REDUCE_PRIMITIVE.get(op, "all_gather"), tuple(sends), group, _resolve(group, axis))
     if group.distributed:
-        return _span_allreduce(group, sends, op, _resolve(group, axis)) if sends else []
+        axes = _resolve(group, axis)
+        if not sends:
+            return []
+        if _differentiable(*sends):
+            if op not in (ReduceOp.SUM, ReduceOp.AVG):
+                raise RuntimeError(f"allreduce {op.name} has no gradient on a group that spans processes; "
+                                   "pass a tensor that does not require grad (detach it)")
+            return list(_Reduce.apply(group, axes, op, *sends))
+        return _span_reduce(group, sends, axes, functools.partial(_reduce_members, op=op))
+    if op in (ReduceOp.SUM, ReduceOp.AVG) and _differentiable(*sends):
+        return list(_Reduce.apply(group, _resolve(group, axis), op, *sends))
     return [_allreduce(s, op, group, axis) for s in sends]
 
 
@@ -702,19 +777,21 @@ def reduce_scatter(
         raise NotImplementedError(f"reduce_scatter supports SUM and AVG, not {op.name}")
     if _ir._tls.capture is not None:
         _ir.record_collective("reduce_scatter", (send,), group, _resolve(group, axis))
-    if group.distributed:
-        n, m = axis_size(group, axis), send.shape[1]
-        if m % n:
-            raise ValueError(f"reduce_scatter: dim {m} does not divide into {n} chunks")
-        (full,) = _span_allreduce(group, [send], op, _resolve(group, axis))
-        full = full.reshape(group.local_size, n, m // n, *send.shape[2:])
-        return full[torch.arange(group.local_size, device=send.device), rank_id(group, axis)]
-    g = _grouped(send, group, axis)
-    G, n, m = g.shape[:3]
+    n, m = axis_size(group, axis), send.shape[1]
     if m % n:
         raise ValueError(f"reduce_scatter: dim {m} does not divide into {n} chunks")
+    if _differentiable(send):
+        return _ReduceScatter.apply(send, group, _resolve(group, axis), op)
+    return _reduce_scatter_raw(group, send, _resolve(group, axis), op)
+
+
+def _reduce_scatter_raw(group: BaguaProcessGroup, send: torch.Tensor, axes, op: ReduceOp) -> torch.Tensor:
+    if group.distributed:
+        return _span_reduce_scatter(group, send, axes, op)
+    g = _grouped(send, group, axes)
+    G, n, m = g.shape[:3]
     red = _reduce_members(g, op)
-    return _ungrouped(red.reshape(G, n, m // n, *g.shape[3:]), group, axis)
+    return _ungrouped(red.reshape(G, n, m // n, *g.shape[3:]), group, axes)
 
 
 def hierarchical_allreduce(
@@ -753,14 +830,7 @@ def alltoall(
     group = comm or get_default_group()
     if _ir._tls.capture is not None:
         _ir.record_collective("all_to_all", (send,), group, _resolve(group, axis))
-    if group.distributed:
-        return _route(group, _resolve(group, axis), send, ("alltoall",))
-    g = _grouped(send, group, axis)
-    G, n, m = g.shape[:3]
-    if m % n:
-        raise ValueError(f"alltoall: dim {m} does not divide into {n} chunks")
-    chunks = g.reshape(G, n, n, m // n, *g.shape[3:])  # (G, src, dst, ...)
-    return _ungrouped(chunks.transpose(1, 2).reshape(g.shape), group, axis)
+    return _move(group, _resolve(group, axis), send, ("alltoall",))
 
 
 def allgather(
@@ -772,12 +842,31 @@ def allgather(
     group = comm or get_default_group()
     if _ir._tls.capture is not None:
         _ir.record_collective("all_gather", (send,), group, _resolve(group, axis))
-    if group.distributed:
-        return _route(group, _resolve(group, axis), send, ("allgather",))
-    g = _grouped(send, group, axis)
+    return _move(group, _resolve(group, axis), send, ("allgather",))
+
+
+def _stacked_move(group: BaguaProcessGroup, axes: Tuple[str, ...], x: torch.Tensor, op: tuple) -> torch.Tensor:
+    """A data mover on the single controller's whole stack (``op`` as
+    :func:`_route_table` takes it)."""
+    kind = op[0]
+    g = _grouped(x, group, axes)
+    if kind == "shift":
+        return _ungrouped(torch.roll(g, op[1], dims=1), group, axes)
     G, n = g.shape[:2]
+    if kind == "apply":
+        # one gather (each slice copied once), then zeros where no pair arrives
+        source = dict((d, s) for s, d in op[1])
+        out = g[:, [source.get(d, d) for d in range(n)]]
+        out[:, [d for d in range(n) if d not in source]] = 0
+        return _ungrouped(out, group, axes)
+    if kind == "alltoall":
+        m = g.shape[2]
+        if m % n:
+            raise ValueError(f"alltoall: dim {m} does not divide into {n} chunks")
+        chunks = g.reshape(G, n, n, m // n, *g.shape[3:])  # (G, src, dst, ...)
+        return _ungrouped(chunks.transpose(1, 2).reshape(g.shape), group, axes)
     full = g.reshape(G, 1, n * g.shape[2], *g.shape[3:])
-    return _ungrouped(full.expand(G, n, *full.shape[2:]), group, axis)
+    return _ungrouped(full.expand(G, n, *full.shape[2:]), group, axes)
 
 
 def alltoall_v_inplace(
@@ -809,9 +898,16 @@ def alltoall_v_inplace(
 # ---------------------------------------------------------------------------
 
 
+def _check_member(group: BaguaProcessGroup) -> None:
+    if not group.member:
+        raise RuntimeError(f"this process holds none of the ranks of {group!r}: only its member "
+                           f"processes {list(group.processes)} run its collectives")
+
+
 def _local_stack(group: BaguaProcessGroup, *xs: torch.Tensor) -> bool:
     """Check that each tensor is this process's ``(k, ...)`` stack; True
     when any lies on ``meta`` (a dry run, which moves no bytes)."""
+    _check_member(group)
     for x in xs:
         if x.dim() == 0 or x.shape[0] != group.local_size:
             raise ValueError(f"leading dim {tuple(x.shape)[:1]} != this process's "
@@ -1001,10 +1097,14 @@ def _transpose(group: BaguaProcessGroup, parts: List[torch.Tensor]) -> List[torc
     return [_typed(b, t, t.shape) for b, t in zip(out, parts)]
 
 
-def _span_allreduce(group: BaguaProcessGroup, sends: Sequence[torch.Tensor], op: ReduceOp,
-                    axes: Tuple[str, ...]) -> List[torch.Tensor]:
-    """:func:`allreduce_many` of local stacks across processes, bitwise the
-    stacked group's rows (the same fold over the same members)."""
+def _span_reduce(group: BaguaProcessGroup, sends: Sequence[torch.Tensor], axes: Tuple[str, ...],
+                 reduce) -> List[torch.Tensor]:
+    """Each local stack of ``sends`` reduced over ``axes`` across
+    processes: ``reduce`` maps a grouped ``(G, n, ...)`` stack of a
+    collective's members, in member order, to ``(G, ...)``, and runs here
+    on the rows of the collectives this process's ranks are in (or, under
+    the element transpose, on the stacked group's columns), so the result
+    is bitwise the stacked group's ``reduce``."""
     k = group.local_size
     if _local_stack(group, *sends):
         return [s.new_empty(s.shape) for s in sends]
@@ -1016,8 +1116,7 @@ def _span_allreduce(group: BaguaProcessGroup, sends: Sequence[torch.Tensor], op:
             rows = _typed(buf, s, (buf.shape[0], *s.shape[1:]))
             grouped = (rows.reshape(*gpos.shape, *s.shape[1:]) if in_order
                        else rows[_index(group, ("reduce", axes, "gpos"), lambda: gpos)])
-            red = _reduce_members(grouped, op)
-            out.append(red.index_select(0, _index(group, ("reduce", axes, "local"), lambda: local)))
+            out.append(reduce(grouped).index_select(0, _index(group, ("reduce", axes, "local"), lambda: local)))
         return out
     W = group.process_count
     cols = []
@@ -1029,9 +1128,139 @@ def _span_allreduce(group: BaguaProcessGroup, sends: Sequence[torch.Tensor], op:
         cols.append(flat.reshape(k, W, c).transpose(0, 1))  # (W, k, c): chunk j of each rank
     recv = _transpose(group, cols)
     stacked = group.stacked
-    reduced = [_allreduce(r.reshape(W * k, -1), op, stacked, axes).reshape(W, k, -1) for r in recv]
+    reduced = [_allreduce_by(r.reshape(W * k, -1), reduce, stacked, axes).reshape(W, k, -1) for r in recv]
     back = _transpose(group, reduced)  # from process j: chunk j of my ranks
     return [b.transpose(0, 1).reshape(k, -1)[:, :s[0].numel()].reshape(s.shape) for b, s in zip(back, sends)]
+
+
+def _span_reduce_scatter(group: BaguaProcessGroup, send: torch.Tensor, axes: Tuple[str, ...],
+                         op: ReduceOp) -> torch.Tensor:
+    """:func:`reduce_scatter` of a local stack: the allreduce, each rank
+    keeping its chunk."""
+    n, m = axis_size(group, axes), send.shape[1]
+    (full,) = _span_reduce(group, [send], axes, functools.partial(_reduce_members, op=op))
+    full = full.reshape(group.local_size, n, m // n, *send.shape[2:])
+    return full[torch.arange(group.local_size, device=send.device), rank_id(group, axes)]
+
+
+# ---------------------------------------------------------------------------
+# Gradients across processes: each collective's backward is the transposed
+# collective, folding as the stacked group's autograd does
+# ---------------------------------------------------------------------------
+
+
+def _differentiable(*xs: torch.Tensor) -> bool:
+    """Whether autograd records a collective of ``xs`` through its own
+    function (not for a functorch transform's wrapped tensors, whose
+    collectives run under a ``vmap`` rule: ``models/_rank_ops.py``)."""
+    return (torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+            and not any(torch._C._functorch.is_functorch_wrapped_tensor(x) for x in xs))
+
+
+def _move(group: BaguaProcessGroup, axes: Tuple[str, ...], x: torch.Tensor, op: tuple) -> torch.Tensor:
+    """A data mover on either kind of group, recorded by autograd (through
+    :class:`_Move`) where ``x`` takes a gradient."""
+    if _differentiable(x):
+        return _Move.apply(x, group, axes, op)
+    return _move_raw(group, axes, x, op)
+
+
+def _move_raw(group: BaguaProcessGroup, axes: Tuple[str, ...], x: torch.Tensor, op: tuple) -> torch.Tensor:
+    return _route(group, axes, x, op) if group.distributed else _stacked_move(group, axes, x, op)
+
+
+class _Move(torch.autograd.Function):
+    """A data mover whose backward is its transposed collective
+    (:func:`_move_vjp`), on the single controller as across processes: the
+    same contiguous cotangent in both, so whatever a model reduces from it
+    downstream adds in the same order."""
+
+    @staticmethod
+    def forward(ctx, x, group, axes, op):
+        ctx.group, ctx.axes, ctx.op = group, axes, op
+        return _move_raw(group, axes, x, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _move_vjp(ctx.group, ctx.axes, ctx.op, g), None, None, None
+
+
+def _move_vjp(group: BaguaProcessGroup, axes: Tuple[str, ...], op: tuple, g: torch.Tensor) -> torch.Tensor:
+    """The cotangent of a mover's input: a shift's is the shift back, an
+    all-to-all's the all-to-all back, a permutation's the inverse
+    permutation (zeros where no pair arrives), an allgather's the SUM
+    reduce-scatter of the cotangent, folded left to right in member order
+    (autograd's own backward of the stacked ``expand`` sums by ``sum``,
+    whose order depends on the tensor's layout: a group that spans
+    processes could not reproduce it)."""
+    n = axis_size(group, axes)
+    kind = op[0]
+    g = g.contiguous()
+    if kind == "shift":
+        return _move_raw(group, axes, g, ("shift", -op[1] % n))
+    if kind == "alltoall":
+        return _move_raw(group, axes, g, ("alltoall",))
+    if kind == "apply":
+        return _move_raw(group, axes, g, ("apply", tuple((d, s) for s, d in op[1])))
+    return _reduce_scatter_raw(group, g, axes, ReduceOp.SUM)
+
+
+def _fold_sum(group: BaguaProcessGroup, sends: Sequence[torch.Tensor], axes: Tuple[str, ...]) -> List[torch.Tensor]:
+    """The SUM allreduce of each tensor, folded left to right in member
+    order, on either kind of group (no gradient)."""
+    if group.distributed:
+        return _span_reduce(group, sends, axes, functools.partial(_reduce_members, op=ReduceOp.SUM))
+    return [_allreduce(s, ReduceOp.SUM, group, axes) for s in sends]
+
+
+class _Reduce(torch.autograd.Function):
+    """:func:`allreduce_many` (SUM or AVG) on either kind of group, with
+    its transposed collective as the backward: the SUM allreduce of the
+    cotangents, folded left to right in member order (divided by n under
+    AVG), so a group that spans processes computes the very rows the
+    single controller does (autograd's own backward of the stacked
+    ``expand`` sums by ``sum``, whose order depends on the layout)."""
+
+    @staticmethod
+    def forward(ctx, group, axes, op, *sends):
+        ctx.group, ctx.axes, ctx.op = group, axes, op
+        if group.distributed:
+            outs = _span_reduce(group, sends, axes, functools.partial(_reduce_members, op=op))
+        else:
+            outs = [_allreduce(s, op, group, axes) for s in sends]
+        ctx.mark_non_differentiable(*[o for o in outs if not (o.is_floating_point() or o.is_complex())])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        need = ctx.needs_input_grad[3:]
+        idx = [i for i, n in enumerate(need) if n]
+        n = axis_size(ctx.group, ctx.axes)
+        sums = _fold_sum(ctx.group, [cts[i].contiguous() for i in idx], ctx.axes)
+        if ctx.op == ReduceOp.AVG:
+            sums = [t / torch.full_like(t, n) for t in sums]
+        grads = [None] * len(need)
+        for i, t in zip(idx, sums):
+            grads[i] = t
+        return (None, None, None, *grads)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """:func:`reduce_scatter` on either kind of group, with its transposed
+    collective as the backward: the allgather of the cotangents (divided by
+    n under AVG)."""
+
+    @staticmethod
+    def forward(ctx, send, group, axes, op):
+        ctx.group, ctx.axes, ctx.op = group, axes, op
+        return _reduce_scatter_raw(group, send, axes, op)
+
+    @staticmethod
+    def backward(ctx, ct):
+        full = _move_raw(ctx.group, ctx.axes, ct.contiguous(), ("allgather",))
+        if ctx.op == ReduceOp.AVG:
+            full = full / torch.full_like(full, axis_size(ctx.group, ctx.axes))
+        return full, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -1665,6 +1665,23 @@ class DistributedDataParallel:
                                      f"into this process's {blocks} blocks")
         return local_batch
 
+    def process_rows(self, global_batch):
+        """This process's rows of a global batch, the batch :meth:`train_step`
+        takes from it: on a group that spans processes the blocks (of
+        ``exchange_size``) of the data indices its ranks hold, in order;
+        single-controller, the global batch itself."""
+        if not self.group.distributed:
+            return global_batch
+        blocks = self.group.exchange_size
+        mine = torch.unique(self._data_rank.cpu())
+
+        def rows(t):
+            if t.dim() == 0 or t.shape[0] % blocks:
+                raise ValueError(f"a global batch of {tuple(t.shape)[:1]} rows does not divide into "
+                                 f"{blocks} blocks")
+            return t.reshape(blocks, t.shape[0] // blocks, *t.shape[1:])[mine.to(t.device)].reshape(-1, *t.shape[1:])
+        return tree_map(rows, global_batch)
+
     def record_speed(self, n_samples: int) -> None:
         self.speed_meter.record(n_samples)
 

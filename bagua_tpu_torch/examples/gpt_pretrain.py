@@ -42,6 +42,12 @@ blocks' tp collectives keep their axis; buckets of ``1 << 14`` bytes, Adam
         --pp 1 --sp 1 --algo zero
     python -m bagua_tpu_torch.examples.gpt_pretrain --pp 2 --sp 2 --vocab 50257 --hidden 768 \\
         --heads 12 --blocks-per-stage 6 --seq 1024 --microbatches 4    # GPT-2 small, on the card
+
+Started by the launcher (``python -m bagua_tpu_torch.distributed.run
+--nproc_per_node W``), either mode forms its named group across the W
+processes (:func:`bagua_tpu_torch.distributed.mesh_group`), each holding
+``size / W`` ranks, building the same seed-drawn weights and feeding its
+own ranks' rows; the result is bitwise the single controller's.
 """
 
 import argparse
@@ -51,7 +57,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bagua_tpu_torch.communication import BaguaProcessGroup, ReduceOp, allreduce, init_process_group, rank_id
+from bagua_tpu_torch.communication import ReduceOp, allreduce, rank_id
+from bagua_tpu_torch.distributed import mesh_group
 from bagua_tpu_torch.examples.llama_pretrain import engine_axes, make_engine, shard_ids
 from bagua_tpu_torch.mesh import MeshSpec
 from bagua_tpu_torch.models._layers import Embed, module_params
@@ -135,11 +142,10 @@ class Twin:
     (:func:`bagua_tpu_torch.convert.gpt_params_from_jax`), or None to draw
     them as the example does (seeds 0, 100 + s and 1)."""
 
-    def __init__(self, args, device=None, params=None):
+    def __init__(self, args, device=None, params=None, group=None):
         self.args = args
         device = resolve_device(args.device if device is None else device)
-        spec = mesh_spec(args.dp, args.pp, args.tp, args.sp)
-        self.group = BaguaProcessGroup([device] * spec.size, mesh_spec=spec)
+        self.group = mesh_group(mesh_spec(args.dp, args.pp, args.tp, args.sp), device) if group is None else group
         self.cfg = gpt_config(args)
         self.stage = GPTStage(self.cfg, args.blocks_per_stage, self.group, device)
         self.embed = Embed(args.vocab, args.hidden, device)
@@ -165,7 +171,7 @@ class Twin:
         stages = [module_params(GPTStage(self.cfg, args.blocks_per_stage, self.group, device, gen(100 + s)))
                   for s in range(args.pp)]
         rows = self.pp_coord()
-        n = self.group.size
+        n = self.group.local_size
         return {
             "embed": tree_map(lambda t: t[None].repeat(n, 1, 1), module_params(Embed(args.vocab, args.hidden,
                                                                                      device, gen(0)))),
@@ -276,16 +282,16 @@ class EngineModel:
         return head_loss(p["head"], x, labels[None])[0]
 
 
-def engine(args, device=None, params=None):
+def engine(args, device=None, params=None, group=None):
     """The engine mode's ``(ddp, state)`` on a named group of ``args``'
-    mesh (set as the default group).  ``params``: an unstacked ``{"embed",
-    "stage", "head"}`` tree (``params_from_jax`` of the example's), or None
-    to draw it."""
+    mesh (by default :func:`mesh_group`'s, set as the default group).
+    ``params``: an unstacked ``{"embed", "stage", "head"}`` tree
+    (``params_from_jax`` of the example's), or None to draw it."""
     if args.pp != 1 or args.sp != 1:
         raise ValueError("--engine covers dp x tp / dp x fsdp; use the default mode for pp/sp")
     device = resolve_device(args.device if device is None else device)
-    spec = MeshSpec(engine_axes(args))
-    group = init_process_group(devices=[device] * spec.size, mesh_spec=spec)
+    if group is None:
+        group = mesh_group(MeshSpec(engine_axes(args)), device)
     model = EngineModel(args, group, device)
     ddp = make_engine(args, model.loss, lambda ps: torch.optim.Adam(ps, lr=LR, fused=device.type == "cuda"),
                       group)
@@ -294,15 +300,16 @@ def engine(args, device=None, params=None):
 
 
 def run_engine(args, device=None, params=None):
-    """The example's engine mode: ``(losses, state, ddp)``, rank 0's loss a
-    step, the final state (pending ZeRO updates gathered) and the engine
-    (shut down)."""
+    """The example's engine mode: ``(losses, state, ddp)``, this process's
+    first rank's loss a step, the final state (pending ZeRO updates
+    gathered) and the engine (shut down).  Each step feeds this process's
+    rows of the global batch (``ddp.process_rows``)."""
     ddp, state = engine(args, device, params)
     device = ddp.group.device
     losses = []
     try:
         for i, (ids, labels) in enumerate(batches(args)):
-            batch = (torch.as_tensor(ids, device=device), torch.as_tensor(labels, device=device))
+            batch = ddp.process_rows((torch.as_tensor(ids, device=device), torch.as_tensor(labels, device=device)))
             state, step_losses = ddp.train_step(state, batch)
             losses.append(float(step_losses[0]))
             print(f"step {i}: loss {losses[-1]:.4f}", flush=True)

@@ -32,6 +32,16 @@ collectives keep their axis; buckets of ``1 << 14`` bytes, AdamW.
     python -m bagua_tpu_torch.examples.llama_pretrain --device cpu --engine --dp 4 --fsdp 2 --tp 1 \
         --sp 1 --algo zero
     python -m bagua_tpu_torch.examples.llama_pretrain --dp 1 --tp 1 --sp 4 --steps 10   # on the card
+
+Started by the launcher (``python -m bagua_tpu_torch.distributed.run
+--nproc_per_node W``, or any gang worker with ``MASTER_PORT`` set), either
+mode forms its named group across the W processes, each holding ``size /
+W`` of the mesh's ranks (:func:`bagua_tpu_torch.distributed.mesh_group`):
+every process builds the same seed-0 weights and feeds its own ranks' rows
+of each step's batch, and the result is bitwise the single controller's:
+
+    PYTHONPATH=. python -m bagua_tpu_torch.distributed.run --nproc_per_node 2 \
+        bagua_tpu_torch/examples/llama_pretrain.py --device cpu --dp 1 --tp 2 --sp 2 --steps 3
 """
 
 import argparse
@@ -40,12 +50,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bagua_tpu_torch.communication import (
-    BaguaProcessGroup, ReduceOp, allreduce, axis_size, init_process_group, rank_id,
-)
+from bagua_tpu_torch.communication import BaguaProcessGroup, ReduceOp, allreduce, axis_size, rank_id
+from bagua_tpu_torch.distributed import mesh_group
 from bagua_tpu_torch.mesh import MeshSpec
 from bagua_tpu_torch.models.bert import one_rank
-from bagua_tpu_torch.models.llama import LlamaConfig, init_llama, llama_loss_fn
+from bagua_tpu_torch.models.llama import LlamaConfig, init_llama, llama_7b_config, llama_loss_fn
 from bagua_tpu_torch.parallel.ring_attention import zigzag_order
 from bagua_tpu_torch.utils import resolve_device, tree_leaves, tree_map
 
@@ -113,9 +122,10 @@ def shard_ids(ids, group: BaguaProcessGroup, device=None, dp_axis="inter",
     rank-stacked ``(R, batch / dp, seq / sp)`` shards of JAX's ``P("dp",
     "sp")``: a rank holds the batch block of its ``dp_axis`` index and the
     sequence block of its ``sp_axis`` index (either axis None: the whole
-    dim), replicated over any other axis."""
+    dim), replicated over any other axis.  ``R`` is this process's ranks
+    (every rank of a single-controller group)."""
     ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64)
-    zero = torch.zeros(group.size, dtype=torch.int64)
+    zero = torch.zeros(group.local_size, dtype=torch.int64)
     dp, sp = (axis_size(group, a) if a else 1 for a in (dp_axis, sp_axis))
     B, T = ids.shape
     blocks = ids.reshape(dp, B // dp, sp, T // sp).permute(0, 2, 1, 3)
@@ -167,20 +177,33 @@ def _average(x: torch.Tensor, group, axis):
     return allreduce(x, ReduceOp.AVG, group, axis)
 
 
-def build(args, vocab: int, device):
-    """The named group, config, model and stacked parameters of ``args``."""
-    group = BaguaProcessGroup([device] * (args.dp * args.tp * args.sp),
-                              mesh_spec=mesh_spec(args.dp, args.tp, args.sp))
+def model_config(args, vocab: int) -> LlamaConfig:
+    """The twin's ``LlamaConfig``: the example's (``--hidden``, ``--layers``,
+    ``max(2, 2 tp)`` heads, half as many K/V heads, a ``2 hidden`` MLP, the
+    corpus's vocabulary) or, with ``--width 7b``, ``llama_7b_config``'s
+    width at ``--layers``; tp over ``"tp"``, the zigzag ring over ``"sp"``
+    where sp > 1, the Row projections fused under ``--tp-fused``."""
+    mesh = dict(tp_size=args.tp, tp_axis="tp", sp_axis="sp" if args.sp > 1 else None,
+                sp_layout="zigzag" if args.sp > 1 else "contiguous", tp_fused=args.tp_fused)
+    if args.width == "7b":
+        return llama_7b_config(num_layers=args.layers, **mesh)
     heads = max(2, 2 * args.tp)
-    cfg = LlamaConfig(
+    return LlamaConfig(
         vocab_size=vocab, hidden_size=args.hidden, num_layers=args.layers,
         num_heads=heads, num_kv_heads=heads // 2, intermediate_size=2 * args.hidden,
-        max_position_embeddings=args.seq, tp_size=args.tp, tp_axis="tp",
-        sp_axis="sp" if args.sp > 1 else None,
-        sp_layout="zigzag" if args.sp > 1 else "contiguous",
+        max_position_embeddings=args.seq, **mesh,
     )
+
+
+def build(args, vocab: int, device, group=None):
+    """The named group (by default :func:`mesh_group`'s: set as the
+    default, across the gang under the launcher), config, model and this
+    process's ranks' stacked parameters of ``args``."""
+    if group is None:
+        group = mesh_group(mesh_spec(args.dp, args.tp, args.sp), device)
+    cfg = model_config(args, vocab)
     model, params = init_llama(cfg, torch.Generator(device=device).manual_seed(0), device, group)
-    return group, cfg, model, replicate(params, group.size)
+    return group, cfg, model, replicate(params, group.local_size)
 
 
 def engine_loss_fn(model):
@@ -222,22 +245,17 @@ def make_engine(args, loss_fn, optimizer, group):
     )
 
 
-def engine(args, device, params=None):
+def engine(args, device, params=None, group=None):
     """The engine mode's ``(ddp, state, vocab)`` on a named group of
-    ``args``' mesh (set as the default group).  ``params``: an unstacked
-    tree (``params_from_jax`` of the example's init), or None to draw it
-    with seed 0."""
+    ``args``' mesh (by default :func:`mesh_group`'s, set as the default
+    group).  ``params``: an unstacked tree (``params_from_jax`` of the
+    example's init), or None to draw it with seed 0."""
     if args.sp != 1:
         raise ValueError("--engine covers dp x tp / dp x fsdp; drop --sp")
-    spec = MeshSpec(engine_axes(args))
-    group = init_process_group(devices=[device] * spec.size, mesh_spec=spec)
+    if group is None:
+        group = mesh_group(MeshSpec(engine_axes(args)), device)
     vocab = load_corpus(args.data, np.random.RandomState(0))[1]
-    heads = max(2, 2 * args.tp)
-    cfg = LlamaConfig(
-        vocab_size=vocab, hidden_size=args.hidden, num_layers=args.layers,
-        num_heads=heads, num_kv_heads=heads // 2, intermediate_size=2 * args.hidden,
-        max_position_embeddings=args.seq, tp_size=args.tp, tp_axis="tp",
-    )
+    cfg = model_config(args, vocab)
     model, drawn = init_llama(cfg, torch.Generator(device=device).manual_seed(0), device, group)
     model.requires_grad_(False)
     ddp = make_engine(args, engine_loss_fn(model), lambda ps: make_optimizer(ps, args.lr), group)
@@ -246,16 +264,16 @@ def engine(args, device, params=None):
 
 
 def run_engine(args, device, params=None):
-    """The example's engine mode: ``(losses, state, ddp)``, rank 0's loss a
-    step, the final state (pending ZeRO updates gathered) and the engine
-    (shut down)."""
+    """The example's engine mode: ``(losses, state, ddp)``, this process's
+    first rank's loss a step, the final state (pending ZeRO updates
+    gathered) and the engine (shut down).  Each step feeds this process's
+    rows of the global batch (``ddp.process_rows``)."""
     ddp, state, vocab = engine(args, device, params)
-    rng = np.random.RandomState(0)
-    toks, _ = load_corpus(args.data, rng)
     losses = []
     try:
-        for i, ids in enumerate(batches(toks, rng, args.batch, args.seq, args.steps)):
-            state, step_losses = ddp.train_step(state, torch.as_tensor(ids, dtype=torch.int64, device=device))
+        for i, ids in enumerate(engine_batches(args)):
+            ids = ddp.process_rows(torch.as_tensor(ids, dtype=torch.int64, device=device))
+            state, step_losses = ddp.train_step(state, ids)
             losses.append(float(step_losses[0]))
             print(f"step {i}: loss {losses[-1]:.4f}", flush=True)
         state = ddp.finalize_pending_updates(state)
@@ -265,6 +283,13 @@ def run_engine(args, device, params=None):
           f"{losses[-1]:.4f}", flush=True)
     assert np.isfinite(losses[-1])
     return losses, state, ddp
+
+
+def engine_batches(args):
+    """The engine mode's global ``(batch, seq)`` ids a step, numpy."""
+    rng = np.random.RandomState(0)
+    toks, _ = load_corpus(args.data, rng)
+    return batches(toks, rng, args.batch, args.seq, args.steps)
 
 
 def parse_args(argv=None):
@@ -285,30 +310,52 @@ def parse_args(argv=None):
     p.add_argument("--hidden", type=int, default=64)
     p.add_argument("--layers", type=int, default=2)
     p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--width", choices=("example", "7b"), default="example",
+                   help="the example's width (--hidden) or llama_7b_config's")
+    p.add_argument("--tp-fused", action="store_true",
+                   help="the Row projections through the collective-matmul ring (matmul_rs)")
     p.add_argument("--device", default=None, help="the current CUDA device unless given")
     return p.parse_args(argv)
 
 
-def run(args, device, params=None):
-    """The hand-scheduled mode: ``(losses, params)``, each step's loss
-    (averaged over dp and sp) and the final rank-stacked parameters.
-    ``params``: an unstacked tree (``params_from_jax`` of the example's
-    init), or None to draw it with seed 0."""
+def hand_steps(args, device, params=None, group=None):
+    """The hand-scheduled mode's pieces: ``(group, stacked, step, data,
+    vocab)``.  ``step(ids)`` trains one step on a global ``(batch, seq)``
+    batch in the ring's layout (each process takes its ranks' shards) and
+    returns the per-rank losses averaged over dp and sp, ``(R,)``;
+    ``data`` yields the example's global batches, zigzag-permuted where sp
+    > 1.  ``params``: an unstacked tree (``params_from_jax`` of the
+    example's init), or None to draw it with seed 0."""
     rng = np.random.RandomState(0)
     toks, vocab = load_corpus(args.data, rng)
-    group, cfg, model, stacked = build(args, vocab, device)
+    group, cfg, model, stacked = build(args, vocab, device, group)
     if params is not None:
-        stacked = replicate(tree_map(lambda t: t.to(device), params), group.size)
+        stacked = replicate(tree_map(lambda t: t.to(device), params), group.local_size)
     optimizer = make_optimizer(stacked, args.lr)
     loss_fn = llama_loss_fn(model)
     zz = zigzag_order(args.seq, args.sp) if args.sp > 1 else None
-    losses = []
-    for i, ids in enumerate(batches(toks, rng, args.batch, args.seq, args.steps)):
-        if zz is not None:
-            ids = ids[:, zz]  # physical zigzag layout; the model assigns
-            # matching global RoPE positions per rank
+
+    def step(ids):
         shards = shard_ids(ids, group, device, "dp", "sp")
-        losses.append(float(train_step(stacked, optimizer, shards, loss_fn, group, ("dp", "sp"))[0]))
+        return train_step(stacked, optimizer, shards, loss_fn, group, ("dp", "sp"))
+
+    def data():
+        for ids in batches(toks, rng, args.batch, args.seq, args.steps):
+            # physical zigzag layout; the model assigns matching global
+            # RoPE positions per rank
+            yield ids if zz is None else ids[:, zz]
+
+    return group, stacked, step, data(), vocab
+
+
+def run(args, device, params=None):
+    """The hand-scheduled mode: ``(losses, params)``, each step's loss
+    (averaged over dp and sp; this process's first rank's) and the final
+    rank-stacked parameters (this process's ranks)."""
+    _, stacked, step, data, vocab = hand_steps(args, device, params)
+    losses = []
+    for i, ids in enumerate(data):
+        losses.append(float(step(ids)[0]))
         print(f"step {i}: loss {losses[-1]:.4f}", flush=True)
     print(f"final: vocab={vocab} loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
     assert np.isfinite(losses[-1])

@@ -215,6 +215,7 @@ def block_attention(
         )
     mm8._check(code, "block_attention")
     block_attention.launches += 1
+    _build.witness("block_attention", (qf, k_blk, v_blk, mask), (o, l, m))
     return o, l, m
 
 
@@ -253,6 +254,7 @@ def flash_attention_bwd_dq(qf, k_blk, v_blk, mask, m, dl, do) -> torch.Tensor:
         code = _lib().bagua_flash_bwd_dq(*ptrs, dq.data_ptr(), *tail)
     mm8._check(code, what)
     flash_attention_bwd_dq.launches += 1
+    _build.witness(what, keep, (dq,))
     return dq
 
 
@@ -270,6 +272,7 @@ def flash_attention_bwd_dkv(qf, k_blk, v_blk, mask, m, dl, do) -> Tuple[torch.Te
         code = _lib().bagua_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *tail)
     mm8._check(code, what)
     flash_attention_bwd_dkv.launches += 1
+    _build.witness(what, keep, (dk, dv))
     return dk, dv
 
 

@@ -15,7 +15,10 @@ gradient from one backward over every rank.
 :func:`rank_alltoall` is the expert-parallel exchange of the MoE layer:
 its ``vmap`` rule sees the rank-stacked tensor and runs the group's stacked
 :func:`~bagua_tpu_torch.communication.alltoall` on it, so autograd records
-the permutation and its transpose is the backward's exchange.
+the permutation and its transpose is the backward's exchange.  The
+engine's ``vmap`` runs over the ranks this process holds
+(``group.local_size``: every rank of a single-controller group), so the
+rules see the local stack, the one a group that spans processes takes.
 
 :func:`rank_collective` does the same for the rank-stacked models'
 collectives (the tensor-parallel layers' ``psum``, gathers and rings):
@@ -126,9 +129,9 @@ class _RankAllToAll(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, group, axis):
-        if info.batch_size != group.size:
-            raise ValueError(f"rank_alltoall under a vmap of {info.batch_size}, over a group of "
-                             f"{group.size} ranks")
+        if info.batch_size != group.local_size:
+            raise ValueError(f"rank_alltoall under a vmap of {info.batch_size}, over a group whose "
+                             f"process holds {group.local_size} ranks")
         # functorch calls this rule only for a batched x
         return alltoall(x.movedim(in_dims[0], 0), group, axis), 0
 
@@ -152,9 +155,9 @@ class _RankCollective(torch.autograd.Function):
     @staticmethod
     def forward(fn, group, *tensors):
         raise RuntimeError(
-            f"a collective over a group of {group.size} ranks was given a stack of "
-            f"{tensors[0].shape[0]}: outside torch.func.vmap over the group's ranks the "
-            "stacked models take every rank's slice at once"
+            f"a collective over a group whose process holds {group.local_size} ranks was given a "
+            f"stack of {tensors[0].shape[0]}: outside torch.func.vmap over the group's ranks the "
+            "stacked models take every local rank's slice at once"
         )
 
     @staticmethod
@@ -163,12 +166,12 @@ class _RankCollective(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, fn, group, *tensors):
-        if info.batch_size != group.size:
-            raise ValueError(f"a collective under a vmap of {info.batch_size}, over a group of "
-                             f"{group.size} ranks")
+        if info.batch_size != group.local_size:
+            raise ValueError(f"a collective under a vmap of {info.batch_size}, over a group whose "
+                             f"process holds {group.local_size} ranks")
         stacked = []
         for t, dim in zip(tensors, in_dims[2:]):
-            t = t.expand(group.size, *t.shape) if dim is None else t.movedim(dim, 0)
+            t = t.expand(group.local_size, *t.shape) if dim is None else t.movedim(dim, 0)
             if t.shape[1] != 1:
                 raise ValueError(f"under the engine's vmap a rank's stack has one rank, got "
                                  f"{t.shape[1]}")
@@ -178,9 +181,12 @@ class _RankCollective(torch.autograd.Function):
 
 def rank_collective(fn, group, *tensors: torch.Tensor) -> torch.Tensor:
     """``fn(*tensors)``, a collective over ``group`` on rank-stacked
-    ``(size, ...)`` tensors, returning one; inside a ``vmap`` over the
-    group's ranks, where each rank holds ``(1, ...)``, ``fn`` runs on the
-    ``(size, ...)`` stack of them and each rank gets its own slice back."""
-    if tensors[0].shape[0] == group.size:
+    ``(local_size, ...)`` tensors (this process's ranks: every rank of a
+    single-controller group), returning one; inside a ``vmap`` over the
+    process's ranks, where each rank holds ``(1, ...)``, ``fn`` runs on the
+    ``(local_size, ...)`` stack of them, which the collectives of a group
+    that spans processes take, and each rank gets its own slice back."""
+    batched = any(torch._C._functorch.is_batchedtensor(t) for t in tensors)
+    if not batched and tensors[0].shape[0] == group.local_size:
         return fn(*tensors)
     return _RankCollective.apply(fn, group, *tensors)

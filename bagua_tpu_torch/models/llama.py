@@ -67,6 +67,10 @@ class LlamaConfig:
     #: "contiguous" or "zigzag" (the balanced causal ring layout)
     sp_layout: str = "contiguous"
     compute_dtype: Any = torch.float32
+    #: the Row projections' ``fused`` (``RowParallelDense``): False keeps the
+    #: ``psum``; True or "auto" take the collective-matmul ring
+    #: (``matmul_rs`` and its all-gather) at tp_size > 1
+    tp_fused: Union[bool, str] = False
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
@@ -137,9 +141,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def _tp_layer_kwargs(cfg: LlamaConfig, group, device, generator) -> dict:
     """The tensor-parallel layers' settings: bias-free, in the compute type,
-    sharded over ``cfg.tp_axis`` (the ``psum`` path; never fused)."""
+    sharded over ``cfg.tp_axis``, fused as ``cfg.tp_fused`` says (a Column
+    layer's input is replicated, so only the Row layers take a ring)."""
     return dict(tp_size=cfg.tp_size, tp_axis=cfg.tp_axis, use_bias=False, dtype=cfg.compute_dtype,
-                group=group, device=device, generator=generator)
+                fused=cfg.tp_fused, group=group, device=device, generator=generator)
 
 
 class LlamaAttention(nn.Module):

@@ -24,7 +24,10 @@ collectives.  Here they are explicit, over every rank of a
 ``loss_fn(params, batch) -> (R,)`` is rank-stacked, as the port's models
 are: ``params`` leaves ``(R, ...)``, every rank's gathered copy, and
 ``batch`` leaves ``(R, B / R, ...)``; a per-rank loss (the engine's) goes
-through ``torch.func.vmap``.  The optimizer factory is called once on the
+through ``torch.func.vmap``.  ``R`` is the ranks this process holds
+(``group.local_size``): on a group that spans processes each process
+stacks its own ranks' shards and feeds its own ranks' rows of the batch,
+as the engine's ``shard_batch`` takes them.  The optimizer factory is called once on the
 list of shard leaves ``(R, ...)``, so any ``torch.optim`` optimizer whose
 update is elementwise steps each rank's rows as the unsharded one would.
 
@@ -128,29 +131,36 @@ class FSDP:
         """``(params, opt_state)``: the unstacked ``params`` in the sharded
         layout on the group's device, every leaf ``(R, ...)`` with each
         rank's rows, and the optimizer the factory builds over them."""
-        n, device = self.group.size, self.group.device
+        group = self.group
+        n, device, rows = group.size, group.device, group.local_rows
         self._dims = [shard_leaf_spec(tuple(t.shape), n) for t in tree_leaves(params)]
         shards = [_shard(t.detach().to(device), d, n) for t, d in zip(tree_leaves(params), self._dims)]
+        if group.distributed:  # this process's ranks' rows
+            shards = [s[rows.start:rows.stop].clone() for s in shards]
         return tree_unflatten(params, shards), self.optimizer(shards)
 
     def full_params(self, params, rank: int = 0):
         """One rank's whole (unstacked) parameters, gathered from the
-        shards."""
-        return tree_unflatten(params, [_gather(s, d, self.group)[rank]
+        shards; on a group that spans processes ``rank`` is one this
+        process holds (a collective call: every process calls it)."""
+        row = rank - self.group.local_rows.start
+        return tree_unflatten(params, [_gather(s, d, self.group)[row]
                                        for s, d in zip(tree_leaves(params), self._dims)])
 
     def train_step(self, params, opt_state, batch):
-        """One step on the global ``batch`` (leading dim divisible by the
-        group size; rank r takes the r-th slice).  Returns ``((params,
-        opt_state), loss)``: the shards updated in place and the f32 mean
-        of the ranks' losses, the global-batch mean."""
-        n = self.group.size
+        """One step on ``batch``: the global batch, or on a group that
+        spans processes this process's rows of it (leading dim divisible by
+        the ranks this process holds; its i-th local rank takes the i-th
+        slice).  Returns ``((params, opt_state), loss)``: the shards
+        updated in place and the f32 mean of this process's ranks' losses
+        (the global-batch mean on a single controller)."""
+        n = self.group.local_size
         shards = tree_leaves(params)
         full = [_gather(s.detach(), d, self.group).requires_grad_() for s, d in zip(shards, self._dims)]
 
         def split(t):
             if t.shape[0] % n:
-                raise ValueError(f"global batch {t.shape[0]} not divisible by group size {n}")
+                raise ValueError(f"batch {t.shape[0]} not divisible by this process's {n} ranks")
             return t.to(self.group.device).reshape(n, t.shape[0] // n, *t.shape[1:])
 
         local = tree_map(split, batch)
@@ -173,7 +183,7 @@ class FSDP:
         one f32 ``step`` counter per leaf, whole on every rank, so GPTModel
         at GPT-2 small (148 leaves) over 4 ranks holds 248,152,912 B a rank
         against total / 4 = 248,152,320 B, the 592 B of its counters."""
-        n = self.group.size
+        n = self.group.local_size
         total = sum(s[0].numel() * s.element_size() for s in tree_leaves(params))
         for state in opt_state.state.values():
             for t in state.values():

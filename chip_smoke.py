@@ -290,17 +290,37 @@ and no result line:
    (``intra_size=1``) on ``cuda:LOCAL_RANK`` and trains full-width VGG16
    (32 a rank, bf16, 10 MiB buckets, seed-0 weights, the synthetic batch,
    each process its own rows) for 1 + 5 steps under DIST_CASES: f32
-   ``gradient_allreduce``, ByteGrad with overlap, the int8 ring and ZeRO
-   over the int8 ring, its warm-up step holding each codec and hop kernel
-   it launches against the plain version on the same inputs (bitwise; the
-   wrappers record their first launch, ``kernels._build.WITNESS``).
-   Every worker must exit 0; each process's parameters must be bitwise the
-   single-controller 4-rank run's rows (the same cases in this process on
-   ``cuda:0``) and equal across processes, rows 1-4 launched exactly
-   ``6 x buckets x`` the wire's count a process, and no rank on the CPU.
-   Prints, per wire, W, ms/step beside the single-controller run's, the
-   bytes a step each process sent to other processes and to itself, and
-   the card's name and power limit.
+   ``gradient_allreduce``, ByteGrad with overlap, the int8 ring, ZeRO
+   over the int8 ring, decentralized ``shift_one``, low-precision
+   decentralized and QAdam (``QADAM_FULL``; its 2 warm-up steps, which
+   launch nothing, join the gang's warm-up), its warm-up steps holding
+   each codec and hop kernel it launches against the plain version on the
+   same inputs (bitwise; the wrappers record their first launch,
+   ``kernels._build.WITNESS``).  Every worker must exit 0; each process's
+   parameters must be bitwise the single-controller 4-rank run's rows (the
+   same cases in this process on ``cuda:0``) and, but for the
+   decentralized pair, equal across processes, rows 1-4 launched exactly
+   ``steps x buckets x`` the wire's count a process (QAdam's compressing
+   steps only), and no rank on the CPU.  Then the twin paths of
+   DIST_TWINS the same way, each a gang sharing its mesh's ranks: path
+   (a), the Llama twin's hand-scheduled step at ``llama_7b_config``'s
+   width (2 layers, one 4096-token sequence, f32, AdamW) on tp 2 x sp 2,
+   the zigzag ring through rows 6-8 and the Row projections fused through
+   row 9; path (b), the GPT twin's engine at GPT-2 small on dp 4 x tp 2
+   (``gradient_allreduce`` with overlap, ``1 << 14``-byte buckets, Adam);
+   1 + 5 steps for path (a), 2 + 5 for path (b), whose single-controller
+   run is ``[mesh-engine]``'s of the same case (same flags, weights,
+   batches and steps: its digests, launches and ms/step are kept, not
+   run twice).  Each process's parameters must be bitwise the
+   single controller's rows, its launches of rows 1-9 exactly the single
+   controller's (path (a) launching each of rows 6-9), and the first
+   launch of each of rows 6-9 within ``ATTENTION_TOLS`` or ``matmul_tol``
+   of its plain version; path (a)'s first-step losses must be within
+   1e-5 relative of the unfused model's (``tp_fused`` off, run here on
+   the single controller: the fused Row layers against the ``psum``
+   path).  Prints, per wire and path, W, ms/step beside
+   the single-controller run's, the bytes a step each process sent to
+   other processes and to itself, and the card's name and power limit.
 19. prints one JSON line naming each kernel with its launches and times
    (``other_steps``: the sums per step of other paths, the BERT, GPT and
    mesh ones included), then the result line ``{"ok": true, "device":
@@ -348,6 +368,8 @@ from bagua_tpu_torch.kernels import collective_matmul as cm
 from bagua_tpu_torch.kernels import flash_attention as fa
 from bagua_tpu_torch.kernels import minmax_uint8 as mm8
 from bagua_tpu_torch.kernels import quantized_ring as qr
+from bagua_tpu_torch.kernels.tolerance import ATTENTION_TOLS, close, matmul_share, matmul_tol
+from bagua_tpu_torch.mesh import MeshSpec
 from bagua_tpu_torch.functional import all_reduce as functional_all_reduce
 from bagua_tpu_torch.models import bert as bert_model
 from bagua_tpu_torch.models.bert import BertModel, bert_large_config, init_bert
@@ -423,15 +445,6 @@ KERNELS = {
         cm.matmul_tile, cm.matmul_tile_plain, CM_SOURCE, "bagua_tpu/kernels/collective_matmul.py:299",
     ),
 }
-#: attention's contract is a tolerance (the JAX package's bounds for its
-#: Pallas kernels, tests/test_parallel.py:291-293, 423): each output within
-#: tol * max(1, |plain value|), bf16 or f16 outputs one rounding step (2^-8
-#: of the value) more; inputs at unit variance, q pre-scaled
-ATTENTION_TOLS = {
-    "block_attention": (2e-4, 2e-4, 2e-5),  # o, l, m
-    "flash_attention_bwd_dq": (3e-4,),
-    "flash_attention_bwd_dkv": (3e-4, 3e-4),
-}
 
 
 def reset_launches() -> None:
@@ -462,14 +475,6 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(nan, torch.isnan(b)) and torch.equal(
         a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]
     )
-
-
-def close(got: torch.Tensor, want: torch.Tensor, tol: float) -> bool:
-    """Every element within ``tol * max(1, |want|)``, plus one rounding step
-    of a bf16 or f16 ``got``."""
-    g, w = got.double(), want.double()
-    step = 2.0 ** -8 if got.dtype in (torch.bfloat16, torch.float16) else 0.0
-    return bool(((g - w).abs() <= tol * w.abs().clamp(min=1.0) + step * w.abs()).all())
 
 
 def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -567,30 +572,11 @@ class Ledger:
         return ms, plain_ms, max(bytes_ms, ops_ms)
 
 
-def matmul_share(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> float:
-    """The largest share of ``matmul_tol(K) (|x| |w|)_ij`` that an element
-    of ``got - want`` uses."""
-    if not got.numel():
-        return 0.0
-    bound = matmul_tol(x.shape[-1]) * (x.abs() @ w.abs())
-    return float(((got - want).abs() / bound.clamp(min=1e-30)).max())
-
-
 def round_tf32(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to TF32's 10 mantissa bits (to nearest, ties to even),
     as a tensor-core kernel reads f32 operands."""
     i = t.contiguous().view(torch.int32)
     return ((i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
-
-
-def matmul_tol(k: int) -> float:
-    """The tile kernel's elementwise tolerance, relative to ``(|x| |w|)_ij``:
-    with rounding errors of random sign, a K-term f32 dot product lies
-    within about sqrt(K) 2^-24 of the exact one (Higham and Mary's
-    probabilistic bound, lambda = 1; the worst case is K 2^-24), so two
-    within 2 sqrt(K) 2^-24 of each other.  Inputs rounded to TF32 (2^-11)
-    miss it at path (a)'s shapes: ``phase_matmul_kernels`` shows that."""
-    return 2 * math.sqrt(k) * 2.0 ** -24
 
 
 def phase_device() -> str:
@@ -4314,10 +4300,12 @@ def phase_mesh_engine(ledger: Ledger, device, profile: bool) -> dict:
         ddp, state = gp.engine(args, device)
         data = [(torch.as_tensor(i, device=device), torch.as_tensor(l, device=device)) for i, l in gp.batches(args)]
         losses = []
+        reset_launches()
         for batch in data[:GPT_WARMUP]:
             state, step_losses = ddp.train_step(state, batch)
             losses.append(step_losses)
         torch.cuda.synchronize()
+        warm_launches = read_launches()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
@@ -4334,6 +4322,11 @@ def phase_mesh_engine(ledger: Ledger, device, profile: bool) -> dict:
             raise AssertionError(f"{what}: non-finite loss {losses[:, 0].tolist()}")
         state = ddp.finalize_pending_updates(state)
         _bitwise_replicas(what, state.params)
+        if path == MESH_OBS_PATH:  # [dist] path (b)'s single-controller run
+            DIST_REFERENCES[DIST_PATH_B] = {
+                "digests": gang.digests(state.params, ddp.group.size), "ms_per_step": step_s * 1e3,
+                "launches": {k: n + launches[k] for k, n in warm_launches.items()},
+                "losses": [row.tolist() for row in losses[:GPT_WARMUP]] + [losses[-1].tolist()]}
         opt_bytes = ddp.optimizer_state_bytes(state)
         n_params = sum(t[0].numel() for t in tree_leaves(state.params))
         note = ""
@@ -5970,15 +5963,43 @@ def phase_contrib(device) -> dict:
     return _no_launches("[contrib]")
 
 
-#: [dist]: the gang's wires, each run in turn by the same workers: name ->
-#: (algorithm, its arguments, overlap, launches per step and bucket)
+#: [dist]: the gang's wires on VGG16, each run in turn by the same workers:
+#: name -> (algorithm, its arguments, overlap, launches per step and bucket,
+#: the first steps that launch none: QAdam's warm-up, which the gang's
+#: warm-up steps then take in, so that they hold its first launches)
 DIST_CASES = {
-    "f32": ("gradient_allreduce", {}, "auto", {}),
-    "ByteGrad": ("bytegrad", {}, "on", SLICE_PATHS["ByteGrad"][1]),
-    "int8 ring": ("gradient_allreduce", {"wire_precision": "int8"}, "auto", SLICE_PATHS["int8 ring"][1]),
-    "ZeRO int8 ring": ("zero", {"wire_precision": "int8"}, "auto", ZERO_PATHS["ZeRO int8 ring"][2]),
+    "f32": ("gradient_allreduce", {}, "auto", {}, 0),
+    "ByteGrad": ("bytegrad", {}, "on", SLICE_PATHS["ByteGrad"][1], 0),
+    "int8 ring": ("gradient_allreduce", {"wire_precision": "int8"}, "auto", SLICE_PATHS["int8 ring"][1], 0),
+    "ZeRO int8 ring": ("zero", {"wire_precision": "int8"}, "auto", ZERO_PATHS["ZeRO int8 ring"][2], 0),
+    "decentralized shift_one": ("decentralized", {"peer_selection_mode": "shift_one"}, "off",
+                                DP_PATHS["decentralized shift_one"][3], 0),
+    "low-precision decentralized": ("low_precision_decentralized", {}, "off",
+                                    DP_PATHS["low-precision decentralized"][3], 0),
+    "QAdam": ("qadam", {"optimizer": QADAM_FULL}, "off", DP_PATHS["QAdam"][3], QADAM_FULL["warmup_steps"]),
 }
 DIST_WARMUP, DIST_STEPS = 1, 5
+#: [dist]'s twin paths, each a launcher gang against the single controller:
+#: name -> (examples/gang.py model, mesh, case, warm-up steps); DIST_STEPS
+#: timed steps follow.  Path (b) is [mesh-engine]'s MESH_OBS_PATH case
+#: (the same flags, seed-0 weights and batches, GPT_WARMUP + GPT_STEPS
+#: steps), whose run there is its single-controller reference
+DIST_PATH_B = "path (b): GPT-2 small engine, dp 4 x tp 2 gradient_allreduce (overlap)"
+DIST_TWINS = {
+    "path (a): Llama 7B width, tp 2 x sp 2 zigzag, fused tp": (
+        "llama-7b", {"dp": 1, "tp": 2, "sp": 2}, ["stacked", {"tp_fused": True}, "auto"], DIST_WARMUP),
+    DIST_PATH_B: ("gpt2-small", {"dp": 4, "tp": 2}, ["gradient_allreduce", {"blocks_per_stage": 12}, "auto"],
+                  GPT_WARMUP),
+}
+#: single-controller reports of DIST_TWINS paths made by an earlier phase
+#: (``gang.run_case``'s keys: digests, ms_per_step, launches, losses)
+DIST_REFERENCES = {}
+#: a fused path's first step against the unfused model's: [slice] path
+#: (a)'s contract (f32 sums of the same products in another order)
+FUSED_LOSS_RTOL = 1e-5
+#: the kernels a twin path holds against its plain version within a
+#: tolerance (rows 6-9)
+TWIN_KERNELS = ("block_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "matmul_tile")
 DIST_TIMEOUT_S = 600
 GANG_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bagua_tpu_torch", "examples", "gang.py")
 
@@ -5991,45 +6012,58 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_dist(device, smi: str, model: str = "vgg16") -> dict:
-    """The gang's run (see the module docstring, ``dist``): the launcher's
-    workers, then the single-controller run of each case here.  Returns the
-    workers' launches summed over the processes."""
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    W = max(w for w in (4, 2, 1) if w <= cards and RANKS % w == 0)
-    k = RANKS // W
+def _gang_workers(device, W: int, args) -> list:
+    """``examples/gang.py args`` as a launcher gang of W workers; each
+    process's reports."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    cases = [[algo, kw, ov] for algo, kw, ov, _ in DIST_CASES.values()]
     with tempfile.TemporaryDirectory() as out_dir:
         report = os.path.join(out_dir, "gang")
         cmd = [sys.executable, "-m", "bagua_tpu_torch.distributed.run", "--nproc_per_node", str(W),
                "--max_restarts", "0", "--monitor_interval", "0.2", "--master_port", str(_free_port()),
-               GANG_SCRIPT, "--model", model, "--device", device.type, "--ranks-per-process", str(k),
-               "--intra-size", "1", "--warmup", str(DIST_WARMUP), "--steps", str(DIST_STEPS),
-               "--cases", json.dumps(cases), "--report", report]
+               GANG_SCRIPT, "--device", device.type, "--warmup", str(DIST_WARMUP), "--steps", str(DIST_STEPS),
+               "--report", report] + args
         env = {**os.environ, "PYTHONPATH": os.pathsep.join([repo] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        t0 = time.perf_counter()
         run = subprocess.run(cmd, env=env, cwd=repo, capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
         if run.returncode != 0:
             raise AssertionError(f"[dist] the gang of {W} failed (launcher rc {run.returncode}):\n"
                                  f"{run.stderr[-8000:]}")
-        reports = [json.load(open(f"{report}.proc{p}.json")) for p in range(W)]
+        return [json.load(open(f"{report}.proc{p}.json")) for p in range(W)]
+
+
+def _check_gang_reports(what: str, got: list, W: int, k: int, device) -> None:
+    for p, r in enumerate(got):
+        if (r["process"], r["processes"], r["local_ranks"]) != (p, W, k):
+            raise AssertionError(f"{what}: process {p} reports {r['process']}/{r['processes']} x "
+                                 f"{r['local_ranks']} ranks")
+        if not r["device"].startswith(device.type):
+            raise AssertionError(f"{what}: process {p}'s ranks ran on {r['device']}")
+
+
+def phase_dist(device, smi: str, model: str = "vgg16") -> dict:
+    """The gang's run (see the module docstring, ``dist``): the launcher's
+    workers, then the single-controller run of each case here; then each
+    twin path of DIST_TWINS the same way.  Returns the workers' launches
+    summed over the processes and paths."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    W = max(w for w in (4, 2, 1) if w <= cards and RANKS % w == 0)
+    k = RANKS // W
+    cases = [[algo, kw, ov, {"warmup": DIST_WARMUP + quiet}] for algo, kw, ov, _, quiet in DIST_CASES.values()]
+    t0 = time.perf_counter()
+    reports = _gang_workers(device, W, ["--model", model, "--ranks-per-process", str(k), "--intra-size", "1",
+                                        "--cases", json.dumps(cases)])
     log(f"[dist] {W} worker process(es) x {k} ranks over {'NCCL' if device.type == 'cuda' else 'gloo'}, "
         f"{len(cases)} wires in {time.perf_counter() - t0:.1f} s; {smi}")
-    steps = DIST_WARMUP + DIST_STEPS
     total = {}
-    for i, (name, (algorithm, kwargs, overlap, per_bucket)) in enumerate(DIST_CASES.items()):
+    for i, (name, (algorithm, kwargs, overlap, per_bucket, quiet)) in enumerate(DIST_CASES.items()):
+        steps = DIST_WARMUP + quiet + DIST_STEPS
         got = [r[i] for r in reports]
         what = f"[dist] {name}"
-        for p, r in enumerate(got):
-            if (r["process"], r["processes"], r["local_ranks"]) != (p, W, k) or r["algorithm"] != algorithm:
-                raise AssertionError(f"{what}: process {p} reports {r['process']}/{r['processes']} x "
-                                     f"{r['local_ranks']} ranks, {r['algorithm']}")
-            if not r["device"].startswith(device.type):
-                raise AssertionError(f"{what}: process {p}'s ranks ran on {r['device']}")
+        _check_gang_reports(what, got, W, k, device)
+        if any(r["algorithm"] != algorithm for r in got):
+            raise AssertionError(f"{what}: the processes ran {[r['algorithm'] for r in got]}")
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -6039,7 +6073,7 @@ def phase_dist(device, smi: str, model: str = "vgg16") -> dict:
         try:
             ref = gang.run_case(BaguaProcessGroup([device] * RANKS, intra_size=1), model, algorithm, kwargs,
                                 {"on": True, "off": False}.get(overlap, overlap), steps=DIST_STEPS,
-                                warmup=DIST_WARMUP, processes=W)
+                                warmup=DIST_WARMUP + quiet, processes=W)
         finally:
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
         buckets = ref["buckets"]
@@ -6051,14 +6085,16 @@ def phase_dist(device, smi: str, model: str = "vgg16") -> dict:
                 raise AssertionError(f"{what}: process {p} ran overlap={r['overlap']} on {r['buckets']} buckets, "
                                      f"the single-controller run {ref['overlap']} on {buckets}")
             if device.type == "cuda":
-                want = {kernel: steps * buckets * per_bucket.get(kernel, 0) for kernel in r["launches"]}
-                if r["launches"] != want:
-                    raise AssertionError(f"{what}: process {p} launched {r['launches']}, want {want}")
+                want = {kernel: (steps - quiet) * buckets * per_bucket.get(kernel, 0) for kernel in r["launches"]}
+                if r["launches"] != want or ref["launches"] != want:
+                    raise AssertionError(f"{what}: process {p} launched {r['launches']}, the single controller "
+                                         f"{ref['launches']}, want {want}")
                 unheld = [kernel for kernel in per_bucket if not r["held"].get(kernel, {}).get("bitwise")]
                 if unheld:
                     raise AssertionError(f"{what}: process {p}'s {unheld} not bitwise their plain versions: "
                                          f"{r['held']}")
-        if len(set(d for r in got for d in r["digests"])) != 1:
+        if len(set(d for r in got for d in r["digests"])) != 1 and algorithm not in ("decentralized",
+                                                                                      "low_precision_decentralized"):
             raise AssertionError(f"{what}: the ranks' parameters differ across processes")
         for r in got:
             for kernel, n in r["launches"].items():
@@ -6071,8 +6107,91 @@ def phase_dist(device, smi: str, model: str = "vgg16") -> dict:
             f"{ref['ms_per_step']:.2f} (ratio {got[0]['ms_per_step'] / ref['ms_per_step']:.3f}); a step, "
             f"process 0 sent {wire['to_other_processes']} B to other processes and {wire['to_itself']} B to "
             f"itself; launches per process {got[0]['launches']}; held against the plain versions "
-            f"(first shape, max abs err) {held}; parameters bitwise the single-controller run's and equal "
-            f"across processes; {smi}")
+            f"(first shape, max abs err) {held}; parameters bitwise the single-controller run's; {smi}")
+    for name, (twin, mesh, case, warmup) in DIST_TWINS.items():
+        for kernel, n in phase_dist_twin(device, smi, name, twin, mesh, case, warmup, cards).items():
+            total[kernel] = total.get(kernel, 0) + n
+    return total
+
+
+def phase_dist_twin(device, smi: str, name: str, twin: str, mesh: dict, case: list, warmup: int,
+                    cards: int) -> dict:
+    """One DIST_TWINS path: the twin's case as a launcher gang of W workers
+    (``mesh`` shared among them), then the same case on the
+    single-controller group here (or DIST_REFERENCES' run of it).  Each
+    process's parameters must be bitwise the single controller's rows, its
+    launches of rows 1-2 and 6-9 exactly the single controller's, and each
+    first launch of rows 6-9 within its tolerance of the plain version.  A
+    fused case (``tp_fused``) also runs the unfused model on the single
+    controller: the first step's losses within FUSED_LOSS_RTOL of its.
+    Returns the launches summed over the processes."""
+    size = math.prod(mesh.values())
+    W = max(w for w in (4, 2, 1) if w <= cards and size % w == 0)
+    k = size // W
+    what = f"[dist] {name}"
+    t0 = time.perf_counter()
+    got = [r[0] for r in _gang_workers(device, W, ["--model", twin, "--mesh", json.dumps(mesh),
+                                                   "--cases", json.dumps([case + [{"warmup": warmup}]])])]
+    gang_s = time.perf_counter() - t0
+    _check_gang_reports(what, got, W, k, device)
+
+    def single(c):
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return gang.run_case(BaguaProcessGroup([device] * size, mesh_spec=MeshSpec(mesh)), twin, *c,
+                             steps=DIST_STEPS, warmup=warmup)
+
+    reused = name in DIST_REFERENCES
+    ref = DIST_REFERENCES.pop(name) if reused else single(case)
+    unfused_note = ""
+    if case[1].get("tp_fused"):
+        unfused = single([case[0], {**case[1], "tp_fused": False}, case[2]])
+        first, want = (torch.tensor(r["losses"][0], dtype=torch.float64) for r in (ref, unfused))
+        if not torch.allclose(first, want, rtol=FUSED_LOSS_RTOL, atol=0.0):
+            raise AssertionError(f"{what}: the fused model's first losses {first.tolist()} differ from the "
+                                 f"unfused model's {want.tolist()} by more than {FUSED_LOSS_RTOL} relative")
+        last, last_want = (torch.tensor(r["losses"][-1], dtype=torch.float64) for r in (ref, unfused))
+        unfused_note = (f"; the first step's losses within {float(((first - want) / want).abs().max()):.2e} "
+                        f"relative of the unfused model's (bound {FUSED_LOSS_RTOL}), the last step's "
+                        f"{float(((last - last_want) / last_want).abs().max()):.2e} (not bounded: Adam's "
+                        f"first steps follow the gradients' signs)")
+        del unfused
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    for p, r in enumerate(got):
+        if r["digests"] != ref["digests"][p * k:(p + 1) * k]:
+            raise AssertionError(f"{what}: process {p}'s parameters differ from the single-controller run's "
+                                 f"ranks {p * k}..{(p + 1) * k - 1}")
+        if device.type == "cuda":
+            if r["launches"] != ref["launches"]:
+                raise AssertionError(f"{what}: process {p} launched {r['launches']}, the single controller "
+                                     f"{ref['launches']}")
+            launched = [kernel for kernel in TWIN_KERNELS if r["launches"].get(kernel)]
+            unheld = [kernel for kernel in launched if not r["held"].get(kernel, {}).get("within")]
+            if unheld:
+                raise AssertionError(f"{what}: process {p}'s first launch of {unheld} not within its tolerance "
+                                     f"of the plain version: {r['held']}")
+    if device.type == "cuda" and twin == "llama-7b":
+        missing = [kernel for kernel in TWIN_KERNELS if not got[0]["launches"].get(kernel)]
+        if missing:
+            raise AssertionError(f"{what}: {missing} never launched")
+    total = {}
+    for r in got:
+        for kernel, n in r["launches"].items():
+            total[kernel] = total.get(kernel, 0) + n
+    held = {kernel: (h["shapes"][0], h["max_abs_err"]) for kernel, h in got[0]["held"].items()}
+    log(f"{what}: {twin} on {mesh}, W={W} x {k} ranks (gang {gang_s:.1f} s with its start), "
+        f"{warmup} + {DIST_STEPS} steps: {got[0]['ms_per_step']:.2f} ms/step (processes "
+        f"{[round(r['ms_per_step'], 2) for r in got]}) against the single-controller run's "
+        f"{ref['ms_per_step']:.2f}{' ([mesh-engine] ' + MESH_OBS_PATH + ')' if reused else ''} "
+        f"(ratio {got[0]['ms_per_step'] / ref['ms_per_step']:.3f}){unfused_note}; a step, process 0 "
+        f"sent {got[0]['wire_bytes_per_step']['to_other_processes']} B to other processes and "
+        f"{got[0]['wire_bytes_per_step']['to_itself']} B to itself; launches per process {got[0]['launches']} "
+        f"(the single controller's {ref['launches']}); first launches held within their tolerances (first "
+        f"shape, max abs err) {held}; losses {got[0]['losses']}; parameters bitwise the single-controller "
+        f"run's; {smi}")
     return total
 
 

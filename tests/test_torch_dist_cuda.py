@@ -14,6 +14,16 @@ parameters must be bitwise the single-controller 4-rank run's rows on
 ``cuda:0`` (this process, cuDNN deterministic) under f32
 ``gradient_allreduce`` and ByteGrad, and the codec kernels bitwise their
 plain versions at the gang's shapes.
+
+The twin paths of ``chip_smoke.py``'s ``[dist]`` at small width, the same
+way (a gang of one over NCCL on one card): path (a), the Llama twin's
+hand-scheduled tp 2 x sp 2 zigzag step with the Row projections fused
+(the flash-attention kernels and the tile GEMM), and path (b), the GPT
+twin's engine at dp 4 x tp 2 (``gradient_allreduce`` with overlap); each
+process's parameters bitwise the single controller's rows, the launches
+equal, and each first launch of rows 6-9 within its tolerance of the plain
+version; path (a)'s first-step losses within 1e-5 relative of the unfused
+model's (``tp_fused`` off).
 """
 
 import json
@@ -21,11 +31,13 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from bagua_tpu_torch.communication import BaguaProcessGroup
 from bagua_tpu_torch.examples import gang
+from bagua_tpu_torch.mesh import MeshSpec
 
 from helpers import REPO_ROOT, free_port, worker_env
 
@@ -67,3 +79,42 @@ def test_nccl_gang_is_bitwise_the_single_controller_run(cuda_device, wire, tmp_p
     if wire == "bytegrad":
         assert set(reports[0]["held"]) == {"compress_minmax_uint8", "decompress_minmax_uint8",
                                            "decompress_reduce_requantize"}
+
+
+TWIN_PATHS = {
+    "a": ("small-llama", {"dp": 1, "tp": 2, "sp": 2}, ["stacked", {"tp_fused": True}, "auto"]),
+    "b": ("small-gpt", {"dp": 4, "tp": 2}, ["gradient_allreduce", {"blocks_per_stage": 2}, "auto"]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(TWIN_PATHS))
+def test_nccl_twin_gang_is_bitwise_the_single_controller_run(cuda_device, path, tmp_path):
+    model, mesh, case = TWIN_PATHS[path]
+    size = MeshSpec(mesh).size
+    W = max(w for w in (4, 2, 1) if w <= torch.cuda.device_count() and size % w == 0)
+    k = size // W
+    out = str(tmp_path / "gang")
+    cmd = [sys.executable, "-m", "bagua_tpu_torch.distributed.run", "--nproc_per_node", str(W),
+           "--max_restarts", "0", "--monitor_interval", "0.2", "--master_port", str(free_port()),
+           os.path.join(REPO_ROOT, "bagua_tpu_torch", "examples", "gang.py"), "--device", "cuda",
+           "--model", model, "--mesh", json.dumps(mesh), "--steps", "2", "--cases", json.dumps([case]),
+           "--report", out]
+    run = subprocess.run(cmd, env=worker_env(), cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-6000:]
+    reports = [json.load(open(f"{out}.proc{p}.json"))[0] for p in range(W)]
+    ref = gang.run_case(BaguaProcessGroup([cuda_device] * size, mesh_spec=MeshSpec(mesh)), model, *case, steps=2,
+                        warmup=1)
+    for p, r in enumerate(reports):
+        assert r["device"].startswith("cuda") and (r["processes"], r["local_ranks"]) == (W, k)
+        assert r["digests"] == ref["digests"][p * k:(p + 1) * k], f"process {p}"
+        assert r["launches"] == ref["launches"]
+        assert all(h.get("within", h["bitwise"]) for h in r["held"].values()), r["held"]
+    if path == "a":
+        assert set(reports[0]["held"]) == {"block_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                                           "matmul_tile"}
+        # the fused Row layers against the psum path: the first step's losses
+        unfused = gang.run_case(BaguaProcessGroup([cuda_device] * size, mesh_spec=MeshSpec(mesh)), model,
+                                case[0], {**case[1], "tp_fused": False}, case[2], steps=0, warmup=1)
+        assert np.allclose(ref["losses"][0], unfused["losses"][0], rtol=1e-5, atol=0.0), (ref["losses"][0],
+                                                                                           unfused["losses"][0])

@@ -208,6 +208,19 @@ def _same(got, want, rows, n_all) -> str:
     return "" if torch.equal(gb, wb) else "values differ"
 
 
+def _near(got, want, rows, tol) -> str:
+    """'' when ``got`` is ``want``'s rows ``rows`` within ``tol`` relative
+    and absolute (or both raised the same exception type), else what
+    differs."""
+    if isinstance(want, Exception) or isinstance(got, Exception):
+        return "" if type(got) is type(want) else f"got {str(got)[:200]!r}, want {str(want)[:200]!r}"
+    want = want[rows]
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return f"shape/dtype {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}"
+    return "" if torch.allclose(got, want, rtol=tol, atol=tol) else \
+        f"off by up to {float((got - want).abs().max()):.3e} from the plain formula"
+
+
 def collectives(p: int, port: str, out: str, layout: str) -> None:
     group, ref = join(layout, p, port)
     rows = list(group.local_rows)
@@ -222,6 +235,442 @@ def collectives(p: int, port: str, out: str, layout: str) -> None:
         except Exception as e:  # a failure to run is the case's result
             bad.append(f"raised {e!r}")
         report[name] = bad
+    with open(f"{out}.proc{p}.json", "w") as f:
+        json.dump(report, f)
+    C.barrier(group)
+    C.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Vector-Jacobian products of the collectives across processes
+# ---------------------------------------------------------------------------
+
+
+def _cotangent(shape, seed):
+    """A seeded cotangent with a -0 every seventh element and a +0 every
+    eleventh (the sign of a zero is part of the bits compared)."""
+    ct = _stack(shape[0], *shape[1:], seed=seed).to(torch.float32)
+    flat = ct.view(-1)
+    flat[::7] = -0.0
+    flat[3::11] = 0.0
+    return ct
+
+
+def _vjp(fn, xs, cts_of):
+    """``[grad of each x]`` of ``fn(*xs)`` against ``cts_of(outputs)``."""
+    xs = [x.clone().requires_grad_() for x in xs]
+    ys = fn(*xs)
+    ys = list(ys) if isinstance(ys, (list, tuple)) else [ys]
+    torch.autograd.backward(ys, cts_of(ys))
+    return torch.cat([x.grad.reshape(x.shape[0], -1).float() for x in xs], 1)
+
+
+def _plain_members(ref, axis):
+    """``(G, n)``: the ranks of each collective over ``axis`` (None: every
+    axis), from the mesh's shape alone: ranks that share every other
+    axis's coordinate, member index row-major over ``axis`` in the order
+    named, ranks row-major over the mesh."""
+    names, shape = list(ref.all_axes), list(ref.shape)
+    axes = names if axis is None else list(axis)
+    collectives = {}
+    for r, coords in enumerate(np.ndindex(*shape)):
+        key = tuple(c for a, c in zip(names, coords) if a not in axes)
+        member = 0
+        for a in axes:
+            member = member * shape[names.index(a)] + coords[names.index(a)]
+        collectives.setdefault(key, {})[member] = r
+    return torch.tensor([[m[i] for i in range(len(m))] for _, m in sorted(collectives.items())])
+
+
+def _plain(kind, x, ref, axis, arg=None):
+    """A collective written out on the whole stack with plain tensor ops
+    (no code of ``communication.py``): gather each collective's members
+    (:func:`_plain_members`), move or reduce them, put the rows back.
+    ``kind``: ``shift`` (by ``arg``), ``apply`` (pairs ``arg``),
+    ``alltoall``, ``allgather``, ``reduce_scatter`` / ``allreduce`` (``arg``
+    SUM or AVG), ``broadcast`` (from member ``arg``)."""
+    members = _plain_members(ref, axis)
+    G, n = members.shape
+    g = x[members]  # (G, n, ...)
+    if kind == "shift":
+        y = torch.roll(g, arg, dims=1)
+    elif kind == "apply":
+        source = {d: s for s, d in arg}
+        y = torch.stack([g[:, source[d]] if d in source else torch.zeros_like(g[:, 0]) for d in range(n)], 1)
+    elif kind == "alltoall":
+        y = g.reshape(G, n, n, -1, *g.shape[3:]).transpose(1, 2).reshape(g.shape)
+    elif kind == "allgather":
+        y = g.reshape(G, 1, -1, *g.shape[3:]).expand(G, n, n * g.shape[2], *g.shape[3:])
+    elif kind in ("reduce_scatter", "allreduce"):
+        total = g.sum(1) / (n if arg == ReduceOp.AVG else 1)
+        y = (total.reshape(G, n, -1, *g.shape[3:]) if kind == "reduce_scatter"
+             else total.unsqueeze(1).expand_as(g))
+    elif kind == "broadcast":
+        y = g[:, arg:arg + 1].expand_as(g)
+    else:
+        raise ValueError(kind)
+    return y.reshape(G * n, *y.shape[2:])[torch.argsort(members.reshape(-1))]
+
+
+def _vjp_pairs(name, g, ref):
+    """``[(what, got, want, tol)]``: this process's gradient rows of a
+    collective over every axis choice, and for every rank the stacked
+    group's autograd's (``tol`` None: bitwise) and, where the collective
+    has a plain formula (:func:`_plain`), autograd's through it (``tol``:
+    within ``tol`` relative and absolute; sums in another order), or an
+    exception of each."""
+    n_all, rows = ref.size, list(g.local_rows)
+    out = []
+
+    def both(what, fn_got, fn_want, xs, seed=11, plain=None):
+        def want_cts(ys):
+            return [_cotangent(y.shape, seed + i).to(y.dtype) for i, y in enumerate(ys)]
+
+        try:
+            got = _vjp(fn_got, [x[rows] for x in xs],
+                       lambda ys: [_cotangent((n_all, *y.shape[1:]), seed + i).to(y.dtype)[rows]
+                                   for i, y in enumerate(ys)])
+        except Exception as e:
+            got = e
+        for fn, tol in ((fn_want, None), (plain, 1e-5)):
+            if fn is None:
+                continue
+            try:
+                want = _vjp(fn, xs, want_cts)
+            except Exception as e:
+                want = e
+            out.append((what if tol is None else (what, "plain"), got, want, tol))
+
+    x = _stack(n_all, 8, 3)
+    if name == "ppermute_shift":
+        for ax in _axes(g):
+            for s in (1, -1, 3):
+                both((ax, s), lambda t: C.ppermute_shift(t, s, g, ax), lambda t: C.ppermute_shift(t, s, ref, ax), [x],
+                     plain=lambda t: _plain("shift", t, ref, ax, s))
+    elif name == "ppermute_apply":
+        for ax in _axes(g):
+            n = C.axis_size(ref, ax)
+            for perm in ([(0, n - 1)], [(i, (i + 1) % n) for i in range(n)], [(n - 1, 0), (0, n // 2)]):
+                if n > 1:
+                    both((ax, perm), lambda t: C.ppermute_apply(t, perm, g, ax),
+                         lambda t: C.ppermute_apply(t, perm, ref, ax), [x],
+                         plain=lambda t: _plain("apply", t, ref, ax, perm))
+    elif name == "broadcast_inplace":
+        for ax in _axes(g):
+            for src in {0, C.axis_size(ref, ax) - 1}:
+                both((ax, src), lambda t: C.broadcast_inplace(t, src, g, ax),
+                     lambda t: C.broadcast_inplace(t, src, ref, ax), [x],
+                     plain=lambda t: _plain("broadcast", t, ref, ax, src))
+    elif name in ("allreduce[SUM]", "allreduce[AVG]"):
+        op = ReduceOp[name[len("allreduce["):-1]]
+        for ax in _axes(g):
+            both(ax, lambda t: C.allreduce(t, op, g, ax), lambda t: C.allreduce(t, op, ref, ax), [x],
+                 plain=lambda t: _plain("allreduce", t, ref, ax, op))
+    elif name == "allreduce_many":
+        xb = _stack(n_all, 7, seed=3).to(torch.bfloat16)
+        for ax in _axes(g):
+            for op in (ReduceOp.SUM, ReduceOp.AVG):
+                both((ax, op.name), lambda a, b: C.allreduce_many([a, b], op, g, ax),
+                     lambda a, b: C.allreduce_many([a, b], op, ref, ax), [x, xb])
+    elif name == "hierarchical_allreduce":
+        for op in (ReduceOp.SUM, ReduceOp.AVG):
+            both(op.name, lambda t: C.hierarchical_allreduce(t, op, g),
+                 lambda t: C.hierarchical_allreduce(t, op, ref), [x])
+    elif name in ("reduce_scatter", "alltoall", "allgather"):
+        for ax in _axes(g):
+            n = C.axis_size(ref, ax)
+            y = _stack(n_all, 3 * n, 2, seed=5)
+            if name == "reduce_scatter":
+                for op in (ReduceOp.SUM, ReduceOp.AVG):
+                    both((ax, op.name), lambda t: C.reduce_scatter(t, op, g, ax),
+                         lambda t: C.reduce_scatter(t, op, ref, ax), [y],
+                         plain=lambda t: _plain("reduce_scatter", t, ref, ax, op))
+            else:
+                fn = getattr(C, name)
+                both(ax, lambda t: fn(t, g, ax), lambda t: fn(t, ref, ax), [y], plain=lambda t: _plain(name, t, ref, ax))
+    elif name == "user_api":
+        y = _stack(n_all, 2 * n_all, seed=8)
+        for op in (ReduceOp.SUM, ReduceOp.AVG):
+            both(("reducescatter", op.name), lambda t: C.reducescatter(t, op, g), lambda t: C.reducescatter(t, op, ref), [y],
+                 plain=lambda t: _plain("reduce_scatter", t, ref, None, op))
+        for r in (0, n_all - 1):
+            both(("broadcast", r), lambda t: C.broadcast(t, r, g), lambda t: C.broadcast(t, r, ref), [x])
+            both(("gather", r), lambda t: C.gather(t, r, g), lambda t: C.gather(t, r, ref), [x],
+                 plain=lambda t: _plain("allgather", t, ref, None) * (torch.arange(n_all) == r).reshape(-1, 1, 1))
+            both(("scatter", r), lambda t: C.scatter(t, r, g), lambda t: C.scatter(t, r, ref), [y],
+                 plain=lambda t: t[r].reshape(n_all, -1))
+            both(("reduce", r), lambda t: C.reduce(t, r, ReduceOp.AVG, g), lambda t: C.reduce(t, r, ReduceOp.AVG, ref),
+                 [x])
+    elif name == "collective_matmul":
+        from bagua_tpu_torch.kernels.collective_matmul import ag_matmul, matmul_rs
+
+        for ax in g.all_axes:
+            n = C.axis_size(ref, ax)
+            xa, w = _stack(n_all, 3, 5, seed=13), _stack(n_all, 5, 4, seed=14)
+            xr = _stack(n_all, 2 * n, 5, seed=15)
+            for ring in ("uni", "bidir"):
+                both((ax, "ag", ring), lambda a, b: ag_matmul(a, b, g, ax, ring=ring),
+                     lambda a, b: ag_matmul(a, b, ref, ax, ring=ring), [xa, w])
+                both((ax, "rs", ring), lambda a, b: matmul_rs(a, b, g, ax, ring=ring),
+                     lambda a, b: matmul_rs(a, b, ref, ax, ring=ring), [xr, w])
+    elif name == "no_gradient":
+        # the stacked group differentiates these; across processes they raise
+        def refused(t):
+            raise RuntimeError("no gradient across processes")
+        for op in (ReduceOp.MAX, ReduceOp.MIN, ReduceOp.PRODUCT, ReduceOp.BOR, ReduceOp.BAND, ReduceOp.BXOR):
+            for ax in _axes(g):
+                both((ax, op.name), lambda t: C.allreduce(t, op, g, ax), refused, [x])
+    else:
+        raise ValueError(name)
+    return out
+
+
+VJPS = ["ppermute_shift", "ppermute_apply", "broadcast_inplace", "allreduce[SUM]", "allreduce[AVG]",
+        "allreduce_many", "hierarchical_allreduce", "reduce_scatter", "alltoall", "allgather", "user_api",
+        "collective_matmul", "no_gradient"]
+
+
+def vjps(p: int, port: str, out: str, layout: str) -> None:
+    group, ref = join(layout, p, port)
+    rows = list(group.local_rows)
+    report = {}
+    for name in VJPS:
+        bad = []
+        try:
+            for what, got, want, tol in _vjp_pairs(name, group, ref):
+                why = _same(got, want, rows, ref.size) if tol is None else _near(got, want, rows, tol)
+                if why:
+                    bad.append(f"{what}: {why}")
+        except Exception as e:
+            bad.append(f"raised {e!r}")
+        report[name] = bad
+    # the fault this slice repaired: no gradient path through a collective
+    x = torch.ones((group.local_size, 3), requires_grad=True)
+    C.allgather(x, group, group.all_axes).sum().backward()
+    report["allgather_sum_grad"] = {"grad_is_none": x.grad is None,
+                                    "values": [] if x.grad is None else sorted(set(x.grad.reshape(-1).tolist()))}
+    with open(f"{out}.proc{p}.json", "w") as f:
+        json.dump(report, f)
+    C.barrier(group)
+    C.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Model axes across processes: FSDP, MoE over ep, SyncBatchNorm, sub-groups
+# (2 processes x 2 ranks, every case against the stacked group in-process)
+# ---------------------------------------------------------------------------
+
+
+def _rows_of(t, n_all, rows):
+    """Ranks ``rows``' blocks of a global batch cut into ``n_all``."""
+    return t.reshape(n_all, -1, *t.shape[1:])[rows].reshape(-1, *t.shape[1:])
+
+
+def _tree_rows_bad(what, got, want, rows):
+    """The leaves of ``got`` (this process's rows) that differ from
+    ``want``'s rows ``rows``."""
+    bad = []
+    for (name, g), (_, w) in zip(tree_flatten_with_names(got), tree_flatten_with_names(want)):
+        why = _same(g.detach(), w.detach()[rows], list(range(len(rows))), len(rows))
+        if why:
+            bad.append(f"{what} {name}: {why}")
+    return bad
+
+
+def _fsdp_case(group, ref, rows):
+    """Three Adam steps of FSDP on the MLP [16, 64, 8]: this process's
+    shard rows and its ranks' gathered copies bitwise the stacked run's."""
+    from bagua_tpu_torch.models import mlp
+    from bagua_tpu_torch.parallel.fsdp import FSDP
+
+    params = mlp.init_mlp(torch.Generator().manual_seed(3), [16, 64, 8], device="cpu")
+    rng = np.random.RandomState(2)
+    batches = [(torch.from_numpy(rng.randn(32, 16).astype(np.float32)),
+                torch.from_numpy(rng.randn(32, 8).astype(np.float32))) for _ in range(3)]
+
+    def run(g, local):
+        fsdp = FSDP(torch.func.vmap(mlp.mse_loss), lambda ps: torch.optim.Adam(ps, lr=1e-2), g)
+        ps, opt = fsdp.init(params)
+        for b in batches:
+            (ps, opt), _ = fsdp.train_step(ps, opt, tuple(_rows_of(t, ref.size, local) for t in b))
+        return fsdp, ps
+
+    fsdp_g, got = run(group, rows)
+    fsdp_r, want = run(ref, list(range(ref.size)))
+    bad = _tree_rows_bad("shard", got, want, rows)
+    full_g, full_r = fsdp_g.full_params(got, rows[-1]), fsdp_r.full_params(want, rows[-1])
+    bad += [f"full {n}: {w}" for (n, g), (_, r) in zip(tree_flatten_with_names(full_g), tree_flatten_with_names(full_r))
+            for w in [_same(g, r, [0], 1)] if w]
+    return bad
+
+
+def _engine_rows(group, ref, rows, loss_fn_of, params_of, batches, **kw):
+    """The engine (``gradient_allreduce``, SGD 0.005) on ``group`` and on
+    ``ref``, the gang feeding its rows of each global batch: the
+    parameters' rows that differ."""
+    from bagua_tpu_torch.algorithms import GradientAllReduceAlgorithm
+    from bagua_tpu_torch.ddp import DistributedDataParallel
+
+    out = {}
+    for g in (group, ref):
+        ddp = DistributedDataParallel(loss_fn_of(g), lambda ps: torch.optim.SGD(ps, lr=0.005),
+                                      GradientAllReduceAlgorithm(), g, **kw)
+        try:
+            state = ddp.init(params_of(g))
+            for b in batches:
+                state, _ = ddp.train_step(state, ddp.process_rows(b))
+            out[g is group] = state.params
+        finally:
+            ddp.shutdown()
+    return _tree_rows_bad("param", out[True], out[False], rows)
+
+
+def _moe_case(group, ref, rows):
+    """Two engine steps of an MoE block over ``ep`` = every rank (4
+    experts, one a rank, kept local by ``dp_filter``): its rank
+    all-to-alls run under the engine's ``vmap`` across processes."""
+    from bagua_tpu_torch.models._layers import module_params
+    from bagua_tpu_torch.parallel.moe import MoE
+    from bagua_tpu_torch.utils import dotted_leaves
+
+    models = {}
+
+    def model(g):
+        return models.setdefault(id(g), MoE(8, 16, num_experts=4, capacity_factor=2.0, ep_size=4,
+                                            ep_axis=("inter", "intra"), group=g, device="cpu",
+                                            generator=torch.Generator().manual_seed(0)))
+
+    def loss_fn_of(g):
+        moe = model(g)
+
+        def loss_fn(params, batch):
+            x, y = batch
+            out, l_aux = torch.func.functional_call(moe, dotted_leaves(params), (x,))
+            return torch.mean((out - y) ** 2) + 0.01 * l_aux
+        return loss_fn
+
+    rng = np.random.RandomState(4)
+    batches = [(torch.from_numpy(rng.randn(4 * 16, 8).astype(np.float32)),
+                torch.from_numpy(rng.randn(4 * 16, 8).astype(np.float32))) for _ in range(2)]
+    return _engine_rows(group, ref, rows, loss_fn_of, lambda g: module_params(model(g)), batches,
+                        dp_filter=lambda n: "experts" not in n)
+
+
+def _sync_bn_case(group, ref, rows):
+    """Two engine steps of the small ResNet ([1, 1, 1, 1], 10 classes) with
+    ``sync_bn=True``: each norm's statistics collective across processes."""
+    from bagua_tpu_torch.models.resnet import ResNet, init_resnet, resnet_loss_fn
+
+    model = ResNet([1, 1, 1, 1], 10, torch.float32, sync_bn=True, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    variables = init_resnet(model)
+    rng = np.random.RandomState(5)
+    batches = [(torch.from_numpy(rng.randn(4 * 2, 32, 32, 3).astype(np.float32)),
+                torch.from_numpy(rng.randint(0, 10, (4 * 2,)).astype(np.int64))) for _ in range(2)]
+    return _engine_rows(group, ref, rows, lambda g: resnet_loss_fn(model), lambda g: variables, batches,
+                        dp_filter=lambda n: "batch_stats" not in n)
+
+
+def _new_group_case(group, ref, rows):
+    """``new_group`` of some of the gang's ranks: each member process passes
+    its own ranks' rows (in the order listed) and gets the stacked
+    ``new_group``'s rows, values and gradients; a process holding none gets
+    a group whose collectives raise; a list against the rule raises
+    ValueError naming it."""
+    bad = []
+    x = _stack(ref.size, 8, 3, seed=12)
+    k = group.local_size
+    for ranks, kw in (([1, 0, 3, 2], {}), ([0, 2], {}), ([2, 3], {}),
+                      ([0, 1, 2, 3], {"mesh_spec": MeshSpec({"dp": 2, "tp": 2})})):
+        sub = C.new_group(ranks, **kw)
+        stacked = C.BaguaProcessGroup([CPU] * len(ranks), **({"intra_size": len(ranks)} if not kw else kw))
+        xs = x[ranks]
+        mine = [i for i, r in enumerate(ranks) if r in rows]
+        if not mine:
+            try:
+                C.allreduce(x[:1], ReduceOp.SUM, sub)
+                bad.append(f"{ranks}: a process holding none of the ranks ran a collective")
+            except RuntimeError:
+                pass
+            continue
+        for name, fn in (("allreduce", lambda t, g: C.allreduce(t, ReduceOp.AVG, g)),
+                         ("allgather", lambda t, g: C.allgather(t, g)),
+                         ("ppermute_shift", lambda t, g: C.ppermute_shift(t, 1, g)),
+                         ("alltoall", lambda t, g: C.alltoall(t.reshape(t.shape[0], -1)[:, :len(ranks) * 4], g))):
+            def vjp(t, g):
+                t = t.clone().requires_grad_()
+                y = fn(t, g)
+                ct = _cotangent((len(ranks), *y.shape[1:]), 21)
+                y.backward(ct if y.shape[0] == len(ranks) else ct[mine])
+                return torch.cat([y.detach().reshape(y.shape[0], -1), t.grad.reshape(t.shape[0], -1)], 1)
+            why = _same(vjp(xs[mine], sub), vjp(xs, stacked), mine, len(ranks))
+            if why:
+                bad.append(f"{ranks} {kw} {name}: {why}")
+    for ranks in ([0, 1, 2], [2, 3, 0, 1], [0, 2, 1, 3], [0, 0, 1, 2]):
+        try:
+            C.new_group(ranks)
+            bad.append(f"{ranks}: accepted against the rule")
+        except ValueError as e:
+            if "process by process" not in str(e):
+                bad.append(f"{ranks}: {e}")
+    return bad
+
+
+def _pipeline_case(group, ref, rows):
+    """The three schedules over every rank (4 stages, two a process) on a
+    stage of one tanh layer: each process's losses and gradients (the
+    stage's, and 1F1B's input and loss-parameter ones) bitwise the stacked
+    run's rows."""
+    from bagua_tpu_torch.parallel import pipeline as pl
+
+    w = _stack(ref.size, 6, 6, seed=16) * 0.3
+    wv = _stack(ref.size, 2, 6, 6, seed=17) * 0.3
+    head = _stack(ref.size, 6, 3, seed=18)
+    mbs, tgt = _stack(ref.size, 4, 2, 6, seed=19), _stack(ref.size, 4, 2, 3, seed=20)
+
+    def stage(p, x):
+        return torch.tanh(torch.bmm(x, p["w"]))
+
+    def loss(y, t):
+        return ((y[..., :3] - t) ** 2).mean(dim=(1, 2))
+
+    def head_loss(hp, y, t):
+        return ((torch.bmm(y, hp["k"]) - t) ** 2).mean(dim=(1, 2))
+
+    def run(g, sel):
+        out = []
+        for kind in ("gpipe", "interleaved"):
+            leaf = (w if kind == "gpipe" else wv)[sel].clone().requires_grad_()
+            fn = pl.pipeline_loss if kind == "gpipe" else pl.pipeline_loss_interleaved
+            losses = fn(stage, {"w": leaf}, mbs[sel], tgt[sel], loss, g, None)
+            losses.sum().backward()
+            out += [losses.detach().reshape(len(sel), -1), leaf.grad.reshape(len(sel), -1)]
+        losses, grads = pl.pipeline_train_1f1b(stage, {"w": w[sel]}, mbs[sel], tgt[sel], head_loss, g, None,
+                                               loss_params={"k": head[sel]}, with_input_grads=True)
+        out += [losses.reshape(len(sel), -1), grads.stage["w"].reshape(len(sel), -1),
+                grads.inputs.reshape(len(sel), -1), grads.loss_params["k"].reshape(len(sel), -1)]
+        return torch.cat(out, 1)
+
+    why = _same(run(group, rows), run(ref, list(range(ref.size))), rows, ref.size)
+    return [why] if why else []
+
+
+MODEL_AXES = {"fsdp": _fsdp_case, "moe_ep": _moe_case, "sync_bn": _sync_bn_case, "pipeline": _pipeline_case,
+              "new_group": _new_group_case}
+
+
+def model_axes(p: int, port: str, out: str) -> None:
+    group = C.init_process_group([CPU] * 2, coordinator_address=f"127.0.0.1:{port}", num_processes=2,
+                                 process_id=p)
+    ref = C.BaguaProcessGroup([CPU] * 4, intra_size=2)
+    rows = list(group.local_rows)
+    report = {}
+    for name, case in MODEL_AXES.items():
+        try:
+            report[name] = case(group, ref, rows)
+        except Exception as e:
+            import traceback
+            report[name] = [f"raised {e!r}", traceback.format_exc()[-2000:]]
     with open(f"{out}.proc{p}.json", "w") as f:
         json.dump(report, f)
     C.barrier(group)
@@ -412,7 +861,7 @@ def main(argv) -> int:
         launched(*argv[1:])
         return 0
     job, p, port, out = argv[0], int(argv[1]), argv[2], argv[3]
-    {"collectives": collectives, "async_abort": async_abort, "async_threaded": async_threaded,
+    {"collectives": collectives, "vjps": vjps, "model_axes": model_axes, "async_abort": async_abort, "async_threaded": async_threaded,
      "resume_agree": resume_agree, "init_mismatch": init_mismatch}[job](
         p, port, out, *argv[4:])
     return 0
