@@ -264,7 +264,35 @@ and no result line:
    namespaces flags its injected straggler in every window.  No card
    memory is left allocated.  Prints both gangs' ms/step and the
    adoption's and the replay's wall times.
-16. sync-bn -- SyncBatchNorm: the small ResNet with ``sync_bn=True`` on the
+16. fleet-gang -- gang beta as launcher workers in a fleet namespace: a
+   plane in this process (no WAL) holds the plan ``[fleet]``'s alpha
+   published (``phase_fleet`` returns it); ``W = device_count()`` workers (at most 4,
+   a divisor of 4) of ``examples/fleet_gang.py`` under ``python -m
+   bagua_tpu_torch.distributed.run --rdzv_endpoint <base>/g/beta
+   --max_restarts 1`` form the gang over NCCL (even at W = 1), each holding
+   ``4 / W`` ranks on ``cuda:LOCAL_RANK``, and train full-width VGG16 (bf16,
+   32 a rank, ByteGrad with overlap, seed-0 weights, the synthetic batch)
+   under the ``Trainer`` with a snapshot every FLEET_GANG_EVERY steps.
+   Every process adopts alpha's plan at step 0 (``fleet_warm_start``
+   under the gang's identity); the first attempt runs FLEET_GANG_CRASH
+   steps, waits for the complete snapshot at step FLEET_GANG_EVERY and
+   exits hard (``os._exit``); the launcher restarts the gang, which agrees
+   on that step (through the namespace's KV at W > 1), resumes with the
+   plan carried and runs to FLEET_GANG_STEPS.  Gates: each process ran
+   alpha's bucket names in both attempts; rows 1-3 launched exactly
+   (steps run x buckets x per bucket, over both attempts); each attempt's
+   first launches bitwise their plain versions; the resume step is
+   FLEET_GANG_EVERY; every step's losses and the final parameters bitwise
+   those of an in-process single-controller run of FLEET_GANG_STEPS steps
+   on the same plan, weights and batches; the plane's scheduler view
+   shows W processes reporting and the plan's status beta once among its
+   adopters and its canary cohort.  Prints the gang's ms/step against the
+   single controller's (which snapshots at the same cadence; the median
+   and the mean of steps 2 to FLEET_GANG_CRASH, the steps that started
+   with the snapshot's writer busy, and how far the pinned host allocator
+   grew during each step), the adoption's ms, the resume's wall
+   ms and bytes, the launches and the card's name and power limit.
+17. sync-bn -- SyncBatchNorm: the small ResNet with ``sync_bn=True`` on the
    card against the CPU (f64 losses, gradients and statistics under a
    ``vmap`` over 4 ranks, the statistics the same on every rank; 2 f32
    ``gradient_allreduce`` engine steps, cuDNN deterministic); then
@@ -272,7 +300,7 @@ and no result line:
    engine with ``sync_bn=False`` and ``True``, RESNET_WARMUP + 5 steps each:
    ms/step, img/s, peak memory and the statistics' collectives a step (one
    a norm, 53 norms).  No kernel runs.
-17. contrib -- the native tier: an ``ShmStore`` segment written here and
+18. contrib -- the native tier: an ``ShmStore`` segment written here and
    read by a ``spawn`` child (which writes back); a ``RendezvousStore`` and
    a two-server cluster store against live rendezvous servers of the port;
    the ``IOPrefetcher`` streaming CONTRIB_FILES generated files in order,
@@ -281,7 +309,7 @@ and no result line:
    batches bitwise the memory backend's.  The imagenet twin's
    ``--data-dir`` is not driven: PIL is not installed where the card is
    (the CPU tests drive it).  No kernel runs.
-18. dist -- a group that spans processes: ``W = torch.cuda.device_count()``
+19. dist -- a group that spans processes: ``W = torch.cuda.device_count()``
    worker processes (at most 4, a divisor of 4) through the
    launcher (``python -m bagua_tpu_torch.distributed.run --nproc_per_node
    W``) running ``examples/gang.py``: each forms the gang over NCCL at
@@ -321,7 +349,7 @@ and no result line:
    path).  Prints, per wire and path, W, ms/step beside
    the single-controller run's, the bytes a step each process sent to
    other processes and to itself, and the card's name and power limit.
-19. prints one JSON line naming each kernel with its launches and times
+20. prints one JSON line naming each kernel with its launches and times
    (``other_steps``: the sums per step of other paths, the BERT, GPT and
    mesh ones included), then the result line ``{"ok": true, "device":
    {...}}``.
@@ -461,8 +489,12 @@ def read_launches() -> dict:
     return counts
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print a line, with the seconds since the script started."""
+    print(f"{msg} [{time.perf_counter() - _START:.1f} s]", flush=True)
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -588,7 +620,7 @@ def phase_device() -> str:
     ).stdout.strip().splitlines()[0]
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    log(smi)
+    print(smi, flush=True)  # as nvidia-smi gives it
     return smi
 
 
@@ -5507,6 +5539,184 @@ def check_fleet_adoption_on_card(device) -> dict:
     return {"fresh": fresh, "adopted": nb, "launches": launches}
 
 
+#: [fleet-gang]: gang beta trains to FLEET_GANG_STEPS with a snapshot every FLEET_GANG_EVERY steps; its
+#: first attempt exits hard after step FLEET_GANG_CRASH, once the snapshot before it is complete
+FLEET_GANG_STEPS, FLEET_GANG_EVERY, FLEET_GANG_CRASH = 6, 4, 5
+FLEET_GANG_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bagua_tpu_torch", "examples",
+                                 "fleet_gang.py")
+
+
+def plan_entry(ddp) -> dict:
+    """What [fleet-gang] publishes of gang alpha's plan: its cache key,
+    payload, meta and bucket names."""
+    from bagua_tpu_torch.fleet import engine_plan_key
+
+    return {"key": engine_plan_key(ddp), "plan": ddp.export_plan_payload(), "names": _plan_names(ddp),
+            "meta": {"gang": "alpha", "plan_version": ddp.plan_version}}
+
+
+def small_vgg_alpha(device):
+    """A gang alpha for [fleet-gang]'s small runs: the small VGG's ByteGrad
+    engine at 2 KiB buckets on 4 ranks (several buckets, not the default
+    plan)."""
+    from bagua_tpu_torch.examples import fleet_gang
+
+    params, loss_fn, optimizer, _ = fleet_gang.model_parts("small-vgg", device)
+    ddp = DistributedDataParallel(loss_fn, optimizer, ByteGradAlgorithm(), BaguaProcessGroup([device] * RANKS,
+                                  intra_size=1), bucket_size_bytes=2048, overlap=True)
+    ddp.init(params)
+    return ddp
+
+
+def run_fleet_gang(device, model: str, alpha: dict, W: int, per_bucket: dict) -> dict:
+    """Gang beta as W launcher workers (``examples/fleet_gang.py``, ByteGrad
+    with overlap) in the beta namespace of a fleet plane in this process,
+    which holds gang alpha's published plan (``alpha``: its key, payload,
+    meta and bucket names): every process adopts it at step 0, the first
+    attempt runs FLEET_GANG_CRASH steps and exits hard, the launcher
+    restarts the gang, which resumes from the snapshot at FLEET_GANG_EVERY
+    and runs to FLEET_GANG_STEPS.  Then the single controller runs the same
+    steps on the plan here.  Raises unless every gate holds; returns the
+    readings and the workers' launches summed."""
+    from bagua_tpu_torch.examples import fleet_gang
+    from bagua_tpu_torch.fleet import FleetClient, FleetControlPlane, gang_endpoint, start_async_fleet_server
+
+    what = f"[fleet-gang] {model} ByteGrad (overlap), W={W}"
+    k = RANKS // W
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="bagua_fleet_gang_")
+    args = ["--device", device.type, "--model", model, "--algorithm", "bytegrad", "--overlap", "on",
+            "--steps", str(FLEET_GANG_STEPS), "--snapshot-every", str(FLEET_GANG_EVERY)]
+    plane = FleetControlPlane(rdzv_kwargs=FLEET_RDZV)
+    server = start_async_fleet_server(plane, 0, host="127.0.0.1")
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        fc = FleetClient(base)
+        key = fc.publish_plan(plan=alpha["plan"], meta=alpha["meta"], **alpha["key"])
+        prefix = os.path.join(root, "beta")
+        cmd = [sys.executable, "-m", "bagua_tpu_torch.distributed.run", "--nproc_per_node", str(W),
+               "--max_restarts", "1", "--monitor_interval", "0.2", "--master_port", str(_free_port()),
+               "--rdzv_endpoint", gang_endpoint(base, "beta"), FLEET_GANG_SCRIPT] + args + [
+               "--ranks-per-process", str(k), "--snapshot-dir", os.path.join(root, "snap"), "--fleet", base,
+               "--gang", "beta", "--crash", str(FLEET_GANG_CRASH), "--report", prefix]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join([repo] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env=env, cwd=repo, capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+        gang_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"{what}: the launcher exited {run.returncode}:\n{run.stderr[-8000:]}")
+        reports = {}
+        for name in os.listdir(root):
+            if name.startswith("beta.e") and name.endswith(".json"):
+                attempt, proc = name[len("beta.e"):-len(".json")].split(".p")
+                reports.setdefault(int(attempt), {})[int(proc)] = json.load(open(os.path.join(root, name)))
+        if len(reports) != 2 or any(sorted(r) != list(range(W)) for r in reports.values()):
+            raise AssertionError(f"{what}: reports of attempts and processes {[sorted(r) for r in reports.values()]}, "
+                                 f"want 2 attempts of {W} processes")
+        first, second = ([reports[a][p] for p in range(W)] for a in sorted(reports))
+        view = plane.scheduler_view()["gangs"]["beta"]
+        status = plane.plan_statuses()[key]
+        for r in first:
+            if not r["adopted"] or r["plan_source"] != "fleet" or r["buckets"] != alpha["names"]:
+                raise AssertionError(f"{what}: process {r['process']} did not adopt alpha's plan at step 0 "
+                                     f"({r['plan_source']}, {len(r['buckets'])} buckets)")
+        for r in second:
+            if r["resumed_from"] != FLEET_GANG_EVERY or r["plan_source"] != "carried" or \
+                    r["buckets"] != alpha["names"] or r["exit"] != "done":
+                raise AssertionError(f"{what}: process {r['process']} resumed from {r['resumed_from']} "
+                                     f"({r['plan_source']}, exit {r['exit']}), want step {FLEET_GANG_EVERY}, carried")
+        if view["ranks_reporting"] != W or status["adopters"] != {"beta": alpha["meta"]["plan_version"]} or \
+                status["cohort"] != ["beta"]:
+            raise AssertionError(f"{what}: the plane's view {view['ranks_reporting']} ranks reporting, "
+                                 f"adopters {status['adopters']}, cohort {status['cohort']}")
+        nb = len(alpha["names"])
+        total = {}
+        for reps, steps in ((first, FLEET_GANG_CRASH), (second, FLEET_GANG_STEPS - FLEET_GANG_EVERY)):
+            for r in reps:
+                if [s["step"] for s in r["steps"]] != list(range(r["steps"][0]["step"], r["steps"][0]["step"] + steps)):
+                    raise AssertionError(f"{what}: process {r['process']} ran steps {[s['step'] for s in r['steps']]}")
+                for kernel, n in r["launches"].items():
+                    total[kernel] = total.get(kernel, 0) + n
+                if device.type != "cuda":
+                    continue
+                want = {kernel: steps * nb * per_bucket.get(kernel, 0) for kernel in r["launches"]}
+                unheld = [kernel for kernel in per_bucket if not r["held"].get(kernel, {}).get("bitwise")]
+                if r["launches"] != want or unheld:
+                    raise AssertionError(f"{what}: process {r['process']} launched {r['launches']} (want {want}); "
+                                         f"first launches not bitwise their plain versions: {unheld}")
+        # the single controller: the same steps on the plan (a read-only lookup) at the same snapshot
+        # cadence, cuDNN as the workers
+        gc.collect()
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            ref = fleet_gang.run(BaguaProcessGroup([device] * RANKS, intra_size=1),
+                                 fleet_gang.parse_args(args + ["--snapshot-dir", os.path.join(root, "ref")]), fleet=fc)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    finally:
+        server.shutdown()
+        plane.close()
+        shutil.rmtree(root, ignore_errors=True)
+    if not ref["adopted"] or ref["buckets"] != alpha["names"]:
+        raise AssertionError(f"{what}: the single controller did not run alpha's plan")
+    want_losses = {s["step"]: s["losses"] for s in ref["steps"]}
+    for reps in (first, second):
+        for i in range(len(reps[0]["steps"])):
+            step = reps[0]["steps"][i]["step"]
+            if [x for r in reps for x in r["steps"][i]["losses"]] != want_losses[step]:
+                raise AssertionError(f"{what}: step {step}'s losses "
+                                     f"{[x for r in reps for x in r['steps'][i]['losses']]} differ from the "
+                                     f"single controller's {want_losses[step]}")
+    if [d for r in second for d in r["digests"]] != ref["digests"]:
+        raise AssertionError(f"{what}: the final parameters differ from the single controller's")
+    # both sides' timed steps are the first attempt's after its first (steps 2 to FLEET_GANG_CRASH), the
+    # step that ran beside the snapshot's writer among them
+    timed = slice(1, FLEET_GANG_CRASH)
+    gang_ms, ref_ms = [s["ms"] for s in first[0]["steps"][timed]], [s["ms"] for s in ref["steps"][timed]]
+    return {"W": W, "k": k, "gang_s": gang_s, "buckets": nb,
+            "step_ms": [s["ms"] for s in first[0]["steps"]], "ref_step_ms": [s["ms"] for s in ref["steps"]],
+            "ms": statistics.median(gang_ms), "ref_ms": statistics.median(ref_ms),
+            "mean_ms": statistics.fmean(gang_ms), "ref_mean_ms": statistics.fmean(ref_ms),
+            "writer_steps": {side: {s["step"]: s["ms"] for s in steps if s["writer_busy"]}
+                             for side, steps in (("gang", first[0]["steps"]), ("single", ref["steps"]))},
+            "pinned": {side: [s["pinned"] for s in steps]
+                       for side, steps in (("gang", first[0]["steps"]), ("single", ref["steps"]))},
+            "adopt_ms": [r["adopt_ms"] for r in first],
+            "resume_ms": [r["resume_ms"] for r in second], "resume_bytes": second[0]["resume_bytes"],
+            "launches": total, "first_launches": first[0]["launches"], "second_launches": second[0]["launches"],
+            "held": {kernel: h["max_abs_err"] for kernel, h in first[0]["held"].items()}}
+
+
+def phase_fleet_gang(device, smi: str, alpha: dict) -> dict:
+    """``[fleet-gang]`` (see the module docstring) on ``alpha``, the plan
+    ``[fleet]`` published.  Returns the launches."""
+    cards = torch.cuda.device_count()
+    W = max(w for w in (4, 2, 1) if w <= cards and RANKS % w == 0)
+    got = run_fleet_gang(device, "vgg16", alpha, W, SLICE_PATHS["ByteGrad"][1])
+    log(f"[fleet-gang] VGG16 bf16 ByteGrad (overlap), gang beta as {W} launcher worker(s) x {got['k']} ranks in "
+        f"the fleet's beta namespace (NCCL; "
+        f"{got['gang_s']:.1f} s with the restart): every process adopted alpha's tuned plan at step 0 "
+        f"({got['buckets']} buckets) in {[round(ms, 1) for ms in got['adopt_ms']]} ms; "
+        f"{FLEET_GANG_CRASH} steps; steps 2-{FLEET_GANG_CRASH} against the single controller's at the same "
+        f"snapshot cadence: median {got['ms']:.2f} / {got['ref_ms']:.2f} ms (ratio {got['ms'] / got['ref_ms']:.3f}), "
+        f"mean {got['mean_ms']:.2f} / {got['ref_mean_ms']:.2f} ms (ratio {got['mean_ms'] / got['ref_mean_ms']:.3f}); "
+        f"steps {[round(ms, 1) for ms in got['step_ms']]} ms, the single controller's "
+        f"{[round(ms, 1) for ms in got['ref_step_ms']]}; the steps that started with the snapshot's writer busy "
+        f"(step: ms) {got['writer_steps']}, the pinned host allocator's growth during each step "
+        f"([cudaHostAlloc calls, us]) {got['pinned']}; the first attempt exited hard after step {FLEET_GANG_CRASH}, "
+        f"the launcher restarted the gang, which resumed from step {FLEET_GANG_EVERY} in "
+        f"{[round(ms, 1) for ms in got['resume_ms']]} ms ({got['resume_bytes']} B read by each process, the plan "
+        f"carried) and ran to step {FLEET_GANG_STEPS}; launches per process {got['first_launches']} then "
+        f"{got['second_launches']}, first launches bitwise their plain versions (max abs err {got['held']}); every "
+        f"step's losses and the final parameters bitwise the single controller's; the plane's scheduler view "
+        f"saw {W} process(es) reporting and beta once among the plan's adopters; {smi}")
+    return got["launches"]
+
+
 def _tensor_bytes() -> int:
     """The card memory tensors hold, garbage collected first: cuBLAS's
     workspaces (one a stream the engines ran a GEMM on, kept by PyTorch for
@@ -5517,8 +5727,10 @@ def _tensor_bytes() -> int:
     return torch.cuda.memory_allocated()
 
 
-def phase_fleet(device) -> dict:
-    """``[fleet]`` (see the module docstring).  Returns the launches."""
+def phase_fleet(device) -> tuple:
+    """``[fleet]`` (see the module docstring).  Returns the launches and
+    gang alpha's published plan (:func:`plan_entry`), which ``[fleet-gang]``
+    publishes again."""
     from bagua_tpu_torch.ddp import AutotuneSession
     from bagua_tpu_torch.fleet import (
         FleetClient, FleetControlPlane, engine_plan_key, gang_endpoint, publish_engine_plan,
@@ -5572,6 +5784,7 @@ def phase_fleet(device) -> dict:
         alpha_plan_version = alpha.ddp.plan_version
         key = publish_engine_plan(fc, alpha.ddp, meta={"gang": "alpha", "plan_version": alpha_plan_version})
         alpha_names = _plan_names(alpha.ddp)
+        alpha_entry = plan_entry(alpha.ddp)
         if key is None or plane.plan_count() != 1:
             raise AssertionError(f"{what}: alpha's plan was not published ({key})")
         alpha.close()
@@ -5668,7 +5881,7 @@ def phase_fleet(device) -> dict:
         f"refused the plan; run_fleet flagged rank 3 "
         f"(wire) in {len(detections)} of {cfg.windows} windows; phase {time.perf_counter() - t_phase:.1f} s, "
         f"card memory held by tensors as before ({workspaces} B of cuBLAS workspaces released)")
-    return total
+    return total, alpha_entry
 
 
 #: the sync-BN phase: the statistics' collectives a ResNet-50 step, one a norm (its mean and mean of squares
@@ -6273,7 +6486,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     per_path["autopilot"] = phase_autopilot(device)
     torch.cuda.empty_cache()
-    per_path["fleet"] = phase_fleet(device)
+    per_path["fleet"], alpha = phase_fleet(device)
+    torch.cuda.empty_cache()
+    per_path["fleet-gang"] = phase_fleet_gang(device, smi, alpha)
     torch.cuda.empty_cache()
     per_path["sync-bn"] = phase_sync_bn(device, profile)
     torch.cuda.empty_cache()

@@ -360,8 +360,11 @@ def test_port_imports_no_jax():
     plane (``fleet/``), the fleet simulator, SyncBatchNorm and the native
     stores and prefetcher, and the process-spanning tier (the group's
     ``torch.distributed`` backing in ``communication.py``, the gang-aware
-    ``env.py`` and ``init_from_env``, the gang twin ``examples/gang.py``);
-    neither pydantic nor orbax is loaded."""
+    ``env.py`` and ``init_from_env``, the gang twin ``examples/gang.py``),
+    the fleet gang's worker ``examples/fleet_gang.py`` and the operator
+    tools (``tools/``: ``diagnose_hang``, ``perf_doctor``,
+    ``export_timeline``, ``fault_injection``); neither pydantic nor orbax
+    is loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -402,7 +405,9 @@ def test_port_imports_no_jax():
         "        'autopilot.controller', 'autopilot.staleness', 'fleet.wal', 'fleet.control_plane',\n"
         "        'fleet.remediation', 'fleet.shards', 'fleet.server', 'fleet.client', 'perflab.fleetsim',\n"
         "        'contrib.sync_batchnorm', 'contrib.native', 'contrib.shm_store', 'contrib.io_prefetcher',\n"
-        "        'contrib.rendezvous_store', 'examples.gang', 'communication', 'env', 'distributed')]\n"
+        "        'contrib.rendezvous_store', 'examples.gang', 'communication', 'env', 'distributed',\n"
+        "        'examples.fleet_gang', 'tools.diagnose_hang', 'tools.perf_doctor', 'tools.export_timeline',\n"
+        "        'tools.fault_injection')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )

@@ -826,6 +826,109 @@ def resume_agree(p: int, port: str, out: str, snap_dir: str, endpoint: str) -> N
     C.destroy_process_group()
 
 
+def _plan_digest(ddp) -> str:
+    """What a step exchanges: the bucket names, the reduction's shape and
+    the wire dtype."""
+    import hashlib
+
+    impl = ddp.impl
+    what = [[[td.name for td in b] for b in ddp.plan.declarations()], bool(impl.hierarchical),
+            str(getattr(impl, "wire_dtype", None))]
+    return hashlib.sha256(json.dumps(what).encode()).hexdigest()[:16]
+
+
+def fleet_autotune(p: int, port: str, out: str, base: str, gang_id: str, steps: str) -> None:
+    """An ``AutotuneSession`` in each process against the gang's autotune
+    service in the fleet namespace (asks every step); each step's plan
+    digest, the plan versions and the final parameters' digests."""
+    from bagua_tpu_torch.algorithms import GradientAllReduceAlgorithm
+    from bagua_tpu_torch.ddp import AutotuneSession, DistributedDataParallel
+    from bagua_tpu_torch.examples.gang import digests
+    from bagua_tpu_torch.fleet import FleetClient
+
+    group, params, loss_fn, _ = _mlp_gang(p, port)
+    ddp = DistributedDataParallel(loss_fn, lambda ps: torch.optim.SGD(ps, lr=0.05), GradientAllReduceAlgorithm(),
+                                  process_group=group, overlap=False)
+    state = ddp.init(params)
+    session = AutotuneSession(ddp, "mlp", client=FleetClient(base).autotune_client(gang_id), interval=1)
+    rng = np.random.RandomState(7)
+    plans, versions = [], []
+    for _ in range(int(steps)):
+        x = rng.randn(16, 12).astype(np.float32)
+        y = rng.randn(16, 4).astype(np.float32)
+        batch = ddp.process_rows((torch.from_numpy(x), torch.from_numpy(y)))
+        state, _ = ddp.train_step(state, batch)
+        session.tick(8)
+        plans.append(_plan_digest(ddp))
+        versions.append(ddp.plan_version)
+    with open(f"{out}.proc{p}.json", "w") as f:
+        json.dump({"plans": plans, "versions": versions, "completed": session.completed,
+                   "digests": digests(state.params, 2)}, f)
+    C.destroy_process_group()
+
+
+class _StallingSGD(torch.optim.SGD):
+    """SGD whose ``stall_at``-th step waits (inside the engine's step, its
+    flight records unretired) until ``release()`` is true."""
+
+    def __init__(self, params, stall_at, release, **kw):
+        super().__init__(params, **kw)
+        self.calls, self.stall_at, self.release = 0, stall_at, release
+
+    def step(self, closure=None):
+        self.calls += 1
+        if self.calls == self.stall_at:
+            deadline = time.monotonic() + 60
+            while not self.release():
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the stall was never released")
+                time.sleep(0.05)
+        return super().step(closure)
+
+
+def fleet_remediation(p: int, port: str, out: str, base: str, gang_id: str, dump_dir: str) -> None:
+    """A Trainer in each process, its watchdog at 1.5 s (the kill replaced
+    by a record) pushing its flight digest to the gang's namespace:
+    process 1 stalls inside its third step until both digests are in the
+    plane.  Then process 0 runs the remediation sweep, and each process
+    reads the directed world size."""
+    from bagua_tpu_torch.algorithms import GradientAllReduceAlgorithm
+    from bagua_tpu_torch.fleet import FleetClient, gang_endpoint
+    from bagua_tpu_torch.observability import Telemetry
+    from bagua_tpu_torch.observability.flight_recorder import FlightRecorder
+    from bagua_tpu_torch.resilience import ElasticResumeCoordinator
+    from bagua_tpu_torch.trainer import Trainer
+
+    os.environ.update(BAGUA_RDZV_ENDPOINT=gang_endpoint(base, gang_id), BAGUA_ATTEMPT="0", BAGUA_DUMP_DIR=dump_dir,
+                      BAGUA_TRACING="1", BAGUA_TRACE_PATH=os.path.join(dump_dir, f"spans{p}.jsonl"))
+    fc = FleetClient(base)
+    group, params, loss_fn, batches = _mlp_gang(p, port)
+
+    def both_pushed():
+        return fc.scheduler_view()["gangs"].get(gang_id, {}).get("flight_ranks") == ["rank0", "rank1"]
+
+    tel = Telemetry(metrics_jsonl=os.path.join(dump_dir, f"metrics{p}.jsonl"),
+                    flight=FlightRecorder(capacity=64, rank=p, world_size=2), regression=None)
+    trainer = Trainer(loss_fn, lambda ps: _StallingSGD(ps, 3 if p == 1 else 0, both_pushed, lr=0.05),
+                      GradientAllReduceAlgorithm(), group, overlap=False, telemetry=tel, watchdog_timeout_s=1.5)
+    fired = []
+    trainer.watchdog.on_timeout = fired.append
+    state = trainer.init_state(params)
+    state = trainer.fit(state, batches, log_every=0)
+    C.barrier(group)
+    summary = fc.remediate() if p == 0 else None
+    C.barrier(group)
+    coordinator = ElasticResumeCoordinator(os.path.join(dump_dir, f"snap{p}"),
+                                           fleet_directive_fn=lambda: fc.gang_directive(gang_id))
+    report = {"fired": len(fired), "summary": summary, "directed": coordinator.directed_world_size(2),
+              "directive": coordinator.fleet_directive(), "steps": int(state.step)}
+    trainer.close()
+    tel.close()
+    with open(f"{out}.proc{p}.json", "w") as f:
+        json.dump(report, f)
+    C.destroy_process_group()
+
+
 def launched(out: str, endpoint: str, mode: str) -> None:
     """A worker under ``python -m bagua_tpu_torch.distributed.run``: form
     the gang from the launcher's environment (2 CPU ranks a process, gloo),
@@ -862,7 +965,8 @@ def main(argv) -> int:
         return 0
     job, p, port, out = argv[0], int(argv[1]), argv[2], argv[3]
     {"collectives": collectives, "vjps": vjps, "model_axes": model_axes, "async_abort": async_abort, "async_threaded": async_threaded,
-     "resume_agree": resume_agree, "init_mismatch": init_mismatch}[job](
+     "resume_agree": resume_agree, "init_mismatch": init_mismatch, "fleet_autotune": fleet_autotune,
+     "fleet_remediation": fleet_remediation}[job](
         p, port, out, *argv[4:])
     return 0
 
