@@ -624,6 +624,14 @@ def rank_id(group: BaguaProcessGroup, axis=None) -> torch.Tensor:
     return _ungrouped(ids, group, axis)
 
 
+def member_index(group: BaguaProcessGroup, axis=None) -> np.ndarray:
+    """:func:`rank_id`'s values on the host, read from the group's layout
+    (no device work): ``(size,)``, or this process's ``(k,)`` rows on a
+    group that spans processes."""
+    _check_member(group)
+    return _member_index(group, _resolve(group, axis))[list(group.local_rows)]
+
+
 def ppermute_shift(
     x: torch.Tensor, shift: int, comm: Optional[BaguaProcessGroup] = None, axis=None
 ) -> torch.Tensor:

@@ -11,10 +11,18 @@ Tensors are rank-stacked, ``(R, b, t, heads, d)`` with ``R`` the group
 size, and the rank axis is folded into the batch, so every block call of a
 ring step serves all ranks at once: one kernel launch, not R.  Where the
 JAX package skips a block that lies in a rank's causal future
-(``lax.cond`` per rank), the stacked ring computes it for every rank and
-lets the mask do the skipping: the kernel drops dead tiles, and an
-all-masked contribution ``(0, 0, NEG)`` merges as an exact identity, with
-zero gradient.
+(``lax.cond`` per rank), the stacked ring leaves that rank's rows out of
+the call: a causal ring's call serves the ranks whose block is live, and
+each row of it is live.  Which ranks those are follows from the group's
+layout, read on the host once (:func:`~bagua_tpu_torch.communication.member_index`),
+so no call waits on the card.  The contiguous ring calls, at step i, the
+members with ``my >= i``; the zigzag ring makes the JAX package's ``2sp +
+1`` pair calls a pass.  A block wholly in the queries' past takes the
+key-padding mask alone, expanded over the queries (no causal mask is
+made for it).  The rows a call serves are copied out of the ring's
+tensors for the call and again for its backward (:class:`_PickedBlockFn`),
+so no copy is held between the two.  Every ``ppermute_shift`` still runs
+at every step, on every rank.
 
 Each block goes through :class:`~bagua_tpu_torch.kernels.flash_attention.BlockAttentionFn`
 (the CUDA kernels on the card, the plain versions on the CPU), which takes
@@ -27,15 +35,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bagua_tpu_torch.communication import axis_size, ppermute_shift, rank_id
-from bagua_tpu_torch.kernels.flash_attention import NEG, BlockAttentionFn, merge_blocks
+from bagua_tpu_torch.communication import _index, axis_size, member_index, ppermute_shift
+from bagua_tpu_torch.kernels.flash_attention import NEG, BlockAttentionFn, flash_attention_bwd, merge_blocks
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """``(R, b, ...)`` to ``(R*b, ...)``."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
 
 
 def _block(qf, k, v, mask):
     """One block call for every rank: ``(R, b, ...)`` folded to ``(R*b,
     ...)``; returns ``(o, l, m)`` folded, ``(R*b, h, tq, ...)``."""
-    fold = lambda x: x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])  # noqa: E731
-    return BlockAttentionFn.apply(fold(qf), fold(k), fold(v), fold(mask))
+    return BlockAttentionFn.apply(_fold(qf), _fold(k), _fold(v), _fold(mask))
 
 
 def _empty(n: int, h: int, t: int, d: int, device):
@@ -50,6 +62,136 @@ def _normalize(o, l, R: int, dtype):
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     out = (o / l[..., None]).to(dtype)
     return out.reshape(R, -1, *out.shape[1:]).transpose(2, 3)
+
+
+def _triangle(t: int, device) -> torch.Tensor:
+    """``(t, t)``: query i sees key j <= i (a block on the diagonal)."""
+    pos = torch.arange(t, device=device)
+    return pos[:, None] >= pos[None, :]
+
+
+def _past_mask(kv_mask: torch.Tensor) -> torch.Tensor:
+    """The mask of a block wholly in the queries' past: the key-padding mask
+    ``(n, b, tk)``, folded and expanded over the queries with stride 0 (no
+    copy)."""
+    n, b, tk = kv_mask.shape
+    return kv_mask.reshape(n * b, 1, tk).expand(n * b, tk, tk)
+
+
+#: the fills of an all-masked block's ``(o, l, m)``: merging it is an exact
+#: identity (up to the sign of zero)
+_DEAD = (0.0, 0.0, NEG)
+
+
+class _Ranks:
+    """A block call on the ranks ``live`` (an index into the rank axis, of
+    ``R``) of ``(qf, k, v)``, their keys wholly in the past; its result
+    laid out over every rank, the others' rows all-masked."""
+
+    def __init__(self, live: torch.Tensor, R: int):
+        self.live, self.R = live, R
+
+    def take(self, xs, kv_mask):
+        q, k, v = (_fold(x.index_select(0, self.live)) for x in xs)
+        return q, k, v, _past_mask(kv_mask.index_select(0, self.live))
+
+    def spread(self, block):
+        rows = block[0].shape[0] // self.live.shape[0]  # sequences a rank
+        return tuple(x.new_full((self.R, rows, *x.shape[1:]), fill)
+                     .index_copy_(0, self.live, x.reshape(-1, rows, *x.shape[1:])).reshape(-1, *x.shape[1:])
+                     for x, fill in zip(block, _DEAD))
+
+    def gather(self, grads):
+        return tuple(_fold(g.reshape(self.R, -1, *g.shape[1:]).index_select(0, self.live)) for g in grads[:2])
+
+    def give(self, grads, xs):
+        return [x.new_zeros(x.shape).index_copy_(0, self.live, g.reshape(-1, *x.shape[1:]))
+                for g, x in zip(grads, xs)]
+
+
+class _Halves:
+    """A block call in which each rank takes one of two (q, k, v) halves:
+    the first where ``first`` holds, else the second; of ``(q0, q1, k0, k1,
+    v0, v1)`` and the key-padding mask of the whole local block, its keys
+    wholly in the past.  Its result as two blocks over every rank, the
+    first half's and the second's, the other rows all-masked in each."""
+
+    def __init__(self, first: torch.Tensor):
+        self.first = first
+
+    def take(self, xs, kv_mask):
+        t2 = xs[0].shape[2]
+        q, k, v = (_fold(_where_ranks(self.first, a, b)) for a, b in zip(xs[::2], xs[1::2]))
+        return q, k, v, _past_mask(_where_ranks(self.first, kv_mask[:, :, :t2], kv_mask[:, :, t2:]))
+
+    def spread(self, block):
+        return (*(_where_ranks(self.first, x, fill) for x, fill in zip(block, _DEAD)),
+                *(_where_ranks(self.first, fill, x) for x, fill in zip(block, _DEAD)))
+
+    def gather(self, grads):
+        return tuple(_where_ranks(self.first, a, b) for a, b in zip(grads[:2], grads[3:5]))
+
+    def give(self, grads, xs):
+        out = []
+        for g, x in zip(grads, xs[::2]):
+            g = g.reshape(x.shape)
+            out += [_where_ranks(self.first, g, 0.0), _where_ranks(self.first, 0.0, g)]
+        return out
+
+
+class _PickedBlockFn(torch.autograd.Function):
+    """:class:`BlockAttentionFn` on the rows that ``pick`` (:class:`_Ranks`,
+    :class:`_Halves`) takes from the ring's tensors ``xs``: ``pick.take``
+    copies them out, and the backward takes them again instead of keeping
+    the copies, so a call holds no more memory until its backward than an
+    unpicked one.  The result comes back laid out over every rank by
+    ``pick.spread``, all-masked ``(0, 0, NEG)`` on the rows the call did not
+    serve, and the ring merges it as it merged an unpicked call's: the
+    carry of a row left out stays as it was.  ``pick.give`` lays the rows'
+    gradients back out over ``xs``, zeros elsewhere."""
+
+    @staticmethod
+    def forward(ctx, pick, kv_mask, *xs):
+        o, l, m = BlockAttentionFn.apply(*pick.take(xs, kv_mask))
+        ctx.pick = pick
+        ctx.save_for_backward(kv_mask, m, *xs)
+        out = pick.spread((o, l, m))
+        ctx.mark_non_differentiable(*out[2::3])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kv_mask, m, *xs = ctx.saved_tensors
+        do, dl = ctx.pick.gather(grads)
+        grads = flash_attention_bwd(*ctx.pick.take(xs, kv_mask), m, dl, do)
+        return (None, None, *ctx.pick.give(grads, xs))
+
+
+class _Keep(torch.autograd.Function):
+    """The identity on ``x`` that also takes ``ys`` and gives them zero
+    gradients: holds a ring step's K/V in the backward of a process that
+    makes no call with them, so that the backward of their ring shift, a
+    collective across processes, runs in every process."""
+
+    @staticmethod
+    def forward(ctx, x, *ys):
+        ctx.ys = [(y.shape, y.dtype, y.device) for y in ys]
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(shape, dtype=dtype, device=device) for shape, dtype, device in ctx.ys))
+
+
+def _where_ranks(first: torch.Tensor, a, b) -> torch.Tensor:
+    """Rank by rank, ``a``'s rows where ``first`` (``(R,)`` bool) holds and
+    ``b``'s elsewhere; each a tensor with a leading rank axis, or folded
+    ``(R * b, ...)``, or a number."""
+    like = a if torch.is_tensor(a) else b
+    R = first.shape[0]
+    split = lambda x: x.reshape(R, -1, *like.shape[1:]) if torch.is_tensor(x) else x  # noqa: E731
+    cond = first.reshape(R, *([1] * like.dim()))
+    return torch.where(cond, split(a), split(b)).reshape(like.shape)
 
 
 def ring_attention(
@@ -114,19 +256,25 @@ def ring_attention(
         # contiguous ring below computes the same with one call per step
         return _ring_attention_zigzag(qf, k, v, kv_mask, group, axis, sp, q.dtype)
 
-    my = rank_id(group, axis)
-    pos = torch.arange(t, device=q.device)
+    my = member_index(group, axis)
     o, l, m = _empty(R * b, h, t, d, q.device)
     k_blk, v_blk, mask_blk = k, v, kv_mask
     for i in range(sp):
-        # the block held at step i came from member (my - i) mod sp
-        mask = mask_blk[:, :, None, :].expand(R, b, t, t)
-        if causal:
-            src = (my - i) % sp
-            q_pos = my[:, None] * t + pos
-            k_pos = src[:, None] * t + pos
-            mask = mask & (q_pos[:, :, None] >= k_pos[:, None, :])[:, None]
-        o, l, m = merge_blocks((o, l, m), _block(qf, k_blk, v_blk, mask))
+        # the block held at step i came from member (my - i) mod sp: for
+        # i > 0 it lies wholly in the past of the members with my >= i and
+        # wholly in the future of the rest, which the call leaves out
+        if i == 0 or not causal:
+            mask = mask_blk[:, :, None, :].expand(R, b, t, t)
+            if causal:
+                mask = mask & _triangle(t, q.device)
+            o, l, m = merge_blocks((o, l, m), _block(qf, k_blk, v_blk, mask))
+        elif (my >= i).any():
+            live = _index(group, ("ring_live", axis, i), lambda i=i: np.flatnonzero(my >= i))
+            o, l, m = merge_blocks((o, l, m), _PickedBlockFn.apply(_Ranks(live, R), mask_blk, qf, k_blk, v_blk))
+        else:
+            # none of this process's ranks is live: no call, but the block
+            # stays in the backward, whose ring shifts every process joins
+            o = _Keep.apply(o, k_blk, v_blk)
         if i < sp - 1:
             k_blk = ppermute_shift(k_blk, 1, group, axis)
             v_blk = ppermute_shift(v_blk, 1, group, axis)
@@ -136,31 +284,46 @@ def ring_attention(
 
 def _ring_attention_zigzag(qf, k, v, kv_mask, group, axis, sp, out_dtype):
     """Zigzag-layout causal ring: member r's local sequence is global
-    half-blocks ``(r, 2sp-1-r)``.  Each ring step merges the four (q-half,
-    k-half) pairs, in the JAX package's order; a pair whose k half lies in
-    a rank's future is masked out for that rank."""
+    half-blocks ``(r, 2sp-1-r)``, and a (q half, k half) pair is live iff
+    the k half does not lie in the q half's future, as in the JAX package.
+    Every member has ``2sp + 1`` live pairs a pass, and the ring makes one
+    block call for each (rank-folded): at step 0 the diagonal pairs (0,0)
+    and (1,1) and the whole pair (1,0); at each later step (1,0), whole
+    for every member, and one call in which each member takes its own
+    other live pair, (0,0) where ``my >= i`` and (1,1) where ``my < i``.
+    Pair (0,1) is never live.  Each accumulator merges its pairs in the
+    JAX package's order."""
     R, b, t, h, d = qf.shape
     if t % 2 != 0:
         raise ValueError(f"zigzag needs an even local length, got {t}")
     t2 = t // 2
-    my = rank_id(group, axis)
-    pos = torch.arange(t2, device=qf.device)
+    my = member_index(group, axis)
     q_halves = (qf[:, :, :t2], qf[:, :, t2:])
-    qg = (my, 2 * sp - 1 - my)  # global half-block id of each local q half
     acc = [_empty(R * b, h, t2, d, qf.device) for _ in range(2)]
     k_blk, v_blk, mask_blk = k, v, kv_mask
+
+    def half(blk, kh):  # k half kh of a rotating block
+        return blk[:, :, kh * t2:(kh + 1) * t2]
+
     for i in range(sp):
-        src = (my - i) % sp
-        kg = (src, 2 * sp - 1 - src)
-        for qh in range(2):
-            q_pos = qg[qh][:, None] * t2 + pos
-            for kh in range(2):
-                k_pos = kg[kh][:, None] * t2 + pos
-                half = slice(kh * t2, (kh + 1) * t2)
-                mask = mask_blk[:, :, None, half].expand(R, b, t2, t2)
-                mask = mask & (q_pos[:, :, None] >= k_pos[:, None, :])[:, None]
-                block = _block(q_halves[qh], k_blk[:, :, half], v_blk[:, :, half], mask)
+        if i == 0:
+            diagonal = _triangle(t2, qf.device)
+            for qh, kh in ((0, 0), (1, 0), (1, 1)):
+                mask = half(mask_blk, kh)[:, :, None, :].expand(R, b, t2, t2)
+                if qh == kh:
+                    mask = mask & diagonal
+                block = _block(q_halves[qh], half(k_blk, kh), half(v_blk, kh), mask)
                 acc[qh] = merge_blocks(acc[qh], block)
+        else:
+            # the picked call reads K/V views sliced before (1,0)'s and is made
+            # after (1,0): autograd then sums each tensor's gradients in the
+            # order the four-pair ring did (bitwise the same)
+            k_halves, v_halves = (half(k_blk, 0), half(k_blk, 1)), (half(v_blk, 0), half(v_blk, 1))
+            mask = half(mask_blk, 0)[:, :, None, :].expand(R, b, t2, t2)
+            acc[1] = merge_blocks(acc[1], _block(q_halves[1], half(k_blk, 0), half(v_blk, 0), mask))
+            first = _index(group, ("ring_first", axis, i), lambda i=i: my >= i) != 0
+            blocks = _PickedBlockFn.apply(_Halves(first), mask_blk, *q_halves, *k_halves, *v_halves)
+            acc = [merge_blocks(acc[0], blocks[:3]), merge_blocks(acc[1], blocks[3:])]
         if i < sp - 1:
             k_blk = ppermute_shift(k_blk, 1, group, axis)
             v_blk = ppermute_shift(v_blk, 1, group, axis)

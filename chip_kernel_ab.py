@@ -157,9 +157,8 @@ def attention_cases(device, kv_dtype=torch.float32):
                                            cfg.num_kv_heads, d, kv_dtype)
     blocks = {}
     for mask in cs.zigzag_pair_masks(cs.RANKS, t2, device):
-        key = mask.cpu().numpy().tobytes()
-        blocks.setdefault(key, [mask.repeat_interleave(cs.LLAMA_BATCH, 0).contiguous(), 0])[1] += \
-            cs.LLAMA_LAYERS
+        key = (mask.stride(1), mask.cpu().numpy().tobytes())
+        blocks.setdefault(key, [cs.rank_rows(mask, 1, cs.LLAMA_BATCH), 0])[1] += cs.LLAMA_LAYERS
     for n, (mask, calls) in enumerate(blocks.values()):
         m = fa.block_attention_plain(qf, k, v, mask)[2]
         yield f"block {n} (live share {float(mask.float().mean()):.3f})", calls, (qf, k, v, mask, m, dl, do)

@@ -21,8 +21,11 @@ and no result line:
    1)``, its compress and three decompresses summed per step, monolithic
    and overlap, on lines of their own), the three attention kernels
    within ATTENTION_TOLS (the Llama slice's half-blocks, 4 ranks folded
-   into the batch, 32 heads of 128; GQA, bf16 K/V, 200x300 with d 24 and
-   64, a fully masked block, first-key-only rows), the tile GEMM of the
+   into the batch, 32 heads of 128, at the zigzag ring's 2 sp + 1 calls a
+   pass: the two diagonal blocks and the blocks wholly in the queries'
+   past, whose key mask is expanded over the queries with stride 0; GQA,
+   bf16 K/V, 200x300 with d 24 and 64, a fully masked block,
+   first-key-only rows, a key mask expanded over the queries), the tile GEMM of the
    collective-matmul rings within ``matmul_tol`` of ``x @ w`` (path (a)'s
    five products, the backward's through transposed views, the rings'
    row-block views; edge shapes; a rank batch with a stride-0 operand),
@@ -604,6 +607,12 @@ class Ledger:
         return ms, plain_ms, max(bytes_ms, ops_ms)
 
 
+def peak_memory() -> str:
+    """The card's peak allocation since the last reset, in GiB and bytes."""
+    peak = torch.cuda.max_memory_allocated()
+    return f"{peak / 2**30:.2f} GiB ({peak} B)"
+
+
 def round_tf32(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to TF32's 10 mantissa bits (to nearest, ties to even),
     as a tensor-core kernel reads f32 operands."""
@@ -854,20 +863,28 @@ def llama_slice_config() -> LlamaConfig:
 
 
 def zigzag_pair_masks(sp: int, t2: int, device):
-    """The causal masks of the zigzag ring's block calls, in its order (ring
-    step, q half, k half), each ``(sp, t2, t2)``: member r's queries are
-    global half-blocks (r, 2sp-1-r), and at step i it holds the K/V of
-    member (r - i) mod sp."""
-    ranks, pos = torch.arange(sp, device=device), torch.arange(t2, device=device)
-    masks = []
-    for i in range(sp):
-        src = (ranks - i) % sp
-        q_gid, k_gid = (ranks, 2 * sp - 1 - ranks), (src, 2 * sp - 1 - src)
-        for qh in range(2):
-            for kh in range(2):
-                q_pos, k_pos = q_gid[qh][:, None] * t2 + pos, k_gid[kh][:, None] * t2 + pos
-                masks.append(q_pos[:, :, None] >= k_pos[:, None, :])
-    return masks
+    """The causal masks of the zigzag ring's ``2 sp + 1`` block calls a pass,
+    in its order, each ``(sp, t2, t2)`` for the sp members: step 0's pairs
+    (0,0), (1,0) and (1,1), then at each later step (1,0) and the call in
+    which each member takes its own other live pair.  Member r's queries
+    are global half-blocks (r, 2sp-1-r), and at step i it holds the K/V of
+    member (r - i) mod sp.  Every row of every call is live; a block wholly
+    in the queries' past is all true, expanded over the queries with stride
+    0, as the ring passes it."""
+    diagonal = torch.ones((t2, t2), dtype=torch.bool, device=device).tril().expand(sp, t2, t2)
+    past = torch.ones((sp, 1, t2), dtype=torch.bool, device=device).expand(sp, t2, t2)
+    return [diagonal, past, diagonal] + [past, past] * (sp - 1)
+
+
+def rank_rows(mask: torch.Tensor, reps: int, rows: int) -> torch.Tensor:
+    """A per-member mask ``(n, tq, tk)`` over a call's rows: the members
+    repeated ``reps`` times (the groups of a mesh whose sp axis is the last)
+    and ``rows`` sequences a rank, ``(reps * n * rows, tq, tk)``; a mask
+    expanded over the queries keeps its stride 0."""
+    past = mask.stride(1) == 0
+    per_rank = mask[:, :1] if past else mask
+    laid = per_rank.repeat(reps, 1, 1).repeat_interleave(rows, 0).contiguous()
+    return laid.expand(-1, *mask.shape[1:]) if past else laid
 
 
 def attention_inputs(gen, device, b, tq, tk, h, h_kv, d, kv_dtype=torch.float32):
@@ -891,16 +908,19 @@ def attention_cost(qf, k, mask, d):
     """(bytes, f32 operations) of the forward, dq and dk/dv on one block: each
     live (query, key) pair and head costs 4d, 6d and 8d operations (two,
     three and four products of d multiply-adds); the inputs count once
-    where the block has a live pair, the mask and the outputs always."""
+    where the block has a live pair, the mask (its distinct bytes: a mask
+    expanded over the queries is one row a sequence) and the outputs
+    always."""
     b, tq, h, _ = qf.shape
     live = int(mask.sum()) * h
     f32 = 4
     q_bytes, kv_bytes = qf.numel() * f32, 2 * k.numel() * k.element_size()
     row_bytes = b * h * tq * f32  # one of l, m, dl
+    mask_bytes = mask.shape[0] * mask.shape[2] if mask.stride(1) == 0 else mask.numel()
     read = (q_bytes + kv_bytes) if live else 0
-    fwd = (mask.numel() + q_bytes + 2 * row_bytes + read, 4 * d * live)
-    dq = (mask.numel() + q_bytes + 2 * row_bytes + (read + q_bytes if live else 0), 6 * d * live)
-    dkv = (mask.numel() + kv_bytes + 2 * row_bytes + (read + q_bytes if live else 0), 8 * d * live)
+    fwd = (mask_bytes + q_bytes + 2 * row_bytes + read, 4 * d * live)
+    dq = (mask_bytes + q_bytes + 2 * row_bytes + (read + q_bytes if live else 0), 6 * d * live)
+    dkv = (mask_bytes + kv_bytes + 2 * row_bytes + (read + q_bytes if live else 0), 8 * d * live)
     return fwd, dq, dkv
 
 
@@ -920,8 +940,8 @@ def phase_attention_kernels(ledger: Ledger, device) -> None:
     """The three attention kernels against their plain versions (TF32 off)
     at the Llama slice's shapes and at GQA, bf16 K/V, ragged and degenerate
     ones; timed per slice step at its blocks: RANKS ranks folded into the
-    batch, half-blocks of LLAMA_SEQ / (2 RANKS) tokens, 32 heads of 128, one
-    call per (ring step, q half, k half) and layer."""
+    batch, half-blocks of LLAMA_SEQ / (2 RANKS) tokens, 32 heads of 128, the
+    ring's 2 RANKS + 1 calls a pass (:func:`zigzag_pair_masks`) a layer."""
     cfg = llama_slice_config()
     h, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
     t2 = LLAMA_SEQ // (2 * RANKS)
@@ -930,8 +950,8 @@ def phase_attention_kernels(ledger: Ledger, device) -> None:
     # the slice's blocks, by distinct mask, with the calls a step makes of each
     blocks = {}
     for mask in zigzag_pair_masks(RANKS, t2, device):
-        key = mask.cpu().numpy().tobytes()
-        blocks.setdefault(key, [mask.repeat_interleave(LLAMA_BATCH, 0).contiguous(), 0])[1] += LLAMA_LAYERS
+        key = (mask.stride(1), mask.cpu().numpy().tobytes())
+        blocks.setdefault(key, [rank_rows(mask, 1, LLAMA_BATCH), 0])[1] += LLAMA_LAYERS
     with _no_tf32():
         for n, (mask, calls) in enumerate(blocks.values()):
             live = float(mask.float().mean())
@@ -968,6 +988,9 @@ def phase_attention_kernels(ledger: Ledger, device) -> None:
             check_attention(ledger, f"200x300, d {d_small}, first key only", *x[:3], first, *x[3:])
             check_attention(ledger, f"200x300, d {d_small}, all masked", *x[:3],
                             torch.zeros_like(first), *x[3:])
+            keys = (torch.rand((2, 1, 300), generator=gen, device=device) < 0.5).expand(2, 200, 300)
+            check_attention(ledger, f"200x300, d {d_small}, a key mask expanded over the queries", *x[:3],
+                            keys, *x[3:])
     for name in ATTENTION_TOLS:
         row = ledger.rows[name]
         log(f"[kernels] {name}: {row['checks']} comparisons within {ATTENTION_TOLS[name]} "
@@ -2216,7 +2239,7 @@ def phase_llama_reference(device, cfg=REF_LLAMA, layout=(1, 1, RANKS)) -> None:
         got_losses, got = _train_small_llama(device, params, ids, cfg, layout)
     launches = read_launches()
     want_losses, want = _train_small_llama(torch.device("cpu"), params, ids, cfg, layout)
-    calls = REF_STEPS * cfg.num_layers * sp * 4
+    calls = REF_STEPS * cfg.num_layers * (2 * sp + 1)
     what = f"small Llama (dp {layout[0]} x tp {layout[1]} x sp {sp})"
     for name in ATTENTION_TOLS:
         if launches[name] != calls:
@@ -2380,8 +2403,8 @@ def phase_llama_slice(device, profile: bool, layout=(1, 1, RANKS)) -> dict:
     for leaf in tree_leaves(stacked):
         if not all(torch.equal(leaf[0], leaf[r]) for r in range(1, RANKS)):
             raise AssertionError(f"{what}: ranks' parameters differ after the steps")
-    # every (ring step, q half, k half) pair is launched, for all ranks at once
-    calls = LLAMA_STEPS * LLAMA_LAYERS * sp * 4
+    # the zigzag ring's 2 sp + 1 live pairs a pass, each for all ranks at once
+    calls = LLAMA_STEPS * LLAMA_LAYERS * (2 * sp + 1)
     want = {kernel: calls if kernel in ATTENTION_TOLS else 0 for kernel in KERNELS}
     if launches != want:
         raise AssertionError(f"{what}: launch counts {launches}, want {want}")
@@ -2392,9 +2415,8 @@ def phase_llama_slice(device, profile: bool, layout=(1, 1, RANKS)) -> dict:
         f"{n_params} parameters per rank, f32; {LLAMA_BATCH} x {LLAMA_SEQ} tokens over {RANKS} "
         f"ranks: first step {t1 - t0:.3f} s, then {step_s * 1e3:.1f} ms/step = "
         f"{tokens / step_s:.1f} tokens/s on the card; loss {losses[:, 0].tolist()}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches} "
-        f"({calls} each expected: {LLAMA_STEPS} steps x {LLAMA_LAYERS} layers x {sp} ring steps "
-        f"x 4 half-block pairs)")
+        f"{peak_memory()}; launches {launches} ({calls} each expected: {LLAMA_STEPS} steps x "
+        f"{LLAMA_LAYERS} layers x {2 * sp + 1} live half-block pairs)")
     if profile:
         profile_step(what, lambda: step(batches[-1]))
     return launches
@@ -3482,7 +3504,8 @@ def check_small_gpt_on_card(device, layout) -> dict:
             if not torch.isfinite(g).all() or rel > REF_GPT_TOL:
                 raise AssertionError(f"{what}: {name} differs from the {against} by {rel:.3e} of its "
                                      f"largest value (tolerance {REF_GPT_TOL})")
-    per_layer = 0 if sp_axis is None else (2 if sp_layout == "contiguous" else 2 * 4)
+    # sp 2: the contiguous ring's 2 calls a pass, the zigzag ring's 2 sp + 1 = 5
+    per_layer = 0 if sp_axis is None else (2 if sp_layout == "contiguous" else 5)
     calls = REF_GPT.num_layers * per_layer
     want_launches = {k: calls if k in ATTENTION_TOLS else 0 for k in KERNELS}
     if launches != want_launches:
@@ -3613,22 +3636,25 @@ def phase_gpt_reference(device) -> None:
 
 def contiguous_ring_masks(sp: int, t: int, n_ranks: int, rows: int, device):
     """The causal masks of the contiguous ring's block calls, one a ring
-    step, each ``(n_ranks * rows, t, t)`` for the ranks of a pp x sp group
-    (sp the inner axis; ``rows`` sequences a rank): member s holds the K/V
-    of member (s - i) mod sp at step i."""
-    ranks = torch.arange(n_ranks, device=device) % sp
-    pos = torch.arange(t, device=device)
-    masks = []
-    for i in range(sp):
-        src = (ranks - i) % sp
-        q_pos, k_pos = ranks[:, None] * t + pos, src[:, None] * t + pos
-        masks.append((q_pos[:, :, None] >= k_pos[:, None, :]).repeat_interleave(rows, 0).contiguous())
+    step, each over the rows its call serves, for the ranks of a mesh whose
+    sp axis is the last (``rows`` sequences a rank): member s holds the K/V
+    of member (s - i) mod sp at step i.  Step 0: the diagonal block of
+    every rank, ``(n_ranks * rows, t, t)``; step i > 0: the ranks with s >=
+    i alone, ``n_ranks (sp - i) / sp`` of them, whose block lies wholly in
+    their past (all true, expanded over the queries with stride 0, as the
+    ring passes it)."""
+    diagonal = torch.ones((t, t), dtype=torch.bool, device=device).tril()
+    masks = [diagonal.expand(n_ranks * rows, t, t).contiguous()]
+    for i in range(1, sp):
+        live = n_ranks * (sp - i) // sp * rows
+        masks.append(torch.ones((live, 1, t), dtype=torch.bool, device=device).expand(live, t, t))
     return masks
 
 
 def gpt_pp_calls(args) -> dict:
     """Rows 6-8's launches in one step of the twin: every block's ring
-    makes sp block calls a pass; 1F1B runs the stage forward twice a tick
+    makes sp block calls a pass (step i's over the ranks whose sp member is
+    at least i: :func:`contiguous_ring_masks`); 1F1B runs the stage forward twice a tick
     (the step's forward and the recompute) and one backward, over ``M + 2S
     - 2`` ticks; GPipe one forward and one backward over ``S + M - 1``."""
     S, M, sp, L = args.pp, args.microbatches, args.sp, args.blocks_per_stage
@@ -3647,8 +3673,8 @@ def gpt_pp_calls(args) -> dict:
 def gpt_pp_kernels(ledger: Ledger, args, device) -> str:
     """Rows 6-8 at the twin's blocks (f32 q pre-scaled, f32 K/V, head dim
     64, ``heads / tp`` heads; every rank of the mesh folded into the batch,
-    ``batch / dp / M`` sequences a rank) within ATTENTION_TOLS, at each ring step's mask (step 1 leaves
-    sp rank 0's block wholly masked), timed per step of ``args.schedule``."""
+    ``batch / dp / M`` sequences a rank) within ATTENTION_TOLS, at each ring step's call: its rows
+    and mask (:func:`contiguous_ring_masks`), timed per step of ``args.schedule``."""
     R = args.dp * args.pp * args.tp * args.sp
     rows, t = args.batch // args.dp // args.microbatches, args.seq // args.sp
     h, d = args.heads // args.tp, args.hidden // args.heads
@@ -3660,18 +3686,21 @@ def gpt_pp_kernels(ledger: Ledger, args, device) -> str:
     masks = contiguous_ring_masks(args.sp, t, R, rows, device)
     with _no_tf32():
         for i, mask in enumerate(masks):
-            live = float(mask.float().mean())
-            check_attention(ledger, f"{step}, ring step {i} (live share {live:.3f})", qf, k, v, mask, dl, do)
-            m = fa.block_attention_plain(qf, k, v, mask)[2]
-            lib_fwd, lib_bwd = sdpa_ms(qf, k, v, mask, do)
-            costs = attention_cost(qf, k, mask, d)
+            n = mask.shape[0]
+            x = (qf[:n], k[:n], v[:n])
+            check_attention(ledger, f"{step}, ring step {i} ({n} of {R * rows} rows, live share "
+                            f"{float(mask.float().mean()):.3f})", *x, mask, dl[:n], do[:n])
+            m = fa.block_attention_plain(*x, mask)[2]
+            lib_fwd, lib_bwd = sdpa_ms(*x, mask, do[:n])
+            costs = attention_cost(x[0], x[1], mask, d)
             per_mask = {name: calls[name] // len(masks) for name in ATTENTION_TOLS}
-            ledger.time("block_attention", *costs[0], qf, k, v, mask, per_step=per_mask["block_attention"],
+            ledger.time("block_attention", *costs[0], *x, mask, per_step=per_mask["block_attention"],
                         library=lambda: lib_fwd, step=step)
             for name, cost in zip(("flash_attention_bwd_dq", "flash_attention_bwd_dkv"), costs[1:]):
-                ledger.time(name, *cost, qf, k, v, mask, m, dl, do, per_step=per_mask[name],
+                ledger.time(name, *cost, *x, mask, m, dl[:n], do[:n], per_step=per_mask[name],
                             library=lambda: lib_bwd, step=step)
-    _log_step_sums(ledger, step, f"{args.blocks_per_stage} blocks x {args.sp} ring steps x the ticks")
+    _log_step_sums(ledger, step, f"{args.blocks_per_stage} blocks x {args.sp} ring steps (the live ranks' "
+                   f"rows) x the ticks")
     return step
 
 
@@ -3715,7 +3744,7 @@ def phase_gpt_pp(ledger: Ledger, device, profile: bool, schedule: str) -> dict:
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / GPT_STEPS
     launches = read_launches()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = peak_memory()
     what = f"[gpt-pp] GPT-2 small pp {args.pp} x sp {args.sp} {schedule}"
     losses = torch.stack(losses).cpu()
     if not torch.isfinite(losses).all():
@@ -3727,7 +3756,7 @@ def phase_gpt_pp(ledger: Ledger, device, profile: bool, schedule: str) -> dict:
     tokens = args.batch * args.seq
     log(f"{what}: {n_params} parameters, {args.batch} x {args.seq} tokens, {args.microbatches} microbatches, "
         f"f32, Adam {gp.LR}: {step_s * 1e3:.1f} ms/step over {GPT_STEPS} steps = {tokens / step_s:.1f} "
-        f"tokens/s on the card; peak memory {peak:.2f} GiB; losses {[round(x, 4) for x in losses[:, 0].tolist()]}; "
+        f"tokens/s on the card; peak memory {peak}; losses {losses[:, 0].tolist()}; "
         f"launches {launches} (per step {gpt_pp_calls(args)})")
     gpt_pp_kernels(ledger, args, device)
     if schedule == "1f1b" or profile:
@@ -4069,8 +4098,8 @@ def mesh_llama_kernels(ledger: Ledger, device, step: str) -> None:
     """Rows 6-8 at [mesh-llama]'s blocks within ATTENTION_TOLS, timed per
     step of it: dp x tp x sp ranks folded into the batch, a sequence a
     rank, half-blocks of LLAMA_SEQ / (2 sp) tokens, 32 / tp heads of 128,
-    one call per (ring step, q half, k half) and layer; rank r's sp
-    coordinate is r mod sp (sp is the mesh's last axis)."""
+    the ring's 2 sp + 1 calls a pass (:func:`zigzag_pair_masks`) a layer;
+    rank r's sp coordinate is r mod sp (sp is the mesh's last axis)."""
     dp, tp, sp = MESH_LLAMA
     cfg = llama_7b_config()
     R = dp * tp * sp
@@ -4081,9 +4110,8 @@ def mesh_llama_kernels(ledger: Ledger, device, step: str) -> None:
     qf, k, v, dl, do = attention_inputs(gen, device, R * rows, t2, t2, h, cfg.num_kv_heads // tp, d)
     blocks = {}
     for mask in zigzag_pair_masks(sp, t2, device):
-        key = mask.cpu().numpy().tobytes()
-        full = mask.repeat(R // sp, 1, 1).repeat_interleave(rows, 0).contiguous()
-        blocks.setdefault(key, [full, 0])[1] += LLAMA_LAYERS
+        key = (mask.stride(1), mask.cpu().numpy().tobytes())
+        blocks.setdefault(key, [rank_rows(mask, R // sp, rows), 0])[1] += LLAMA_LAYERS
     with _no_tf32():
         for n, (mask, calls) in enumerate(blocks.values()):
             live = float(mask.float().mean())
@@ -4096,7 +4124,7 @@ def mesh_llama_kernels(ledger: Ledger, device, step: str) -> None:
             for name, cost in zip(("flash_attention_bwd_dq", "flash_attention_bwd_dkv"), costs[1:]):
                 ledger.time(name, *cost, qf, k, v, mask, m, dl, do, per_step=calls, library=lambda: lib_bwd,
                             step=step)
-    _log_step_sums(ledger, step, f"{LLAMA_LAYERS} layers x {sp} ring steps x 4 half-block pairs")
+    _log_step_sums(ledger, step, f"{LLAMA_LAYERS} layers x {2 * sp + 1} live half-block pairs")
 
 
 def phase_mesh_llama(ledger: Ledger, device, profile: bool) -> dict:
@@ -4105,7 +4133,7 @@ def phase_mesh_llama(ledger: Ledger, device, profile: bool) -> dict:
     (``lp.mesh_spec``), llama_7b_config's width, LLAMA_LAYERS layers,
     MESH_LLAMA_BATCH x LLAMA_SEQ tokens (zigzag), f32.  Checks the loss is
     finite, every rank's parameters bitwise equal (JAX replicates the one
-    tree), the launches exact (steps x layers x sp x 4 of each of rows
+    tree), the launches exact (steps x layers x (2 sp + 1) of each of rows
     6-8); prints ms/step, tokens/s and the peak memory; rows 6-8 at its
     blocks (:func:`mesh_llama_kernels`)."""
     gc.collect()
@@ -4137,13 +4165,13 @@ def phase_mesh_llama(ledger: Ledger, device, profile: bool) -> dict:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = read_launches()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = peak_memory()
     what = f"[mesh-llama] Llama dp {dp} x tp {tp} x sp {sp}"
     losses = torch.stack(losses).cpu()
     if not torch.isfinite(losses).all():
         raise AssertionError(f"{what}: non-finite loss {losses.tolist()}")
     _bitwise_replicas(what, stacked)
-    calls = LLAMA_STEPS * LLAMA_LAYERS * sp * 4
+    calls = LLAMA_STEPS * LLAMA_LAYERS * (2 * sp + 1)
     want = {kernel: calls if kernel in ATTENTION_TOLS else 0 for kernel in KERNELS}
     if launches != want:
         raise AssertionError(f"{what}: launch counts {launches}, want {want}")
@@ -4153,8 +4181,8 @@ def phase_mesh_llama(ledger: Ledger, device, profile: bool) -> dict:
         f"vocab {cfg.vocab_size}), {LLAMA_LAYERS} layers, {n_params} parameters per rank, f32; "
         f"{MESH_LLAMA_BATCH} x {LLAMA_SEQ} tokens over {group.size} ranks, AdamW {LLAMA_LR}: first step "
         f"{t1 - t0:.3f} s, then {step_s * 1e3:.1f} ms/step = {tokens / step_s:.1f} tokens/s on the card; loss "
-        f"{losses[:, 0].tolist()}; peak memory {peak:.2f} GiB; launches {launches} ({calls} each expected: "
-        f"{LLAMA_STEPS} steps x {LLAMA_LAYERS} layers x {sp} ring steps x 4 half-block pairs)")
+        f"{losses[:, 0].tolist()}; peak memory {peak}; launches {launches} ({calls} each expected: "
+        f"{LLAMA_STEPS} steps x {LLAMA_LAYERS} layers x {2 * sp + 1} live half-block pairs)")
     if profile:
         profile_step(what, lambda: step(batches[-1]))
     del stacked, optimizer, model, batches
@@ -4189,7 +4217,7 @@ def phase_mesh_gpt(ledger: Ledger, device, profile: bool) -> dict:
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / GPT_STEPS
         launches = read_launches()
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak = peak_memory()
         what = f"[mesh-gpt] GPT-2 small pp {args.pp} x tp {args.tp} x sp {args.sp} {schedule}"
         losses = torch.stack(losses).cpu()
         if not torch.isfinite(losses).all():
@@ -4203,8 +4231,8 @@ def phase_mesh_gpt(ledger: Ledger, device, profile: bool) -> dict:
             total[k] += n
         log(f"{what}: {args.batch} x {args.seq} tokens, {args.microbatches} microbatches, {twin.group.size} "
             f"ranks, f32, Adam {gp.LR}: {step_s * 1e3:.1f} ms/step over {GPT_STEPS} steps = "
-            f"{args.batch * args.seq / step_s:.1f} tokens/s on the card; peak memory {peak:.2f} GiB; losses "
-            f"{[round(x, 4) for x in losses[:, 0].tolist()]}; launches {launches} (per step {gpt_pp_calls(args)})")
+            f"{args.batch * args.seq / step_s:.1f} tokens/s on the card; peak memory {peak}; losses "
+            f"{losses[:, 0].tolist()}; launches {launches} (per step {gpt_pp_calls(args)})")
         if profile:
             profile_step(what, lambda: twin.step(*data[-1]))
         del twin, data

@@ -18,13 +18,15 @@ PRODUCT and the bitwise ops raise on an input that requires grad.  The fault thi
 one spawn a layout running its cases in turn), each process feeding its
 ranks' rows: ``small-llama`` through the engine at dp 2 x tp 2 (fused and
 unfused) at W 4 x k 1 and W 2 x k 2; the Llama twin's hand-scheduled
-tp 2 x sp 2 zigzag at W 2 x k 2; the GPT twin at pp 2 x sp 2 under 1F1B
-and GPipe at W 2 x k 2.  Tolerance: none; every process's parameters are
+tp 2 x sp 2 zigzag at W 2 x k 2; the causal rings at sp 4 at W 2 x k 2
+(the Llama twin's zigzag, the GPT twin's contiguous); the GPT twin at pp
+2 x sp 2 under 1F1B and GPipe at W 2 x k 2.  Tolerance: none; every process's parameters are
 bitwise the single-controller run's rows (``gang.run_case`` on one thread,
 as each worker runs).
 
 (c) FSDP, MoE over ``ep`` (every rank), the small ResNet with
-``sync_bn=True`` and ``new_group`` of some ranks, at W 2 x k 2
+``sync_bn=True``, ``new_group`` of some ranks and both causal rings at sp
+4 (GQA, a key-padding mask), at W 2 x k 2
 (``torch_dist_workers.py model_axes``, each process against the stacked
 group in-process), bitwise; a rank list against ``new_group``'s rule
 raises.
@@ -191,6 +193,23 @@ def test_llama_tp2_sp2_zigzag_gang_is_bitwise(tmp_path, one_thread):
     reports = spawn_gang(2, ["--model", "small-llama", "--mesh", json.dumps(mesh), "--cases", json.dumps([case])]
                          + GANG_STEPS, str(tmp_path / "r"))
     assert_rows(reports, 0, stacked_twin("small-llama", mesh, case))
+
+
+#: the causal rings at sp 4 across two processes: the Llama twin's zigzag
+#: ring and the GPT twin's contiguous one (whose process 0 holds no live
+#: rank at ring steps 2 and 3, and makes no call there)
+SP4_RINGS = {"zigzag": ("small-llama", {"dp": 1, "tp": 1, "sp": 4}),
+             "contiguous": ("small-gpt", {"dp": 1, "pp": 1, "tp": 1, "sp": 4})}
+
+
+@pytest.mark.parametrize("layout", list(SP4_RINGS))
+def test_sp4_ring_gang_is_bitwise(tmp_path, layout, one_thread):
+    model, mesh = SP4_RINGS[layout]
+    case = ["stacked", {}, "auto"]
+    reports = spawn_gang(2, ["--model", model, "--mesh", json.dumps(mesh), "--cases", json.dumps([case])]
+                         + GANG_STEPS, str(tmp_path / "r"))
+    assert reports[0][0]["local_ranks"] == 2
+    assert_rows(reports, 0, stacked_twin(model, mesh, case))
 
 
 @pytest.mark.parametrize("mesh", [(1, 2, 1), (1, 2, 2)], ids=["tp2", "tp2-sp2"])

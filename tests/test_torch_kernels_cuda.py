@@ -400,8 +400,47 @@ def test_ring_attention_on_card_matches_cpu(cuda_device, layout):
         outs.append([y.detach().cpu()] + [x.grad.cpu() for x in xs])
     for g, w in zip(*outs):
         assert close(g, w, 3e-4)
-    assert fa.block_attention.launches == (16 if layout == "zigzag" else 4)
+    # sp 4: the zigzag ring's 2 sp + 1 live pairs, the contiguous ring's sp steps
+    assert fa.block_attention.launches == (9 if layout == "zigzag" else 4)
     assert fa.flash_attention_bwd_dq.launches == fa.flash_attention_bwd_dkv.launches == fa.block_attention.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+def test_ring_attention_on_card_skips_dead_blocks(cuda_device, layout, sp):
+    """Causal GQA ring with a key-padding mask over dp 2 x sp ranks on the
+    card against the same ring on the CPU (output and the gradients of
+    sum(sin(y)) within 3e-4) and against the CPU's witness of the rows a
+    call serves: zigzag launches each kernel 2 sp + 1 times a pass, the
+    contiguous ring sp times, each call over its live ranks only."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn((2 * sp, 2, 64, h, 32), generator=gen) for h in (4, 2, 2))
+    kv_mask = torch.rand((2 * sp, 2, 64), generator=gen) < 0.7
+    kv_mask[..., 0] = True
+    outs, rows = [], []
+    apply = fa.BlockAttentionFn.apply
+    for device in (cuda_device, torch.device("cpu")):
+        group = BaguaProcessGroup([device] * (2 * sp), intra_size=sp)
+        seen = []
+        fa.BlockAttentionFn.apply = lambda *a: seen.append(a[0].shape[0]) or apply(*a)
+        try:
+            xs = [x.to(device).requires_grad_() for x in (q, k, v)]
+            y = ring_attention(*xs, group, "intra", causal=True, kv_mask=kv_mask.to(device), layout=layout,
+                               kv_groups=2)
+            torch.sin(y).sum().backward()
+        finally:
+            fa.BlockAttentionFn.apply = apply
+        outs.append([y.detach().cpu()] + [x.grad.cpu() for x in xs])
+        rows.append(seen)
+    for g, w in zip(*outs):
+        assert close(g, w, 3e-4)
+    assert rows[0] == rows[1]
+    calls = 2 * sp + 1 if layout == "zigzag" else sp
+    assert fa.block_attention.launches == fa.flash_attention_bwd_dq.launches == \
+        fa.flash_attention_bwd_dkv.launches == calls
+    if layout == "contiguous":
+        assert rows[0] == [2 * (sp - i) * 2 for i in range(sp)]
 
 
 def matmul_close(got: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> bool:

@@ -655,8 +655,34 @@ def _pipeline_case(group, ref, rows):
     return [why] if why else []
 
 
+def _ring_case(group, ref, rows):
+    """Both causal rings at sp 4 over every rank (two a process), GQA K/V
+    (4 query heads, 2 K/V heads) and a key-padding mask: each process's
+    output and gradients bitwise the stacked run's rows.  The contiguous
+    ring's process 0 holds no rank whose block is live at steps 2 and 3."""
+    from bagua_tpu_torch.parallel.ring_attention import ring_attention
+
+    axis = ("inter", "intra")
+    q = _stack(ref.size, 2, 8, 4, 8, seed=30)
+    k, v = _stack(ref.size, 2, 8, 2, 8, seed=31), _stack(ref.size, 2, 8, 2, 8, seed=32)
+    kv_mask = _stack(ref.size, 2, 8, seed=33) > -0.5
+    cot = _cotangent((ref.size, 2, 8, 4, 8), 34)
+
+    def run(g, sel):
+        out = []
+        for layout in ("contiguous", "zigzag"):
+            xs = [x[sel].clone().requires_grad_() for x in (q, k, v)]
+            y = ring_attention(*xs, g, axis, causal=True, kv_mask=kv_mask[sel], layout=layout, kv_groups=2)
+            y.backward(cot[sel])
+            out += [y.detach().reshape(len(sel), -1)] + [x.grad.reshape(len(sel), -1) for x in xs]
+        return torch.cat(out, 1)
+
+    why = _same(run(group, rows), run(ref, list(range(ref.size))), rows, ref.size)
+    return [why] if why else []
+
+
 MODEL_AXES = {"fsdp": _fsdp_case, "moe_ep": _moe_case, "sync_bn": _sync_bn_case, "pipeline": _pipeline_case,
-              "new_group": _new_group_case}
+              "new_group": _new_group_case, "ring_attention": _ring_case}
 
 
 def model_axes(p: int, port: str, out: str) -> None:
