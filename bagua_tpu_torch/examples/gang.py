@@ -138,7 +138,7 @@ def reset_launches() -> None:
 
 
 def read_launches() -> Dict[str, int]:
-    counts = {fn.__name__: fn.launches for fn in mm8.KERNELS + fa.KERNELS + cm.KERNELS}
+    counts = {fn.__name__: fn.launches for fn in mm8.KERNELS + qr.CODEC4 + fa.KERNELS + cm.KERNELS}
     for bits, n in qr.hop_dequant_add_requant.launches_by_bits.items():
         counts[f"hop_dequant_add_requant_int{bits}"] = n
     return counts
@@ -150,6 +150,8 @@ PLAIN = {
     "decompress_minmax_uint8": mm8.decompress_minmax_uint8_plain,
     "decompress_reduce_requantize": mm8.decompress_reduce_requantize_plain,
     "hop_dequant_add_requant": qr.hop_dequant_add_requant_plain,
+    "compress_minmax_uint4": qr.compress_minmax_uint4_plain,
+    "decompress_minmax_uint4": qr.decompress_minmax_uint4_plain,
     "block_attention": fa.block_attention_plain,
     "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_plain,
     "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv_plain,

@@ -24,14 +24,19 @@ wrapper                                     replaces the Pallas kernel
 ==========================================  ================================
 :func:`hop_dequant_add_requant`, bits=8     ``_hop_kernel8`` (pallas_call :253)
 :func:`hop_dequant_add_requant`, bits=4     ``_hop_kernel4`` (pallas_call :253)
+:func:`compress_minmax_uint4`               no Pallas kernel; jnp at
+                                            ``bagua_tpu/kernels/quantized_ring.py:101``
+:func:`decompress_minmax_uint4`             no Pallas kernel; jnp at
+                                            ``bagua_tpu/kernels/quantized_ring.py:125``
 ==========================================  ================================
 
-Both run ``csrc/quantized_ring.cu`` on CUDA tensors and the plain version
-:func:`hop_dequant_add_requant_plain` on CPU tensors.  The int8 block codec
-is :mod:`~bagua_tpu_torch.kernels.minmax_uint8`'s, so on the card it
-launches that module's CUDA kernels.  The int4 block codec had no Pallas
-kernel (it is jnp in the JAX package) and stays PyTorch ops here, on every
-device.
+Each runs ``csrc/quantized_ring.cu`` on CUDA tensors and its plain version
+(:func:`hop_dequant_add_requant_plain`, :func:`compress_minmax_uint4_plain`,
+:func:`decompress_minmax_uint4_plain`) on CPU and meta tensors.  XLA fuses
+the JAX package's jnp int4 codec into the jitted step; the two codec
+kernels give the port the same one pass.  The int8 block codec is
+:mod:`~bagua_tpu_torch.kernels.minmax_uint8`'s, so on the card it launches
+that module's CUDA kernels.
 
 The ring collectives take rank-stacked ``(size, L)`` tensors and a group
 and axis, as :mod:`~bagua_tpu_torch.communication` does, and call each
@@ -78,7 +83,7 @@ def resolve_block(requested: Optional[int] = None) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The int4 block codec (PyTorch ops on every device, as jnp in the JAX package)
+# The int4 block codec: plain versions (the jnp expressions in order)
 # ---------------------------------------------------------------------------
 
 
@@ -89,12 +94,8 @@ def _to_int32(v: torch.Tensor) -> torch.Tensor:
     return v.clamp_(-(2.0 ** 31), 2.0 ** 31 - 1).to(torch.int64)
 
 
-def compress_minmax_uint4(blocks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Compress ``blocks`` ``(nblocks, B)`` (B even) to 4-bit levels, two per
-    byte: ``(packed (nblocks, B // 2) uint8, minmax (nblocks, 2) float32)``.
-    Element ``j`` rides the low nibble of byte ``j``, element ``j + B/2`` the
-    high nibble; the nibbles are packed in int32 and truncated to u8, as
-    XLA does."""
+def compress_minmax_uint4_plain(blocks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`compress_minmax_uint4`."""
     x = blocks.to(torch.float32)
     mn, mx = mm8._row_min(x), mm8._row_max(x)
     scale = mm8._safe_scale(mn, mx, LEVELS4)
@@ -106,9 +107,8 @@ def compress_minmax_uint4(blocks: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     return (packed & 0xFF).to(torch.uint8), torch.cat([mn, mx], dim=1)
 
 
-def decompress_minmax_uint4(packed: torch.Tensor, minmax: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`compress_minmax_uint4` (lossy): ``(nblocks, B//2)``
-    packed bytes back to ``(nblocks, B)`` float32 values."""
+def decompress_minmax_uint4_plain(packed: torch.Tensor, minmax: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`decompress_minmax_uint4`."""
     p = packed.to(torch.int32)
     q = torch.cat([p & 0xF, p >> 4], dim=1).to(torch.float32)
     mn, mx = minmax[:, 0:1], minmax[:, 1:2]
@@ -123,6 +123,8 @@ def _compressors(bits: int, plain: bool = False):
             return mm8.compress_minmax_uint8_plain, mm8.decompress_minmax_uint8_plain
         return mm8.compress_minmax_uint8, mm8.decompress_minmax_uint8
     if bits == 4:
+        if plain:
+            return compress_minmax_uint4_plain, decompress_minmax_uint4_plain
         return compress_minmax_uint4, decompress_minmax_uint4
     raise ValueError(f"quantized ring supports bits in (8, 4), got {bits}")
 
@@ -149,8 +151,63 @@ def _lib() -> ctypes.CDLL:
         P, I64 = ctypes.c_void_p, ctypes.c_int64
         lib.bagua_qr_hop.argtypes = [P, P, P, P, P, P, I64, I64, ctypes.c_int, P]
         lib.bagua_qr_hop.restype = ctypes.c_int
+        lib.bagua_qr_compress4.argtypes = [P, P, P, I64, I64, P]
+        lib.bagua_qr_compress4.restype = ctypes.c_int
+        lib.bagua_qr_decompress4.argtypes = [P, P, P, I64, I64, P]
+        lib.bagua_qr_decompress4.restype = ctypes.c_int
         lib._bagua_typed = True
     return lib
+
+
+def compress_minmax_uint4(blocks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compress ``blocks`` ``(nblocks, B)`` (B even) to 4-bit levels, two per
+    byte: ``(packed (nblocks, B // 2) uint8, minmax (nblocks, 2) float32)``.
+    Element ``j`` rides the low nibble of byte ``j``, element ``j + B/2`` the
+    high nibble; the nibbles are packed in int32 and truncated to u8, as
+    XLA does.  A CUDA tensor must be float32."""
+    if blocks.device.type in _build.PLAIN_DEVICES:
+        return compress_minmax_uint4_plain(blocks)
+    what = "compress_minmax_uint4"
+    x = mm8._cuda_operand(blocks, torch.float32, 2, what)
+    rows, block = x.shape
+    if block % 2:
+        raise ValueError(f"{what}: blocks {tuple(x.shape)} must have an even B")
+    packed = torch.empty((rows, block // 2), dtype=torch.uint8, device=x.device)
+    minmax = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _lib().bagua_qr_compress4(
+            x.data_ptr(), packed.data_ptr(), minmax.data_ptr(), rows, block, mm8._stream(x.device)
+        )
+    mm8._check(code, what)
+    compress_minmax_uint4.launches += 1
+    _build.witness(what, (x,), (packed, minmax))
+    return packed, minmax
+
+
+def decompress_minmax_uint4(packed: torch.Tensor, minmax: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`compress_minmax_uint4` (lossy): ``(nblocks, B//2)``
+    packed bytes back to ``(nblocks, B)`` float32 values."""
+    if packed.device.type in _build.PLAIN_DEVICES:
+        return decompress_minmax_uint4_plain(packed, minmax)
+    what = "decompress_minmax_uint4"
+    packed = mm8._cuda_operand(packed, torch.uint8, 2, what)
+    minmax = mm8._cuda_operand(minmax, torch.float32, 2, f"{what} minmax")
+    rows, half = packed.shape
+    if minmax.shape != (rows, 2) or minmax.device != packed.device:
+        raise ValueError(f"{what}: minmax {tuple(minmax.shape)} does not fit packed {tuple(packed.shape)}")
+    out = torch.empty((rows, 2 * half), dtype=torch.float32, device=packed.device)
+    with torch.cuda.device(packed.device):
+        code = _lib().bagua_qr_decompress4(
+            packed.data_ptr(), minmax.data_ptr(), out.data_ptr(), rows, 2 * half, mm8._stream(packed.device)
+        )
+    mm8._check(code, what)
+    decompress_minmax_uint4.launches += 1
+    _build.witness(what, (packed, minmax), (out,))
+    return out
+
+
+compress_minmax_uint4.launches = 0
+decompress_minmax_uint4.launches = 0
 
 
 def hop_dequant_add_requant(
@@ -199,8 +256,11 @@ hop_dequant_add_requant.launches = 0
 #: reset it with ``launches``
 hop_dequant_add_requant.launches_by_bits = {8: 0, 4: 0}
 
+#: the int4 block codec's wrappers, whose launches are counted by name (the
+#: hop's also by bits, in ``launches_by_bits``)
+CODEC4 = (compress_minmax_uint4, decompress_minmax_uint4)
 #: the wrappers that launch kernels, for callers that read or reset the counts
-KERNELS = (hop_dequant_add_requant,)
+KERNELS = (hop_dequant_add_requant, *CODEC4)
 
 
 # ---------------------------------------------------------------------------

@@ -89,14 +89,12 @@ class ModeledCell:
 def kernel_basis(algo: str, wire: str, device_type: str) -> Dict:
     """The hand-written kernels the cell's wire program runs, and what runs
     them: ``cuda`` on a card (``device_type == "cuda"``), ``plain`` (their
-    plain versions) elsewhere, ``none`` when the wire runs no kernel.  The
-    int4 ring's block codec is PyTorch ops on every device; its hop is a
-    kernel."""
+    plain versions) elsewhere, ``none`` when the wire runs no kernel."""
     kernels: List[str] = []
     if wire == "int8":
         kernels = ["compress_minmax_uint8", "decompress_minmax_uint8", "hop_dequant_add_requant(bits=8)"]
     elif wire == "int4":
-        kernels = ["hop_dequant_add_requant(bits=4)"]
+        kernels = ["compress_minmax_uint4", "decompress_minmax_uint4", "hop_dequant_add_requant(bits=4)"]
     elif algo == "bytegrad" or (algo == "zero" and wire == "bytegrad"):
         kernels = ["compress_minmax_uint8", "decompress_minmax_uint8"]
         if algo == "bytegrad":

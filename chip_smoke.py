@@ -15,7 +15,9 @@ and no result line:
    kernels bitwise (VGG16's 10 MiB buckets over 4 ranks: ByteGrad's chunks
    and the quantized ring's blocks of 4096, where the int8 ring compresses
    and decompresses twice a step; those four calls are summed per int8-ring
-   step on ``[kernels]`` lines of their own; low-precision decentralized's
+   step on ``[kernels]`` lines of their own; the int4 block codec's two
+   kernels at the int4 ring's same four calls, summed per int4-ring step as
+   their own rows, at ragged blocks and on the degenerate rows; low-precision decentralized's
    whole-model row a rank, ``(4, 138,357,544)``, each 10 MiB bucket one
    row a rank as its overlap run compresses it, and a ragged ``(3, 2^27 +
    1)``, its compress and three decompresses summed per step, monolithic
@@ -465,6 +467,15 @@ KERNELS = {
         functools.partial(qr.hop_dequant_add_requant_plain, bits=4), QR_SOURCE,
         "bagua_tpu/kernels/quantized_ring.py:211",
     ),
+    # the int4 block codec: no Pallas kernel, jnp in the JAX package
+    "compress_minmax_uint4": (
+        qr.compress_minmax_uint4, qr.compress_minmax_uint4_plain, QR_SOURCE,
+        "bagua_tpu/kernels/quantized_ring.py:101 (jnp)",
+    ),
+    "decompress_minmax_uint4": (
+        qr.decompress_minmax_uint4, qr.decompress_minmax_uint4_plain, QR_SOURCE,
+        "bagua_tpu/kernels/quantized_ring.py:125 (jnp)",
+    ),
     "block_attention": (fa.block_attention, fa.block_attention_plain, FA_SOURCE, f"{FA_TPU}:314"),
     "flash_attention_bwd_dq": (
         fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain, FA_SOURCE, f"{FA_TPU}:510",
@@ -486,7 +497,7 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Each kernel's launches since :func:`reset_launches`, by KERNELS name."""
-    counts = {fn.__name__: fn.launches for fn in mm8.KERNELS + fa.KERNELS + cm.KERNELS}
+    counts = {fn.__name__: fn.launches for fn in mm8.KERNELS + qr.CODEC4 + fa.KERNELS + cm.KERNELS}
     for bits, n in qr.hop_dequant_add_requant.launches_by_bits.items():
         counts[f"hop_dequant_add_requant_int{bits}"] = n
     return counts
@@ -661,8 +672,8 @@ def pipeline_inputs(x: torch.Tensor, n: int):
     return x.reshape(ranks * n, chunk), (q_recv, mm_recv), (qg, mmg)
 
 
-def ring_codec_inputs(x: torch.Tensor, block: int):
-    """The int8 ring's codec inputs for stacked flats ``x`` (R, L) over R
+def ring_codec_inputs(x: torch.Tensor, block: int, bits: int = 8):
+    """The ``bits`` ring's codec inputs for stacked flats ``x`` (R, L) over R
     ranks, each blocked as ``quantized_ring._pad_to_blocks`` pads it: the
     reduce-scatter's step-0 blocks (rank i's shard (i - 1) mod R) and the
     all-gather's shard blocks (the shards' sums), which it compresses; the
@@ -674,15 +685,16 @@ def ring_codec_inputs(x: torch.Tensor, block: int):
     idx = torch.arange(ranks, device=x.device)
     blocks = lambda t: qr._pad_to_blocks(t, block)[0].reshape(-1, block)
     local0, owned = blocks(shards[idx, (idx - 1) % ranks]), blocks(shards.sum(0))
-    q, mm = mm8.compress_minmax_uint8_plain(torch.cat([local0, owned]))
+    q, mm = qr._compressors(bits, plain=True)[0](torch.cat([local0, owned]))
     rows = owned.shape[0]
     return (local0, owned), (q, mm), (q[rows:].repeat(ranks, 1), mm[rows:].repeat(ranks, 1))
 
 
-def codec_cost(rows: int, chunk: int, ops_per_element: int):
-    """(bytes, f32 operations) of compress or decompress over (rows, chunk):
-    4 + 1 bytes an element and the 8-byte sidecar a row, each moved once."""
-    return rows * chunk * 5 + rows * 8, rows * chunk * ops_per_element
+def codec_cost(rows: int, chunk: int, ops_per_element: int, bits: int = 8):
+    """(bytes, f32 operations) of compress or decompress over (rows, chunk)
+    f32 elements: 4 bytes an element, its ``bits`` of level and the 8-byte
+    sidecar a row, each moved once."""
+    return rows * chunk * (32 + bits) // 8 + rows * 8, rows * chunk * ops_per_element
 
 
 def hop_inputs(incoming: torch.Tensor, local: torch.Tensor, block: int, bits: int):
@@ -750,6 +762,18 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
             t[f"decompress, int8 ring {what}"] = ledger.time(
                 "decompress_minmax_uint8", *codec_cost(*dec[0].shape, 2), *dec, step="int8 ring")
         del comp_in, rs_dec, ag_dec
+        # the int4 ring's codec calls, one of each a step at this bucket: the
+        # codec kernels' own rows, summed per int4-ring step
+        comp_in, rs_dec, ag_dec = ring_codec_inputs(x, BLOCK, bits=4)
+        for what, blocks in zip(("reduce-scatter step 0", "all-gather"), comp_in):
+            ledger.compare("compress_minmax_uint4", f"{case}, int4 ring {what}", blocks)
+            t[f"compress int4, int4 ring {what}"] = ledger.time(
+                "compress_minmax_uint4", *codec_cost(*blocks.shape, 6, bits=4), blocks)
+        for what, dec in (("reduce-scatter", rs_dec), ("all-gather", ag_dec)):
+            ledger.compare("decompress_minmax_uint4", f"{case}, int4 ring {what}", *dec)
+            t[f"decompress int4, int4 ring {what}"] = ledger.time(
+                "decompress_minmax_uint4", *codec_cost(dec[0].shape[0], 2 * dec[0].shape[1], 2, bits=4), *dec)
+        del comp_in, rs_dec, ag_dec
         # the ring's hop: each rank's shard of chunk elements in blocks, the
         # incoming partial sum of a few ranks' gradients and the local one
         incoming = x[:, :chunk] + x[:, chunk:2 * chunk]
@@ -778,6 +802,9 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
         for bits in (8, 4):
             ledger.compare(f"hop_dequant_add_requant_int{bits}", f"block {block}",
                            *hop_inputs(x[0], x[1], block, bits))
+        packed, mm4 = ledger.compare("compress_minmax_uint4", f"block {block}",
+                                     qr._pad_to_blocks(x[0], block)[0].reshape(-1, block))
+        ledger.compare("decompress_minmax_uint4", f"block {block}", packed, mm4)
     # degenerate inputs (tests/test_bytegrad.py:87-236), a NaN, signed zeros
     cases = {f"constant {v}": torch.full((4, 4096), v, device=device)
              for v in (0.0, 1.5, 2.5, -7.0, 1e32, -1e35, 3.4e38, 8.8e33)}
@@ -801,11 +828,17 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
             # sum requantizes where upper - levels may round
             ledger.compare(f"hop_dequant_add_requant_int{bits}", case,
                            *hop_inputs(x, x, x.shape[1] + x.shape[1] % 2, bits))
+        # the int4 codec on the same rows, an odd row's last value repeated
+        # (B must be even), so a constant row stays constant
+        blocks4 = torch.cat([x, x[:, -1:]], 1) if x.shape[1] % 2 else x
+        packed, mm4 = ledger.compare("compress_minmax_uint4", case, blocks4)
+        ledger.compare("decompress_minmax_uint4", case, packed, mm4)
     phase_lp_kernels(ledger, plan, device, gen)
     for name, row in ledger.rows.items():
         if name in ATTENTION_TOLS or name == "matmul_tile":
             continue
-        log(f"[kernels] {name}: {row['checks']} comparisons bitwise, per step over "
+        step = " int4-ring" if name.endswith("minmax_uint4") else ""
+        log(f"[kernels] {name}: {row['checks']} comparisons bitwise, per{step} step over "
             f"{plan.num_buckets} buckets {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms)")
     for step, sums in ledger.other_steps.items():
@@ -1355,7 +1388,8 @@ SLICE_PATHS = {
                   {"compress_minmax_uint8": 2, "decompress_minmax_uint8": 2,
                    "hop_dequant_add_requant_int8": RANKS - 2}),
     "int4 ring": (functools.partial(GradientAllReduceAlgorithm, wire_precision="int4"),
-                  {"hop_dequant_add_requant_int4": RANKS - 2}),
+                  {"compress_minmax_uint4": 2, "decompress_minmax_uint4": 2,
+                   "hop_dequant_add_requant_int4": RANKS - 2}),
 }
 
 
@@ -1573,7 +1607,8 @@ ZERO_PATHS = {
                         "hop_dequant_add_requant_int8": RANKS - 2}),
     "ZeRO ByteGrad (monolithic)": ({"compression": "bytegrad"}, False, SLICE_PATHS["ByteGrad"][1]),
     "ZeRO int4 ring (monolithic)": ({"wire_precision": "int4"}, False,
-                                    {"hop_dequant_add_requant_int4": RANKS - 2}),
+                                    {"compress_minmax_uint4": 1, "decompress_minmax_uint4": 1,
+                                     "hop_dequant_add_requant_int4": RANKS - 2}),
 }
 
 
@@ -5170,7 +5205,7 @@ def check_meta_wrappers_on_card(device) -> int:
     x = torch.rand((8, 64), generator=gen, device=device)
     q, mm = mm8.compress_minmax_uint8(x)
     q3, mm3 = q.reshape(2, 4, 64), mm.reshape(2, 4, 2)
-    qb, qm, qx = qr.compress_minmax_uint4(x)[0], mm, x
+    qb, qm, qx = qr.compress_minmax_uint4_plain(x)[0], mm, x
     a = torch.rand((1, 16, 2, 32), generator=gen, device=device)
     mask = torch.ones((1, 16, 16), dtype=torch.bool, device=device)
     stats = torch.zeros((1, 2, 16), device=device)
@@ -5182,6 +5217,8 @@ def check_meta_wrappers_on_card(device) -> int:
         (mm8.decompress_reduce_requantize, (q3, mm3)),
         (qr.hop_dequant_add_requant, (q, mm, x, 8)),
         (qr.hop_dequant_add_requant, (qb, qm, qx, 4)),
+        (qr.compress_minmax_uint4, (x,)),
+        (qr.decompress_minmax_uint4, (qb, qm)),
         (fa.block_attention, (a, a, a, mask)),
         (fa.flash_attention_bwd_dq, (a, a, a, mask, stats, stats, do)),
         (fa.flash_attention_bwd_dkv, (a, a, a, mask, stats, stats, do)),

@@ -17,15 +17,18 @@ without it has no other step) and, where the tree has it, the overlap
 step.  Each path: 2 warm-up steps,
 then ``--steps`` steps ending in ``torch.cuda.synchronize()``; its ms/step,
 its peak memory (``torch.cuda.max_memory_allocated``) and, where the engine
-reports it, its optimizer state per rank, and its algorithm state per rank.  ``async``'s numbers follow the
+reports it, its optimizer state per rank, and its algorithm state per rank, and a SHA-256 of the
+parameters after the steps (ZeRO's pending shards gathered first).  ``async``'s numbers follow the
 wall clock (its averager folds when its thread gets the engine's lock),
-so they vary from run to run more than the others'.  Prints each turn's numbers and a
-JSON line with the faster of each tree's two turns per path.  Exits
-non-zero without a card.
+so they vary from run to run more than the others'.  Prints each turn's
+numbers and a JSON line with the faster of each tree's two turns per path
+and the paths whose parameters differ between turns.  Exits non-zero
+without a card.
 """
 
 import argparse
 import gc
+import hashlib
 import importlib.util
 import inspect
 import itertools
@@ -44,6 +47,10 @@ WIRES = {
     "ZeRO f32": ("bagua_tpu_torch.sharded", "ZeroAlgorithm", {}),
     "ZeRO ByteGrad": ("bagua_tpu_torch.sharded", "ZeroAlgorithm", {"compression": "bytegrad"}),
     "ZeRO int8 ring": ("bagua_tpu_torch.sharded", "ZeroAlgorithm", {"wire_precision": "int8"}),
+    # int4 error feedback holds per-bucket state, which the engine keeps out
+    # of overlap: monolithic only
+    "int4 ring": ("bagua_tpu_torch.algorithms", "GradientAllReduceAlgorithm", {"wire_precision": "int4"}),
+    "ZeRO int4 ring": ("bagua_tpu_torch.sharded", "ZeroAlgorithm", {"wire_precision": "int4"}),
     "decentralized shift_one": ("bagua_tpu_torch.algorithms.decentralized", "DecentralizedAlgorithm",
                                 {"peer_selection_mode": "shift_one"}),
     "decentralized all": ("bagua_tpu_torch.algorithms.decentralized", "DecentralizedAlgorithm", {}),
@@ -68,7 +75,7 @@ WIRES = {
               {"sync_interval_ms": 50, "warmup_steps": 2}),
 }
 #: wires whose algorithm has no overlap mode
-MONOLITHIC_ONLY = {"none", "GradientAccumulation ByteGrad every=4", "async"}
+MONOLITHIC_ONLY = {"none", "GradientAccumulation ByteGrad every=4", "async", "int4 ring", "ZeRO int4 ring"}
 
 
 def _algorithm(module: str, cls: str, kwargs: dict):
@@ -137,6 +144,13 @@ def worker(root: str, steps: int, names) -> dict:
         out[f"{wire} {mode}"] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         if hasattr(trainer.ddp, "optimizer_state_bytes"):
             out[f"{wire} {mode}"]["optimizer_bytes_per_rank"] = trainer.ddp.optimizer_state_bytes(state)
+        final = trainer.ddp.finalize_pending_updates(state) if hasattr(trainer.ddp, "finalize_pending_updates") \
+            else state
+        digest = hashlib.sha256()
+        for leaf in tree_leaves(final.params):
+            digest.update(leaf.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        out[f"{wire} {mode}"]["params_sha256"] = digest.hexdigest()
+        del final
         # the algorithm's state: its distinct tensors over the ranks
         algo = {t.data_ptr(): t.numel() * t.element_size() for t in tree_leaves(state.algo_state)
                 if torch.is_tensor(t)}
@@ -170,7 +184,7 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
-    best = {}
+    best, digests = {}, {}
     for tree, root in (("parent", args.parent), ("tree", here), ("tree", here), ("parent", args.parent)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
                                "--steps", str(args.steps), "--wires", args.wires],
@@ -183,11 +197,15 @@ def main(argv) -> int:
             opt = f", optimizer state {row['optimizer_bytes_per_rank']} B per rank" \
                 if "optimizer_bytes_per_rank" in row else ""
             opt += f", algorithm state {row['algorithm_bytes_per_rank']} B per rank"
-            print(f"[ab] {tree} {path}: {row['ms']:.2f} ms/step, peak {row['peak_gib']:.2f} GiB{opt}", flush=True)
+            print(f"[ab] {tree} {path}: {row['ms']:.2f} ms/step, peak {row['peak_gib']:.2f} GiB{opt}; "
+                  f"parameters {row['params_sha256'][:16]}", flush=True)
+            digests.setdefault(path, set()).add(row["params_sha256"])
             prev = best.setdefault(tree, {}).get(path)
             if prev is None or row["ms"] < prev["ms"]:
                 best[tree][path] = row
-    print(json.dumps({"steps": args.steps, "faster_of_two_turns": best}), flush=True)
+    differ = sorted(path for path, seen in digests.items() if len(seen) > 1)
+    print(json.dumps({"steps": args.steps, "parameters_differ_between_turns": differ,
+                      "faster_of_two_turns": best}), flush=True)
     return 0
 
 

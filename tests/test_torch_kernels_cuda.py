@@ -27,6 +27,7 @@ def cuda_device():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     for fn in port.KERNELS + qr.KERNELS + fa.KERNELS + cm.KERNELS:
         fn.launches = 0
+    qr.hop_dequant_add_requant.launches_by_bits.update({8: 0, 4: 0})
     return torch.device("cuda", 0)
 
 
@@ -193,7 +194,7 @@ def test_fused_reduce_reads_unaligned_views(cuda_device, chunk):
 def check_hop(incoming: torch.Tensor, local: torch.Tensor, bits: int) -> None:
     """The hop kernel equals its plain version bitwise on packages the
     block codec made from ``incoming``, and counts one launch."""
-    comp = port.compress_minmax_uint8_plain if bits == 8 else qr.compress_minmax_uint4
+    comp = port.compress_minmax_uint8_plain if bits == 8 else qr.compress_minmax_uint4_plain
     q, mm = comp(incoming)
     before = qr.hop_dequant_add_requant.launches, dict(qr.hop_dequant_add_requant.launches_by_bits)
     got = qr.hop_dequant_add_requant(q, mm, local, bits)
@@ -241,6 +242,157 @@ def test_hop_matches_plain_on_nan_and_signed_zeros(cuda_device, bits):
     check_hop(x, local, bits)
     zeros = torch.tensor([[0.0, -0.0, 0.0, -0.0], [-0.0, -0.0, -0.0, -0.0]], device=cuda_device)
     check_hop(zeros, -zeros, bits)
+
+
+# ---------------------------------------------------------------------------
+# The int4 block codec: compress and decompress, bitwise their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_codec4(x: torch.Tensor) -> None:
+    """Both codec kernels equal their plain versions bitwise on ``x`` (the
+    decompress on the plain compress's output) and count one launch a call."""
+    before = qr.compress_minmax_uint4.launches, qr.decompress_minmax_uint4.launches
+    packed, mm = qr.compress_minmax_uint4(x)
+    packed_p, mm_p = qr.compress_minmax_uint4_plain(x)
+    out = qr.decompress_minmax_uint4(packed_p, mm_p)
+    torch.cuda.synchronize()
+    assert bitwise(packed, packed_p) and bitwise(mm, mm_p)
+    assert bitwise(out, qr.decompress_minmax_uint4_plain(packed_p, mm_p))
+    assert (qr.compress_minmax_uint4.launches, qr.decompress_minmax_uint4.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 4096), (5, 2), (7, 6), (9, 130), (3, 258), (3, 4098), (2, 8192),
+                                   (2, 8194), (2, 16384), (2, 16386), (2, 65536), (2, 65538), (1, 4096),
+                                   (3000, 4096), (5, 32), (4, 16), (3, 4112), (3, 4104), (2, 24),
+                                   (2, 1 << 20)])
+def test_codec4_matches_plain(cuda_device, shape):
+    """Random blocks at the ring's block size and at ragged ones: the vector
+    paths (B/2 a whole number of 8 bytes for compress, of 4 for
+    decompress) and the scalar ones; rows of up to 4096 held in registers
+    and longer rows walked twice (compress); one row to many sections of a
+    long row (decompress)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    check_codec4(torch.randn(shape, generator=gen, device=cuda_device) * 3.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [0.0, 1.5, 2.5, -7.0, 1e32, -1e35, 3.4e38, 8.8e33])
+def test_codec4_matches_plain_on_constants(cuda_device, value):
+    """A constant block: upper - 15 may round; at 3.4e38 the range is the
+    bounded denominator's."""
+    check_codec4(torch.full((4, 4096), value, device=cuda_device))
+    check_codec4(torch.full((3, 258), value, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_codec4_matches_plain_on_nan_and_signed_zeros(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((3, 258), generator=gen, device=cuda_device)
+    x[1, 200] = float("nan")
+    check_codec4(x)
+    mixed = torch.randn((4, 4096), generator=gen, device=cuda_device)
+    mixed[1], mixed[3] = 0.0, -2.5e33
+    check_codec4(mixed)
+    check_codec4(torch.tensor([[0.0, -0.0, 1.0, 2.0], [-0.0, 0.0, -1.0, -2.0], [-0.0] * 4, [0.0] * 4],
+                              device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [4096, 258])
+def test_codec4_reads_unaligned_views(cuda_device, block):
+    """Contiguous views off a 16-byte boundary take the scalar paths."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    buf = torch.randn(3 * block + 1, generator=gen, device=cuda_device)
+    x = buf[1:].view(3, block)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    check_codec4(x)
+    packed, mm = qr.compress_minmax_uint4_plain(x)
+    pbuf = torch.empty(packed.numel() + 1, dtype=torch.uint8, device=cuda_device)
+    off = pbuf[1:].view(packed.shape)
+    off.copy_(packed)
+    assert bitwise(qr.decompress_minmax_uint4(off, mm), qr.decompress_minmax_uint4_plain(packed, mm))
+
+
+@pytest.mark.cuda
+def test_codec4_refuses_what_its_kernels_do_not_take(cuda_device):
+    """A CUDA operand of another dtype or shape, or an odd B, raises before
+    any launch."""
+    x = torch.randn((4, 8), device=cuda_device)
+    packed, mm = qr.compress_minmax_uint4_plain(x)
+    bad = [
+        (qr.compress_minmax_uint4, (torch.randn((4, 7), device=cuda_device),)),
+        (qr.compress_minmax_uint4, (x.double(),)),
+        (qr.compress_minmax_uint4, (x.bfloat16(),)),
+        (qr.compress_minmax_uint4, (x.reshape(32),)),
+        (qr.decompress_minmax_uint4, (packed.float(), mm)),
+        (qr.decompress_minmax_uint4, (packed, mm.double())),
+        (qr.decompress_minmax_uint4, (packed.reshape(1, 4, 4), mm)),
+        (qr.decompress_minmax_uint4, (packed, mm[:3])),
+        (qr.decompress_minmax_uint4, (packed, torch.zeros((4, 3), device=cuda_device))),
+    ]
+    for fn, args in bad:
+        with pytest.raises(ValueError):
+            fn(*args)
+    assert qr.compress_minmax_uint4.launches == qr.decompress_minmax_uint4.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [4096, 258])
+def test_int4_ring_on_card_matches_cpu(cuda_device, block):
+    """``quantized_ring_allreduce(bits=4)`` over 4 ranks on the card, bitwise
+    the same call on CPU tensors (shards not a whole number of blocks), with
+    2 compresses, 2 decompresses and 2 int4 hops."""
+    x = torch.randn((4, 4 * (3 * block + 7)), generator=torch.Generator().manual_seed(11))
+    got = qr.quantized_ring_allreduce(x.to(cuda_device), BaguaProcessGroup([cuda_device] * 4, intra_size=1),
+                                      bits=4, block=block)
+    torch.cuda.synchronize()
+    launches = (qr.compress_minmax_uint4.launches, qr.decompress_minmax_uint4.launches,
+                qr.hop_dequant_add_requant.launches_by_bits[4])
+    qr.hop_dequant_add_requant.launches_by_bits.update({8: 0, 4: 0})
+    want = qr.quantized_ring_allreduce(x, BaguaProcessGroup([torch.device("cpu")] * 4, intra_size=1),
+                                       bits=4, block=block)
+    assert launches == (2, 2, 2)
+    for g, w in zip(got, want):
+        assert bitwise(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_zero_int4_step_on_card_matches_cpu(cuda_device):
+    """One ZeRO int4 exchange (``transform_gradients``: the reduce-scatter
+    leg with error feedback) over 4 ranks on the card, bitwise the same
+    step on CPU tensors: every bucket's shards and residuals; per bucket 1
+    compress, 1 decompress and 2 int4 hops."""
+    from bagua_tpu_torch.algorithms.base import StepContext
+    from bagua_tpu_torch.sharded import ZeroAlgorithm
+    from bagua_tpu_torch.utils import tree_map
+
+    gen = torch.Generator().manual_seed(12)
+    shapes = {"Dense_0": {"kernel": (300, 70), "bias": (70,)}, "Dense_1": {"kernel": (70, 9), "bias": (9,)}}
+    params = {m: {n: torch.randn(shape, generator=gen) for n, shape in leaves.items()} for m, leaves in shapes.items()}
+    grads = tree_map(lambda t: torch.randn((4, *t.shape), generator=gen), params)
+    outs = []
+    for device in (cuda_device, torch.device("cpu")):
+        group = BaguaProcessGroup([device] * 4, intra_size=1)
+        impl = ZeroAlgorithm(wire_precision="int4").reify(group)
+        impl.bind_plan(impl.tensors_to_buckets(params, bucket_size_bytes=1 << 14))
+        plan = impl._bound_plan
+        state = impl.init_state(tree_map(lambda t: t.to(device), params))
+        resid = torch.Generator().manual_seed(13)
+        state["qr_residual"] = tuple(torch.randn(r.shape, generator=resid).to(device) * 1e-2
+                                     for r in state["qr_residual"])
+        shards, _, state = impl.transform_gradients(tree_map(lambda t: t.to(device), grads), None, state,
+                                                    StepContext(group, 1, plan))
+        outs.append([t.cpu() for t in shards + list(state["qr_residual"])])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            nb = plan.num_buckets
+            assert nb > 1
+            assert (qr.compress_minmax_uint4.launches, qr.decompress_minmax_uint4.launches,
+                    qr.hop_dequant_add_requant.launches_by_bits[4]) == (nb, nb, 2 * nb)
+    for g, w in zip(*outs):
+        assert bitwise(g, w)
 
 
 # ---------------------------------------------------------------------------

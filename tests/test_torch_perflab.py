@@ -194,6 +194,24 @@ def test_topology_ring_formulas():
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("algo, wire, kernels", [
+    ("gradient_allreduce", "f32", []),
+    ("gradient_allreduce", "int8", ["compress_minmax_uint8", "decompress_minmax_uint8",
+                                    "hop_dequant_add_requant(bits=8)"]),
+    ("gradient_allreduce", "int4", ["compress_minmax_uint4", "decompress_minmax_uint4",
+                                    "hop_dequant_add_requant(bits=4)"]),
+    ("zero", "int4", ["compress_minmax_uint4", "decompress_minmax_uint4", "hop_dequant_add_requant(bits=4)"]),
+    ("bytegrad", "bytegrad", ["compress_minmax_uint8", "decompress_minmax_uint8", "decompress_reduce_requantize"]),
+    ("zero", "bytegrad", ["compress_minmax_uint8", "decompress_minmax_uint8"]),
+], ids=["f32", "int8", "int4", "zero-int4", "bytegrad", "zero-bytegrad"])
+def test_kernel_basis_names_the_wire_kernels(algo, wire, kernels):
+    """Each wire's hand-written kernels (the int4 ring's block codec among
+    them): launched on a card, their plain versions elsewhere."""
+    for device_type, basis in (("cuda", "cuda"), ("cpu", "plain"), ("meta", "plain")):
+        got = perflab.kernel_basis(algo, wire, device_type)
+        assert got == {"basis": basis if kernels else "none", "kernels": kernels}
+
+
 @pytest.mark.parametrize("name, kw, overlap, wire", [("gradient_allreduce", {}, True, "f32"),
                                                       ("gradient_allreduce", dict(wire_precision="int8"), False, "int8"),
                                                       ("bytegrad", {}, True, "bytegrad"),

@@ -103,7 +103,7 @@ def _int4_cases():
     nan[1, 40] = np.nan
     mixed = rng.randn(4, 128).astype(np.float32)
     mixed[1], mixed[3] = 0.0, -2.5e33
-    return {
+    cases = {
         "random": (rng.randn(4, 512) * 3.0).astype(np.float32),
         "ragged B=6": rng.randn(5, 6).astype(np.float32),
         "ragged B=130": rng.randn(3, 130).astype(np.float32),
@@ -116,17 +116,29 @@ def _int4_cases():
         "signed zeros": np.array([[0.0, -0.0, 1.0, 2.0], [-0.0, 0.0, -1.0, -2.0],
                                   [-0.0] * 4, [0.0] * 4], np.float32),
     }
+    # the widths the card's codec kernels take apart (B = 2; B/2 odd; the
+    # ring's 4096) and the constants their degenerate scale meets
+    for b in (2, 258, 4096):
+        cases[f"random B={b}"] = (rng.randn(5, b) * 3.0).astype(np.float32)
+    for value in (0.0, -7.0, 1e32, 8.8e33):
+        cases[f"constant {value}, B=258"] = np.full((3, 258), value, np.float32)
+    return cases
 
 
 @pytest.mark.parametrize("case", list(_int4_cases()))
 def test_uint4_codec_bitwise(case):
+    """The plain pair, which the card's codec kernels are held to, and the
+    wrappers (their plain versions on the CPU) are the JAX codec bit for
+    bit."""
     x = _int4_cases()[case]
-    packed, mm = port.compress_minmax_uint4(torch.from_numpy(x))
     packed_ref, mm_ref = ref.compress_minmax_uint4(jnp.asarray(x))
-    assert_bitwise(packed.numpy(), packed_ref)
-    assert_bitwise(mm.numpy(), mm_ref)
-    assert_bitwise(port.decompress_minmax_uint4(packed, mm).numpy(),
-                   ref.decompress_minmax_uint4(packed_ref, mm_ref))
+    out_ref = ref.decompress_minmax_uint4(packed_ref, mm_ref)
+    for comp, deco in ((port.compress_minmax_uint4_plain, port.decompress_minmax_uint4_plain),
+                       (port.compress_minmax_uint4, port.decompress_minmax_uint4)):
+        packed, mm = comp(torch.from_numpy(x))
+        assert_bitwise(packed.numpy(), packed_ref)
+        assert_bitwise(mm.numpy(), mm_ref)
+        assert_bitwise(deco(packed, mm).numpy(), out_ref)
 
 
 def test_int32_convert_follows_xla():
@@ -135,6 +147,45 @@ def test_int32_convert_follows_xla():
     v = np.array([np.nan, 1e10, -1e10, 3.7, -3.7, 16.0], np.float32)
     want = np.asarray(jnp.asarray(v).astype(jnp.int32))
     np.testing.assert_array_equal(port._to_int32(torch.from_numpy(v)).numpy(), want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_uint4_wrappers_take_the_plain_version_off_the_card(device):
+    """CPU and meta tensors go to the plain pair (meta: shapes only) and
+    count no launch; the autouse fixture checks the counts too."""
+    x = torch.from_numpy(np.random.RandomState(4).randn(3, 10).astype(np.float32)).to(device)
+    packed, mm = port.compress_minmax_uint4(x)
+    out = port.decompress_minmax_uint4(packed, mm)
+    assert (packed.shape, packed.dtype, mm.shape, out.shape) == ((3, 5), torch.uint8, (3, 2), (3, 10))
+    assert packed.device.type == mm.device.type == out.device.type == device
+    if device == "cpu":
+        want = port.compress_minmax_uint4_plain(x)
+        assert_bitwise(packed.numpy(), want[0].numpy())
+        assert_bitwise(mm.numpy(), want[1].numpy())
+        assert_bitwise(out.numpy(), port.decompress_minmax_uint4_plain(packed, mm).numpy())
+    assert port.compress_minmax_uint4.launches == port.decompress_minmax_uint4.launches == 0
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_hop_plain_calls_no_wrapper(monkeypatch, bits):
+    """The hop's plain version, which the card's hop kernel is held to,
+    runs the plain codec: it never reaches a codec wrapper."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain hop called a codec wrapper")
+
+    for name in ("compress_minmax_uint4", "decompress_minmax_uint4"):
+        monkeypatch.setattr(port, name, refuse)
+    for name in ("compress_minmax_uint8", "decompress_minmax_uint8"):
+        monkeypatch.setattr(minmax_uint8, name, refuse)
+    rng = np.random.RandomState(5)
+    incoming, local = (torch.from_numpy(rng.randn(3, 258).astype(np.float32)) for _ in range(2))
+    comp = port._compressors(bits, plain=True)[0]
+    q, mm = comp(incoming)
+    q2, mm2, err = port.hop_dequant_add_requant_plain(q, mm, local, bits)
+    want = ref.hop_dequant_add_requant(jnp.asarray(q.numpy()), jnp.asarray(mm.numpy()), jnp.asarray(local.numpy()),
+                                       bits=bits)
+    for g, w in zip((q2, mm2, err), want):
+        assert_bitwise(g.numpy(), w)
 
 
 def level_sidecars():
