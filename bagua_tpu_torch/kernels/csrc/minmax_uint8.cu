@@ -82,6 +82,9 @@
 
 namespace {
 
+using xla::block_keys;
+using xla::MinMax;
+
 constexpr int kThreads = 256;
 constexpr int64_t kTile = 16384;  // elements of one row per decompress block
 constexpr float kLevels = 255.0f;
@@ -253,32 +256,6 @@ __device__ __forceinline__ void tile_sums(float (&acc)[kPer], const uint8_t* __r
 __device__ __forceinline__ int64_t fused_end(int64_t begin, int64_t chunk) {
   return begin + kFusedTile < chunk ? begin + kFusedTile : chunk;
 }
-
-// Running min/max in XLA's order (NaN propagates, -0 below +0).  Each value
-// becomes an integer key that orders as the floats do, -0 below +0 and
-// NaNs beyond the infinities, so an element costs one integer min and one
-// max; get() turns any NaN into both results.
-struct MinMax {
-  static constexpr int32_t kPosInf = 0x7f800000, kNegInf = static_cast<int32_t>(0x807fffff);
-  int32_t lo = kPosInf, hi = kNegInf;
-  __device__ __forceinline__ static int32_t key(float x) {
-    const int32_t b = __float_as_int(x);
-    return b ^ ((b >> 31) & 0x7fffffff);
-  }
-  __device__ __forceinline__ void add(float x) {
-    const int32_t k = key(x);
-    lo = k < lo ? k : lo;
-    hi = k > hi ? k : hi;
-  }
-  __device__ __forceinline__ void get(float& mn, float& mx) const {
-    if (lo < kNegInf || hi > kPosInf) {
-      mn = mx = __int_as_float(0x7fffffff);
-    } else {
-      mn = __int_as_float(lo ^ ((lo >> 31) & 0x7fffffff));
-      mx = __int_as_float(hi ^ ((hi >> 31) & 0x7fffffff));
-    }
-  }
-};
 
 // Folds this thread's sums of the tile [begin, end) into m; kStore: stores
 // them in out.
@@ -463,22 +440,6 @@ constexpr int kWalkThreads = 256;                             // the two-pass ke
 constexpr int kWalkLoads = 4;                                 // 16-byte loads a thread a tile
 constexpr int64_t kWalkTile = kWalkThreads * 4 * kWalkLoads;  // 4096 elements of a row
 constexpr int kWalkCtas = 8;                                  // CTAs an SM of each pass
-
-// m folded over the block (a whole number of warps, at most 32); every
-// thread gets the result.
-__device__ __forceinline__ void block_keys(MinMax& m, int32_t* s_lo, int32_t* s_hi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  m.lo = __reduce_min_sync(0xffffffffu, m.lo);
-  m.hi = __reduce_max_sync(0xffffffffu, m.hi);
-  if (lane == 0) {
-    s_lo[warp] = m.lo;
-    s_hi[warp] = m.hi;
-  }
-  __syncthreads();
-  const bool live = lane < static_cast<int>(blockDim.x >> 5);
-  m.lo = __reduce_min_sync(0xffffffffu, live ? s_lo[lane] : MinMax::kPosInf);
-  m.hi = __reduce_max_sync(0xffffffffu, live ? s_hi[lane] : MinMax::kNegInf);
-}
 
 // The row's (min, max) from its folded keys, as (scale, upper); the
 // caller's writer stores (min, max) in mm.

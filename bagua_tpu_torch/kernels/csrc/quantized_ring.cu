@@ -16,16 +16,24 @@
 // Both are bounded by device-memory bytes: compress reads 4 and writes 0.5
 // bytes an element, decompress reads 0.5 and writes 4, plus 8 bytes of
 // sidecar a row; each moves exactly that (compress up to B = 4096).
-// Compress is the hop's code without the dequantize (load_values, fold,
-// block_minmax_all, requantize without the error).  Decompress runs a grid
-// of row sections so that few long rows still fill the 132 SMs, and looks
-// each nibble up in the row's 16 level values.  Vector paths: compress
-// where B/2 is a whole number of 8 bytes (a thread's four 16-byte loads and
-// one 8-byte store, as the hop's), decompress where it is of 4 (4-byte
-// loads and 16-byte stores, each contiguous over a warp); else a byte at a
-// time, a stride of the block.  ptxas (sm_90a, nvcc 12.8, -fmad=false):
-// compress's vector kernels 32 registers, its scalar and walking ones
-// 48-128; decompress 32; no stack frame and no spill.
+// Compress loads a row as the hop does (load_values), folds its min/max as
+// integer keys reduced by redux.sync (xla::MinMax and xla::block_keys, as
+// minmax_uint8.cu's compress), and quantizes a row whose min and max are
+// finite without the NaN-aware clamp and saturating convert; a row with a
+// NaN or an infinity keeps them.  XLA's NaN- and sign-aware float min/max
+// and convert compile to compares and branches: 967 of the first design's
+// 1784 instructions for a thread's 16 elements, 832 in all now (PERF.md:
+// 45% -> 82% of the bound a VGG16 int4-ring step, the keys most of it).
+// Decompress runs a grid of row sections so that few long rows still fill
+// the 132 SMs, and looks each nibble up in the row's 16 level values.
+// Vector paths: compress where B/2 is a whole number of 8 bytes (a
+// thread's four 16-byte loads and one 8-byte store, as the hop's; a layout
+// contiguous across a warp measured no faster), decompress where it is of
+// 4 (4-byte loads and 16-byte stores, each contiguous over a warp); else a
+// byte at a time, a stride of the block.
+// ptxas (sm_90a, nvcc 12.8, -fmad=false): compress's vector kernels 32
+// (resident) and 56 (walking) registers, its scalar ones 48 and 96;
+// decompress 32; no stack frame and no spill.
 //
 // Semantics, per row ("block") of B elements, L = 255 (int8) or 15 (int4),
 // exactly the jnp oracle hop_dequant_add_requant:
@@ -248,9 +256,8 @@ __device__ __forceinline__ void fold(const float (&s)[kPer], int nv, float& mn, 
 }
 
 // q2 and err of this thread's elements (laid out as sums() lays them);
-// tab holds each level's (level + lower2) / scale2.  kErr false: q2 alone
-// (the int4 codec's compress; er and tab are not read).
-template <int kBits, bool kVec, bool kErr = true>
+// tab holds each level's (level + lower2) / scale2.
+template <int kBits, bool kVec>
 __device__ __forceinline__ void requantize(const float (&s)[kPer], uint8_t* __restrict__ qo,
                                            float* __restrict__ er, int64_t base, int64_t half,
                                            int nv, float scale2, float upper2, float lower2,
@@ -266,14 +273,12 @@ __device__ __forceinline__ void requantize(const float (&s)[kPer], uint8_t* __re
     uint32_t b;
     if constexpr (kBits == 8) {
       b = xla::to_u8(lvl);
-      if constexpr (kErr) e[k] = __fsub_rn(s[k], tab[b]);
+      e[k] = __fsub_rn(s[k], tab[b]);
     } else {
       const float lvh = __fsub_rn(xla::min(rintf(__fmul_rn(s[kB + k], scale2)), upper2), lower2);
       b = (static_cast<uint32_t>(xla::to_s32(lvl)) | (static_cast<uint32_t>(xla::to_s32(lvh)) << 4)) & 0xFFu;
-      if constexpr (kErr) {
-        e[k] = __fsub_rn(s[k], tab[b & 0xFu]);
-        e[kB + k] = __fsub_rn(s[kB + k], tab[b >> 4]);
-      }
+      e[k] = __fsub_rn(s[k], tab[b & 0xFu]);
+      e[kB + k] = __fsub_rn(s[kB + k], tab[b >> 4]);
     }
     w[k >> 2] |= b << (8 * (k & 3));
   }
@@ -282,18 +287,14 @@ __device__ __forceinline__ void requantize(const float (&s)[kPer], uint8_t* __re
     const int64_t j0 = base + threadIdx.x * kB;
     if constexpr (kBits == 8) {
       *reinterpret_cast<uint4*>(qo + j0) = make_uint4(w[0], w[1], w[2], w[3]);
-      if constexpr (kErr) {
 #pragma unroll
-        for (int k = 0; k < kPer; k += 4) store4(er + j0 + k, e + k);
-      }
+      for (int k = 0; k < kPer; k += 4) store4(er + j0 + k, e + k);
     } else {
       *reinterpret_cast<uint2*>(qo + j0) = make_uint2(w[0], w[1]);
-      if constexpr (kErr) {
 #pragma unroll
-        for (int k = 0; k < kB; k += 4) {
-          store4(er + j0 + k, e + k);
-          store4(er + half + j0 + k, e + kB + k);
-        }
+      for (int k = 0; k < kB; k += 4) {
+        store4(er + j0 + k, e + k);
+        store4(er + half + j0 + k, e + kB + k);
       }
     }
   } else {
@@ -303,10 +304,8 @@ __device__ __forceinline__ void requantize(const float (&s)[kPer], uint8_t* __re
       if (k < nv) {
         const int64_t j = j0 + static_cast<int64_t>(k) * blockDim.x;
         qo[j] = static_cast<uint8_t>(byte_of(w, k));
-        if constexpr (kErr) {
-          er[j] = e[k];
-          if constexpr (kBits == 4) er[half + j] = e[kB + k];
-        }
+        er[j] = e[k];
+        if constexpr (kBits == 4) er[half + j] = e[kB + k];
       }
     }
   }
@@ -399,13 +398,43 @@ hop_kernel(const uint8_t* __restrict__ q, const float* __restrict__ minmax,
 // The int4 block codec: compress_minmax_uint4 and decompress_minmax_uint4.
 // ---------------------------------------------------------------------------
 
-// Compress: the hop's passes without the dequantize.  One CTA per row of B
-// elements; a thread holds the 16 elements of 8 packed bytes (Raw<4>'s
-// layout: columns j .. j + 7 and their partners B/2 further on), loaded
-// before the fold; the row's (min, max) by block_minmax_all; the levels by
-// requantize without the error.  Rows up to 4096 elements (the ring's
-// blocks) stay in registers, each input read once; longer rows are walked
-// twice.  The 1 CTA an SM asked lets ptxas use the registers each
+// Compress.  Level of one element: kFinite, where the row's min and max are
+// finite, rint(x * scale) <= upper (a product by scale > 0 and rint are
+// monotone) and every value is finite, so the clamp to upper is the
+// identity and the convert needs no NaN or range test (cvt.rzi saturates);
+// else XLA's expressions, the NaN-aware clamp and the saturating convert.
+template <bool kFinite>
+__device__ __forceinline__ uint32_t level4(float x, float scale, float upper, float lower) {
+  if (kFinite) return static_cast<uint32_t>(__float2int_rz(__fsub_rn(rintf(__fmul_rn(x, scale)), lower)));
+  return static_cast<uint32_t>(xla::to_s32(__fsub_rn(xla::min(rintf(__fmul_rn(x, scale)), upper), lower)));
+}
+
+// The thread's 8 packed bytes (v laid out as load_values<4> lays it) as two
+// words: byte k = (level of v[k] | level of v[8 + k] << 4) mod 256.
+template <bool kFinite>
+__device__ __forceinline__ void pack4(const float (&v)[kPer], float scale, float upper, float lower,
+                                      uint32_t (&w)[Hop<4>::kWords]) {
+  constexpr int kB = Hop<4>::kBytes;
+#pragma unroll
+  for (int i = 0; i < Hop<4>::kWords; ++i) w[i] = 0;
+#pragma unroll
+  for (int k = 0; k < kB; ++k) {
+    const uint32_t b = (level4<kFinite>(v[k], scale, upper, lower) |
+                        level4<kFinite>(v[kB + k], scale, upper, lower) << 4) & 0xFFu;
+    w[k >> 2] |= b << (8 * (k & 3));
+  }
+}
+
+// One CTA per row of B elements.  A thread holds the 16 elements of 8
+// packed bytes (load_values<4>'s layout: columns j .. j + 7 and their
+// partners B/2 further on), loaded before the fold.  The row's (min, max)
+// folds as integer keys (xla::MinMax: one 3-input integer min or max for
+// two elements) and the CTA reduces the keys by redux.sync
+// (xla::block_keys); every thread derives scale, upper and lower and takes
+// one branch for the whole row (finite min and max, or not).  kResident
+// (B <= 4096, the ring's blocks): the values stay in registers and each
+// input is read once; else both passes walk the row in sections and pass 2
+// reads it again.  The 1 CTA an SM asked lets ptxas use the registers each
 // instantiation wants: with the thread count alone (nvcc 12.8) it held the
 // scalar resident kernel to 40 registers and spilled 12 bytes.
 template <bool kVec, int kMaxThreads, bool kResident>
@@ -413,23 +442,32 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 compress4_kernel(const float* __restrict__ x, uint8_t* __restrict__ packed,
                  float* __restrict__ minmax, int64_t block) {
   using H = Hop<4>;
-  __shared__ float s_mn[kMaxThreads / 32], s_mx[kMaxThreads / 32];
+  __shared__ int32_t s_lo[kMaxThreads / 32], s_hi[kMaxThreads / 32];
   const int64_t row = blockIdx.x;
   const int64_t half = block / 2;  // also the bytes of a packed row
   const int64_t section = static_cast<int64_t>(blockDim.x) * H::kBytes;
   const float* xr = x + row * block;
   float v[kPer];
-  float mn = INFINITY, mx = -INFINITY;
+  xla::MinMax m;
   for (int64_t base = 0; base < half; base += section) {
     const int nv = bytes_in_row<4, kVec>(base, half);
     load_values<4, kVec>(v, xr, base, half, nv);
-    fold<4>(v, nv, mn, mx);
+#pragma unroll
+    for (int k = 0; k < H::kBytes; ++k) {
+      if (k < nv) {
+        m.add(v[k]);
+        m.add(v[H::kBytes + k]);
+      }
+    }
     if (kResident) break;
   }
-  block_minmax_all(mn, mx, s_mn, s_mx);
+  xla::block_keys(m, s_lo, s_hi);
+  float mn, mx;
+  m.get(mn, mx);
   const float scale = xla::safe_scale(mn, mx, H::kL);
   const float upper = rintf(__fmul_rn(mx, scale));
   const float lower = __fsub_rn(upper, H::kL);
+  const bool finite = fabsf(mn) <= xla::kF32Max && fabsf(mx) <= xla::kF32Max;
   if (threadIdx.x == 0) {
     minmax[2 * row] = mn;
     minmax[2 * row + 1] = mx;
@@ -438,7 +476,16 @@ compress4_kernel(const float* __restrict__ x, uint8_t* __restrict__ packed,
   for (int64_t base = 0; base < half; base += section) {
     const int nv = bytes_in_row<4, kVec>(base, half);
     if (!kResident) load_values<4, kVec>(v, xr, base, half, nv);
-    requantize<4, kVec, false>(v, pr, nullptr, base, half, nv, scale, upper, lower, nullptr);
+    uint32_t w[H::kWords];
+    if (finite) pack4<true>(v, scale, upper, lower, w);
+    else pack4<false>(v, scale, upper, lower, w);
+    if (kVec) {
+      if (nv) *reinterpret_cast<uint2*>(pr + base + threadIdx.x * H::kBytes) = make_uint2(w[0], w[1]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < H::kBytes; ++k)
+        if (k < nv) pr[base + static_cast<int64_t>(k) * blockDim.x + threadIdx.x] = byte_of(w, k);
+    }
     if (kResident) break;
   }
 }

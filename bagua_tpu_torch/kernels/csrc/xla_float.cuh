@@ -8,6 +8,8 @@
 //     order, as XLA's reductions do (fminf/fmaxf would drop a NaN);
 //   * f32 -> u8 and f32 -> s32 saturate and send NaN to 0, as XLA's convert
 //     (a C cast is undefined out of range).
+// MinMax and block_keys fold a min/max in that order as integer keys, one
+// integer min and max an element (the compress kernels of both sources).
 
 #pragma once
 
@@ -84,6 +86,48 @@ __device__ __forceinline__ void block_minmax(float& mn, float& mx) {
       mx = xla::max(mx, __shfl_down_sync(0xffffffffu, mx, off));
     }
   }
+}
+
+// Running min/max in XLA's order (NaN propagates, -0 below +0).  Each value
+// becomes an integer key that orders as the floats do, -0 below +0 and
+// NaNs beyond the infinities, so an element costs one integer min and one
+// max; get() turns any NaN into both results.
+struct MinMax {
+  static constexpr int32_t kPosInf = 0x7f800000, kNegInf = static_cast<int32_t>(0x807fffff);
+  int32_t lo = kPosInf, hi = kNegInf;
+  __device__ __forceinline__ static int32_t key(float x) {
+    const int32_t b = __float_as_int(x);
+    return b ^ ((b >> 31) & 0x7fffffff);
+  }
+  __device__ __forceinline__ void add(float x) {
+    const int32_t k = key(x);
+    lo = k < lo ? k : lo;
+    hi = k > hi ? k : hi;
+  }
+  __device__ __forceinline__ void get(float& mn, float& mx) const {
+    if (lo < kNegInf || hi > kPosInf) {
+      mn = mx = __int_as_float(0x7fffffff);
+    } else {
+      mn = __int_as_float(lo ^ ((lo >> 31) & 0x7fffffff));
+      mx = __int_as_float(hi ^ ((hi >> 31) & 0x7fffffff));
+    }
+  }
+};
+
+// m folded over the block (a whole number of warps, at most 32); every
+// thread gets the result.
+__device__ __forceinline__ void block_keys(MinMax& m, int32_t* s_lo, int32_t* s_hi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  m.lo = __reduce_min_sync(0xffffffffu, m.lo);
+  m.hi = __reduce_max_sync(0xffffffffu, m.hi);
+  if (lane == 0) {
+    s_lo[warp] = m.lo;
+    s_hi[warp] = m.hi;
+  }
+  __syncthreads();
+  const bool live = lane < static_cast<int>(blockDim.x >> 5);
+  m.lo = __reduce_min_sync(0xffffffffu, live ? s_lo[lane] : MinMax::kPosInf);
+  m.hi = __reduce_max_sync(0xffffffffu, live ? s_hi[lane] : MinMax::kNegInf);
 }
 
 }  // namespace xla

@@ -17,7 +17,7 @@ this tree's sources once more with extra ``nvcc`` flags (space-separated,
 after ``source:``; no source means ``collective_matmul``, where
 ``-DMATMUL_MIN_BLOCKS=1`` is ``__launch_bounds__(256, 1)``; each source's
 knobs are at its top: ``FUSED_CTAS_PASS1``/``FUSED_CTAS_PASS2`` in
-``minmax_uint8.cu``, ``HOP_MIN_BLOCKS_8``/``HOP_MIN_BLOCKS_4`` in
+``minmax_uint8.cu``; ``HOP_MIN_BLOCKS_8``/``HOP_MIN_BLOCKS_4`` in
 ``quantized_ring.cu``) and times it beside the others.  Every
 timing is ``chip_smoke``'s ``median_ms``, taken in the order parent, this
 tree, this tree, parent (and each variant after):
@@ -28,8 +28,12 @@ tree, this tree, parent (and each variant after):
   step (RANKS - 2); and compress and decompress at the int8 ring's blocks
   (``ring_codec_inputs``: two calls of each a step), summed apart as
   ``compress_minmax_uint8 (int8 ring)`` and ``decompress_minmax_uint8
-  (int8 ring)``; the ring's blocks and the hops' are ``--ring-block``
-  elements (``chip_smoke.BLOCK``, the ring's default, unless given);
+  (int8 ring)``, and the int4 codec at the int4 ring's blocks
+  (``ring_codec_inputs(..., bits=4)``, two calls of each a step), summed
+  per int4-ring step as ``compress_minmax_uint4`` and
+  ``decompress_minmax_uint4``; the ring's blocks and the hops' are
+  ``--ring-block`` elements (``chip_smoke.BLOCK``, the ring's default,
+  unless given);
 - gemm: path (a)'s five tile products (``chip_smoke.sp_mlp_gemms``);
 - attention: the forward (``block_attention``), dq and dk/dv at each
   distinct block of the Llama sp 4 slice (``chip_smoke.zigzag_pair_masks``),
@@ -41,7 +45,10 @@ bitwise; ``matmul_tol``; ``ATTENTION_TOLS``).  Prints each build's
 ``ptxas`` lines, one line per shape and one JSON line: the per-step sums,
 each kernel's time at its largest shape (VGG16's Dense_0 bucket for the
 codecs), and each kernel's worst ratio of this tree's time to the
-parent's over its shapes.  Exits non-zero without a card.
+parent's over its shapes.  ``--sass NAME,...`` also disassembles each
+build (``cuobjdump -sass``) and prints, for each kernel whose mangled name
+holds one of the names, its instructions by opcode; ``--sass-dir`` keeps
+the listings.  Exits non-zero without a card.
 """
 
 import argparse
@@ -90,6 +97,38 @@ def ptxas(text: str) -> str:
         elif "registers" in line:
             rows.append(f"{name} {re.search(r'Used (\d+) registers', line).group(1)} regs{spill}")
     return " | ".join(rows)
+
+
+def sass_counts(path: str, names, keep_dir=None, tag="") -> list:
+    """``cuobjdump -sass`` of the library at ``path``: for each kernel whose
+    mangled name holds one of ``names``, one line of its instruction count
+    and its opcodes (the mnemonic before the first dot) by count.  Keeps
+    those kernels' listings in ``keep_dir/<tag>.sass`` when given."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True).stdout
+    lines, kept, name, body, ops = [], [], None, [], {}
+
+    def flush():
+        if name and any(n in name for n in names):
+            total = sum(ops.values())
+            lines.append(f"{name}: {total} instructions; " +
+                         ", ".join(f"{op} {n}" for op, n in sorted(ops.items(), key=lambda kv: -kv[1])))
+            kept.extend(body)
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            flush()
+            name, body, ops = m.group(1), [], {}
+        body.append(line)
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and name:
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    flush()
+    if keep_dir:
+        os.makedirs(keep_dir, exist_ok=True)
+        with open(os.path.join(keep_dir, f"{tag or os.path.basename(path)}.sass"), "w") as f:
+            f.write("\n".join(kept) + "\n")
+    return lines
 
 
 def typed(module, path: str) -> ctypes.CDLL:
@@ -168,9 +207,10 @@ def codec_cases(device, block=cs.BLOCK):
     """Every bucket of VGG16 over RANKS ranks with the codec and hop calls a
     step makes of it, as chip_smoke's kernels phase builds them: ByteGrad's
     compress, fused reduce and decompress, the int8 ring's two compresses
-    and two decompresses (summed apart, as ``<kernel> (int8 ring)``), and
-    the hops, the ring's in blocks of ``block`` elements: (case, [(kernel,
-    sum, calls a step, source, arguments)])."""
+    and two decompresses (summed apart, as ``<kernel> (int8 ring)``), the
+    int4 ring's two of each (the int4 codec's own sums, per int4-ring
+    step), and the hops, the ring's in blocks of ``block`` elements: (case,
+    [(kernel, sum, calls a step, source, arguments)])."""
     gen = torch.Generator(device=device).manual_seed(1)
     ring = " (int8 ring)"
     for numel, chunk in cs.slice_shapes(cs.vgg16_plan()):
@@ -185,13 +225,17 @@ def codec_cases(device, block=cs.BLOCK):
                   for b in comp_in]
         calls += [("decompress_minmax_uint8", "decompress_minmax_uint8" + ring, 1, "minmax_uint8", d)
                   for d in (rs_dec, ag_dec)]
+        comp4, rs4, ag4 = cs.ring_codec_inputs(x, block, bits=4)
+        calls += [("compress_minmax_uint4", "compress_minmax_uint4", 1, "quantized_ring", (b,)) for b in comp4]
+        calls += [("decompress_minmax_uint4", "decompress_minmax_uint4", 1, "quantized_ring", d)
+                  for d in (rs4, ag4)]
         incoming = x[:, :chunk] + x[:, chunk:2 * chunk]
         for bits in (8, 4):
             name = f"hop_dequant_add_requant_int{bits}"
             calls.append((name, name, cs.RANKS - 2, "quantized_ring",
                           cs.hop_inputs(incoming, x[:, 2 * chunk:3 * chunk], block, bits)))
         yield f"bucket of {numel} elements", calls
-        del x, flat, fused_in, dec_in, comp_in, rs_dec, ag_dec, incoming, calls
+        del x, flat, fused_in, dec_in, comp_in, rs_dec, ag_dec, comp4, rs4, ag4, incoming, calls
 
 
 def main(argv) -> int:
@@ -204,6 +248,9 @@ def main(argv) -> int:
                          "source (collective_matmul where none is named)")
     ap.add_argument("--ring-block", type=int, default=cs.BLOCK,
                     help="elements of a block of the quantized ring's codec and hop cases")
+    ap.add_argument("--sass", default="",
+                    help="comma-separated kernel names whose instructions to count in every build")
+    ap.add_argument("--sass-dir", default=None, help="a directory to keep each build's SASS listing in")
     args = ap.parse_args(argv)
     families = args.kernels.split(",")
     if not set(families) <= set(FAMILIES):
@@ -234,6 +281,12 @@ def main(argv) -> int:
             raise SystemExit(f"nvcc failed on {who} {name}.cu:\n{text}")
         cs.log(f"[build] {who} {name}.cu: {ptxas(text)}")
         libs[name][who] = typed(SOURCES[name], out)
+    if args.sass:
+        builds = [("tree", name, _build.library_path(name)) for name in sources]
+        builds += [(who, name, out) for (who, name), (out, _) in jobs.items()]
+        for i, (who, name, path) in enumerate(builds):
+            for line in sass_counts(path, args.sass.split(","), args.sass_dir, f"{i}-{name}"):
+                cs.log(f"[sass] {who} {name}.cu {line}")
 
     sums, largest, worst = {}, {}, {}
 

@@ -690,6 +690,28 @@ def ring_codec_inputs(x: torch.Tensor, block: int, bits: int = 8):
     return (local0, owned), (q, mm), (q[rows:].repeat(ranks, 1), mm[rows:].repeat(ranks, 1))
 
 
+#: rows that send the int4 compress down its exact branch (a NaN or an
+#: infinity) or need XLA's min/max order (-0 below +0)
+INT4_CORNERS = ("+inf", "-inf", "both infinities", "one +inf", "one -inf", "NaN in the first column",
+                "NaN in the low half", "all NaN", "min -0, max +0")
+
+
+def int4_corner_row(case: str, block: int, device) -> torch.Tensor:
+    """The row of INT4_CORNERS named ``case``, ``block`` elements; a single
+    inf or NaN sits in a ramp from -3 to 3."""
+    inf, nan = float("inf"), float("nan")
+    row = torch.linspace(-3.0, 3.0, block, device=device)
+    if case in ("+inf", "-inf", "all NaN"):
+        row.fill_({"+inf": inf, "-inf": -inf, "all NaN": nan}[case])
+    elif case in ("both infinities", "min -0, max +0"):
+        row[::2], row[1::2] = (inf, -inf) if case == "both infinities" else (-0.0, 0.0)
+    else:
+        col, value = {"one +inf": (block // 2 + 1, inf), "one -inf": (block // 2 + 1, -inf),
+                      "NaN in the first column": (0, nan), "NaN in the low half": (3 * block // 8, nan)}[case]
+        row[col] = value
+    return row
+
+
 def codec_cost(rows: int, chunk: int, ops_per_element: int, bits: int = 8):
     """(bytes, f32 operations) of compress or decompress over (rows, chunk)
     f32 elements: 4 bytes an element, its ``bits`` of level and the 8-byte
@@ -833,6 +855,15 @@ def phase_kernels(ledger: Ledger, plan, device) -> None:
         blocks4 = torch.cat([x, x[:, -1:]], 1) if x.shape[1] % 2 else x
         packed, mm4 = ledger.compare("compress_minmax_uint4", case, blocks4)
         ledger.compare("decompress_minmax_uint4", case, packed, mm4)
+    # the int4 codec on INT4_CORNERS, each the middle row of three random
+    # ones, at compress's vector resident (4096), scalar (258) and walking
+    # (8192) widths
+    for block in (4096, 258, 8192):
+        for case in INT4_CORNERS:
+            x = torch.randn((3, block), generator=gen, device=device) * 3.0
+            x[1] = int4_corner_row(case, block, device)
+            packed, mm4 = ledger.compare("compress_minmax_uint4", f"{case}, B={block}", x)
+            ledger.compare("decompress_minmax_uint4", f"{case}, B={block}", packed, mm4)
     phase_lp_kernels(ledger, plan, device, gen)
     for name, row in ledger.rows.items():
         if name in ATTENTION_TOLS or name == "matmul_tile":
@@ -5648,29 +5679,35 @@ def run_fleet_gang(device, model: str, alpha: dict, W: int, per_bucket: dict) ->
 
     what = f"[fleet-gang] {model} ByteGrad (overlap), W={W}"
     k = RANKS // W
-    repo = os.path.dirname(os.path.abspath(__file__))
-    root = tempfile.mkdtemp(prefix="bagua_fleet_gang_")
     args = ["--device", device.type, "--model", model, "--algorithm", "bytegrad", "--overlap", "on",
             "--steps", str(FLEET_GANG_STEPS), "--snapshot-every", str(FLEET_GANG_EVERY)]
-    plane = FleetControlPlane(rdzv_kwargs=FLEET_RDZV)
-    server = start_async_fleet_server(plane, 0, host="127.0.0.1")
-    try:
-        base = f"http://127.0.0.1:{server.server_address[1]}"
-        fc = FleetClient(base)
-        key = fc.publish_plan(plan=alpha["plan"], meta=alpha["meta"], **alpha["key"])
-        prefix = os.path.join(root, "beta")
-        cmd = [sys.executable, "-m", "bagua_tpu_torch.distributed.run", "--nproc_per_node", str(W),
-               "--max_restarts", "1", "--monitor_interval", "0.2", "--master_port", str(_free_port()),
-               "--rdzv_endpoint", gang_endpoint(base, "beta"), FLEET_GANG_SCRIPT] + args + [
-               "--ranks-per-process", str(k), "--snapshot-dir", os.path.join(root, "snap"), "--fleet", base,
-               "--gang", "beta", "--crash", str(FLEET_GANG_CRASH), "--report", prefix]
-        env = {**os.environ, "PYTHONPATH": os.pathsep.join([repo] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
-        gc.collect()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        run = subprocess.run(cmd, env=env, cwd=repo, capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
-        gang_s = time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def fleet_try():
+        # a fresh plane, snapshot directory and port each try: a try that lost its port may
+        # have adopted, snapshotted and reported
+        with contextlib.ExitStack() as stack:
+            root = tempfile.mkdtemp(prefix="bagua_fleet_gang_")
+            stack.callback(shutil.rmtree, root, ignore_errors=True)
+            plane = FleetControlPlane(rdzv_kwargs=FLEET_RDZV)
+            stack.callback(plane.close)
+            server = start_async_fleet_server(plane, 0, host="127.0.0.1")
+            stack.callback(server.shutdown)
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            fc = FleetClient(base)
+            key = fc.publish_plan(plan=alpha["plan"], meta=alpha["meta"], **alpha["key"])
+            yield root, plane, base, fc, key
+
+    def command(port, state):
+        root, _, base, _, _ = state
+        return [sys.executable, "-m", "bagua_tpu_torch.distributed.run", "--nproc_per_node", str(W),
+                "--max_restarts", "1", "--monitor_interval", "0.2", "--master_port", str(port),
+                "--rdzv_endpoint", gang_endpoint(base, "beta"), FLEET_GANG_SCRIPT] + args + [
+                "--ranks-per-process", str(k), "--snapshot-dir", os.path.join(root, "snap"), "--fleet", base,
+                "--gang", "beta", "--crash", str(FLEET_GANG_CRASH), "--report", os.path.join(root, "beta")]
+
+    run, gang_s, (root, plane, _, fc, key), held = _launch(what, device, command, fleet_try)
+    with held:
         if run.returncode != 0:
             raise AssertionError(f"{what}: the launcher exited {run.returncode}:\n{run.stderr[-8000:]}")
         reports = {}
@@ -5722,10 +5759,6 @@ def run_fleet_gang(device, model: str, alpha: dict, W: int, per_bucket: dict) ->
                                  fleet_gang.parse_args(args + ["--snapshot-dir", os.path.join(root, "ref")]), fleet=fc)
         finally:
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
-    finally:
-        server.shutdown()
-        plane.close()
-        shutil.rmtree(root, ignore_errors=True)
     if not ref["adopted"] or ref["buckets"] != alpha["names"]:
         raise AssertionError(f"{what}: the single controller did not run alpha's plan")
     want_losses = {s["step"]: s["losses"] for s in ref["steps"]}
@@ -6290,25 +6323,56 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+#: launcher runs made again, each on a fresh port, where another process took
+#: the run's port between _free_port() and the bind (or the launcher's
+#: restart's port + 1)
+PORT_RETRIES = 2
+
+
+def _launch(what: str, device, command, setup=contextlib.nullcontext):
+    """Runs the launcher's ``command(port, state)`` from the repo, with
+    ``state`` what ``setup()`` yields on entry and ``port`` from
+    _free_port().  Where it failed for an address in use (another process
+    took the port, or the restart's port + 1), it prints the retry on a
+    line of its own, leaves that try's ``setup()`` and runs again with a
+    fresh port and a fresh ``setup()``, at most PORT_RETRIES times.
+    Returns the last run, its seconds, its state and an ExitStack that
+    holds its ``setup()`` open for the caller to close."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([repo] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    for retry in range(PORT_RETRIES + 1):
+        with contextlib.ExitStack() as stack:
+            state = stack.enter_context(setup())
+            port = _free_port()
+            cmd = command(port, state)
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, env=env, cwd=repo, capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+            seconds = time.perf_counter() - t0
+            lost = run.returncode != 0 and ("EADDRINUSE" in run.stderr or "Address already in use" in run.stderr)
+            if retry == PORT_RETRIES or not lost:
+                return run, seconds, state, stack.pop_all()
+            log(f"{what}: the launcher's port {port} (or a restart's next one) was taken (EADDRINUSE); "
+                f"retry {retry + 1} of {PORT_RETRIES} on a fresh port")
+
+
 def _gang_workers(device, W: int, args) -> list:
     """``examples/gang.py args`` as a launcher gang of W workers; each
     process's reports."""
-    repo = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as out_dir:
-        report = os.path.join(out_dir, "gang")
-        cmd = [sys.executable, "-m", "bagua_tpu_torch.distributed.run", "--nproc_per_node", str(W),
-               "--max_restarts", "0", "--monitor_interval", "0.2", "--master_port", str(_free_port()),
-               GANG_SCRIPT, "--device", device.type, "--warmup", str(DIST_WARMUP), "--steps", str(DIST_STEPS),
-               "--report", report] + args
-        env = {**os.environ, "PYTHONPATH": os.pathsep.join([repo] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
-        gc.collect()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        run = subprocess.run(cmd, env=env, cwd=repo, capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+    def command(port, out_dir):
+        return [sys.executable, "-m", "bagua_tpu_torch.distributed.run", "--nproc_per_node", str(W),
+                "--max_restarts", "0", "--monitor_interval", "0.2", "--master_port", str(port),
+                GANG_SCRIPT, "--device", device.type, "--warmup", str(DIST_WARMUP), "--steps", str(DIST_STEPS),
+                "--report", os.path.join(out_dir, "gang")] + args
+
+    run, _, out_dir, held = _launch(f"[dist] the gang of {W}", device, command, tempfile.TemporaryDirectory)
+    with held:
         if run.returncode != 0:
             raise AssertionError(f"[dist] the gang of {W} failed (launcher rc {run.returncode}):\n"
                                  f"{run.stderr[-8000:]}")
-        return [json.load(open(f"{report}.proc{p}.json")) for p in range(W)]
+        return [json.load(open(os.path.join(out_dir, f"gang.proc{p}.json"))) for p in range(W)]
 
 
 def _check_gang_reports(what: str, got: list, W: int, k: int, device) -> None:

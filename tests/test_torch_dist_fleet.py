@@ -402,3 +402,80 @@ def test_chip_smoke_fleet_gang_runs_on_gloo(one_thread):
     got = chip_smoke.run_fleet_gang(CPU, "small-vgg", entry, 2, {})
     assert (got["W"], got["k"], got["buckets"]) == (2, 2, len(entry["names"])) and got["buckets"] > 1
     assert got["resume_bytes"] > 0 and len(got["adopt_ms"]) == len(got["resume_ms"]) == 2
+
+
+@pytest.mark.parametrize("message", ["EADDRINUSE", "Address already in use"])
+def test_chip_smoke_gang_launch_retries_a_taken_port(monkeypatch, capsys, message):
+    """A launcher run that loses its port to another process runs again on a
+    fresh one, at most twice, each retry on a line of its own; a third loss,
+    or any other failure, is the run's."""
+    import chip_smoke
+
+    ports = []
+
+    def run(cmd, lose=2, **kwargs):
+        ports.append(int(cmd[cmd.index("--master_port") + 1]))
+        if len(ports) <= lose:
+            return subprocess.CompletedProcess(cmd, 1, "", f"RuntimeError: bind: {message}")
+        report = cmd[cmd.index("--report") + 1]
+        for p in range(2):
+            with open(f"{report}.proc{p}.json", "w") as f:
+                json.dump({"process": p, "port": ports[-1]}, f)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    got = chip_smoke._gang_workers(CPU, 2, [])
+    assert [r["process"] for r in got] == [0, 1] and got[0]["port"] == ports[-1] and len(ports) == 3
+    retries = [line for line in capsys.readouterr().out.splitlines() if "retry" in line]
+    assert len(retries) == 2 and all("EADDRINUSE" in line for line in retries)
+    ports.clear()
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda cmd, **kw: run(cmd, lose=3, **kw))
+    with pytest.raises(AssertionError, match=message):
+        chip_smoke._gang_workers(CPU, 2, [])
+    assert len(ports) == 3
+    ports.clear()
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda cmd, **kw: (ports.append(0), subprocess.CompletedProcess(cmd, 1, "", "boom"))[1])
+    with pytest.raises(AssertionError, match="boom"):
+        chip_smoke._gang_workers(CPU, 2, [])
+    assert len(ports) == 1
+
+
+def test_chip_smoke_fleet_gang_retries_a_taken_port(monkeypatch, capsys, one_thread):
+    """``run_fleet_gang``'s launcher run that loses its port runs again on a
+    fresh port with a fresh plane and snapshot directory, the lost try's
+    plane closed and its directory removed before the retry; the last try's
+    are torn down too when its run fails for another cause."""
+    import chip_smoke
+    from bagua_tpu_torch import fleet
+
+    planes, tries = [], []
+
+    class Plane(FleetControlPlane):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.closed = False
+            planes.append(self)
+
+        def close(self):
+            self.closed = True
+            super().close()
+
+    def run(cmd, **kwargs):
+        root = os.path.dirname(cmd[cmd.index("--snapshot-dir") + 1])
+        tries.append((int(cmd[cmd.index("--master_port") + 1]), root, cmd[cmd.index("--fleet") + 1]))
+        assert os.path.isdir(root) and not planes[-1].closed and len(planes) == len(tries)
+        assert all(p.closed for p in planes[:-1]) and not any(os.path.exists(t[1]) for t in tries[:-1])
+        if len(tries) == 1:
+            return subprocess.CompletedProcess(cmd, 1, "", "RuntimeError: bind: Address already in use")
+        return subprocess.CompletedProcess(cmd, 1, "", "boom")
+
+    monkeypatch.setattr(fleet, "FleetControlPlane", Plane)
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    entry = chip_smoke.plan_entry(chip_smoke.small_vgg_alpha(CPU))
+    with pytest.raises(AssertionError, match="the launcher exited 1:\nboom"):
+        chip_smoke.run_fleet_gang(CPU, "small-vgg", entry, 2, {})
+    assert len(tries) == len(planes) == 2 and tries[0][1] != tries[1][1]
+    assert all(p.closed for p in planes) and not any(os.path.exists(t[1]) for t in tries)
+    retries = [line for line in capsys.readouterr().out.splitlines() if "retry" in line]
+    assert len(retries) == 1 and "[fleet-gang]" in retries[0] and "retry 1 of 2" in retries[0]

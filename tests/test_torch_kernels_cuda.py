@@ -18,6 +18,7 @@ from bagua_tpu_torch.kernels import minmax_uint8 as port
 from bagua_tpu_torch.kernels import quantized_ring as qr
 from bagua_tpu_torch.parallel.ring_attention import ring_attention
 from bagua_tpu_torch.parallel.tensor_parallel import ColumnParallelDense, RowParallelDense
+from chip_smoke import INT4_CORNERS, int4_corner_row
 
 
 @pytest.fixture()
@@ -297,6 +298,20 @@ def test_codec4_matches_plain_on_nan_and_signed_zeros(cuda_device):
     check_codec4(mixed)
     check_codec4(torch.tensor([[0.0, -0.0, 1.0, 2.0], [-0.0, 0.0, -1.0, -2.0], [-0.0] * 4, [0.0] * 4],
                               device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [4096, 258, 8192], ids=["resident vector", "scalar", "walking"])
+@pytest.mark.parametrize("case", INT4_CORNERS)
+def test_codec4_matches_plain_on_corner_rows(cuda_device, case, block):
+    """Infinities, NaNs and signed zeros, each in the middle row of three
+    (random rows around it take the finite branch in the same launch): B
+    = 4096 the vector path with the row in registers, 258 the scalar path,
+    8192 the vector path walking the row twice."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn((3, block), generator=gen, device=cuda_device) * 3.0
+    x[1] = int4_corner_row(case, block, cuda_device)
+    check_codec4(x)
 
 
 @pytest.mark.cuda

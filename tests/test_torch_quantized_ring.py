@@ -35,6 +35,7 @@ from bagua_tpu_torch.kernels import minmax_uint8, quantized_ring as port
 from bagua_tpu_torch.models import mlp
 from bagua_tpu_torch.trainer import Trainer
 from bagua_tpu_torch.utils import tree_leaves
+from chip_smoke import INT4_CORNERS, int4_corner_row
 
 
 @pytest.fixture()
@@ -122,6 +123,14 @@ def _int4_cases():
         cases[f"random B={b}"] = (rng.randn(5, b) * 3.0).astype(np.float32)
     for value in (0.0, -7.0, 1e32, 8.8e33):
         cases[f"constant {value}, B=258"] = np.full((3, 258), value, np.float32)
+    # rows that take the card's compress off its finite branch (a NaN or an
+    # infinity) or need XLA's min/max order (-0 below +0), between random
+    # rows, at the card's resident, scalar and walking widths
+    for b in (4096, 258, 8192):
+        for name in INT4_CORNERS:
+            x = (rng.randn(3, b) * 3.0).astype(np.float32)
+            x[1] = int4_corner_row(name, b, "cpu").numpy()
+            cases[f"{name}, B={b}"] = x
     return cases
 
 
