@@ -21,7 +21,7 @@ stacked tensor the optimizer holds (:class:`~bagua_tpu_torch.ddp.TrainState`'s
 """
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from bagua_tpu_torch.bucket import BucketPlan
 from bagua_tpu_torch.communication import BaguaProcessGroup
@@ -262,6 +262,9 @@ class _Registry:
                 f"unknown algorithm {name!r}; registered: {sorted(self._algorithms)}"
             )
         return self._algorithms[name][0]
+
+    def keys(self) -> List[str]:
+        return sorted(self._algorithms)
 
 
 GlobalAlgorithmRegistry = _Registry()

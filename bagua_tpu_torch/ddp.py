@@ -1706,7 +1706,11 @@ class AutotuneSession:
     misses) and the flight recorder's captured programs, so the next step
     captures its program again instead of replaying a stale one.  The
     overlap hooks are registered anew every step and hold nothing across
-    steps."""
+    steps.  Such a change also restarts the engine's speed meter, so each
+    speed the session reports is the throughput of the configuration the
+    service credits it to (the JAX package's session reports the run's
+    average since its start, under which the first samples decide the
+    pick)."""
 
     def __init__(self, ddp: DistributedDataParallel, model_name: str, client=None, interval: int = 100):
         from bagua_tpu_torch.env import get_rpc_breaker_cooldown_s, get_rpc_breaker_threshold
@@ -1794,12 +1798,14 @@ class AutotuneSession:
         ddp, impl = self.ddp, self.ddp.impl
         if getattr(impl, "holds_bucketized_state", False):
             return  # cannot re-bucket this algorithm
+        changed = False
         current = ddp.plan.declarations()
         proposed = [list(bucket) for bucket in hp.buckets]
         if proposed and [[td.name for td in b] for b in proposed] != [[td.name for td in b] for b in current]:
             plan = BucketPlan.from_declarations(proposed, ddp._tree_template,
                                                 align_elems=ddp.group.exchange_size)
             ddp.rebucket(plan, predicted_exposed_ms=getattr(hp, "predicted_exposed_ms", None))
+            changed = True
         if hp.is_hierarchical_reduce != impl.hierarchical:
             if hp.is_hierarchical_reduce and ddp.group.mesh_spec is not None:
                 logger.info("autotune proposed a hierarchical reduction; the named mesh has no "
@@ -1807,6 +1813,7 @@ class AutotuneSession:
             else:
                 impl.hierarchical = hp.is_hierarchical_reduce
                 ddp._reset_programs()
+                changed = True
         # the wire-dtype knob: only algorithms with ``wire_dtype``
         # (gradient_allreduce) take part; None means the service is not
         # tuning it, and a user-configured wire dtype is left alone
@@ -1815,6 +1822,7 @@ class AutotuneSession:
             if want != impl.wire_dtype:
                 impl.wire_dtype = want
                 ddp._reset_programs()
+                changed = True
         # the execution-mode knob, same tri-state contract, for
         # gradient-mode algorithms only: weight and post_step algorithms
         # shape their plan by the mode, which would need a re-plan
@@ -1824,3 +1832,6 @@ class AutotuneSession:
                 ddp.overlap = bool(hp.overlap)
                 impl.overlap_hint = ddp.overlap_enabled
                 ddp._reset_programs()
+                changed = True
+        if changed:
+            ddp.speed_meter.reset()

@@ -57,6 +57,10 @@ def get_bagua_service_port() -> int:
     return int(os.environ.get("BAGUA_SERVICE_PORT", -1))
 
 
+def set_bagua_service_port(port: int) -> None:
+    os.environ["BAGUA_SERVICE_PORT"] = str(port)
+
+
 def get_autotune_level() -> int:
     return int(os.environ.get("BAGUA_AUTOTUNE", 0))
 
@@ -93,6 +97,10 @@ def get_autotune_sampling_confidence_time_s() -> float:
 
 def get_autotune_server_wait_time_s() -> float:
     return float(os.environ.get("BAGUA_AUTOTUNE_SERVER_WAIT_TIME", 60.0))
+
+
+def is_report_metrics_switch_on() -> bool:
+    return int(os.environ.get("BAGUA_REPORT_METRICS", 0)) == 1
 
 
 def get_autotune_logfile_path() -> str:

@@ -30,6 +30,7 @@ from torch.func import functional_call
 from bagua_tpu_torch.algorithms import build_algorithm
 from bagua_tpu_torch.communication import init_process_group
 from bagua_tpu_torch.ddp import DistributedDataParallel
+from bagua_tpu_torch.models.mlp import cross_entropy
 from bagua_tpu_torch.models.vgg import Conv, Dense, module_params
 from bagua_tpu_torch.utils import resolve_device
 
@@ -62,8 +63,7 @@ def net_loss_fn(model: Net):
     def loss_fn(params, batch):
         x, y = batch
         flat = {f"{m}.{leaf}": t for m, leaves in params.items() for leaf, t in leaves.items()}
-        logp = F.log_softmax(functional_call(model, flat, (x,)), dim=-1)
-        return -torch.mean(torch.gather(logp, 1, y[:, None].long()))
+        return cross_entropy(functional_call(model, flat, (x,)), y)
 
     return loss_fn
 

@@ -39,3 +39,14 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
 def mse_loss(params, batch) -> torch.Tensor:
     x, y = batch
     return torch.mean((mlp_apply(params, x) - y) ** 2)
+
+
+def cross_entropy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of the integer labels ``y``."""
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(logp, 1, y[:, None].long()))
+
+
+def softmax_loss(params, batch) -> torch.Tensor:
+    x, y = batch
+    return cross_entropy(mlp_apply(params, x), y)

@@ -26,7 +26,7 @@ from bagua_tpu_torch.perflab.costbridge import (
     census_wire_bytes,
     price_program,
 )
-from bagua_tpu_torch.perflab.engine import ModeledCell, kernel_basis, model_step_cell
+from bagua_tpu_torch.perflab.engine import ModeledCell, kernel_basis, model_step_cell, modeled_bench_rows
 from bagua_tpu_torch.perflab.fleetsim import (
     BandwidthCollapse,
     FleetConfig,
@@ -61,6 +61,7 @@ __all__ = [
     "flops_census",
     "kernel_basis",
     "model_step_cell",
+    "modeled_bench_rows",
     "price_program",
     "ring_hops",
     "run_fleet",

@@ -21,14 +21,18 @@ none) or *stated* (MFU, overlap window, the card's peak).
 
 :func:`kernel_basis` names the hand-written kernels a cell's wire program
 runs: ``cuda`` on a card's group (the kernels launch), ``plain`` on a CPU
-group (their plain versions), ``none`` where the wire runs none.  The
-JAX package's ``modeled_bench_rows`` (a read of its committed
-``BENCH_MODELED.json``) is not ported: the port's modeled-bench artifact
-belongs to its benchmark.
+group (their plain versions), ``none`` where the wire runs none.
+
+:func:`modeled_bench_rows` reads the committed ``MODELED_BENCH_TORCH.json``
+(``python -m bagua_tpu_torch.tools.bench_modeled``) into rows a bench
+harness can print, each marked modeled and carrying the model's measured
+miss against the card.
 """
 
 import dataclasses
-from typing import Dict, List
+import json
+import os
+from typing import Dict, List, Optional
 
 from bagua_tpu_torch.analysis.checks import WireModelConfig
 from bagua_tpu_torch.analysis.verify import dry_run, verify_collective_program
@@ -42,7 +46,10 @@ __all__ = [
     "ModeledCell",
     "kernel_basis",
     "model_step_cell",
+    "modeled_bench_rows",
 ]
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 @dataclasses.dataclass
@@ -159,3 +166,46 @@ def model_step_cell(
         mesh={k: int(v) for k, v in zip(ddp.group.all_axes, ddp.group.shape)},
         exchange_axes=list(cfg.exchange_axes),
     )
+
+
+def modeled_bench_rows(metric: str, artifact_path: Optional[str] = None) -> List[Dict]:
+    """A bench harness's modeled rows, read from the committed
+    ``MODELED_BENCH_TORCH.json`` (JSON only: no engine, no card).
+
+    Returns ``{"mode": "modeled", ...}`` rows for ``metric``
+    (``vgg16_img_per_sec_per_chip``, ``vgg16_dp_scaling_efficiency``);
+    empty when the artifact is missing or has no projection.  Each row
+    names the artifact, the command that made it and the model's measured
+    miss against the card, so a modeled number never passes for a
+    measurement."""
+    path = artifact_path or os.path.join(_REPO, "MODELED_BENCH_TORCH.json")
+    try:
+        with open(path) as f:
+            art = json.load(f)
+    except (OSError, ValueError):
+        return []
+    prov = {
+        "mode": "modeled",
+        "provenance": "perflab: census-proved wire bytes x the planner's prior alpha-beta legs",
+        "artifact": os.path.basename(path),
+        "generated_by": art.get("generated_by", "bagua_tpu_torch/tools/bench_modeled.py"),
+        "measured_miss": art.get("measured_miss"),
+    }
+    proj = art.get("vgg16_projection") or {}
+    rows: List[Dict] = []
+    if metric == "vgg16_img_per_sec_per_chip" and proj:
+        rows.append({"metric": metric, "value": proj.get("modeled_img_per_s_per_card", 0.0),
+                     "unit": "img/s/card", "model": "vgg16", "algo": "gradient_allreduce", **prov})
+    elif metric == "vgg16_dp_scaling_efficiency" and proj:
+        rows.append({"metric": metric, "value": proj.get("modeled_scaling_efficiency_8", 0.0),
+                     "unit": "ratio", "model": "vgg16", "n_cards": 8, **prov})
+    # the MLP sweep's trend rides along: its ranking across algorithms and
+    # wires is the falsifiable content
+    trend = [
+        {"algo": r["algo"], "wire": r["wire"], "overlap": r["overlap"],
+         "modeled_step_ms": r["modeled_step_ms"], "modeled_wire_bytes": r["modeled_wire_bytes"]}
+        for r in art.get("rows", []) if r.get("status") == "pass"
+    ]
+    if rows and trend:
+        rows[0]["trend"] = trend
+    return rows

@@ -81,6 +81,11 @@ class SpeedMeter:
         while self._events and now - self._events[0][0] > self._window:
             self._events.popleft()
 
+    def reset(self) -> None:
+        """Forget every event: the next speed counts from the next record."""
+        self._events.clear()
+        self._start = None
+
     def speed(self, last_seconds: float = 60.0) -> float:
         if not self._events:
             return 0.0

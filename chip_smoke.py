@@ -239,6 +239,21 @@ and no result line:
    with exact launches; ``model_step_cell`` beside the measured step.
    Prints each gate's host ms, the first and the later steps with the gate
    on and off, and the modeled step.
+13b. ci lanes -- (after ``[verify]``) the CI lanes of
+   ``bagua_tpu_torch/tools/`` on the card.  ``[ci-bench]``: the benchmark
+   gate at full-width VGG16 (bf16, 32 a rank) over 4 ranks,
+   ``intra_size=1``: every deterministic algorithm twice, the final losses
+   bitwise equal and finite, img/s a card over the reference's VGG16
+   floors, rows 1-3 launched exactly (ByteGrad and QAdam's compressing
+   steps: rows 1-3 a bucket; low-precision decentralized: one compress and
+   three decompresses).  ``[ci-moe]``: the MoE gate over 8 ranks, one
+   expert a rank (determinism, convergence, expert parity).
+   ``[ci-autotune]``: the autotune lane over 4 ranks on a measured signal
+   (completed, adopted, fewer buckets than the 32 KiB start).
+   ``[static-sweep]``: the static-verify sweep on 8 ranks of the card (2 x
+   4), each cell as the committed ``STATIC_VERIFY_TORCH.json``, the live
+   certification matching, every gate under :class:`GateWatch`.  Each
+   prints its seconds.
 14. autopilot -- the ``Trainer`` with a ``GangAutopilot`` (int8/f32 over
    ``wire_precision="auto"``, the telemetry's ``RegressionSentinel`` as
    its sentinel, fed the JAX tests' incident shape) under the strict gate
@@ -365,6 +380,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import io
 import itertools
 import json
 import logging
@@ -426,6 +442,9 @@ from bagua_tpu_torch.parallel.tensor_parallel import (
     ColumnParallelDense, ParallelMLP, RowParallelDense, gelu,
 )
 from bagua_tpu_torch.sharded import ZeroAlgorithm
+from bagua_tpu_torch.tools import autotune_real_run, benchmark_check, moe_check
+from bagua_tpu_torch.tools import static_verify as sweep_lane
+from bagua_tpu_torch.tools._fleet import PORT_RETRIES, PortTaken, free_port, port_taken, with_port_retries
 from bagua_tpu_torch.trainer import Trainer
 from bagua_tpu_torch.utils import tree_flatten_with_names, tree_leaves, tree_map, tree_unflatten
 
@@ -1249,18 +1268,6 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """cuDNN's deterministic algorithms: the same convolution gradients
-    from one run to the next."""
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = saved
-
-
 def _small_trainer(name, device, overlap="auto"):
     group = BaguaProcessGroup([device] * RANKS, intra_size=1)
     return Trainer(vgg_loss_fn(VGG(device=device, **REF_VGG)),
@@ -1350,7 +1357,7 @@ def phase_reference(device) -> None:
     ByteGrad runs on the card bit for bit (ZERO_TWINS).  The whole phase
     runs with cuDNN's deterministic algorithms, and ends with
     :func:`check_obs_inert_on_card`."""
-    with _deterministic():
+    with benchmark_check.deterministic():
         _reference_vgg(device)
         check_obs_inert_on_card(device)
 
@@ -1784,7 +1791,7 @@ def phase_reference_dp(device) -> None:
              torch.randint(0, REF_VGG["num_classes"], (RANKS * 8,), generator=gen))
     with _no_tf32():
         noise = _gradient_noise(device, params, batch)
-    with _deterministic(), _no_tf32():
+    with benchmark_check.deterministic(), _no_tf32():
         for name, (_, steps) in REF_DP.items():
             got_losses, got, width, ddp = _train_small_dp(name, device, params, batch, overlap=False)
             ov_losses, ov, ov_width, ov_ddp = _train_small_dp(name, device, params, batch, overlap=True)
@@ -2030,7 +2037,7 @@ def phase_reference_relax(device) -> None:
             hierarchical=False, peer_selection_mode="shift_one", staleness_tau=tau),
             lambda: DecentralizedAlgorithm(hierarchical=False, peer_selection_mode="shift_one")),
     }
-    with _deterministic(), _no_tf32():
+    with benchmark_check.deterministic(), _no_tf32():
         for name, (algo, off) in cases.items():
             flag = _flag((STALE_RANK,))
             got = _small_run(device, algo(), params, batch, RELAX_STEPS, before=flag)
@@ -3392,7 +3399,7 @@ def check_small_resnet_on_card(device) -> dict:
     if not torch.allclose(card_losses, cpu_losses, rtol=1e-12, atol=0) or grad_err > 1e-9:
         raise AssertionError(f"small ResNet card vs CPU (f64): losses {card_losses.tolist()} vs "
                              f"{cpu_losses.tolist()}, gradients {grad_err:.3e} of their scale")
-    with _deterministic(), _no_tf32():
+    with benchmark_check.deterministic(), _no_tf32():
         card_losses, card_start, card = small_resnet_steps(device)
     cpu_losses, cpu_start, cpu = small_resnet_steps(torch.device("cpu"))
     start, truth = small_resnet_f64_steps(SMALL_RESNET_BATCH)
@@ -3418,7 +3425,7 @@ def small_resnet_witness(device) -> None:
         readings = {"cpu": share_of_move(cpu, truth, start)}
         for mode in ("default", "deterministic"):
             for run in (1, 2):
-                with _no_tf32(), (_deterministic() if mode == "deterministic" else contextlib.nullcontext()):
+                with _no_tf32(), (benchmark_check.deterministic() if mode == "deterministic" else contextlib.nullcontext()):
                     _, _, card = small_resnet_steps(device, torch.float32, batch)
                 readings[f"card {mode} {run}"] = share_of_move(card, truth, start)
                 readings[f"card {mode} {run} vs cpu f32"] = share_of_move(card, cpu, start)
@@ -4057,7 +4064,7 @@ def check_mesh_replicas_on_card(device) -> dict:
     dp = BaguaProcessGroup([device] * RANKS, mesh_spec=bagua.MeshSpec({"dp": RANKS}))
     dp_tp = BaguaProcessGroup([device] * 2 * RANKS, mesh_spec=bagua.MeshSpec({"dp": RANKS, "tp": 2}))
     launches = {}
-    with _no_tf32(), _deterministic():
+    with _no_tf32(), benchmark_check.deterministic():
         ddp, state = _mesh_vgg(device, legacy, "f32", params, False)
         grads = ddp._rank_grads(state.params, tuple(t.to(device) for t in batch))[1]
         paired = tree_map(lambda g: g.repeat_interleave(2, dim=0), grads)
@@ -5050,7 +5057,7 @@ def phase_resil(device, profile: bool) -> dict:
     from bagua_tpu_torch.service.autotune_client import AutotuneClient
     from bagua_tpu_torch.service.autotune_service import AutotuneService, start_autotune_server
 
-    with _deterministic():
+    with benchmark_check.deterministic():
         check_resil_on_card(device)
     name = "ByteGrad"
     per_bucket = SLICE_PATHS[name][1]
@@ -5752,13 +5759,9 @@ def run_fleet_gang(device, model: str, alpha: dict, W: int, per_bucket: dict) ->
         # the single controller: the same steps on the plan (a read-only lookup) at the same snapshot
         # cadence, cuDNN as the workers
         gc.collect()
-        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-        try:
+        with benchmark_check.deterministic():
             ref = fleet_gang.run(BaguaProcessGroup([device] * RANKS, intra_size=1),
                                  fleet_gang.parse_args(args + ["--snapshot-dir", os.path.join(root, "ref")]), fleet=fc)
-        finally:
-            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     if not ref["adopted"] or ref["buckets"] != alpha["names"]:
         raise AssertionError(f"{what}: the single controller did not run alpha's plan")
     want_losses = {s["step"]: s["losses"] for s in ref["steps"]}
@@ -6051,7 +6054,7 @@ def check_sync_resnet_on_card(device) -> dict:
     if len(card_stats) != 2 * 17 or any(not torch.equal(t, t[:1].expand_as(t)) for t in card_stats):
         raise AssertionError(f"[sync-bn] small ResNet: {len(card_stats)} statistics, not the same on every rank")
     variables, x, y = _small_resnet_data(SMALL_RESNET_BATCH)
-    with _deterministic(), _no_tf32():
+    with benchmark_check.deterministic(), _no_tf32():
         card_losses, card_start, card = _sync_resnet_steps(device, variables, x, y)
     cpu_losses, cpu_start, cpu = _sync_resnet_steps(torch.device("cpu"), variables, x, y)
     readings = {"grad_err": grad_err, "stat_err": stat_err, "vs_cpu": share_of_move(card, cpu, cpu_start),
@@ -6315,35 +6318,23 @@ DIST_TIMEOUT_S = 600
 GANG_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bagua_tpu_torch", "examples", "gang.py")
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
-#: launcher runs made again, each on a fresh port, where another process took
-#: the run's port between _free_port() and the bind (or the launcher's
-#: restart's port + 1)
-PORT_RETRIES = 2
-
-
 def _launch(what: str, device, command, setup=contextlib.nullcontext):
     """Runs the launcher's ``command(port, state)`` from the repo, with
     ``state`` what ``setup()`` yields on entry and ``port`` from
-    _free_port().  Where it failed for an address in use (another process
-    took the port, or the restart's port + 1), it prints the retry on a
-    line of its own, leaves that try's ``setup()`` and runs again with a
-    fresh port and a fresh ``setup()``, at most PORT_RETRIES times.
-    Returns the last run, its seconds, its state and an ExitStack that
-    holds its ``setup()`` open for the caller to close."""
+    ``free_port()``.  Where it failed for an address in use (another
+    process took the port, or the restart's port + 1), it leaves that try's
+    ``setup()`` and runs again with a fresh port and a fresh ``setup()``
+    (``tools._fleet.with_port_retries``: each retry a line, at most
+    PORT_RETRIES).  Returns the last run, failed or not, its seconds, its
+    state and an ExitStack that holds its ``setup()`` open for the caller
+    to close."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([repo] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
-    for retry in range(PORT_RETRIES + 1):
+
+    def once(retry):
         with contextlib.ExitStack() as stack:
             state = stack.enter_context(setup())
-            port = _free_port()
+            port = free_port()
             cmd = command(port, state)
             gc.collect()
             if device.type == "cuda":
@@ -6351,11 +6342,11 @@ def _launch(what: str, device, command, setup=contextlib.nullcontext):
             t0 = time.perf_counter()
             run = subprocess.run(cmd, env=env, cwd=repo, capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
             seconds = time.perf_counter() - t0
-            lost = run.returncode != 0 and ("EADDRINUSE" in run.stderr or "Address already in use" in run.stderr)
-            if retry == PORT_RETRIES or not lost:
-                return run, seconds, state, stack.pop_all()
-            log(f"{what}: the launcher's port {port} (or a restart's next one) was taken (EADDRINUSE); "
-                f"retry {retry + 1} of {PORT_RETRIES} on a fresh port")
+            if retry < PORT_RETRIES and run.returncode != 0 and port_taken(run.stderr):
+                raise PortTaken(f"the launcher's port {port} (or a restart's next one)")
+            return run, seconds, state, stack.pop_all()
+
+    return with_port_retries(what, once, say=log)
 
 
 def _gang_workers(device, W: int, args) -> list:
@@ -6410,14 +6401,10 @@ def phase_dist(device, smi: str, model: str = "vgg16") -> dict:
         if device.type == "cuda":
             torch.cuda.empty_cache()
         # the workers' cuDNN settings (examples/gang.py), for the same convolutions
-        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-        try:
+        with benchmark_check.deterministic():
             ref = gang.run_case(BaguaProcessGroup([device] * RANKS, intra_size=1), model, algorithm, kwargs,
                                 {"on": True, "off": False}.get(overlap, overlap), steps=DIST_STEPS,
                                 warmup=DIST_WARMUP + quiet, processes=W)
-        finally:
-            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
         buckets = ref["buckets"]
         for p, r in enumerate(got):
             if r["digests"] != ref["digests"][p * k:(p + 1) * k]:
@@ -6537,6 +6524,148 @@ def phase_dist_twin(device, smi: str, name: str, twin: str, mesh: dict, case: li
     return total
 
 
+# ---------------------------------------------------------------------------
+# The CI lanes on the card (bagua_tpu_torch/tools/): [ci-bench], [ci-moe],
+# [ci-autotune], [static-sweep]
+# ---------------------------------------------------------------------------
+
+#: the benchmark gate's codec launches a bucket and step, by algorithm
+#: (QAdam's on its compressing steps only)
+CI_BENCH_PER_BUCKET = {
+    "bytegrad": SLICE_PATHS["ByteGrad"][1],
+    "qadam": SLICE_PATHS["ByteGrad"][1],
+    "low_precision_decentralized": LP_PER_BUCKET,
+}
+#: the static sweep's group on the card: the committed sweep's 2 x 4 layout
+SWEEP_RANKS, SWEEP_INTRA = 8, 4
+#: the MoE gate's ranks (one expert a rank): its loss threshold holds at the
+#: JAX lane's 8; at 4 neither package converges under it in 400 steps
+#: (0.78 the JAX lane, 0.91 the port, on the CPU)
+CI_MOE_RANKS = 8
+
+
+def check_ci_bench_on_card(device, names=None) -> dict:
+    """The benchmark gate (``tools/benchmark_check.py``) at full-width VGG16
+    (224 x 224, 1000 classes, bf16, 32 a rank) over RANKS ranks of the card,
+    ``intra_size=1`` (a one-rank ByteGrad compresses nothing), for the
+    algorithms ``names`` (default every deterministic one): each twice from
+    the same weights and data with cuDNN deterministic, the final losses
+    bitwise equal and finite, the img/s a card over the reference's floor
+    where the lane has one, rows 1-3 launched exactly (runs x steps x
+    buckets x the algorithm's count a bucket).  QAdam takes QADAM_FULL's lr
+    and eps (``benchmark_check.QADAM``: the JAX lane's 1e-3 and 1e-8 run
+    away to NaN at VGG16, in the JAX lane too).  Returns the gate's results
+    and the launches."""
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    out = benchmark_check.run_gate(group, "vgg16", names, floors=benchmark_check.REFERENCE_VGG16_FLOORS)
+    launches = read_launches()
+    want = {k: 0 for k in KERNELS}
+    for name, r in out["results"].items():
+        steps = r["warmup"] + r["steps"] - (benchmark_check.QADAM_WARMUP if name == "qadam" else 0)
+        for kernel, n in CI_BENCH_PER_BUCKET.get(name, {}).items():
+            want[kernel] += 2 * steps * r["buckets"] * n
+        if not all(math.isfinite(loss) for loss in r["losses"]):
+            raise AssertionError(f"[ci-bench] {name}: non-finite loss {r['losses']}")
+    if out["failures"]:
+        raise AssertionError(f"[ci-bench] {out['failures']}")
+    if launches != want:
+        raise AssertionError(f"[ci-bench] launch counts {launches}, want {want}")
+    return {"results": out["results"], "launches": launches, "cards": benchmark_check.cards(group)}
+
+
+def phase_ci_bench(device) -> dict:
+    """``[ci-bench]``: :func:`check_ci_bench_on_card` for every
+    deterministic algorithm.  Prints each one's losses, img/s a card and
+    seconds; returns the launches."""
+    t0 = time.perf_counter()
+    got = check_ci_bench_on_card(device)
+    for name, r in got["results"].items():
+        log(f"[ci-bench] VGG16 bf16 {name}: {r['buckets']} bucket(s), {r['warmup']} + {r['steps']} steps twice, "
+            f"final loss {r['losses'][0]!r} both runs; {r['sps'][0]:.1f} and {r['sps'][1]:.1f} img/s a card "
+            f"({RANKS} ranks, {got['cards']} card), floor {r['floor']:.0f}; {r['seconds']:.1f} s")
+    log(f"[ci-bench] {len(got['results'])} algorithms deterministic and over their floors; launches "
+        f"{got['launches']}; {time.perf_counter() - t0:.1f} s")
+    return got["launches"]
+
+
+def phase_ci_moe(device) -> None:
+    """``[ci-moe]``: the MoE gate (``tools/moe_check.py``) over CI_MOE_RANKS
+    ranks of the card, one expert a rank: two 400-step runs with the same
+    final loss, bitwise; the loss under the threshold; the experts apart
+    across ranks and every other leaf bitwise equal.  No kernel of rows
+    1-11 runs."""
+    t0 = time.perf_counter()
+    group = init_process_group(devices=[device] * CI_MOE_RANKS)
+    reset_launches()
+    out = moe_check.gate(group, log=sys.stdout)
+    _no_launches("[ci-moe]")
+    if out["failures"]:
+        raise AssertionError(f"[ci-moe] {out['failures']}")
+    log(f"[ci-moe] {CI_MOE_RANKS} ranks, {moe_check.STEPS} steps twice: final loss {out['losses'][0]!r} both runs "
+        f"(under {moe_check.CONVERGED_LOSS}), {out['expert_leaves']} expert leaves apart across ranks, the rest "
+        f"bitwise equal; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_ci_autotune(device) -> dict:
+    """``[ci-autotune]``: the autotune lane (``tools/autotune_real_run.py``)
+    over RANKS ranks of the card: the session completes, the locked plan
+    is adopted and has fewer buckets than the 32 KiB start.  Prints the
+    explored samples, the locked plan and its speed; returns the trace."""
+    t0 = time.perf_counter()
+    group = init_process_group(devices=[device] * RANKS, intra_size=1)
+    trace = autotune_real_run.run(group, log=sys.stdout)
+    log(f"[ci-autotune] MLP {autotune_real_run.DIMS}, {RANKS} ranks: {trace['initial_buckets']} buckets at the "
+        f"start; samples (step, buckets, samples/s) "
+        f"{[(s['step'], s['buckets'], s['speed']) for s in trace['samples']]}; locked at step "
+        f"{trace['completed_at_step']} with {trace['final_buckets']} buckets, {trace['locked_speed_sps']} "
+        f"samples/s; overlap {trace['overlap_frac_before']} before, {trace['overlap_frac_after']} after; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return trace
+
+
+def phase_static_sweep(device) -> None:
+    """``[static-sweep]``: the static-verify sweep (``tools/static_verify.py``)
+    on SWEEP_RANKS ranks of the card (``intra_size`` SWEEP_INTRA, the
+    committed sweep's layout): every cell's status equal to the committed
+    ``STATIC_VERIFY_TORCH.json`` (a CPU run), and for each cell that ran
+    its collectives, flight records and wire table too; the live
+    certification matches.  Around every gate (:class:`GateWatch`) no
+    launch and no allocation on the card."""
+    t0 = time.perf_counter()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "STATIC_VERIFY_TORCH.json")) as f:
+        committed = json.load(f)
+    group = BaguaProcessGroup([device] * SWEEP_RANKS, intra_size=SWEEP_INTRA)
+    sink = io.StringIO()
+    with GateWatch("[static-sweep]") as watch:
+        report = sweep_lane.run_sweep(group, log=sink)
+    key = lambda r: (r["algo"], r["wire"], r["overlap"])  # noqa: E731
+    want = {key(r): r for r in committed["rows"]}
+    got = {key(r): r for r in report["rows"]}
+    if set(got) != set(want):
+        raise AssertionError(f"[static-sweep] cells {sorted(set(got) ^ set(want))} differ from the committed sweep")
+    for k, r in got.items():
+        w = want[k]
+        if r["status"] != w["status"]:
+            raise AssertionError(f"[static-sweep] {k}: {r['status']} on the card, {w['status']} committed")
+        fields = ("num_collectives", "predicted_records", "captured_records")
+        if r["status"] == "pass" and ([r[f] for f in fields] != [w[f] for f in fields]
+                                      or sweep_lane.wire_multiset(r) != sweep_lane.wire_multiset(w)):
+            raise AssertionError(f"[static-sweep] {k}: {[r[f] for f in fields]} and its wire table on the card "
+                                 f"against {[w[f] for f in fields]} committed")
+    summary = report["summary"]
+    if summary["fail"] or summary["live_mismatch"] or summary["live_match"] != committed["summary"]["live_match"]:
+        raise AssertionError(f"[static-sweep] {summary}")
+    gates = summary["pass"] + summary["live_match"]
+    if len(watch.calls) != gates:
+        raise AssertionError(f"[static-sweep] {len(watch.calls)} gates, want {gates}")
+    log(f"[static-sweep] {SWEEP_RANKS} ranks of the card ({SWEEP_RANKS // SWEEP_INTRA} x {SWEEP_INTRA}): {summary}, "
+        f"every cell as committed; {len(watch.calls)} gates launched and allocated nothing, host ms "
+        f"{sum(c[1] for c in watch.calls):.1f} in all; {time.perf_counter() - t0:.1f} s")
+
+
 def vgg16_plan():
     """The bucket plan of VGG16 over RANKS ranks, from the model's shapes
     alone (built on the meta device); every algorithm here aligns its
@@ -6612,6 +6741,12 @@ def main(argv) -> int:
     per_path["resil"] = phase_resil(device, profile)
     torch.cuda.empty_cache()
     per_path["verify"] = phase_verify(device)
+    torch.cuda.empty_cache()
+    per_path["ci-bench"] = phase_ci_bench(device)
+    torch.cuda.empty_cache()
+    phase_ci_moe(device)
+    phase_ci_autotune(device)
+    phase_static_sweep(device)
     torch.cuda.empty_cache()
     per_path["autopilot"] = phase_autopilot(device)
     torch.cuda.empty_cache()

@@ -244,3 +244,22 @@ def test_unreachable_service_degrades_and_the_trainer_logs_it(tgroup, caplog, mo
         tr.init_state(params())
     assert tr._session is None and "autotune disabled" in caplog.text
     tr.close()
+
+
+def test_session_restarts_the_speed_meter_on_a_change(tgroup):
+    """Each speed the session reports is its configuration's own: a
+    proposal that re-buckets the engine, or turns a knob, restarts the
+    engine's speed meter; a proposal that changes nothing keeps it."""
+    ddp = engine(tgroup)
+    ddp.init(params())
+    session = AutotuneSession(ddp, "m", client=_Client())
+    one_bucket = [[td for bucket in ddp.plan.declarations() for td in bucket]]
+    assert ddp.plan.num_buckets > 1
+    for hp, restarts in ((BaguaHyperparameter(buckets=one_bucket), True),
+                         (BaguaHyperparameter(buckets=one_bucket), False),
+                         (BaguaHyperparameter(buckets=one_bucket, overlap=False), True)):
+        ddp.record_speed(16)
+        session._apply(hp)
+        assert (ddp.speed_meter.speed() == 0.0) == restarts, hp
+    assert ddp.plan.num_buckets == 1 and not ddp.overlap_enabled
+    ddp.shutdown()

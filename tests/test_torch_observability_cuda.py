@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import chip_smoke
+from bagua_tpu_torch.tools import benchmark_check
 
 
 @pytest.fixture()
@@ -37,5 +38,5 @@ def test_trace_join_covers_the_exchange_stream(cuda_device):
 
 @pytest.mark.cuda
 def test_observability_is_bitwise_inert_on_card(cuda_device):
-    with chip_smoke._deterministic():
+    with benchmark_check.deterministic():
         chip_smoke.check_obs_inert_on_card(cuda_device)

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import chip_smoke
+from bagua_tpu_torch.tools import benchmark_check
 
 
 @pytest.fixture()
@@ -37,13 +38,13 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_side_stream_snapshot_holds_its_own_step(cuda_device, tmp_path):
-    with chip_smoke._deterministic():
+    with benchmark_check.deterministic():
         assert chip_smoke.check_snapshot_copy_on_card(cuda_device, str(tmp_path)) > 0
 
 
 @pytest.mark.cuda
 def test_drained_resume_is_bitwise_on_card(cuda_device):
-    with chip_smoke._deterministic():
+    with benchmark_check.deterministic():
         seen = chip_smoke.check_resil_on_card(cuda_device)
     assert ("ByteGrad", "snapshot") in seen and ("ByteGrad", "checkpoint") in seen
 

@@ -363,8 +363,10 @@ def test_port_imports_no_jax():
     ``env.py`` and ``init_from_env``, the gang twin ``examples/gang.py``),
     the fleet gang's worker ``examples/fleet_gang.py`` and the operator
     tools (``tools/``: ``diagnose_hang``, ``perf_doctor``,
-    ``export_timeline``, ``fault_injection``); neither pydantic nor orbax
-    is loaded."""
+    ``export_timeline``, ``fault_injection``) and the CI lanes beside them
+    (``static_verify``, ``bench_modeled``, ``benchmark_check``,
+    ``moe_check``, ``autotune_real_run``, ``fleet_load``, ``fleet_scale``);
+    neither pydantic nor orbax is loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import bagua_tpu_torch, chip_smoke\n"
@@ -407,7 +409,9 @@ def test_port_imports_no_jax():
         "        'contrib.sync_batchnorm', 'contrib.native', 'contrib.shm_store', 'contrib.io_prefetcher',\n"
         "        'contrib.rendezvous_store', 'examples.gang', 'communication', 'env', 'distributed',\n"
         "        'examples.fleet_gang', 'tools.diagnose_hang', 'tools.perf_doctor', 'tools.export_timeline',\n"
-        "        'tools.fault_injection')]\n"
+        "        'tools.fault_injection', 'tools._lane', 'tools._fleet', 'tools.static_verify',\n"
+        "        'tools.bench_modeled', 'tools.benchmark_check', 'tools.moe_check', 'tools.autotune_real_run',\n"
+        "        'tools.fleet_load', 'tools.fleet_scale')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print('ok')\n"
     )
